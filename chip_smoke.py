@@ -1,0 +1,451 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch port (``src/repro_torch``) on one NVIDIA GPU.
+
+    python3 chip_smoke.py
+
+Phases, each of which must pass (a failure exits nonzero):
+
+1. device: the card's name and power limit (``nvidia-smi``);
+2. build: compile the CUDA kernels from ``src/repro_torch/csrc`` with nvcc;
+3. kernels: each paged attention kernel on bf16 and int8 pools at the serve
+   path's yi-6b shapes, held against its plain PyTorch version on the same
+   inputs, and timed beside the plain version and one library call;
+4. parity: yi-6b widths at depth 2 in float32 -- prefill, decode and verify
+   steps on the card (kernels) against the same weights on the CPU (plain
+   versions);
+5. serve: full-width yi-6b (32 layers, bf16, random weights from a seed)
+   through ``ContinuousBatchingEngine.generate``: plain decode, speculative
+   decode (K=4) and an int8 pool, with each kernel's launch count read
+   around the runs.
+
+The second-to-last line of output is a JSON ``kernels`` record; the last
+is ``{"ok": true, "device": {...}}``. Without CUDA, or without the port
+beside this script, it prints no result and exits nonzero. It takes no
+arguments: every run drives all five phases.
+"""
+from __future__ import annotations
+
+import json
+import math
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+SRC = ROOT / "src"
+
+# H100 SXM peaks (NVIDIA data sheet, dense): HBM3 bytes/s and bf16 tensor
+# FLOP/s. The bound of a kernel is max(bytes / HBM, flops / bf16 peak).
+HBM_BYTES_PER_S = 3.35e12
+BF16_FLOPS_PER_S = 989e12
+
+# yi-6b serving shapes (configs/yi_6b.py): heads, kv heads, head dim, page
+# size; the serve phase's engine has 8 slots and max_len 512 = 32 pages.
+H, KV, HD, PS = 32, 4, 128, 16
+B, NPAGES = 8, 32
+T_VERIFY, C_PREFILL = 5, 32
+SERVE_MAX_LEN = NPAGES * PS
+# |kernel - plain| bound, compared in f32: bf16 outputs may differ by one
+# bf16 ulp (2^-7 relative) after different f32 summation orders.
+TOL_BF16 = 2e-2
+# Depth-2 float32 model: logits of kernels vs CPU plain versions.
+TOL_PARITY = 1e-3
+
+REPLACES = {
+    "flash_decode_fwd": "src/repro/kernels/decode_attention/kernel.py:96",
+    "flash_prefill_fwd": "src/repro/kernels/prefill_attention/kernel.py:95",
+    "flash_verify_fwd": "src/repro/kernels/verify_attention/kernel.py:102",
+}
+
+
+def log(*a):
+    print(*a, flush=True)
+
+
+def time_ms(fn, iters: int = 30, warmup: int = 3) -> float:
+    import torch
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+# ---------------------------------------------------------------------------
+# phase 1: device
+# ---------------------------------------------------------------------------
+
+def phase_device():
+    import torch
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True).stdout.strip()
+    log(smi)
+    log(f"[device] torch {torch.__version__} cuda {torch.version.cuda} "
+        f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return smi
+
+
+# ---------------------------------------------------------------------------
+# phase 2: build
+# ---------------------------------------------------------------------------
+
+def phase_build():
+    import re
+    from repro_torch.kernels import _cuda
+    t0 = time.perf_counter()
+    logs = _cuda.build()
+    dt = time.perf_counter() - t0
+    for src, text in logs.items():
+        regs = [int(r) for r in re.findall(r"Used (\d+) registers", text)]
+        spills = [ln.strip() for ln in text.splitlines()
+                  if "spill" in ln and not ln.strip().endswith(
+                      "0 bytes spill stores, 0 bytes spill loads")]
+        log(f"[build] {src}: {dt:.1f}s, {len(regs)} kernels, registers "
+            f"{min(regs, default=0)}-{max(regs, default=0)} a thread, "
+            f"{len(spills)} lines with spills")
+        for ln in spills[:6]:
+            log(f"[build]   {ln}")
+
+
+# ---------------------------------------------------------------------------
+# phase 3: kernels against their plain versions
+# ---------------------------------------------------------------------------
+
+def _pool(gen, kind, num_pages, dev):
+    import torch
+    from repro_torch.kernels import quantize_pool
+    shape = (KV, num_pages, PS, HD)
+    k = torch.randn(shape, generator=gen, device=dev)
+    v = torch.randn(shape, generator=gen, device=dev)
+    if kind == "int8":
+        return quantize_pool({"k": k, "v": v})
+    return {"k": k.bfloat16(), "v": v.bfloat16()}
+
+
+def _page_table(gen, num_pages, dev):
+    """Distinct shuffled pages per request, and one out-of-range entry (on a
+    page request 0 reads) that the kernel must clamp to P-1."""
+    import torch
+    perm = torch.randperm(num_pages - 1, generator=gen, device=dev) + 1
+    pt = perm[:B * NPAGES].reshape(B, NPAGES).to(torch.int32)
+    pt[0, NPAGES - 1] = num_pages + 5
+    return pt.contiguous()
+
+
+def _bytes_needed(pool, pt, last_pos, q, out):
+    """Bytes the function must move: q and page table read, the pages each
+    request's visible positions need, and the output written."""
+    pages = ((last_pos.clamp_min(0) // PS) + 1).clamp(max=NPAGES)
+    n_pages = int(pages.sum())
+    row = HD * pool["k"].element_size() + (4 if "k_scale" in pool else 0)
+    kv_bytes = 2 * n_pages * KV * PS * row
+    return (kv_bytes + q.numel() * q.element_size()
+            + pt.numel() * 4 + out.numel() * out.element_size()
+            + last_pos.numel() * 4)
+
+
+def _flops_needed(q_pos):
+    """QK^T and PV multiply-adds over the keys each query row sees."""
+    visible = (q_pos.clamp_min(-1) + 1).sum().item()    # over (B, C)
+    return 4.0 * visible * H * HD
+
+
+def _sdpa_case(q, pool, pt, q_pos):
+    """Library yardstick: SDPA over the KV gathered dense (outside the timed
+    call), with a boolean mask of what each query row may see."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.decode_attention.ref import gather_kv
+    k, v = gather_kv(pool["k"], pool["v"], pt, pool.get("k_scale"),
+                     pool.get("v_scale"))
+    k = k.to(q.dtype).permute(0, 2, 1, 3).contiguous()      # (B,KV,T,hd)
+    v = v.to(q.dtype).permute(0, 2, 1, 3).contiguous()
+    qq = q.permute(0, 2, 1, 3).contiguous()                  # (B,H,C,hd)
+    t = k.shape[2]
+    mask = (torch.arange(t, device=q.device)[None, None, :]
+            <= q_pos[:, :, None])[:, None]                   # (B,1,C,T)
+    return lambda: F.scaled_dot_product_attention(qq, k, v, attn_mask=mask,
+                                                  enable_gqa=True)
+
+
+def phase_kernels():
+    import torch
+    from repro_torch.kernels import (default_num_splits, flash_decode_fwd,
+                                     flash_prefill_fwd, flash_verify_fwd,
+                                     paged_decode_reference,
+                                     paged_prefill_reference,
+                                     paged_verify_reference)
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    num_pages = B * NPAGES + 1
+    splits = default_num_splits(NPAGES, batch=B, split_budget=32)
+    if splits < 2:
+        raise AssertionError(f"decode must split at these shapes: {splits}")
+    max_pos = NPAGES * PS
+    results = {}
+    for kind in ("bf16", "int8"):
+        pool = _pool(gen, kind, num_pages, dev)
+        scales = dict(k_scale=pool.get("k_scale"), v_scale=pool.get("v_scale"))
+        pt = _page_table(gen, num_pages, dev)
+        lengths = torch.randint(1, max_pos + 1, (B,), generator=gen,
+                                device=dev, dtype=torch.int32)
+        lengths[0] = max_pos                 # reaches the clamped entry
+        pos = torch.randint(0, max_pos - T_VERIFY + 1, (B,), generator=gen,
+                            device=dev, dtype=torch.int32)
+        pos[0] = max_pos - T_VERIFY
+        q_start = torch.randint(1, max_pos - C_PREFILL + 1, (B,),
+                                generator=gen, device=dev, dtype=torch.int32)
+        q_start[0] = max_pos - C_PREFILL
+        q1 = torch.randn(B, H, HD, generator=gen, device=dev).bfloat16()
+        qv = torch.randn(B, T_VERIFY, H, HD, generator=gen,
+                         device=dev).bfloat16()
+        qp = torch.randn(B, C_PREFILL, H, HD, generator=gen,
+                         device=dev).bfloat16()
+        ar_t = torch.arange(T_VERIFY, device=dev)
+        ar_c = torch.arange(C_PREFILL, device=dev)
+        cases = {
+            "flash_decode_fwd": [(
+                lambda: flash_decode_fwd(q1, pool["k"], pool["v"], pt,
+                                         lengths, num_splits=splits,
+                                         **scales),
+                lambda: paged_decode_reference(q1, pool["k"], pool["v"], pt,
+                                               lengths, **scales),
+                q1[:, None], (lengths.long() - 1)[:, None])],
+            "flash_verify_fwd": [(
+                lambda: flash_verify_fwd(qv, pool["k"], pool["v"], pt, pos,
+                                         num_splits=splits, **scales),
+                lambda: paged_verify_reference(qv, pool["k"], pool["v"], pt,
+                                               pos, **scales),
+                qv, pos.long()[:, None] + ar_t[None])],
+            "flash_prefill_fwd": [(
+                lambda qs=qs: flash_prefill_fwd(qp, pool["k"], pool["v"], pt,
+                                                qs, **scales),
+                lambda qs=qs: paged_prefill_reference(qp, pool["k"],
+                                                      pool["v"], pt, qs,
+                                                      **scales),
+                qp, qs.long()[:, None] + ar_c[None])
+                for qs in (torch.zeros_like(q_start), q_start)],
+        }
+        for name, variants in cases.items():
+            for vi, (kern, plain, q, q_pos) in enumerate(variants):
+                got = kern()
+                torch.cuda.synchronize()
+                want = plain()
+                err = (got.float() - want.float()).abs().max().item()
+                ok = math.isfinite(err) and err <= TOL_BF16
+                log(f"[kernels] {name} {kind} case{vi}: max|kernel-plain| "
+                    f"{err:.3e} (tol {TOL_BF16}) {'ok' if ok else 'FAIL'}")
+                if not ok:
+                    raise AssertionError(f"{name} {kind} disagrees: {err}")
+                rec = results.setdefault(name, {}).setdefault(kind, {})
+                rec["max_abs_err"] = max(err, rec.get("max_abs_err", 0.0))
+                if vi != len(variants) - 1:
+                    continue
+                # timing on the last variant (prefill: q_start > 0)
+                bytes_s = _bytes_needed(pool, pt, q_pos[:, -1], q, got) \
+                    / HBM_BYTES_PER_S
+                ops_s = _flops_needed(q_pos) / BF16_FLOPS_PER_S
+                rec["bound_ms"] = max(bytes_s, ops_s) * 1e3
+                rec["bound_by"] = "bytes" if bytes_s >= ops_s else "operations"
+                rec["ms"] = time_ms(kern)
+                rec["plain_ms"] = time_ms(plain, iters=5)
+                rec["library_ms"] = time_ms(_sdpa_case(q, pool, pt, q_pos))
+                log(f"[kernels] {name} {kind}: kernel {rec['ms']:.4f} ms, "
+                    f"plain {rec['plain_ms']:.4f} ms, sdpa "
+                    f"{rec['library_ms']:.4f} ms, bound {rec['bound_ms']:.4f}"
+                    f" ms ({rec['bound_by']})")
+    return results
+
+
+# ---------------------------------------------------------------------------
+# phase 4: depth-2 model parity, card (kernels) vs CPU (plain versions)
+# ---------------------------------------------------------------------------
+
+def _to(tree, dev):
+    return {k: _to(v, dev) if isinstance(v, dict) else v.to(dev)
+            for k, v in tree.items()}
+
+
+def phase_parity():
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.models import get_family, init_params
+    from repro_torch.train import (build_paged_decode_step,
+                                   build_paged_prefill_step,
+                                   build_paged_verify_step)
+    cfg = get_config("yi-6b").replace(num_layers=2, dtype="float32")
+    fam = get_family(cfg)
+    gpu = init_params(cfg, fam.layout(cfg), seed=0, device="cuda")
+    cpu = _to(gpu, "cpu")
+    nb, npages = 4, 8
+    num_pages = 1 + nb * npages
+    pools = {d: fam.paged_pool(cfg, num_pages, "f32", device=d)
+             for d in ("cuda", "cpu")}
+    rng = np.random.RandomState(0)
+    plen = np.array([20, 32, 7, 29], np.int32)
+    toks = np.zeros((nb, C_PREFILL), np.int32)
+    for i, n in enumerate(plen):
+        toks[i, :n] = rng.randint(0, cfg.vocab_size, size=n)
+    pt = np.arange(1, num_pages, dtype=np.int32).reshape(nb, npages)
+    steps = {"prefill": build_paged_prefill_step(cfg),
+             "decode": build_paged_decode_step(cfg),
+             "verify": build_paged_verify_step(cfg)}
+    worst = {}
+    reset_launch_counts()
+
+    def run(kind, batch):
+        outs = {}
+        for d in ("cuda", "cpu"):
+            b = {k: torch.from_numpy(v).to(d) for k, v in batch.items()}
+            nxt, logits, pools[d] = steps[kind]({"cuda": gpu, "cpu": cpu}[d],
+                                                b, pools[d])
+            outs[d] = (nxt.cpu().numpy(), logits.float().cpu())
+        err = (outs["cuda"][1] - outs["cpu"][1]).abs().max().item()
+        worst[kind] = max(err, worst.get(kind, 0.0))
+        if not math.isfinite(err) or err > TOL_PARITY:
+            raise AssertionError(f"parity {kind}: max|logit diff| {err}")
+        return outs["cpu"][0]
+
+    first = run("prefill", {"tokens": toks,
+                            "q_start": np.zeros(nb, np.int32),
+                            "kv_len": plen, "page_table": pt,
+                            "logit_idx": plen - 1})
+    cur, pos = first, plen.copy()
+    for _ in range(3):
+        cur = run("decode", {"tokens": cur[:, None], "pos": pos,
+                             "page_table": pt})
+        pos = pos + 1
+    window = np.stack([cur] + [(cur + i) % cfg.vocab_size
+                               for i in range(1, T_VERIFY)], axis=1)
+    run("verify", {"tokens": window.astype(np.int32), "pos": pos,
+                   "page_table": pt,
+                   "write_limit": (pos + T_VERIFY).astype(np.int32)})
+    counts = launch_counts()
+    if min(counts.values()) < cfg.num_layers:
+        raise AssertionError(f"parity phase missed a kernel: {counts}")
+    for kind, err in worst.items():
+        log(f"[parity] yi-6b widths, 2 layers, f32: {kind} max|logit "
+            f"card-cpu| {err:.3e} (tol {TOL_PARITY})")
+    del gpu, pools
+    torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------------------
+# phase 5: the main path at full width
+# ---------------------------------------------------------------------------
+
+def phase_serve(smi: str):
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.models import get_family, init_params
+    from repro_torch.serve import ContinuousBatchingEngine
+    from repro_torch.serve.prompts import shared_prefix_prompts
+    cfg = get_config("yi-6b")
+    params = init_params(cfg, get_family(cfg).layout(cfg), seed=0,
+                         device="cuda")
+    prompts = shared_prefix_prompts(cfg.vocab_size)
+    max_new = 32
+    runs = {"plain": dict(), "spec": dict(enable_spec_decode=True,
+                                          spec_tokens=4),
+            "int8": dict(kv_cache_dtype="int8")}
+    total = dict.fromkeys(REPLACES, 0)
+    outs = {}
+    for name, kw in runs.items():
+        eng = ContinuousBatchingEngine(cfg, params, max_len=SERVE_MAX_LEN,
+                                       max_slots=B, device="cuda", **kw)
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        out = eng.generate(prompts, max_new=max_new)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        counts = launch_counts()
+        toks = out.tokens
+        if toks.shape != (len(prompts), max_new) or toks.min() < 0 \
+                or toks.max() >= cfg.vocab_size:
+            raise AssertionError(f"serve {name}: bad tokens {toks.shape}")
+        if eng.stats["cached_tokens"] <= 0:
+            raise AssertionError(f"serve {name}: no prefix-cache hits")
+        for k, v in counts.items():
+            total[k] += v
+        outs[name] = toks
+        extra = (f", mean accepted {eng.mean_accepted_len:.2f}"
+                 if eng.spec_decode else "")
+        log(f"[serve] yi-6b 32 layers bf16 {name}: {len(prompts)} prompts x "
+            f"{max_new} new in {dt:.3f} s = {toks.size / dt:.1f} tok/s "
+            f"(prefill+decode), prefix hit rate {eng.prefix_hit_rate:.3f}"
+            f"{extra}, launches {counts} on {smi}")
+        del eng
+        torch.cuda.empty_cache()
+    for name in ("spec", "int8"):
+        agree = float((outs[name] == outs["plain"]).mean())
+        log(f"[serve] tokens equal to plain decode: {name} {agree:.3f}")
+    if min(total.values()) <= 0:
+        raise AssertionError(f"a kernel was not launched on the main path: "
+                             f"{total}")
+    log(f"[serve] launches on the main path: {total}")
+    return total
+
+
+# ---------------------------------------------------------------------------
+# main
+# ---------------------------------------------------------------------------
+
+def main() -> int:
+    try:
+        import torch
+    except ImportError:
+        print("chip_smoke: torch is not installed", file=sys.stderr)
+        return 2
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; this script runs the port on a "
+              "GPU", file=sys.stderr)
+        return 2
+    if not (SRC / "repro_torch" / "csrc").is_dir():
+        print(f"chip_smoke: the port is not beside this script "
+              f"({SRC / 'repro_torch'} missing)", file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(SRC))
+    smi = phase_device()
+    phase_build()
+    kern = phase_kernels()
+    phase_parity()
+    launches = phase_serve(smi)
+    record = []
+    for name, per_kind in kern.items():
+        bf = per_kind["bf16"]
+        record.append({
+            "name": name, "route": "cuda",
+            "source": "src/repro_torch/csrc/paged_attention.cu",
+            "replaces": REPLACES[name],
+            "launches": launches[name],
+            "max_abs_err": max(r["max_abs_err"] for r in per_kind.values()),
+            "ms": bf["ms"], "plain_ms": bf["plain_ms"],
+            "bound_ms": bf["bound_ms"], "bound_by": bf["bound_by"],
+            "library_ms": bf["library_ms"],
+            "int8": {k: per_kind["int8"][k] for k in
+                     ("ms", "plain_ms", "bound_ms", "library_ms")},
+        })
+    print(json.dumps({"kernels": record}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

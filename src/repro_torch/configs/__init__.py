@@ -1,0 +1,21 @@
+from . import yi_6b
+from .base import ModelConfig, torch_dtype
+
+_MODULES = {"yi-6b": yi_6b}
+ARCH_NAMES = tuple(_MODULES)
+
+
+def get_config(name: str) -> ModelConfig:
+    if name not in _MODULES:
+        raise KeyError(f"unknown arch {name!r}; the port has {ARCH_NAMES}")
+    return _MODULES[name].CONFIG
+
+
+def get_reduced_config(name: str) -> ModelConfig:
+    if name not in _MODULES:
+        raise KeyError(f"unknown arch {name!r}; the port has {ARCH_NAMES}")
+    return _MODULES[name].reduced()
+
+
+__all__ = ["ARCH_NAMES", "ModelConfig", "get_config", "get_reduced_config",
+           "torch_dtype"]

@@ -1,0 +1,87 @@
+"""Model configuration for the PyTorch port.
+
+The port keeps its own copy of the reference ``ModelConfig``: the fields the
+dense transformer's serving path reads, with the ``dtype`` strings mapped to
+torch dtypes. Families that the port does not run yet (MoE, SSM, audio, VLM)
+add their fields when they are ported.
+"""
+from __future__ import annotations
+
+import dataclasses
+from dataclasses import dataclass
+
+import torch
+
+_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
+           "float16": torch.float16}
+
+
+def torch_dtype(name: str) -> torch.dtype:
+    if name not in _DTYPES:
+        raise ValueError(f"unknown dtype {name!r}; choose from "
+                         f"{sorted(_DTYPES)}")
+    return _DTYPES[name]
+
+
+@dataclass(frozen=True)
+class ModelConfig:
+    name: str
+    family: str                      # only "dense" runs in the port so far
+    num_layers: int
+    d_model: int
+    num_heads: int
+    num_kv_heads: int
+    d_ff: int
+    vocab_size: int
+    head_dim: int = 0                # 0 -> d_model // num_heads
+
+    # --- FFN ------------------------------------------------------------------
+    mlp_gated: bool = True           # SwiGLU/GeGLU vs plain 2-matrix FFN
+    mlp_act: str = "silu"            # "silu" | "gelu"
+
+    # --- attention / positions -----------------------------------------------
+    encoder_only: bool = False
+    rope_theta: float = 10_000.0
+
+    # --- serving (paged KV cache / continuous batching) ------------------------
+    page_size: int = 16              # KV rows per physical cache page
+    max_decode_slots: int = 8        # concurrent requests the serve engine admits
+    prefill_chunk: int = 32          # query tokens per paged-prefill step
+    enable_prefix_cache: bool = True # share prompt-prefix pages copy-on-write
+    enable_spec_decode: bool = False
+    spec_tokens: int = 4             # drafted tokens per verify step (K)
+    spec_ngram: int = 2              # draft key: 2 = bigram, 3 = trigram
+    # split-KV decode: splits ~ decode_split_budget / batch (see
+    # kernels.decode_attention.ops.default_num_splits)
+    decode_split_budget: int = 32
+    decode_chunk_tokens: int = 256   # target slots * decode_chunk product
+    decode_chunk_min: int = 8
+    decode_chunk_max: int = 32
+    # "f32" keeps pool pages in ``dtype``; "int8" stores per-row symmetric
+    # int8 with f32 scale pages (kernels/kv_quant.py).
+    kv_cache_dtype: str = "f32"
+    spec_adaptive_k: bool = False
+
+    # --- numerics ---------------------------------------------------------------
+    norm_eps: float = 1e-6
+    # activation/compute dtype; matrix weights are stored in it too (the
+    # reference keeps f32 parameters and casts them at every use)
+    dtype: str = "bfloat16"
+    tie_embeddings: bool = False
+
+    def __post_init__(self):
+        if self.head_dim == 0:
+            object.__setattr__(self, "head_dim", self.d_model // self.num_heads)
+        if self.num_heads % max(self.num_kv_heads, 1):
+            raise ValueError(f"{self.name}: heads {self.num_heads} not a multiple "
+                             f"of kv heads {self.num_kv_heads}")
+        if self.kv_cache_dtype not in ("f32", "int8"):
+            raise ValueError(f"{self.name}: kv_cache_dtype must be 'f32' or "
+                             f"'int8', got {self.kv_cache_dtype!r}")
+
+    @property
+    def cdtype(self) -> torch.dtype:
+        return torch_dtype(self.dtype)
+
+    def replace(self, **kw) -> "ModelConfig":
+        return dataclasses.replace(self, **kw)

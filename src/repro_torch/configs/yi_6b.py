@@ -1,0 +1,18 @@
+"""Yi-6B [arXiv:2403.04652]: llama-architecture GQA."""
+from .base import ModelConfig
+
+CONFIG = ModelConfig(
+    name="yi-6b",
+    family="dense",
+    num_layers=32,
+    d_model=4096,
+    num_heads=32,
+    num_kv_heads=4,
+    d_ff=11008,
+    vocab_size=64000,
+)
+
+
+def reduced() -> ModelConfig:
+    return CONFIG.replace(num_layers=2, d_model=64, num_heads=4, num_kv_heads=2,
+                          head_dim=16, d_ff=128, vocab_size=256)

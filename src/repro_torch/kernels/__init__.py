@@ -1,0 +1,34 @@
+"""Paged attention kernels of the serving path, each a ``ref.py`` plain
+PyTorch version, a ``kernel.py`` wrapper of its CUDA kernel
+(``csrc/paged_attention.cu``) and an ``ops.py`` entry that dispatches by the
+tensor's device."""
+from .decode_attention import (default_num_splits, flash_decode_fwd,
+                               paged_decode_attention, paged_decode_reference)
+from .kv_quant import dequantize_rows, quantize_pool, quantize_rows
+from .prefill_attention import (flash_prefill_fwd, paged_prefill_attention,
+                                paged_prefill_reference)
+from .verify_attention import (flash_verify_fwd, paged_verify_attention,
+                               paged_verify_reference)
+
+# The launch counters of every CUDA kernel wrapper, by kernel name.
+KERNEL_WRAPPERS = {"flash_decode_fwd": flash_decode_fwd,
+                   "flash_prefill_fwd": flash_prefill_fwd,
+                   "flash_verify_fwd": flash_verify_fwd}
+
+
+def reset_launch_counts() -> None:
+    for fn in KERNEL_WRAPPERS.values():
+        fn.launches = 0
+
+
+def launch_counts() -> dict[str, int]:
+    return {name: fn.launches for name, fn in KERNEL_WRAPPERS.items()}
+
+
+__all__ = ["default_num_splits", "flash_decode_fwd", "flash_prefill_fwd",
+           "flash_verify_fwd", "paged_decode_attention",
+           "paged_prefill_attention", "paged_verify_attention",
+           "paged_decode_reference", "paged_prefill_reference",
+           "paged_verify_reference", "quantize_rows", "dequantize_rows",
+           "quantize_pool", "KERNEL_WRAPPERS", "reset_launch_counts",
+           "launch_counts"]

@@ -1,0 +1,167 @@
+"""Build, load and call the port's hand-written CUDA kernels.
+
+Each source under ``src/repro_torch/csrc/`` is compiled by ``nvcc`` for
+``sm_90a`` into a shared library with a plain C interface, loaded with
+``ctypes``. The library is built at first use into ``csrc/build/`` (listed in
+``.gitignore``) under a name that carries the hash of the source and flags,
+so an edited source is rebuilt and an unchanged one is reused. Nothing here
+runs at import: the CPU tests import every module, and ``nvcc`` is needed
+only when a kernel is first launched.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+
+import torch
+
+CSRC = Path(__file__).resolve().parents[1] / "csrc"
+BUILD_DIR = CSRC / "build"
+SOURCES = ("paged_attention.cu",)
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+# dtype codes of the C interface (csrc/paged_attention.cu: enum DType)
+DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
+
+_P, _I = ctypes.c_void_p, ctypes.c_int
+# C signatures of csrc/paged_attention.cu's extern "C" entry points.
+SIGNATURES = {
+    "paged_decode_fwd": [_P, _I, _P, _P, _I, _P, _P, _P, _P] + [_I] * 8
+                        + [_P, _P, _P, _P, _P],
+    "paged_prefill_fwd": [_P, _I, _P, _P, _I, _P, _P, _P, _P] + [_I] * 8
+                         + [_P, _P],
+    "paged_verify_fwd": [_P, _I, _P, _P, _I, _P, _P, _P, _P] + [_I] * 9
+                        + [_P, _P, _P, _P, _P],
+}
+
+_LIBS: dict[str, ctypes.CDLL] = {}
+
+
+def nvcc_path() -> str:
+    for cand in (os.environ.get("CUDA_HOME"), "/usr/local/cuda"):
+        if cand and Path(cand, "bin", "nvcc").exists():
+            return str(Path(cand, "bin", "nvcc"))
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError("nvcc not found: the CUDA kernels are built on a "
+                           "machine with the CUDA toolkit")
+    return found
+
+
+def _target(source: str) -> Path:
+    digest = hashlib.sha256((CSRC / source).read_bytes()
+                            + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    return BUILD_DIR / f"{Path(source).stem}-{digest}.so"
+
+
+def build(sources=SOURCES) -> dict[str, str]:
+    """Compile every stale source, one ``nvcc`` each, all started together.
+
+    Returns {source: compiler log} (``-Xptxas -v``: registers, shared
+    memory and spills per kernel); an up-to-date library logs "cached".
+    Raises if a build fails.
+    """
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    procs, logs = {}, {}
+    for src in sources:
+        target = _target(src)
+        if target.exists():
+            logs[src] = "cached"
+            continue
+        tmp = target.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / src)]
+        procs[src] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                       stderr=subprocess.STDOUT, text=True),
+                      tmp, target)
+    failed = []
+    for src, (proc, tmp, target) in procs.items():
+        out, _ = proc.communicate()
+        logs[src] = out
+        if proc.returncode:
+            failed.append(f"{src}:\n{out}")
+            continue
+        os.replace(tmp, target)            # atomic: readers never see a partial
+    if failed:
+        raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
+    return logs
+
+
+def library(source: str = "paged_attention.cu") -> ctypes.CDLL:
+    """The loaded library of ``source``, built first if it is stale."""
+    lib = _LIBS.get(source)
+    if lib is None:
+        build((source,))
+        lib = ctypes.CDLL(str(_target(source)))
+        for name, argtypes in SIGNATURES.items():
+            fn = getattr(lib, name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+        _LIBS[source] = lib
+    return lib
+
+
+def ptr(t: torch.Tensor | None):
+    return None if t is None else t.data_ptr()
+
+
+def stream_of(t: torch.Tensor) -> int:
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def check_paged(name: str, q, k_pages, v_pages, page_table, base,
+                k_scale, v_scale, q_ndim: int) -> None:
+    """Validate what the paged attention kernels take; raise otherwise."""
+    if not q.is_cuda:
+        raise ValueError(f"{name}: the CUDA kernel takes CUDA tensors, got "
+                         f"q on {q.device}")
+    if q.dim() != q_ndim or k_pages.dim() != 4 or page_table.dim() != 2:
+        raise ValueError(f"{name}: bad ranks q{tuple(q.shape)} "
+                         f"k{tuple(k_pages.shape)} pt{tuple(page_table.shape)}")
+    tensors = [q, k_pages, v_pages, page_table, base]
+    if (k_scale is None) != (v_scale is None):
+        raise ValueError(f"{name}: pass both k_scale and v_scale or neither")
+    if k_scale is not None:
+        tensors += [k_scale, v_scale]
+        if k_pages.dtype != torch.int8:
+            raise ValueError(f"{name}: scales given for a {k_pages.dtype} pool")
+        if k_scale.dtype != torch.float32 or v_scale.dtype != torch.float32 \
+                or k_scale.shape != k_pages.shape[:3] \
+                or v_scale.shape != k_pages.shape[:3]:
+            raise ValueError(f"{name}: scales must be f32 {k_pages.shape[:3]}")
+    elif k_pages.dtype == torch.int8:
+        raise ValueError(f"{name}: an int8 pool needs k_scale/v_scale")
+    for t in tensors:
+        if t.device != q.device:
+            raise ValueError(f"{name}: tensors on {t.device} and {q.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: inputs must be contiguous")
+    if q.dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"{name}: q dtype {q.dtype} not f32/bf16")
+    if k_pages.dtype not in DTYPE_CODES or v_pages.dtype != k_pages.dtype \
+            or v_pages.shape != k_pages.shape:
+        raise ValueError(f"{name}: k/v pools {k_pages.dtype}"
+                         f"{tuple(k_pages.shape)} / {v_pages.dtype}"
+                         f"{tuple(v_pages.shape)}")
+    if page_table.dtype != torch.int32 or base.dtype != torch.int32:
+        raise ValueError(f"{name}: page_table and positions must be int32")
+    b, hd = q.shape[0], q.shape[-1]
+    nkv, _, ps, khd = k_pages.shape
+    if khd != hd or q.shape[-2] % nkv or page_table.shape[0] != b \
+            or base.shape != (b,):
+        raise ValueError(f"{name}: shapes q{tuple(q.shape)} "
+                         f"k{tuple(k_pages.shape)} pt{tuple(page_table.shape)} "
+                         f"base{tuple(base.shape)} disagree")
+    if hd % 32 or not 32 <= hd <= 256 or not 1 <= ps <= 64:
+        raise ValueError(f"{name}: tile contract is hd % 32 == 0, "
+                         f"32 <= hd <= 256, page_size <= 64; got hd={hd}, "
+                         f"page_size={ps}")
+
+
+def raise_on(rc: int, name: str) -> None:
+    if rc:
+        raise RuntimeError(f"{name}: CUDA launch failed with error {rc}")

@@ -1,0 +1,122 @@
+"""The dense transformer's paged serving paths.
+
+``TransformerFamily`` keeps the reference's surface for the methods the
+continuous-batching engine calls: ``layout``, ``prefill_paged``,
+``decode_paged``, ``decode_verify``, ``paged_pool_shape`` and ``paged_pool``.
+The reference's ``lax.scan`` over the stacked layers becomes a loop over the
+layer axis. The pool is a dict of (L, KV, P, ps[, hd]) tensors updated in
+place; each method returns the same dict.
+"""
+from __future__ import annotations
+
+import torch
+
+from ..device import resolve_device
+from . import layers as L
+from .params import stack_specs
+
+
+def _layer(tree, i: int):
+    """Layer ``i`` of a stacked parameter (or pool) tree, as views."""
+    return {k: _layer(v, i) if isinstance(v, dict) else v[i]
+            for k, v in tree.items()}
+
+
+class TransformerFamily:
+    name = "transformer"
+
+    # -- params ---------------------------------------------------------------
+    def layer_specs(self, cfg) -> dict:
+        return {"attn": L.attention_param_specs(cfg),
+                "ffn": L.mlp_param_specs(cfg)}
+
+    def layout(self, cfg) -> dict:
+        return {
+            **L.embed_param_specs(cfg),
+            "layers": stack_specs(self.layer_specs(cfg), cfg.num_layers),
+            "final_norm": L.norm_spec(cfg.d_model),
+        }
+
+    def _stack(self, cfg, params, x, pool, attn):
+        """Run every layer: ``attn(layer_attn_params, h, layer_pool)`` then
+        the FFN; returns the final-normed activations."""
+        for i in range(cfg.num_layers):
+            lp = _layer(params["layers"], i)
+            x, _ = attn(lp["attn"], x, _layer(pool, i))
+            x = L.mlp_block(cfg, lp["ffn"], x)
+        return L.rmsnorm(x, params["final_norm"], cfg.norm_eps)
+
+    # -- paged chunked prefill ----------------------------------------------------
+    def prefill_paged(self, cfg, params, batch, pool):
+        """One chunked-prefill step: C prompt tokens written straight into
+        pool pages, attended against the already-written context.
+
+        batch: tokens (B,C), q_start (B,), kv_len (B,) true prompt length
+        (positions >= kv_len are pad and write to the sink page),
+        page_table (B,npages) int32, logit_idx (B,) in-chunk index to read
+        logits at (clamped to the chunk). Returns (logits (B,V), pool).
+        """
+        x = L.embed_tokens(cfg, params, batch["tokens"])
+        x = self._stack(cfg, params, x, pool, lambda p, h, pl:
+                        L.paged_prefill_attention_block(
+                            cfg, p, h, pool=pl,
+                            page_table=batch["page_table"],
+                            q_start=batch["q_start"],
+                            kv_len=batch["kv_len"]))
+        idx = batch["logit_idx"].long().clamp(0, x.shape[1] - 1)
+        last = x[torch.arange(x.shape[0], device=x.device), idx]    # (B,d)
+        return L.logits_fn(cfg, params, last), pool
+
+    # -- paged decode ---------------------------------------------------------------
+    def decode_paged(self, cfg, params, batch, pool):
+        """One decode step over the shared paged pool.
+
+        batch: tokens (B,1), pos (B,), page_table (B,npages) int32. Returns
+        (logits (B,V), pool)."""
+        x = L.embed_tokens(cfg, params, batch["tokens"])
+        x = self._stack(cfg, params, x, pool, lambda p, h, pl:
+                        L.paged_attention_block(
+                            cfg, p, h, pool=pl,
+                            page_table=batch["page_table"], pos=batch["pos"]))
+        return L.logits_fn(cfg, params, x)[:, 0], pool
+
+    # -- paged speculative verify ------------------------------------------------------
+    def decode_verify(self, cfg, params, batch, pool):
+        """Score a T-token window per slot (the verified current token and
+        T-1 drafts) in one pass.
+
+        batch: tokens (B,T), pos (B,) position of tokens[:,0], page_table
+        (B,npages) int32, write_limit (B,): KV writes at positions >=
+        write_limit go to the sink page. Returns (logits (B,T,V), pool)."""
+        x = L.embed_tokens(cfg, params, batch["tokens"])
+        x = self._stack(cfg, params, x, pool, lambda p, h, pl:
+                        L.paged_verify_attention_block(
+                            cfg, p, h, pool=pl,
+                            page_table=batch["page_table"], pos=batch["pos"],
+                            write_limit=batch["write_limit"]))
+        return L.logits_fn(cfg, params, x), pool
+
+    # -- the pool ----------------------------------------------------------------------
+    def paged_pool_shape(self, cfg, num_pages: int):
+        return (cfg.num_layers, cfg.num_kv_heads, num_pages, cfg.page_size,
+                cfg.head_dim)
+
+    def paged_pool(self, cfg, num_pages: int,
+                   kv_cache_dtype: str | None = None, *, device="cuda"):
+        """Allocate the zeroed pool dict on ``device``.
+
+        ``"f32"`` stores K/V rows in ``cfg.dtype``; ``"int8"`` stores them as
+        int8 with (L,KV,P,ps) f32 per-row scale pages ``k_scale``/``v_scale``.
+        """
+        dev = resolve_device(device)
+        shape = self.paged_pool_shape(cfg, num_pages)
+        dtype = kv_cache_dtype or cfg.kv_cache_dtype
+        if dtype == "int8":
+            return {"k": torch.zeros(shape, dtype=torch.int8, device=dev),
+                    "v": torch.zeros(shape, dtype=torch.int8, device=dev),
+                    "k_scale": torch.zeros(shape[:-1], device=dev),
+                    "v_scale": torch.zeros(shape[:-1], device=dev)}
+        if dtype == "f32":
+            return {"k": torch.zeros(shape, dtype=cfg.cdtype, device=dev),
+                    "v": torch.zeros(shape, dtype=cfg.cdtype, device=dev)}
+        raise ValueError(f"unknown kv_cache_dtype {dtype!r}")

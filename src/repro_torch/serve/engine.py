@@ -1,0 +1,710 @@
+"""Continuous-batching serve engine over a shared block-paged KV cache.
+
+The PyTorch port of the reference engine's token loop:
+
+- **Slots and pages.** ``max_decode_slots`` batch lanes decode in lockstep;
+  each request addresses its logical KV stream through a page-table row
+  into one shared pool of ``page_size``-row pages. Physical page 0 is a
+  reserved write sink: idle slots keep an all-zero page-table row, and
+  prefill pads and budget overshoot route their KV writes there.
+- **Paged chunked prefill.** Prompts are admitted in fixed
+  ``prefill_chunk``-token steps whose KV rows land straight in pool pages.
+- **Copy-on-write prefix sharing.** A page-granular radix index
+  (:mod:`repro_torch.serve.paging`) aliases fully matched pages
+  (refcount++), copies the one partially matched boundary page, and
+  prefills only the unmatched suffix.
+- **Decode chunks without host syncs.** A decode chunk is a Python loop of
+  exactly ``decode_chunk`` device steps; tokens accumulate on the device and
+  cross to the host once per chunk. The pool is updated in place (the
+  reference donates it to each chunk instead).
+- **Speculative decode** (``enable_spec_decode``): each step drafts
+  ``spec_tokens`` tokens per slot by n-gram lookup over the slot's history
+  and verifies all of them plus the current token in one multi-query pass;
+  per-slot adaptive windows (``spec_adaptive_k``) shrink the verify pass for
+  slots that accept little. Greedy outputs equal plain decode's.
+- **int8 KV pages** (``kv_cache_dtype="int8"``): per-row symmetric int8 with
+  f32 scale pages, quantized on scatter and dequantized in the kernels.
+
+The stepped API (``enqueue`` / ``admit`` / ``decode_step`` / ``abort``) is
+what a control plane drives; ``generate`` is a loop over it. Preemption,
+page export/import and telemetry binding are not ported yet (ROADMAP.md).
+"""
+from __future__ import annotations
+
+import math
+import time
+from collections import deque
+from dataclasses import dataclass, field
+
+import numpy as np
+import torch
+
+from ..device import resolve_device
+from ..models import get_family
+from ..train.train_step import (build_fused_spec_step,
+                                build_paged_decode_step,
+                                build_paged_prefill_step)
+from .drafting import build_ngram_draft
+from .paging import PageAllocator, PrefixCache
+
+
+@dataclass
+class ServeResult:
+    tokens: np.ndarray          # (B, max_new)
+    prompt_lens: list[int]
+
+
+@dataclass
+class EngineRequest:
+    """One generation request: ``rid`` is caller-chosen, ``max_new`` is per
+    request, and ``namespace`` scopes the prefix cache (pages registered
+    under one namespace are invisible to lookups from another)."""
+    rid: object
+    prompt: list[int]
+    max_new: int
+    namespace: object = None
+
+
+@dataclass
+class _Live:
+    """A request occupying a slot."""
+    req: EngineRequest
+    pages: list[int]
+    emitted: int = 0
+    tokens: list[int] = field(default_factory=list)
+
+
+def _next_pow2(n: int) -> int:
+    """Bucket size for wave-shaped device calls (1, 2, 4, ...)."""
+    return 1 << max(0, n - 1).bit_length()
+
+
+@dataclass
+class _Admit:
+    """A request accepted into the current admission wave."""
+    slot: int
+    req: EngineRequest
+    pages: list[int]
+    start: int                  # first position to prefill (= prefix match)
+    group: int = 1              # intra-wave prefill stage (same-wave dedup)
+
+
+class ContinuousBatchingEngine:
+    """Continuous-batching decode over a shared paged KV pool (module doc).
+
+    ``params`` must already live on ``device`` (default ``"cuda"``, which
+    raises without CUDA; pass ``device="cpu"`` for the plain path).
+    """
+
+    def __init__(self, cfg, params, *, max_len: int = 512,
+                 max_slots: int | None = None, num_pages: int | None = None,
+                 decode_chunk: int | None = None,
+                 prefill_chunk: int | None = None,
+                 enable_prefix_cache: bool | None = None,
+                 enable_spec_decode: bool | None = None,
+                 spec_tokens: int | None = None,
+                 spec_ngram: int | None = None,
+                 kv_cache_dtype: str | None = None,
+                 spec_adaptive_k: bool | None = None,
+                 role: str = "unified", device="cuda"):
+        if cfg.encoder_only:
+            raise ValueError("encoder-only models cannot decode")
+        if role not in ("unified", "prefill", "decode"):
+            raise ValueError(f"role must be 'unified', 'prefill' or "
+                             f"'decode', got {role!r}")
+        self.device = resolve_device(device)
+        leaf = params["embedding"]
+        if leaf.device.type != self.device.type:
+            raise ValueError(f"params live on {leaf.device}, the engine on "
+                             f"{self.device}: build them on the same device")
+        self.role = role
+        if role == "prefill":
+            # A prefill replica never decodes, so speculation has nothing to
+            # govern there.
+            if enable_spec_decode:
+                raise ValueError("role='prefill' engines never decode; "
+                                 "enable_spec_decode is meaningless there")
+            enable_spec_decode = False
+            spec_adaptive_k = False
+        self.kv_cache_dtype = cfg.kv_cache_dtype if kv_cache_dtype is None \
+            else kv_cache_dtype
+        if self.kv_cache_dtype not in ("f32", "int8"):
+            raise ValueError(f"kv_cache_dtype must be 'f32' or 'int8', got "
+                             f"{self.kv_cache_dtype!r}")
+        self._step = build_paged_decode_step(cfg)
+        self.cfg = cfg
+        self.params = params
+        self.family = get_family(cfg)
+        self.page_size = cfg.page_size
+        self.max_slots = cfg.max_decode_slots if max_slots is None \
+            else max_slots
+        if self.max_slots < 1:
+            raise ValueError(f"max_slots must be >= 1, got {self.max_slots}")
+        self.pages_per_seq = math.ceil(max_len / self.page_size)
+        # +1: physical page 0 is the reserved idle-slot/pad write sink.
+        self.num_pages = (num_pages or self.max_slots * self.pages_per_seq) + 1
+        if enable_spec_decode is None:
+            enable_spec_decode = cfg.enable_spec_decode
+        self.spec_tokens = cfg.spec_tokens if spec_tokens is None \
+            else spec_tokens
+        self.spec_ngram = cfg.spec_ngram if spec_ngram is None else spec_ngram
+        self.spec_decode = bool(enable_spec_decode)
+        self.spec_adaptive_k = bool(
+            cfg.spec_adaptive_k if spec_adaptive_k is None
+            else spec_adaptive_k)
+        if self.spec_adaptive_k and not self.spec_decode:
+            raise ValueError("spec_adaptive_k=True requires "
+                             "enable_spec_decode=True (the adaptive window "
+                             "governs speculative drafting)")
+        if self.spec_decode:
+            k = self.spec_tokens
+            if k < 1:
+                raise ValueError(
+                    f"enable_spec_decode requires spec_tokens >= 1, got {k} "
+                    "(each verify step scores spec_tokens drafts + the "
+                    "current token)")
+            if self.spec_ngram not in (2, 3):
+                raise ValueError(
+                    f"spec_ngram must be 2 (bigram) or 3 (trigram draft "
+                    f"keys), got {self.spec_ngram}")
+            if k + 1 > self.pages_per_seq * self.page_size:
+                raise ValueError(
+                    f"spec_tokens+1 = {k + 1} verify rows exceed the "
+                    f"{self.pages_per_seq * self.page_size}-row page-table "
+                    f"window (max_len {max_len}, page_size "
+                    f"{self.page_size}); shrink spec_tokens or raise "
+                    "max_len")
+        if decode_chunk is None:
+            # Hold slots * chunk * tokens-per-step near decode_chunk_tokens:
+            # narrow batches take long chunks to amortize the host sync, wide
+            # ones short chunks so freed slots re-admit sooner. A spec step
+            # emits up to K+1 tokens, so spec chunks shrink by that window.
+            per_step = 1 + self.spec_tokens if self.spec_decode else 1
+            decode_chunk = min(cfg.decode_chunk_max,
+                               max(2, cfg.decode_chunk_min // per_step,
+                                   cfg.decode_chunk_tokens
+                                   // (self.max_slots * per_step)))
+        self.decode_chunk = decode_chunk
+        self.prefill_chunk = prefill_chunk or cfg.prefill_chunk
+        if self.decode_chunk < 1:
+            raise ValueError(f"decode_chunk must be >= 1, got "
+                             f"{self.decode_chunk}")
+        if self.prefill_chunk < 1:
+            raise ValueError(f"prefill_chunk must be >= 1, got "
+                             f"{self.prefill_chunk}")
+
+        self.pool = self.family.paged_pool(cfg, self.num_pages,
+                                           self.kv_cache_dtype,
+                                           device=self.device)
+        self.alloc = PageAllocator(self.num_pages)
+        if enable_prefix_cache is None:
+            enable_prefix_cache = cfg.enable_prefix_cache
+        self.prefix_cache = PrefixCache(self.page_size) \
+            if enable_prefix_cache else None
+        if self.prefix_cache is not None:
+            self.alloc.on_alloc = self.prefix_cache.evict
+
+        s = self.max_slots
+        self._page_table = np.zeros((s, self.pages_per_seq), np.int32)
+        self._pos = np.zeros(s, np.int32)
+        self._cur = np.zeros(s, np.int32)
+        self._active = np.zeros(s, bool)
+        # Per-slot KV write limit (prompt_len + max_new): spec-decode draft
+        # windows running past it are routed to the sink page.
+        self._limit = np.zeros(s, np.int32)
+        # Per-slot adaptive speculation: window (1..K) and accept-rate EMA,
+        # updated once per chunk on the host.
+        self._kslot = np.zeros(s, np.int32)
+        self._ema = np.zeros(s, np.float64)
+        # Per-slot token history for on-device drafting. The draft lookup
+        # reads the first hist_len columns; the extra columns take the
+        # writes past them (a spent slot's cursor runs up to K past its
+        # budget, and drafts K more), which the reference's scatter drops.
+        self.hist_len = self.pages_per_seq * self.page_size
+        self._hist = torch.zeros(
+            (s, self.hist_len + 2 * self.spec_tokens + 2), dtype=torch.int32,
+            device=self.device) if self.spec_decode else None
+        self._live: dict[int, _Live] = {}
+        # Admission queue, consumed front-first by ``admit``.
+        self._queue: deque[EngineRequest] = deque()
+        self.stats: dict[str, float] = {}
+        self._reset_stats()
+
+        self._prefill_step = build_paged_prefill_step(cfg)
+        if self.spec_decode:
+            # Verify-window buckets: each chunk dispatches at the smallest
+            # bucket covering every live slot's adaptive window. Powers of
+            # two plus K itself; a fixed-K engine uses K only. The port's
+            # kernels take any T*G, so no tile rule filters the buckets.
+            if self.spec_adaptive_k:
+                cand = {1 << i for i in range(self.spec_tokens.bit_length())}
+                cand.add(self.spec_tokens)
+                self._spec_buckets = sorted(
+                    b for b in cand if b <= self.spec_tokens)
+            else:
+                self._spec_buckets = [self.spec_tokens]
+            self._spec_steps: dict[int, object] = {}
+
+    # -- stats ---------------------------------------------------------------
+    _STAT_ZEROS = {"admitted": 0, "prefill_tokens": 0, "cached_tokens": 0,
+                   "cow_copies": 0, "admit_seconds": 0.0,
+                   "spec_steps": 0, "spec_emitted": 0,
+                   "accept_ema_sum": 0.0, "accept_ema_n": 0}
+
+    def _reset_stats(self):
+        self.stats = dict(self._STAT_ZEROS)
+
+    @property
+    def prefix_hit_rate(self) -> float:
+        tot = self.stats["cached_tokens"] + self.stats["prefill_tokens"]
+        return self.stats["cached_tokens"] / tot if tot else 0.0
+
+    @property
+    def mean_accepted_len(self) -> float:
+        """Mean drafted tokens accepted per verify step (0 <= . <= K)."""
+        steps = self.stats["spec_steps"]
+        return (self.stats["spec_emitted"] - steps) / steps if steps else 0.0
+
+    @property
+    def mean_accept_ema(self) -> float:
+        """Mean final per-slot accept-rate EMA over retired requests."""
+        n = self.stats["accept_ema_n"]
+        return self.stats["accept_ema_sum"] / n if n else 0.0
+
+    def slot_spec_state(self) -> dict[int, dict[str, float]]:
+        """Live per-slot adaptive-speculation state."""
+        return {slot: {"kslot": int(self._kslot[slot]),
+                       "accept_ema": float(self._ema[slot])}
+                for slot in sorted(self._live)}
+
+    def _dev(self, arr: np.ndarray) -> torch.Tensor:
+        return torch.from_numpy(np.ascontiguousarray(arr)).to(self.device)
+
+    # -- admission -----------------------------------------------------------
+    def _admit_wave(self) -> int:
+        """Admit requests from the queue, front-first, while slots and pages
+        last.
+
+        Each request consults the prefix cache within its namespace: fully
+        matched pages are aliased (refcount++), a partially matched
+        boundary page is copied, and only the suffix is prefilled, chunk by
+        chunk and batched across the wave. A request's pages are registered
+        the moment it is accepted, so a later request in the same wave can
+        alias them; the wave is therefore prefilled in dependency groups,
+        each group's copies dispatched after its donors' prefill.
+        """
+        t0 = time.perf_counter()
+        ps = self.page_size
+        wave: list[_Admit] = []
+        cow_pairs: dict[int, list[tuple[int, int]]] = {}   # group -> pairs
+        page_group: dict[int, int] = {}    # page -> group whose prefill fills it
+        while self._queue:
+            req = self._queue[0]
+            prompt = req.prompt
+            plen = len(prompt)
+            free_slots = [i for i in range(self.max_slots)
+                          if not self._active[i]]
+            if not free_slots:
+                break
+            need_total = math.ceil((plen + req.max_new) / ps)
+            if self.prefix_cache is not None:
+                chain, raw = self.prefix_cache.lookup(prompt, req.namespace)
+                # Always recompute the last prompt token: its logits seed
+                # decode.
+                match = min(raw, plen - 1)
+            else:
+                chain, match = [], 0
+            n_alias, cow_m = divmod(match, ps)
+            cow_src = chain[n_alias] if cow_m else None
+            n_fresh = need_total - n_alias
+            # Pin every matched page BEFORE allocating: a hit on a retired
+            # request's page finds it in the free list, and an unpinned hit
+            # could come back as one of our own fresh pages.
+            shared = chain[:n_alias]
+            for p in shared:
+                self.alloc.share(p)
+            if cow_src is not None:
+                self.alloc.share(cow_src)
+            if self.alloc.available() < n_fresh:
+                for p in shared:                # not enough pages: wave ends
+                    self.alloc.release(p)
+                if cow_src is not None:
+                    self.alloc.release(cow_src)
+                break
+            slot = free_slots[0]
+            fresh = [self.alloc.alloc() for _ in range(n_fresh)]
+            pages = shared + fresh
+            deps = shared if cow_src is None else shared + [cow_src]
+            group = 1 + max((page_group.get(p, 0) for p in deps), default=0)
+            if cow_src is not None:
+                cow_pairs.setdefault(group, []).append((cow_src, fresh[0]))
+                self.stats["cow_copies"] += 1
+            for p in fresh:
+                page_group[p] = group
+            self._active[slot] = True          # reserve within this wave
+            row = np.zeros(self.pages_per_seq, np.int32)
+            row[:len(pages)] = pages
+            self._page_table[slot] = row
+            self.stats["cached_tokens"] += match
+            self.stats["prefill_tokens"] += plen - match
+            wave.append(_Admit(slot, req, pages, match, group))
+            if self.prefix_cache is not None:
+                self.prefix_cache.register(prompt, pages, req.namespace)
+            self._queue.popleft()
+
+        if wave:
+            for g in sorted({a.group for a in wave}):
+                self._dispatch_cows(cow_pairs.get(g, ()))
+                self._prefill_paged_wave([a for a in wave if a.group == g])
+            for a in wave:
+                self._live[a.slot] = _Live(a.req, a.pages)
+            if self.spec_decode:
+                self._load_histories(wave)
+            self.stats["admitted"] += len(wave)
+        self.stats["admit_seconds"] += time.perf_counter() - t0
+        return len(wave)
+
+    def _dispatch_cows(self, cow_pairs) -> None:
+        """Copy a prefill group's boundary pages in place, padded to a pow2
+        bucket (pad pairs copy sink -> sink). The page axis is 2 for every
+        pool leaf, scale pages included."""
+        if not cow_pairs:
+            return
+        n = _next_pow2(len(cow_pairs))
+        src = np.zeros(n, np.int64)
+        dst = np.zeros(n, np.int64)
+        for i, (s_, d_) in enumerate(cow_pairs):
+            src[i], dst[i] = s_, d_
+        src_t, dst_t = self._dev(src), self._dev(dst)
+        for leaf in self.pool.values():
+            leaf[:, :, dst_t] = leaf[:, :, src_t]
+        for s_, _ in cow_pairs:
+            self.alloc.release(s_)              # pin no longer needed
+
+    def _load_histories(self, wave: list[_Admit]) -> None:
+        """Seed the drafting history and write limit of new slots."""
+        rows = np.zeros((len(wave), self.hist_len), np.int32)
+        slots = np.zeros(len(wave), np.int64)
+        for i, a in enumerate(wave):
+            rows[i, :len(a.req.prompt)] = a.req.prompt
+            slots[i] = a.slot
+            self._limit[a.slot] = len(a.req.prompt) + a.req.max_new
+            # Speculation starts wide open; the per-chunk EMA update shrinks
+            # the window if this request's drafts keep getting rejected.
+            self._kslot[a.slot] = self.spec_tokens
+            self._ema[a.slot] = 0.0
+        self._hist[self._dev(slots), :self.hist_len] = self._dev(rows)
+
+    def _prefill_paged_wave(self, wave: list[_Admit]) -> None:
+        """Prefill every wave member's suffix in fixed-width chunk steps.
+
+        The batch is padded to a power-of-two bucket; pad rows carry
+        ``kv_len=0`` so all their KV writes land in the sink page.
+        """
+        c = self.prefill_chunk
+        gp = _next_pow2(len(wave))
+        page_tables = np.zeros((gp, self.pages_per_seq), np.int32)
+        for i, a in enumerate(wave):
+            page_tables[i] = self._page_table[a.slot]
+        pt_dev = self._dev(page_tables)
+        nsteps = max(math.ceil((len(a.req.prompt) - a.start) / c)
+                     for a in wave)
+
+        step_toks = []
+        for j in range(nsteps):
+            toks = np.zeros((gp, c), np.int32)
+            qs = np.zeros(gp, np.int32)
+            kl = np.zeros(gp, np.int32)
+            li = np.zeros(gp, np.int32)
+            for i, a in enumerate(wave):
+                plen = len(a.req.prompt)
+                s0 = a.start + j * c
+                qs[i] = s0
+                kl[i] = plen
+                li[i] = plen - 1 - s0                 # clamped in the step
+                seg = a.req.prompt[s0:s0 + c]
+                if seg:
+                    toks[i, :len(seg)] = seg
+            batch = {"tokens": self._dev(toks), "q_start": self._dev(qs),
+                     "kv_len": self._dev(kl), "page_table": pt_dev,
+                     "logit_idx": self._dev(li)}
+            nxt, _, self.pool = self._prefill_step(self.params, batch,
+                                                   self.pool)
+            step_toks.append(nxt)
+
+        # The first token of request i comes from the chunk holding position
+        # plen-1; sync each needed step once.
+        host: dict[int, np.ndarray] = {}
+        for i, a in enumerate(wave):
+            j = (len(a.req.prompt) - 1 - a.start) // c
+            if j not in host:
+                host[j] = step_toks[j].cpu().numpy()
+            self._cur[a.slot] = host[j][i]
+            self._pos[a.slot] = len(a.req.prompt)
+
+    def _retire(self, slot: int) -> _Live:
+        live = self._live.pop(slot)
+        for p in live.pages:
+            self.alloc.release(p)       # refcount--: aliased pages survive
+        self._active[slot] = False
+        self._page_table[slot] = 0          # all-zero row -> sink page 0
+        self._pos[slot] = 0
+        self._cur[slot] = 0
+        self._limit[slot] = 0               # spec writes masked until re-seeded
+        if self.spec_decode:
+            self.stats["accept_ema_sum"] += float(self._ema[slot])
+            self.stats["accept_ema_n"] += 1
+            self._kslot[slot] = 0
+            self._ema[slot] = 0.0
+        return live
+
+    def _debug_check_refcounts(self) -> None:
+        """Every physical page's refcount == page-table rows referencing it."""
+        counts = np.zeros(self.num_pages, np.int64)
+        for live in self._live.values():
+            for p in live.pages:
+                counts[p] += 1
+        if not np.array_equal(counts[1:], self.alloc.refs[1:]):
+            bad = np.nonzero(counts[1:] != self.alloc.refs[1:])[0] + 1
+            raise AssertionError(
+                f"refcount drift on pages {bad.tolist()}: "
+                f"rows={counts[bad].tolist()} refs={self.alloc.refs[bad].tolist()}")
+
+    # -- stepped serving API -------------------------------------------------
+    def _validate_request(self, req: EngineRequest) -> None:
+        """Reject requests that can never run, before reserving anything."""
+        p = req.prompt
+        max_len = self.pages_per_seq * self.page_size
+        pool_cap = self.num_pages - 1
+        if not p:
+            raise ValueError(f"request {req.rid}: empty prompt (nothing to "
+                             "prefill)")
+        if len(p) + req.max_new > max_len:
+            raise ValueError(f"request {req.rid}: {len(p)}+{req.max_new} "
+                             f"tokens exceed max_len {max_len}")
+        need = math.ceil((len(p) + req.max_new) / self.page_size)
+        if need > pool_cap:
+            raise ValueError(
+                f"request {req.rid}: needs {need} pages for "
+                f"{len(p)}+{req.max_new} tokens but the pool only holds "
+                f"{pool_cap}; raise num_pages or shorten the request")
+
+    def enqueue(self, req: EngineRequest) -> None:
+        """Append a validated request to the admission queue."""
+        self._validate_request(req)
+        self._queue.append(req)
+
+    def admit(self) -> int:
+        """Run one admission wave off the queue; returns requests admitted."""
+        return self._admit_wave()
+
+    @property
+    def queued(self) -> int:
+        return len(self._queue)
+
+    @property
+    def live(self) -> int:
+        return len(self._live)
+
+    @property
+    def free_slots(self) -> int:
+        return int(self.max_slots - np.count_nonzero(self._active))
+
+    @property
+    def has_work(self) -> bool:
+        return bool(self._queue or self._live)
+
+    @property
+    def open_slots(self) -> int:
+        """Slots not yet claimed by a live or queued request."""
+        return self.max_slots - len(self._live) - len(self._queue)
+
+    def remaining_tokens(self) -> list[int]:
+        """Per live slot, tokens still to emit."""
+        return [l.req.max_new - l.emitted for l in self._live.values()]
+
+    def drop_queued(self) -> list[EngineRequest]:
+        """Hand back queued-but-unadmitted requests; live ones stay."""
+        dropped = list(self._queue)
+        self._queue.clear()
+        return dropped
+
+    def abort(self) -> list[EngineRequest]:
+        """Drop all live and queued requests and return them for re-enqueue.
+        Pages are released through the refcount path, so cached prefixes
+        survive until reallocated."""
+        dropped = [self._live[s].req for s in sorted(self._live)]
+        for slot in list(self._live):
+            self._retire(slot)
+        dropped.extend(self._queue)
+        self._queue.clear()
+        return dropped
+
+    # -- decode chunks ---------------------------------------------------------
+    def _decode_chunk(self, cur, pos, page_table, active, budget):
+        """``decode_chunk`` plain decode steps on the device, no host sync.
+
+        A slot whose budget is spent mid-chunk must stop writing KV: its
+        page-table row is masked to the all-zero sink row, so overshoot
+        steps cannot clobber its last real page (which the prefix cache may
+        share).
+        """
+        out = torch.zeros((self.max_slots, self.decode_chunk),
+                          dtype=torch.int32, device=self.device)
+        for i in range(self.decode_chunk):
+            out[:, i] = cur
+            live = active & (budget > i)
+            pt = torch.where(live[:, None], page_table, 0)
+            batch = {"tokens": cur[:, None], "pos": pos, "page_table": pt}
+            nxt, _, self.pool = self._step(self.params, batch, self.pool)
+            cur = torch.where(live, nxt, cur)
+            pos = torch.where(live, pos + 1, pos)
+        return cur, pos, out
+
+    def _spec_chunk(self, kb, cur, pos, page_table, active, budget, limit,
+                    kslot):
+        """``decode_chunk`` fused draft+verify steps at window bucket ``kb``.
+
+        Each step writes ``cur`` into the history, drafts ``kb`` tokens,
+        verifies the window ``[cur | drafts]`` in one pass, accepts the
+        longest draft prefix the model agrees with (capped at the slot's own
+        window ``kslot``) and emits it plus the correction.
+        """
+        fstep = self._spec_steps.get(kb)
+        if fstep is None:
+            fstep = self._spec_steps[kb] = build_fused_spec_step(
+                self.cfg, build_ngram_draft(self.hist_len, kb,
+                                            self.spec_ngram))
+        s, dev = self.max_slots, self.device
+        t_spec = kb + 1
+        width = self.decode_chunk * t_spec
+        # t_spec extra columns take the writes of slots that are not live
+        # (the reference's scatter drops them).
+        out = torch.zeros((s, width + t_spec), dtype=torch.int32, device=dev)
+        n_out = torch.zeros(s, dtype=torch.int32, device=dev)
+        n_it = torch.zeros(s, dtype=torch.int32, device=dev)
+        bidx = torch.arange(s, device=dev)
+        ar_k = torch.arange(kb, device=dev)
+        ar_t = torch.arange(t_spec, device=dev)
+        hist = self._hist
+        for _ in range(self.decode_chunk):
+            live = active & (n_out < budget)
+            # hist[:pos+1] becomes the exact verified stream the draft reads.
+            hist[bidx, pos.long()] = cur
+            batch = {"cur": cur, "pos": pos, "hist": hist[:, :self.hist_len],
+                     "page_table": torch.where(live[:, None], page_table, 0),
+                     "write_limit": torch.where(live, limit, 0)}
+            window, drafts, nxt, self.pool = fstep(self.params, batch,
+                                                   self.pool)
+            # Drafts become history; the tail past the next pos is rewritten
+            # before it is read.
+            hist[bidx[:, None], pos.long()[:, None] + 1 + ar_k[None]] = drafts
+            match = (drafts == nxt[:, :kb]) & (ar_k[None] < kslot[:, None])
+            a = torch.cumprod(match.to(torch.int32), dim=1).sum(dim=1)
+            base = torch.where(live, n_out, width)
+            out[bidx[:, None], base.long()[:, None] + ar_t[None]] = window
+            n_out = n_out + torch.where(live, 1 + a, 0).to(torch.int32)
+            n_it = n_it + live.to(torch.int32)
+            cur = torch.where(live, nxt[bidx, a], cur)
+            pos = torch.where(live, pos + 1 + a, pos).to(torch.int32)
+        return cur, pos, n_out, n_it, out[:, :width]
+
+    def decode_step(self, on_chunk=None) -> list[tuple[EngineRequest,
+                                                       list[int]]]:
+        """Run ONE decode chunk on the device; returns finished requests.
+
+        ``on_chunk(steps, seconds)`` (optional) observes the chunk; ``steps``
+        is the chunk's device trip count, always ``decode_chunk``.
+        """
+        if self.role == "prefill":
+            raise RuntimeError("decode_step on a prefill-role engine")
+        if not self._live:
+            return []
+        budget = np.zeros(self.max_slots, np.int32)
+        for slot, live in self._live.items():
+            budget[slot] = live.req.max_new - live.emitted
+        t0 = time.perf_counter()
+        cur, pos = self._dev(self._cur), self._dev(self._pos)
+        page_table, active = self._dev(self._page_table), self._dev(self._active)
+        if self.spec_decode:
+            kslot = np.maximum(np.where(self._active, self._kslot, 1), 1)
+            kmax = int(kslot[self._active].max())
+            kb = min(b for b in self._spec_buckets if b >= kmax)
+            cur, pos, n_out, n_it, out = self._spec_chunk(
+                kb, cur, pos, page_table, active, self._dev(budget),
+                self._dev(self._limit), self._dev(kslot.astype(np.int32)))
+            n_out_host = n_out.cpu().numpy()
+            n_it_host = n_it.cpu().numpy()
+            self.stats["spec_steps"] += int(n_it_host.sum())
+            # Per-slot accept-rate EMA (alpha 0.5) and adaptive window:
+            # x2 above 0.8 (capped at K), /2 below 0.3 (floor 1).
+            for slot in self._live:
+                it = int(n_it_host[slot])
+                if not it:
+                    continue
+                rate = (int(n_out_host[slot]) - it) / (it * int(kslot[slot]))
+                self._ema[slot] = 0.5 * self._ema[slot] + 0.5 * rate
+                if self.spec_adaptive_k:
+                    if self._ema[slot] > 0.8:
+                        self._kslot[slot] = min(2 * int(self._kslot[slot]),
+                                                self.spec_tokens)
+                    elif self._ema[slot] < 0.3:
+                        self._kslot[slot] = max(int(self._kslot[slot]) // 2,
+                                                1)
+        else:
+            cur, pos, out = self._decode_chunk(cur, pos, page_table, active,
+                                               self._dev(budget))
+            n_out_host = None              # every live slot emits the chunk
+        out_host = out.cpu().numpy()                    # one sync per chunk
+        if on_chunk is not None:
+            on_chunk(self.decode_chunk, time.perf_counter() - t0)
+        self._cur = cur.cpu().numpy().copy()
+        self._pos = pos.cpu().numpy().copy()
+        finished: list[tuple[EngineRequest, list[int]]] = []
+        for slot in list(self._live):
+            live = self._live[slot]
+            ntok = self.decode_chunk if n_out_host is None \
+                else int(n_out_host[slot])
+            if n_out_host is not None:
+                # Count only delivered tokens: the last verify step can
+                # overshoot the budget.
+                self.stats["spec_emitted"] += min(
+                    ntok, live.req.max_new - live.emitted)
+            live.tokens.extend(out_host[slot, :ntok].tolist())
+            live.emitted += ntok
+            if live.emitted >= live.req.max_new:
+                finished.append((live.req, live.tokens[:live.req.max_new]))
+                self._retire(slot)
+        return finished
+
+    # -- the serving loop ----------------------------------------------------
+    def generate(self, prompts: list[list[int]], max_new: int = 16,
+                 on_chunk=None) -> ServeResult:
+        """Greedy-decode ``max_new`` tokens for every prompt, FCFS admission,
+        as a loop over the stepped API."""
+        if not prompts:
+            return ServeResult(np.zeros((0, max_new), np.int32), [])
+        if self.has_work:
+            raise RuntimeError("generate() on a busy engine: drain or abort "
+                               "the stepped API first")
+        reqs = [EngineRequest(rid, list(p), max_new)
+                for rid, p in enumerate(prompts)]
+        for r in reqs:                        # validate before reserving
+            self._validate_request(r)
+        self._reset_stats()
+        self._queue.extend(reqs)
+        done: dict[object, list[int]] = {}
+        self._admit_wave()
+        if self._queue and not self._live:
+            raise RuntimeError("admission stalled: request needs more pages "
+                               "than the pool holds free")
+        while self._live:
+            for req, toks in self.decode_step(on_chunk=on_chunk):
+                done[req.rid] = toks
+            self._admit_wave()
+            if self._queue and not self._live:
+                raise RuntimeError("admission stalled: request needs more "
+                                   "pages than the pool holds free")
+        tokens = np.stack([np.asarray(done[i], np.int32)
+                           for i in range(len(prompts))])
+        return ServeResult(tokens, [len(p) for p in prompts])

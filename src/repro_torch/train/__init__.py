@@ -1,0 +1,5 @@
+from .train_step import (build_fused_spec_step, build_paged_decode_step,
+                         build_paged_prefill_step, build_paged_verify_step)
+
+__all__ = ["build_paged_decode_step", "build_paged_prefill_step",
+           "build_paged_verify_step", "build_fused_spec_step"]

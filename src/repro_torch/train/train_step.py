@@ -1,0 +1,77 @@
+"""Serving step construction over the shared paged KV pool.
+
+Each builder returns a plain function ``step(params, batch, pool)`` that
+runs one model pass and takes the greedy argmax over the compute-dtype
+logits (ties resolve to the first index, as in the reference). The pool is
+updated in place and returned.
+"""
+from __future__ import annotations
+
+from typing import Callable
+
+import torch
+
+from ..models import get_family
+
+
+def _argmax(logits):
+    return torch.argmax(logits, dim=-1).to(torch.int32)
+
+
+def build_paged_decode_step(cfg) -> Callable:
+    """Decode step: batch tokens (B,1), pos (B,), page_table (B,npages) ->
+    (next_token (B,), logits (B,V), pool)."""
+    family = get_family(cfg)
+
+    def paged_decode_step(params, batch, pool):
+        logits, pool = family.decode_paged(cfg, params, batch, pool)
+        return _argmax(logits), logits, pool
+
+    return paged_decode_step
+
+
+def build_paged_prefill_step(cfg) -> Callable:
+    """Chunked-prefill step: C prompt tokens per request scattered straight
+    into pool pages -> (next_token (B,), logits (B,V), pool)."""
+    family = get_family(cfg)
+
+    def paged_prefill_step(params, batch, pool):
+        logits, pool = family.prefill_paged(cfg, params, batch, pool)
+        return _argmax(logits), logits, pool
+
+    return paged_prefill_step
+
+
+def build_paged_verify_step(cfg) -> Callable:
+    """Speculative-verify step: the greedy next token at EVERY window
+    position -> (next_tokens (B,T), logits (B,T,V), pool)."""
+    family = get_family(cfg)
+
+    def paged_verify_step(params, batch, pool):
+        logits, pool = family.decode_verify(cfg, params, batch, pool)
+        return _argmax(logits), logits, pool
+
+    return paged_verify_step
+
+
+def build_fused_spec_step(cfg, draft_fn) -> Callable:
+    """Draft + multi-query verify in one step (speculative decode).
+
+    ``draft_fn(hist, cur, pos) -> (S, K)`` proposes drafts (e.g.
+    :func:`repro_torch.serve.drafting.build_ngram_draft`). batch: cur (S,),
+    pos (S,), hist (S, hlen), page_table (S, npages), write_limit (S,).
+    Returns ``(window, drafts, next_tokens, pool)`` with window = [cur |
+    drafts] and next_tokens[:, i] the greedy token after window[:, :i+1].
+    """
+    family = get_family(cfg)
+
+    def fused_spec_step(params, batch, pool):
+        drafts = draft_fn(batch["hist"], batch["cur"], batch["pos"])
+        window = torch.cat([batch["cur"][:, None], drafts], dim=1)
+        vbatch = {"tokens": window, "pos": batch["pos"],
+                  "page_table": batch["page_table"],
+                  "write_limit": batch["write_limit"]}
+        logits, pool = family.decode_verify(cfg, params, vbatch, pool)
+        return window, drafts, _argmax(logits), pool
+
+    return fused_spec_step
