@@ -6,17 +6,24 @@
 Phases, each of which must pass (a failure exits nonzero):
 
 1. device: the card's name and power limit (``nvidia-smi``);
-2. build: compile the CUDA kernels from ``src/repro_torch/csrc`` with nvcc;
-3. kernels: each paged attention kernel on bf16 and int8 pools at the serve
-   path's yi-6b shapes, held against its plain PyTorch version on the same
-   inputs, and timed beside the plain version and one library call;
+2. build: compile the CUDA kernels from ``src/repro_torch/csrc`` with nvcc,
+   one process a source, all started together;
+3. kernels: each paged attention kernel on bf16 and int8 pools at the yi-6b
+   serve path's shapes, and RMSNorm, dense flash attention and the Mamba2
+   SSD scan at the Zamba2 serve path's shapes (B 8, S 256) in bf16 and f32
+   (plus a ragged, GQA, multi-chunk case each), each held against its plain
+   PyTorch version on the same inputs and timed beside the plain version
+   and one library call where there is one;
 4. parity: yi-6b widths at depth 2 in float32 -- prefill, decode and verify
    steps on the card (kernels) against the same weights on the CPU (plain
-   versions);
+   versions); then Zamba2 widths at depth 6 (one Mamba group and one shared
+   attention application), float32, batch 2, prompt 256, prefill and four
+   decode steps, card against CPU;
 5. serve: full-width yi-6b (32 layers, bf16, random weights from a seed)
    through ``ContinuousBatchingEngine.generate``: plain decode, speculative
-   decode (K=4) and an int8 pool, with each kernel's launch count read
-   around the runs.
+   decode (K=4) and an int8 pool; then full-width Zamba2-1.2B (38 layers,
+   bf16) through the static ``ServeEngine.generate``, 8 prompts of 160-256
+   tokens, 32 new each; each kernel's launch count read around each run.
 
 The second-to-last line of output is a JSON ``kernels`` record; the last
 is ``{"ok": true, "device": {...}}``. Without CUDA, or without the port
@@ -52,11 +59,34 @@ TOL_BF16 = 2e-2
 # Depth-2 float32 model: logits of kernels vs CPU plain versions.
 TOL_PARITY = 1e-3
 
+# Zamba2-1.2B serving shapes (configs/zamba2_1_2b.py): the static engine
+# pads 8 prompts to 256 tokens; 32 heads of 64 (G = 1) in the shared
+# attention block, 64 SSM heads of 64 with state 64, d_model 2048, d_inner
+# 4096, SSD chunk 128.
+ZB, ZS, ZH, ZHD = 8, 256, 32, 64
+Z_SSM_H, Z_P, Z_N, Z_CHUNK, Z_D, Z_DIN = 64, 64, 64, 128, 2048, 4096
+# Dense kernels against their plain versions, compared in f32 on outputs of
+# order 1 (the inputs are scaled for it): bf16 within TOL_BF16 as above,
+# f32 within TOL_F32 (the same f32 arithmetic, summed in another order).
+TOL_F32 = 1e-4
+
 REPLACES = {
     "flash_decode_fwd": "src/repro/kernels/decode_attention/kernel.py:96",
     "flash_prefill_fwd": "src/repro/kernels/prefill_attention/kernel.py:95",
     "flash_verify_fwd": "src/repro/kernels/verify_attention/kernel.py:102",
+    "rmsnorm_fused": "src/repro/kernels/rmsnorm/kernel.py:27",
+    "flash_attention_fwd": "src/repro/kernels/flash_attention/kernel.py:86",
+    "ssd_scan": "src/repro/kernels/mamba_scan/kernel.py:70",
 }
+SOURCES = {
+    "flash_decode_fwd": "src/repro_torch/csrc/paged_attention.cu",
+    "flash_prefill_fwd": "src/repro_torch/csrc/paged_attention.cu",
+    "flash_verify_fwd": "src/repro_torch/csrc/paged_attention.cu",
+    "rmsnorm_fused": "src/repro_torch/csrc/rmsnorm.cu",
+    "flash_attention_fwd": "src/repro_torch/csrc/flash_attention.cu",
+    "ssd_scan": "src/repro_torch/csrc/ssd_scan.cu",
+}
+PAGED = ("flash_decode_fwd", "flash_prefill_fwd", "flash_verify_fwd")
 
 
 def log(*a):
@@ -268,6 +298,159 @@ def phase_kernels():
     return results
 
 
+def _dense_inputs(gen, dtype, dev):
+    """Zamba2 serve-shape inputs, scaled so outputs are of order 1: the
+    RMSNorm rows and weights, the shared block's q/k/v, and the SSD scan's
+    x, dt (softplus of a normal, as the model makes it), a_log and B/C."""
+    import torch
+    import torch.nn.functional as F
+
+    def rn(*shape):
+        return torch.randn(*shape, generator=gen, device=dev)
+
+    ssd = (rn(ZB, ZS, Z_SSM_H, Z_P).to(dtype),
+           F.softplus(rn(ZB, ZS, Z_SSM_H)),
+           0.5 * rn(Z_SSM_H),
+           (rn(ZB, ZS, Z_N) * Z_N ** -0.5).to(dtype),
+           (rn(ZB, ZS, Z_N) * Z_N ** -0.5).to(dtype))
+    return {
+        "rmsnorm": (rn(ZB * ZS, Z_D).to(dtype), 0.25 + 0.05 * rn(Z_D)),
+        "rmsnorm_gate": (rn(ZB * ZS, Z_DIN).to(dtype),
+                         0.25 + 0.05 * rn(Z_DIN)),
+        "flash": tuple(rn(ZB, ZS, ZH, ZHD).to(dtype) for _ in range(3)),
+        "ssd": ssd,
+    }
+
+
+def _dense_edge_cases(gen, dev):
+    """Shapes off the serve path, f32: a ragged row width, a ragged causal
+    and non-causal GQA attention (G = 4, hd 128), and a three-chunk SSD scan
+    with a chunk, N and P that are not the serve path's."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch import kernels as K
+
+    def rn(*shape):
+        return torch.randn(*shape, generator=gen, device=dev)
+
+    x, w = rn(3, 1000), rn(1000)
+    q, k, v = rn(2, 77, 8, 128), rn(2, 77, 2, 128), rn(2, 77, 2, 128)
+    sx, sdt, sa = rn(2, 96, 4, 32), F.softplus(rn(2, 96, 4)), 0.5 * rn(4)
+    sb, sc = rn(2, 96, 16) * 0.25, rn(2, 96, 16) * 0.25
+    return {
+        "rmsnorm_fused": [(lambda: K.rmsnorm_fused(x, w),
+                           lambda: K.rmsnorm_reference(x, w))],
+        "flash_attention_fwd": [
+            (lambda c=c: K.flash_attention_fwd(q, k, v, causal=c),
+             lambda c=c: K.attention_reference(q, k, v, causal=c))
+            for c in (True, False)],
+        "ssd_scan": [(lambda: K.ssd_scan(sx, sdt, sa, sb, sc, chunk=32),
+                      lambda: K.ssd_chunked_reference(sx, sdt, sa, sb, sc,
+                                                      chunk=32))],
+    }
+
+
+def _max_err(got, want) -> float:
+    if isinstance(got, tuple):                    # SSD: y and the final state
+        return max(_max_err(g, w) for g, w in zip(got, want))
+    return (got.float() - want.float()).abs().max().item()
+
+
+def _dense_bounds(inp, dtype_bytes: int):
+    """(bytes, flops) each kernel must move and do at the serve shapes:
+    every input read once, every output written once; flops the visible
+    work (causal pairs, the SSD's lower-triangular terms)."""
+    rows, d = inp["rmsnorm"][0].shape
+    rms = (2 * rows * d * dtype_bytes + 4 * d, 4.0 * rows * d)
+    pairs = ZB * ZH * ZS * (ZS + 1) // 2
+    flash = (4 * ZB * ZS * ZH * ZHD * dtype_bytes, 4.0 * ZHD * pairs)
+    tri, nc = Z_CHUNK * (Z_CHUNK + 1) // 2, ZS // Z_CHUNK
+    per_chunk = 2.0 * (tri * Z_N + tri * Z_P + 2 * Z_CHUNK * Z_N * Z_P)
+    ssd_bytes = (2 * ZB * ZS * Z_SSM_H * Z_P * dtype_bytes
+                 + 4 * ZB * ZS * Z_SSM_H + 4 * Z_SSM_H
+                 + 2 * ZB * ZS * Z_N * dtype_bytes
+                 + 4 * ZB * Z_SSM_H * Z_N * Z_P)
+    ssd = (ssd_bytes, per_chunk * nc * ZB * Z_SSM_H)
+    return {"rmsnorm_fused": rms, "flash_attention_fwd": flash,
+            "ssd_scan": ssd}
+
+
+def phase_dense_kernels():
+    """RMSNorm, flash attention and the SSD scan against their plain
+    versions at the Zamba2 serve shapes, bf16 (timed) then f32."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch import kernels as K
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(1)
+    results = {}
+    for dtype, tol in ((torch.bfloat16, TOL_BF16), (torch.float32, TOL_F32)):
+        inp = _dense_inputs(gen, dtype, dev)
+        x, w = inp["rmsnorm"]
+        xg, wg = inp["rmsnorm_gate"]
+        q, k, v = inp["flash"]
+        cases = {
+            "rmsnorm_fused": [(lambda: K.rmsnorm_fused(x, w),
+                               lambda: K.rmsnorm_reference(x, w)),
+                              (lambda: K.rmsnorm_fused(xg, wg),
+                               lambda: K.rmsnorm_reference(xg, wg))],
+            "flash_attention_fwd": [(lambda: K.flash_attention_fwd(q, k, v),
+                                     lambda: K.attention_reference(q, k, v))],
+            "ssd_scan": [(lambda: K.ssd_scan(*inp["ssd"], chunk=Z_CHUNK),
+                          lambda: K.ssd_chunked_reference(*inp["ssd"],
+                                                          chunk=Z_CHUNK))],
+        }
+        kind = "bf16" if dtype == torch.bfloat16 else "f32"
+        if kind == "f32":
+            for name, extra in _dense_edge_cases(gen, dev).items():
+                cases[name] += extra
+        for name, variants in cases.items():
+            rec = results.setdefault(name, {}).setdefault(kind, {})
+            for vi, (kern, plain) in enumerate(variants):
+                got = kern()
+                torch.cuda.synchronize()
+                err = _max_err(got, plain())
+                ok = math.isfinite(err) and err <= tol
+                log(f"[kernels] {name} {kind} case{vi}: max|kernel-plain| "
+                    f"{err:.3e} (tol {tol}) {'ok' if ok else 'FAIL'}")
+                if not ok:
+                    raise AssertionError(f"{name} {kind} disagrees: {err}")
+                rec["max_abs_err"] = max(err, rec.get("max_abs_err", 0.0))
+        if kind != "bf16":
+            continue
+        lib = {
+            "rmsnorm_fused": lambda: F.rms_norm(x, (Z_D,), w.to(x.dtype),
+                                                1e-6),
+            "flash_attention_fwd": _sdpa_dense(q, k, v),
+            "ssd_scan": None,          # no single PyTorch call computes it
+        }
+        for name, (nbytes, flops) in _dense_bounds(inp, 2).items():
+            rec = results[name][kind]
+            kern, plain = cases[name][0]
+            bytes_s, ops_s = nbytes / HBM_BYTES_PER_S, flops / BF16_FLOPS_PER_S
+            rec["bound_ms"] = max(bytes_s, ops_s) * 1e3
+            rec["bound_by"] = "bytes" if bytes_s >= ops_s else "operations"
+            rec["ms"] = time_ms(kern)
+            rec["plain_ms"] = time_ms(plain, iters=5)
+            rec["library_ms"] = (time_ms(lib[name]) if lib[name] is not None
+                                 else None)
+            libtxt = (f"{rec['library_ms']:.4f} ms" if lib[name] is not None
+                      else "none")
+            log(f"[kernels] {name} bf16: kernel {rec['ms']:.4f} ms, plain "
+                f"{rec['plain_ms']:.4f} ms, library {libtxt}, bound "
+                f"{rec['bound_ms']:.4f} ms ({rec['bound_by']})")
+    return results
+
+
+def _sdpa_dense(q, k, v):
+    """Library yardstick: causal SDPA on (B,H,S,hd) copies made outside the
+    timed call."""
+    import torch.nn.functional as F
+    qq, kk, vv = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+    return lambda: F.scaled_dot_product_attention(qq, kk, vv, is_causal=True)
+
+
 # ---------------------------------------------------------------------------
 # phase 4: depth-2 model parity, card (kernels) vs CPU (plain versions)
 # ---------------------------------------------------------------------------
@@ -334,12 +517,74 @@ def phase_parity():
                    "page_table": pt,
                    "write_limit": (pos + T_VERIFY).astype(np.int32)})
     counts = launch_counts()
-    if min(counts.values()) < cfg.num_layers:
+    if min(counts[k] for k in PAGED + ("rmsnorm_fused",)) < cfg.num_layers:
         raise AssertionError(f"parity phase missed a kernel: {counts}")
     for kind, err in worst.items():
         log(f"[parity] yi-6b widths, 2 layers, f32: {kind} max|logit "
             f"card-cpu| {err:.3e} (tol {TOL_PARITY})")
     del gpu, pools
+    torch.cuda.empty_cache()
+
+
+def phase_zamba_parity():
+    """Zamba2 widths at depth 6, f32, batch 2, prompt 256 (two SSD chunks):
+    prefill and four decode steps on the card against the CPU."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.models import get_family, init_params
+    from repro_torch.train import build_decode_step, build_prefill_step
+    cfg = get_config("zamba2-1.2b").replace(num_layers=6, dtype="float32")
+    fam = get_family(cfg)
+    gpu = init_params(cfg, fam.layout(cfg), seed=0, device="cuda")
+    cpu = _to(gpu, "cpu")
+    params = {"cuda": gpu, "cpu": cpu}
+    prefill, decode = build_prefill_step(cfg), build_decode_step(cfg)
+    rng = np.random.RandomState(0)
+    toks = rng.randint(0, cfg.vocab_size, size=(2, ZS)).astype(np.int64)
+    reset_launch_counts()
+    caches, worst = {}, {}
+
+    def check(kind, logits):
+        err = (logits["cuda"].float().cpu() - logits["cpu"].float()).abs() \
+            .max().item()
+        worst[kind] = max(err, worst.get(kind, 0.0))
+        if not math.isfinite(err) or err > TOL_PARITY:
+            raise AssertionError(f"zamba parity {kind}: max|logit diff| {err}")
+
+    logits = {}
+    for d in ("cuda", "cpu"):
+        logits[d], cache = prefill(params[d],
+                                   {"tokens": torch.from_numpy(toks).to(d)})
+        for name in ("attn_k", "attn_v"):          # room for the decodes
+            cache[name] = torch.nn.functional.pad(cache[name],
+                                                  (0, 0, 0, 0, 0, 8))
+        caches[d] = cache
+    check("prefill", logits)
+    cur = logits["cpu"].argmax(-1)
+    for step in range(4):
+        pos = torch.full((2,), ZS + step, dtype=torch.int32)
+        for d in ("cuda", "cpu"):
+            _, logits[d], caches[d] = decode(
+                params[d], {"tokens": cur[:, None].to(d), "pos": pos.to(d)},
+                caches[d])
+        check("decode", logits)
+        cur = logits["cpu"].argmax(-1)
+    for name in ("conv", "ssm"):
+        err = (caches["cuda"]["mamba"][name].float().cpu()
+               - caches["cpu"]["mamba"][name].float()).abs().max().item()
+        if not math.isfinite(err) or err > TOL_PARITY:
+            raise AssertionError(f"zamba parity {name} cache: {err}")
+    counts = launch_counts()
+    for name in ("rmsnorm_fused", "flash_attention_fwd", "ssd_scan"):
+        if counts[name] < 1:
+            raise AssertionError(f"zamba parity missed {name}: {counts}")
+    for kind, err in worst.items():
+        log(f"[parity] zamba2 widths, {cfg.num_layers} layers, f32, B 2, S "
+            f"{ZS}: {kind} "
+            f"max|logit card-cpu| {err:.3e} (tol {TOL_PARITY})")
+    del gpu, caches
     torch.cuda.empty_cache()
 
 
@@ -363,6 +608,7 @@ def phase_serve(smi: str):
                                           spec_tokens=4),
             "int8": dict(kv_cache_dtype="int8")}
     total = dict.fromkeys(REPLACES, 0)
+    used = PAGED + ("rmsnorm_fused",)        # the kernels of this path
     outs = {}
     for name, kw in runs.items():
         eng = ContinuousBatchingEngine(cfg, params, max_len=SERVE_MAX_LEN,
@@ -394,11 +640,66 @@ def phase_serve(smi: str):
     for name in ("spec", "int8"):
         agree = float((outs[name] == outs["plain"]).mean())
         log(f"[serve] tokens equal to plain decode: {name} {agree:.3f}")
-    if min(total.values()) <= 0:
+    if min(total[k] for k in used) <= 0:
         raise AssertionError(f"a kernel was not launched on the main path: "
                              f"{total}")
     log(f"[serve] launches on the main path: {total}")
     return total
+
+
+def phase_zamba_serve(smi: str):
+    """Full-width Zamba2-1.2B through the static ServeEngine: 8 prompts of
+    160-256 tokens padded to 256, 32 new tokens each, max_len 512. Per
+    generate the SSD kernel runs once a Mamba layer (38), flash attention
+    once a shared application (6), RMSNorm 89 times a pass over 33 passes."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.models import get_family, init_params
+    from repro_torch.serve import ServeEngine
+    from repro_torch.serve.prompts import static_batch_prompts
+    cfg = get_config("zamba2-1.2b")
+    fam = get_family(cfg)
+    params = init_params(cfg, fam.layout(cfg), seed=0, device="cuda")
+    n_params = sum(t.numel() for t in _leaves(params))
+    prompts = static_batch_prompts(cfg.vocab_size)
+    max_new = 32
+    eng = ServeEngine(cfg, params, max_len=SERVE_MAX_LEN, device="cuda")
+    eng.generate(prompts, max_new=2)                 # warm-up
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    out = eng.generate(prompts, max_new=max_new)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    counts = launch_counts()
+    toks = out.tokens
+    if toks.shape != (len(prompts), max_new) or toks.min() < 0 \
+            or toks.max() >= cfg.vocab_size:
+        raise AssertionError(f"zamba serve: bad tokens {toks.shape}")
+    passes = 1 + max_new
+    norms = 2 * cfg.num_layers + 2 * fam.n_shared_applications(cfg) + 1
+    want = {"ssd_scan": cfg.num_layers,
+            "flash_attention_fwd": fam.n_shared_applications(cfg),
+            "rmsnorm_fused": norms * passes}
+    got = {k: counts[k] for k in want}
+    if got != want or any(counts[k] for k in PAGED):
+        raise AssertionError(f"zamba serve launches {counts}, expected "
+                             f"{want} and no paged kernel")
+    log(f"[serve] zamba2-1.2b {cfg.num_layers} layers bf16 "
+        f"({n_params / 1e9:.3f} B "
+        f"params), static engine: {len(prompts)} prompts (padded to "
+        f"{max(len(p) for p in prompts)}) x {max_new} new in {dt:.3f} s = "
+        f"{toks.size / dt:.1f} tok/s (prefill+decode), launches {counts} "
+        f"on {smi}")
+    del eng, params
+    torch.cuda.empty_cache()
+    return counts
+
+
+def _leaves(tree):
+    for v in tree.values():
+        yield from (_leaves(v) if isinstance(v, dict) else (v,))
 
 
 # ---------------------------------------------------------------------------
@@ -423,23 +724,31 @@ def main() -> int:
     smi = phase_device()
     phase_build()
     kern = phase_kernels()
+    kern.update(phase_dense_kernels())
     phase_parity()
+    phase_zamba_parity()
     launches = phase_serve(smi)
+    zamba = phase_zamba_serve(smi)
     record = []
     for name, per_kind in kern.items():
-        bf = per_kind["bf16"]
-        record.append({
-            "name": name, "route": "cuda",
-            "source": "src/repro_torch/csrc/paged_attention.cu",
+        main_kind = "bf16"
+        other = "int8" if name in PAGED else "f32"
+        rec = per_kind[main_kind]
+        entry = {
+            "name": name, "route": "cuda", "source": SOURCES[name],
             "replaces": REPLACES[name],
-            "launches": launches[name],
+            "launches": launches[name] if name in PAGED else zamba[name],
             "max_abs_err": max(r["max_abs_err"] for r in per_kind.values()),
-            "ms": bf["ms"], "plain_ms": bf["plain_ms"],
-            "bound_ms": bf["bound_ms"], "bound_by": bf["bound_by"],
-            "library_ms": bf["library_ms"],
-            "int8": {k: per_kind["int8"][k] for k in
-                     ("ms", "plain_ms", "bound_ms", "library_ms")},
-        })
+            "ms": rec["ms"], "plain_ms": rec["plain_ms"],
+            "bound_ms": rec["bound_ms"], "bound_by": rec["bound_by"],
+            "library_ms": rec["library_ms"],
+        }
+        if name in PAGED:
+            entry["int8"] = {k: per_kind[other][k] for k in
+                             ("ms", "plain_ms", "bound_ms", "library_ms")}
+        if name == "rmsnorm_fused":
+            entry["launches_yi6b"] = launches[name]
+        record.append(entry)
     print(json.dumps({"kernels": record}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

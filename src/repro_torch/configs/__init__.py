@@ -1,7 +1,7 @@
-from . import yi_6b
+from . import yi_6b, zamba2_1_2b
 from .base import ModelConfig, torch_dtype
 
-_MODULES = {"yi-6b": yi_6b}
+_MODULES = {"yi-6b": yi_6b, "zamba2-1.2b": zamba2_1_2b}
 ARCH_NAMES = tuple(_MODULES)
 
 

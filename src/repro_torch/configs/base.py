@@ -1,9 +1,9 @@
 """Model configuration for the PyTorch port.
 
 The port keeps its own copy of the reference ``ModelConfig``: the fields the
-dense transformer's serving path reads, with the ``dtype`` strings mapped to
-torch dtypes. Families that the port does not run yet (MoE, SSM, audio, VLM)
-add their fields when they are ported.
+dense transformer's and the Zamba2 hybrid's serving paths read, with the
+``dtype`` strings mapped to torch dtypes. Families that the port does not
+run yet (MoE, xLSTM, audio, VLM) add their fields when they are ported.
 """
 from __future__ import annotations
 
@@ -26,7 +26,7 @@ def torch_dtype(name: str) -> torch.dtype:
 @dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str                      # only "dense" runs in the port so far
+    family: str                      # "dense" | "hybrid" run in the port
     num_layers: int
     d_model: int
     num_heads: int
@@ -35,11 +35,23 @@ class ModelConfig:
     vocab_size: int
     head_dim: int = 0                # 0 -> d_model // num_heads
 
+    # --- SSM (Mamba2) ----------------------------------------------------------
+    ssm_variant: str = ""            # "mamba2"
+    ssm_state: int = 0               # N (d_state)
+    ssm_expand: int = 2
+    ssm_headdim: int = 64
+    ssm_chunk: int = 128             # SSD chunk length
+    ssm_conv: int = 4                # short conv window
+
+    # --- hybrid (Zamba2) -----------------------------------------------------
+    shared_attn_every: int = 0       # apply the shared attention block every k layers
+
     # --- FFN ------------------------------------------------------------------
     mlp_gated: bool = True           # SwiGLU/GeGLU vs plain 2-matrix FFN
     mlp_act: str = "silu"            # "silu" | "gelu"
 
     # --- attention / positions -----------------------------------------------
+    causal: bool = True
     encoder_only: bool = False
     rope_theta: float = 10_000.0
 
@@ -85,3 +97,13 @@ class ModelConfig:
 
     def replace(self, **kw) -> "ModelConfig":
         return dataclasses.replace(self, **kw)
+
+    # -- derived sizes ----------------------------------------------------------
+    @property
+    def d_inner(self) -> int:
+        """SSM inner width."""
+        return self.ssm_expand * self.d_model
+
+    @property
+    def ssm_heads(self) -> int:
+        return self.d_inner // self.ssm_headdim

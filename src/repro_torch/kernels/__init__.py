@@ -1,19 +1,27 @@
-"""Paged attention kernels of the serving path, each a ``ref.py`` plain
-PyTorch version, a ``kernel.py`` wrapper of its CUDA kernel
-(``csrc/paged_attention.cu``) and an ``ops.py`` entry that dispatches by the
-tensor's device."""
+"""The port's kernels, each a ``ref.py`` plain PyTorch version, a
+``kernel.py`` wrapper of its hand-written CUDA kernel (``csrc/*.cu``) and an
+``ops.py`` entry that dispatches by the tensor's device: the three paged
+attention kernels of the continuous-batching path, and RMSNorm, dense flash
+attention and the Mamba2 SSD scan of the Zamba2 static path."""
 from .decode_attention import (default_num_splits, flash_decode_fwd,
                                paged_decode_attention, paged_decode_reference)
+from .flash_attention import (attention_reference, flash_attention,
+                              flash_attention_fwd)
 from .kv_quant import dequantize_rows, quantize_pool, quantize_rows
+from .mamba_scan import mamba_chunk_scan, ssd_chunked_reference, ssd_scan
 from .prefill_attention import (flash_prefill_fwd, paged_prefill_attention,
                                 paged_prefill_reference)
+from .rmsnorm import rmsnorm, rmsnorm_fused, rmsnorm_reference
 from .verify_attention import (flash_verify_fwd, paged_verify_attention,
                                paged_verify_reference)
 
 # The launch counters of every CUDA kernel wrapper, by kernel name.
 KERNEL_WRAPPERS = {"flash_decode_fwd": flash_decode_fwd,
                    "flash_prefill_fwd": flash_prefill_fwd,
-                   "flash_verify_fwd": flash_verify_fwd}
+                   "flash_verify_fwd": flash_verify_fwd,
+                   "rmsnorm_fused": rmsnorm_fused,
+                   "flash_attention_fwd": flash_attention_fwd,
+                   "ssd_scan": ssd_scan}
 
 
 def reset_launch_counts() -> None:
@@ -30,5 +38,8 @@ __all__ = ["default_num_splits", "flash_decode_fwd", "flash_prefill_fwd",
            "paged_prefill_attention", "paged_verify_attention",
            "paged_decode_reference", "paged_prefill_reference",
            "paged_verify_reference", "quantize_rows", "dequantize_rows",
-           "quantize_pool", "KERNEL_WRAPPERS", "reset_launch_counts",
+           "quantize_pool", "rmsnorm", "rmsnorm_fused", "rmsnorm_reference",
+           "flash_attention", "flash_attention_fwd", "attention_reference",
+           "mamba_chunk_scan", "ssd_scan", "ssd_chunked_reference",
+           "KERNEL_WRAPPERS", "reset_launch_counts",
            "launch_counts"]

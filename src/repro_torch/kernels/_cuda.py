@@ -21,22 +21,31 @@ import torch
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = CSRC / "build"
-SOURCES = ("paged_attention.cu",)
+SOURCES = ("paged_attention.cu", "rmsnorm.cu", "flash_attention.cu",
+           "ssd_scan.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-# dtype codes of the C interface (csrc/paged_attention.cu: enum DType)
+# dtype codes of the C interface (enum DType in every csrc/*.cu)
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 
-_P, _I = ctypes.c_void_p, ctypes.c_int
-# C signatures of csrc/paged_attention.cu's extern "C" entry points.
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+# C signatures of each source's extern "C" entry points.
 SIGNATURES = {
-    "paged_decode_fwd": [_P, _I, _P, _P, _I, _P, _P, _P, _P] + [_I] * 8
-                        + [_P, _P, _P, _P, _P],
-    "paged_prefill_fwd": [_P, _I, _P, _P, _I, _P, _P, _P, _P] + [_I] * 8
-                         + [_P, _P],
-    "paged_verify_fwd": [_P, _I, _P, _P, _I, _P, _P, _P, _P] + [_I] * 9
-                        + [_P, _P, _P, _P, _P],
+    "paged_attention.cu": {
+        "paged_decode_fwd": [_P, _I, _P, _P, _I, _P, _P, _P, _P] + [_I] * 8
+                            + [_P, _P, _P, _P, _P],
+        "paged_prefill_fwd": [_P, _I, _P, _P, _I, _P, _P, _P, _P] + [_I] * 8
+                             + [_P, _P],
+        "paged_verify_fwd": [_P, _I, _P, _P, _I, _P, _P, _P, _P] + [_I] * 9
+                            + [_P, _P, _P, _P, _P],
+    },
+    "rmsnorm.cu": {"rmsnorm_fwd": [_P, _I, _P, _P, _I, _I, _F, _P]},
+    "flash_attention.cu": {
+        "flash_attention_fwd": [_P, _P, _P, _I, _P] + [_I] * 7 + [_P]},
+    "ssd_scan.cu": {
+        "ssd_scan_fwd": [_P, _P, _P, _I, _P, _P, _P, _P] + [_I] * 6
+                        + [_P]},
 }
 
 _LIBS: dict[str, ctypes.CDLL] = {}
@@ -97,7 +106,7 @@ def library(source: str = "paged_attention.cu") -> ctypes.CDLL:
     if lib is None:
         build((source,))
         lib = ctypes.CDLL(str(_target(source)))
-        for name, argtypes in SIGNATURES.items():
+        for name, argtypes in SIGNATURES[source].items():
             fn = getattr(lib, name)
             fn.argtypes = argtypes
             fn.restype = ctypes.c_int
@@ -113,12 +122,23 @@ def stream_of(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
+def check_cuda(name: str, *tensors) -> None:
+    """Every tensor on one CUDA device and contiguous; raise otherwise."""
+    dev = tensors[0].device
+    if not tensors[0].is_cuda:
+        raise ValueError(f"{name}: the CUDA kernel takes CUDA tensors, got "
+                         f"{dev}")
+    for t in tensors:
+        if t.device != dev:
+            raise ValueError(f"{name}: tensors on {t.device} and {dev}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: inputs must be contiguous")
+
+
 def check_paged(name: str, q, k_pages, v_pages, page_table, base,
                 k_scale, v_scale, q_ndim: int) -> None:
     """Validate what the paged attention kernels take; raise otherwise."""
-    if not q.is_cuda:
-        raise ValueError(f"{name}: the CUDA kernel takes CUDA tensors, got "
-                         f"q on {q.device}")
+    check_cuda(name, q)
     if q.dim() != q_ndim or k_pages.dim() != 4 or page_table.dim() != 2:
         raise ValueError(f"{name}: bad ranks q{tuple(q.shape)} "
                          f"k{tuple(k_pages.shape)} pt{tuple(page_table.shape)}")
@@ -135,11 +155,7 @@ def check_paged(name: str, q, k_pages, v_pages, page_table, base,
             raise ValueError(f"{name}: scales must be f32 {k_pages.shape[:3]}")
     elif k_pages.dtype == torch.int8:
         raise ValueError(f"{name}: an int8 pool needs k_scale/v_scale")
-    for t in tensors:
-        if t.device != q.device:
-            raise ValueError(f"{name}: tensors on {t.device} and {q.device}")
-        if not t.is_contiguous():
-            raise ValueError(f"{name}: inputs must be contiguous")
+    check_cuda(name, *tensors)
     if q.dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"{name}: q dtype {q.dtype} not f32/bf16")
     if k_pages.dtype not in DTYPE_CODES or v_pages.dtype != k_pages.dtype \

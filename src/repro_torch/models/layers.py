@@ -1,22 +1,29 @@
 """The serving subset of the reference's layers: RMSNorm, RoPE, the q/k/v
-projections, the three paged attention blocks, the gated FFN, embedding and
-logits.
+projections, the dense attention block (prefill and decode over a dense
+per-request cache), the three paged attention blocks, the gated FFN,
+embedding and logits.
 
 Matrix products stay ``torch.matmul`` (the reference leaves them to XLA);
-attention goes through the paged kernels' ``ops`` entries, which launch the
-CUDA kernels for CUDA tensors and run the plain versions for CPU tensors.
-The pool is updated IN PLACE: where the reference returns a new pool (and
-the engine donates the old one), the port writes new KV rows into the
-pool's tensors with indexed assignment and returns the same dict.
+RMSNorm, prefill attention and the paged attention go through the kernels'
+``ops`` entries, which launch the CUDA kernels for CUDA tensors and run the
+plain versions for CPU tensors. Caches are updated IN PLACE: where the
+reference returns a new pool or cache (and the engine donates the old one),
+the port writes new KV rows into the tensors with indexed assignment and
+returns the same objects.
 """
 from __future__ import annotations
+
+import math
 
 import torch
 import torch.nn.functional as F
 
 from ..kernels.decode_attention import paged_decode_attention
+from ..kernels.flash_attention import flash_attention
+from ..kernels.flash_attention.ref import MASK_VALUE
 from ..kernels.kv_quant import quantize_rows
 from ..kernels.prefill_attention import paged_prefill_attention
+from ..kernels.rmsnorm import rmsnorm as _rmsnorm_op
 from ..kernels.verify_attention import paged_verify_attention
 from .params import ParamSpec
 
@@ -26,11 +33,9 @@ from .params import ParamSpec
 
 
 def rmsnorm(x, weight, eps: float = 1e-6):
-    """f32 mean square and rsqrt, times the f32 weight, cast back."""
-    xf = x.float()
-    var = (xf * xf).mean(dim=-1, keepdim=True)
-    out = xf * torch.rsqrt(var + eps)
-    return (out * weight.float()).to(x.dtype)
+    """f32 mean square and rsqrt, times the f32 weight, cast back: the fused
+    RMSNorm kernel on a CUDA tensor, its plain version on the CPU."""
+    return _rmsnorm_op(x, weight, eps)
 
 
 def norm_spec(d: int) -> ParamSpec:
@@ -55,7 +60,77 @@ def apply_rope(x, positions, theta: float = 10_000.0):
 
 
 # ---------------------------------------------------------------------------
-# Attention blocks over the paged pool
+# Dense attention
+# ---------------------------------------------------------------------------
+
+
+def chunked_attention(q, k, v, *, causal: bool = True):
+    """Memory-efficient GQA attention, q: (B,Sq,H,hd), k/v: (B,Skv,KV,hd) ->
+    (B,Sq,H,hd). The reference runs an online softmax over (q_chunk,
+    kv_chunk) tiles in XLA; here a CUDA tensor launches the flash-attention
+    kernel (the same dataflow, fused) and a CPU tensor takes its plain
+    version. Both keep p in f32 where the reference rounds it to v's dtype
+    before the PV product: equal in f32, within bf16 rounding otherwise."""
+    return flash_attention(q, k, v, causal=causal)
+
+
+def dense_attention(q, k, v, *, causal: bool = True, q_positions=None,
+                    kv_positions=None):
+    """O(S^2)-memory attention with the reference's roundings (p cast to
+    v's dtype before the PV product): an oracle for tests."""
+    b, sq, h, hd = q.shape
+    nkv = k.shape[2]
+    qg = q.reshape(b, sq, nkv, h // nkv, hd)
+    s = torch.einsum("bqkgh,bskh->bkgqs", qg.float(), k.float()) \
+        / math.sqrt(hd)
+    if causal:
+        qp = (torch.arange(sq, device=q.device) if q_positions is None
+              else q_positions)
+        kp = (torch.arange(k.shape[1], device=q.device)
+              if kv_positions is None else kv_positions)
+        s = torch.where(qp[:, None] >= kp[None, :], s,
+                        torch.tensor(MASK_VALUE, device=q.device))
+    p = torch.softmax(s, dim=-1).to(v.dtype)
+    out = torch.einsum("bkgqs,bskh->bqkgh", p.float(), v.float())
+    return out.reshape(b, sq, h, hd).to(q.dtype)
+
+
+def decode_attention(q, k_cache, v_cache, pos):
+    """Single-step attention against a dense KV cache, plain PyTorch (the
+    reference's is jnp, outside any kernel).
+
+    q: (B,1,H,hd); caches: (B,Smax,KV,hd); pos: (B,) the new token's
+    position; cache rows past it are masked."""
+    b, _, h, hd = q.shape
+    nkv = k_cache.shape[2]
+    qg = q.reshape(b, nkv, h // nkv, hd)
+    s = torch.einsum("bkgh,bskh->bkgs", qg.float(), k_cache.float()) \
+        / math.sqrt(hd)
+    idx = torch.arange(k_cache.shape[1], device=q.device)
+    mask = idx[None, :] <= pos[:, None]                         # (B,Smax)
+    s = torch.where(mask[:, None, None, :], s,
+                    torch.tensor(MASK_VALUE, device=q.device))
+    p = torch.softmax(s, dim=-1).to(v_cache.dtype)
+    out = torch.einsum("bkgs,bskh->bkgh", p.float(), v_cache.float())
+    return out.reshape(b, 1, h, hd).to(q.dtype)
+
+
+def _scatter_cache(cache, k, v, pos):
+    """Write one new (k, v) row per batch element at ``pos``, in place. A
+    row at ``pos >= Smax`` is dropped, as the reference's scatter drops it
+    (the row at the clamped index is written back unchanged)."""
+    k_cache, v_cache = cache
+    smax = k_cache.shape[1]
+    bidx = torch.arange(k.shape[0], device=k.device)
+    idx = pos.long().clamp(max=smax - 1)
+    keep = (pos < smax)[:, None, None]
+    for c, new in ((k_cache, k), (v_cache, v)):
+        c[bidx, idx] = torch.where(keep, new[:, 0].to(c.dtype), c[bidx, idx])
+    return k_cache, v_cache
+
+
+# ---------------------------------------------------------------------------
+# Attention blocks
 # ---------------------------------------------------------------------------
 
 
@@ -86,6 +161,23 @@ def _qkv_proj(cfg, p, x, positions):
 def _out_proj(o, wo):
     """o (B,S,H,hd) @ wo (H,hd,d) -> (B,S,d)."""
     return o.reshape(*o.shape[:2], -1) @ wo.reshape(-1, wo.shape[-1])
+
+
+def attention_block(cfg, p, x, positions, *, cache=None, decode_pos=None):
+    """Pre-norm attention residual block over a dense cache.
+
+    Prefill: ``cache is None`` -> (y, (k, v)) so prefill can emit the cache.
+    Decode: ``cache=(k_cache, v_cache)`` (B,Smax,KV,hd) and ``decode_pos``
+    (B,) -> (y, (k_cache, v_cache)), the new row written in place."""
+    q, k, v = _qkv_proj(cfg, p, x, positions)
+    if cache is None:
+        o = chunked_attention(q, k, v,
+                              causal=cfg.causal and not cfg.encoder_only)
+        new_cache = (k, v)
+    else:
+        new_cache = _scatter_cache(cache, k, v, decode_pos)
+        o = decode_attention(q, *new_cache, decode_pos)
+    return x + _out_proj(o, p["wo"]), new_cache
 
 
 def _scatter_pool(pool, name, rows, page, off):

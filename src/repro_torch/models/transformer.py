@@ -1,11 +1,14 @@
-"""The dense transformer's paged serving paths.
+"""Model families: the dense transformer's paged serving paths and the
+Zamba2 hybrid's static serving path.
 
 ``TransformerFamily`` keeps the reference's surface for the methods the
 continuous-batching engine calls: ``layout``, ``prefill_paged``,
 ``decode_paged``, ``decode_verify``, ``paged_pool_shape`` and ``paged_pool``.
-The reference's ``lax.scan`` over the stacked layers becomes a loop over the
-layer axis. The pool is a dict of (L, KV, P, ps[, hd]) tensors updated in
-place; each method returns the same dict.
+``ZambaFamily`` keeps the surface the static ``ServeEngine`` calls:
+``layout``, ``prefill``, ``decode`` and ``cache_layout``. The reference's
+``lax.scan`` over the stacked layers becomes a loop over the layer axis.
+Pools and decode caches are dicts of stacked tensors updated in place; each
+method returns the same dict.
 """
 from __future__ import annotations
 
@@ -14,6 +17,7 @@ import torch
 from ..device import resolve_device
 from . import layers as L
 from .params import stack_specs
+from .ssm import mamba_block, mamba_cache_shapes, mamba_param_specs
 
 
 def _layer(tree, i: int):
@@ -120,3 +124,98 @@ class TransformerFamily:
             return {"k": torch.zeros(shape, dtype=cfg.cdtype, device=dev),
                     "v": torch.zeros(shape, dtype=cfg.cdtype, device=dev)}
         raise ValueError(f"unknown kv_cache_dtype {dtype!r}")
+
+
+# ===========================================================================
+# Zamba2 hybrid (Mamba2 backbone + shared attention block)
+# ===========================================================================
+
+class ZambaFamily:
+    name = "zamba"
+
+    def group_sizes(self, cfg) -> list[int]:
+        k, n = cfg.shared_attn_every, cfg.num_layers
+        sizes = [k] * (n // k)
+        if n % k:
+            sizes.append(n % k)
+        return sizes
+
+    def n_shared_applications(self, cfg) -> int:
+        return cfg.num_layers // cfg.shared_attn_every
+
+    def layout(self, cfg) -> dict:
+        return {
+            **L.embed_param_specs(cfg),
+            "mamba": stack_specs(mamba_param_specs(cfg), cfg.num_layers),
+            "shared": {"attn": L.attention_param_specs(cfg),
+                       "ffn": L.mlp_param_specs(cfg)},
+            "final_norm": L.norm_spec(cfg.d_model),
+        }
+
+    def _forward(self, cfg, params, x, positions, caches=None,
+                 decode_pos=None):
+        """The Mamba groups, with the shared attention + FFN block applied
+        after each full group of ``shared_attn_every`` layers (none after a
+        shorter last group). Prefill (``caches is None``) returns a new
+        stacked cache; decode writes every leaf of ``caches`` in place and
+        returns it."""
+        layer = app = 0
+        mamba, kv = [], []
+        for gi, size in enumerate(self.group_sizes(cfg)):
+            for _ in range(size):
+                c_in = None if caches is None else _layer(caches["mamba"],
+                                                          layer)
+                x, c = mamba_block(cfg, _layer(params["mamba"], layer), x,
+                                   cache=c_in)
+                if caches is None:
+                    mamba.append(c)
+                else:
+                    for name, leaf in c.items():
+                        c_in[name].copy_(leaf)
+                layer += 1
+            if (gi + 1) * cfg.shared_attn_every <= cfg.num_layers \
+                    and app < self.n_shared_applications(cfg):
+                kv_in = None if caches is None else (caches["attn_k"][app],
+                                                     caches["attn_v"][app])
+                x, new_kv = L.attention_block(
+                    cfg, params["shared"]["attn"], x, positions,
+                    cache=kv_in, decode_pos=decode_pos)
+                x = L.mlp_block(cfg, params["shared"]["ffn"], x)
+                kv.append(new_kv)
+                app += 1
+        x = L.rmsnorm(x, params["final_norm"], cfg.norm_eps)
+        if caches is not None:
+            return x, caches
+        cache = {"mamba": {name: torch.stack([c[name] for c in mamba])
+                           for name in mamba[0]}}
+        if kv:
+            cache["attn_k"] = torch.stack([k for k, _ in kv])
+            cache["attn_v"] = torch.stack([v for _, v in kv])
+        return x, cache
+
+    def prefill(self, cfg, params, batch):
+        """batch: tokens (B,S) at positions 0..S-1. Returns (logits (B,V) at
+        the last position, cache): ``mamba`` conv (L,B,K-1,C) and ssm
+        (L,B,H,N,P) f32, ``attn_k``/``attn_v`` (apps,B,S,KV,hd)."""
+        x = L.embed_tokens(cfg, params, batch["tokens"])
+        positions = torch.arange(x.shape[1], device=x.device)
+        x, cache = self._forward(cfg, params, x, positions)
+        return L.logits_fn(cfg, params, x[:, -1:])[:, 0], cache
+
+    def decode(self, cfg, params, batch, cache):
+        """batch: tokens (B,1), pos (B,) the token's position. Returns
+        (logits (B,V), cache updated in place)."""
+        x = L.embed_tokens(cfg, params, batch["tokens"])
+        pos = batch["pos"]
+        x, cache = self._forward(cfg, params, x, pos[:, None], caches=cache,
+                                 decode_pos=pos)
+        return L.logits_fn(cfg, params, x)[:, 0], cache
+
+    def cache_layout(self, cfg, batch: int, cache_len: int) -> dict:
+        """Decode-cache leaves as (shape, dtype), keyed as the cache is."""
+        n = cfg.num_layers
+        kv = ((self.n_shared_applications(cfg), batch, cache_len,
+               cfg.num_kv_heads, cfg.head_dim), cfg.cdtype)
+        return {"mamba": {k: ((n,) + shape, dt) for k, (shape, dt)
+                          in mamba_cache_shapes(cfg, batch).items()},
+                "attn_k": kv, "attn_v": kv}

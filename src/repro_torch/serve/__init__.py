@@ -1,7 +1,9 @@
 from .drafting import build_ngram_draft
-from .engine import ContinuousBatchingEngine, EngineRequest, ServeResult
+from .engine import (ContinuousBatchingEngine, EngineRequest, ServeEngine,
+                     ServeResult)
 from .paging import EvictionEvent, PageAllocator, PrefixCache, chain_hashes
 
-__all__ = ["ContinuousBatchingEngine", "EngineRequest", "ServeResult",
+__all__ = ["ContinuousBatchingEngine", "EngineRequest", "ServeEngine",
+           "ServeResult",
            "PageAllocator", "PrefixCache", "EvictionEvent", "chain_hashes",
            "build_ngram_draft"]

@@ -28,6 +28,10 @@ The PyTorch port of the reference engine's token loop:
 The stepped API (``enqueue`` / ``admit`` / ``decode_step`` / ``abort``) is
 what a control plane drives; ``generate`` is a loop over it. Preemption,
 page export/import and telemetry binding are not ported yet (ROADMAP.md).
+
+``ServeEngine`` is the reference's static-batch engine: one left-padded
+batch, a dense per-request cache, greedy decode. It serves the families
+without a paged path (the Zamba2 hybrid).
 """
 from __future__ import annotations
 
@@ -41,9 +45,9 @@ import torch
 
 from ..device import resolve_device
 from ..models import get_family
-from ..train.train_step import (build_fused_spec_step,
+from ..train.train_step import (build_decode_step, build_fused_spec_step,
                                 build_paged_decode_step,
-                                build_paged_prefill_step)
+                                build_paged_prefill_step, build_prefill_step)
 from .drafting import build_ngram_draft
 from .paging import PageAllocator, PrefixCache
 
@@ -52,6 +56,81 @@ from .paging import PageAllocator, PrefixCache
 class ServeResult:
     tokens: np.ndarray          # (B, max_new)
     prompt_lens: list[int]
+
+
+class ServeEngine:
+    """Static-batch engine: left-pads the batch, dense per-request cache.
+
+    ``generate`` left-pads every prompt with token 0 to the longest, so the
+    newest token of each sits in the last column, prefills the batch at
+    positions 0..S-1 (the pads enter the recurrent state and attention, as
+    in the reference), grows the attention caches to ``max_len`` rows and
+    decodes greedily ``max_new`` times: the last decode's token is never
+    read, as in the reference. Tokens accumulate on the device and cross to
+    the host once, at the end.
+
+    Only the attention caches grow, picked by name (``attn_k``/``attn_v``,
+    axis 2). The reference grows every cache leaf whose axis 2 equals the
+    prompt length, which also catches a Mamba2 state or conv tail whose
+    head count or window happens to equal it (ROADMAP.md, Queue 3).
+    """
+
+    GROWN = ("attn_k", "attn_v")
+
+    def __init__(self, cfg, params, *, max_len: int = 512, device="cuda"):
+        if cfg.encoder_only:
+            raise ValueError("encoder-only models cannot decode")
+        self.device = resolve_device(device)
+        leaf = params["embedding"]
+        if leaf.device.type != self.device.type:
+            raise ValueError(f"params live on {leaf.device}, the engine on "
+                             f"{self.device}: build them on the same device")
+        self.family = get_family(cfg)
+        if not hasattr(self.family, "prefill"):
+            raise NotImplementedError(
+                f"{cfg.name}: the static engine's dense prefill for the "
+                f"{self.family.name} family is not ported yet (ROADMAP.md, "
+                "Queue 1); use ContinuousBatchingEngine")
+        self.cfg = cfg
+        self.params = params
+        self.max_len = max_len
+        self._prefill = build_prefill_step(cfg)
+        self._decode = build_decode_step(cfg)
+
+    def _pad_cache(self, cache, cur_len: int):
+        """Grow the attention caches to ``max_len`` rows along axis 2."""
+        for name in self.GROWN:
+            if name in cache:
+                x = cache[name]
+                pad = x.new_zeros(x.shape[:2] + (self.max_len - cur_len,)
+                                  + x.shape[3:])
+                cache[name] = torch.cat([x, pad], dim=2)
+        return cache
+
+    def generate(self, prompts: list[list[int]],
+                 max_new: int = 16) -> ServeResult:
+        b = len(prompts)
+        plen = max(len(p) for p in prompts)
+        if plen > self.max_len:
+            raise ValueError(f"prompt length {plen} exceeds max_len "
+                             f"{self.max_len}")
+        toks = np.zeros((b, plen), np.int64)
+        for i, p in enumerate(prompts):
+            toks[i, plen - len(p):] = p  # left-pad so last position is newest
+        batch = {"tokens": torch.from_numpy(toks).to(self.device)}
+        logits, cache = self._prefill(self.params, batch)
+        cache = self._pad_cache(cache, plen)
+        pos = torch.full((b,), plen - 1, dtype=torch.int32,
+                         device=self.device)
+        next_tok = torch.argmax(logits, dim=-1).to(torch.int32)
+        out = torch.zeros((b, max_new), dtype=torch.int32,
+                          device=self.device)
+        for t in range(max_new):
+            out[:, t] = next_tok
+            pos = pos + 1
+            step_batch = {"tokens": next_tok[:, None], "pos": pos}
+            next_tok, _, cache = self._decode(self.params, step_batch, cache)
+        return ServeResult(out.cpu().numpy(), [len(p) for p in prompts])
 
 
 @dataclass
@@ -135,6 +214,10 @@ class ContinuousBatchingEngine:
         self.cfg = cfg
         self.params = params
         self.family = get_family(cfg)
+        if not hasattr(self.family, "decode_paged"):
+            raise ValueError(f"{cfg.name}: the {self.family.name} family has "
+                             "no paged decode path; serve it with "
+                             "ServeEngine")
         self.page_size = cfg.page_size
         self.max_slots = cfg.max_decode_slots if max_slots is None \
             else max_slots

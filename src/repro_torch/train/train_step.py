@@ -1,9 +1,10 @@
-"""Serving step construction over the shared paged KV pool.
+"""Serving step construction: the static engine's dense prefill and decode
+steps, and the continuous engine's steps over the shared paged KV pool.
 
-Each builder returns a plain function ``step(params, batch, pool)`` that
-runs one model pass and takes the greedy argmax over the compute-dtype
-logits (ties resolve to the first index, as in the reference). The pool is
-updated in place and returned.
+Each builder returns a plain function that runs one model pass and, for
+the decode-like steps, takes the greedy argmax over the compute-dtype
+logits (ties resolve to the first index, as in the reference). Pools and
+decode caches are updated in place and returned.
 """
 from __future__ import annotations
 
@@ -16,6 +17,28 @@ from ..models import get_family
 
 def _argmax(logits):
     return torch.argmax(logits, dim=-1).to(torch.int32)
+
+
+def build_prefill_step(cfg) -> Callable:
+    """Dense prefill: batch tokens (B,S) -> (logits (B,V), cache)."""
+    family = get_family(cfg)
+
+    def prefill_step(params, batch):
+        return family.prefill(cfg, params, batch)
+
+    return prefill_step
+
+
+def build_decode_step(cfg) -> Callable:
+    """Decode over a dense cache: batch tokens (B,1), pos (B,) ->
+    (next_token (B,), logits (B,V), cache)."""
+    family = get_family(cfg)
+
+    def decode_step(params, batch, cache):
+        logits, cache = family.decode(cfg, params, batch, cache)
+        return _argmax(logits), logits, cache
+
+    return decode_step
 
 
 def build_paged_decode_step(cfg) -> Callable:
