@@ -7,13 +7,17 @@ Phases, each of which must pass (a failure exits nonzero):
 
 1. device: the card's name and power limit (``nvidia-smi``);
 2. build: compile the CUDA kernels from ``src/repro_torch/csrc`` with nvcc,
-   one process a source, all started together;
+   one process a source, all started together; print the registers and
+   spills of the tensor-core (wgmma + TMA) instantiations the serve paths
+   launch, and fail if one spills;
 3. kernels: each paged attention kernel on bf16 and int8 pools at the yi-6b
-   serve path's shapes, and RMSNorm, dense flash attention and the Mamba2
-   SSD scan at the Zamba2 serve path's shapes (B 8, S 256) in bf16 and f32
-   (plus a ragged, GQA, multi-chunk case each), each held against its plain
-   PyTorch version on the same inputs and timed beside the plain version
-   and one library call where there is one;
+   serve path's shapes (the prefill also at C 13, G 4, page sizes 32 and
+   64), and RMSNorm, dense flash attention and the Mamba2 SSD scan at the
+   Zamba2 serve path's shapes (B 8, S 256) in bf16 and f32 (plus ragged,
+   GQA, hd 256 and multi-chunk cases), each held against its plain PyTorch
+   version on the same inputs and timed beside the plain version and one
+   library call where there is one (``time_ms``: device time between two
+   events, behind a spin kernel that outlasts the host's enqueue);
 4. parity: yi-6b widths at depth 2 in float32 -- prefill, decode and verify
    steps on the card (kernels) against the same weights on the CPU (plain
    versions); then Zamba2 widths at depth 6 (one Mamba group and one shared
@@ -23,7 +27,9 @@ Phases, each of which must pass (a failure exits nonzero):
    through ``ContinuousBatchingEngine.generate``: plain decode, speculative
    decode (K=4) and an int8 pool; then full-width Zamba2-1.2B (38 layers,
    bf16) through the static ``ServeEngine.generate``, 8 prompts of 160-256
-   tokens, 32 new each; each kernel's launch count read around each run.
+   tokens, 32 new each; each kernel's launch count read around each run,
+   and every bf16 flash-attention and paged-prefill launch required to take
+   the tensor-core route (the f32 parity phases, the CUDA-core route).
 
 The second-to-last line of output is a JSON ``kernels`` record; the last
 is ``{"ok": true, "device": {...}}``. Without CUDA, or without the port
@@ -80,7 +86,7 @@ REPLACES = {
 }
 SOURCES = {
     "flash_decode_fwd": "src/repro_torch/csrc/paged_attention.cu",
-    "flash_prefill_fwd": "src/repro_torch/csrc/paged_attention.cu",
+    "flash_prefill_fwd": "src/repro_torch/csrc/paged_prefill_sm90.cu",
     "flash_verify_fwd": "src/repro_torch/csrc/paged_attention.cu",
     "rmsnorm_fused": "src/repro_torch/csrc/rmsnorm.cu",
     "flash_attention_fwd": "src/repro_torch/csrc/flash_attention.cu",
@@ -94,18 +100,38 @@ def log(*a):
 
 
 def time_ms(fn, iters: int = 30, warmup: int = 3) -> float:
+    """Device time of one call: the mean over ``iters`` back-to-back calls
+    between two CUDA events. A spin kernel (``torch.cuda._sleep``) goes
+    first, sized to outlast the host's enqueue of all the timed calls, so
+    the start event fires only once they are all queued and the events
+    bracket device work, not the host's cost of issuing it (a wrapper's
+    checks, allocation and launch, or PyTorch's dispatcher). If the start
+    event has already fired when the host finishes enqueuing, the spin was
+    too short: it is made 4x longer and the run repeated."""
     import torch
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
+    t0 = time.perf_counter()
+    fn()
+    enqueue_s = time.perf_counter() - t0
     torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
+    # twice the expected enqueue at <= 2 GHz, and at least ~1 ms
+    cycles = int(max(2e6, 2 * iters * enqueue_s * 2e9))
+    for _ in range(4):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(cycles)
+        start.record()
+        for _ in range(iters):
+            fn()
+        end.record()
+        covered = not start.query()
+        torch.cuda.synchronize()
+        if covered:
+            return start.elapsed_time(end) / iters
+        cycles *= 4
+    raise AssertionError("time_ms: the spin never outlasted the enqueue")
 
 
 # ---------------------------------------------------------------------------
@@ -129,12 +155,42 @@ def phase_device():
 # phase 2: build
 # ---------------------------------------------------------------------------
 
+# The tensor-core instantiations the serve paths launch (mangled-name
+# fragments): flash attention at hd 64 (Zamba2), the paged prefill at hd 128
+# over bf16 and int8 pools (yi-6b). None may spill.
+ON_PATH_SM90 = {"flash_sm90_kernelILi64E": "flash bf16 hd 64",
+                "prefill_sm90_kernelILi128ELb0E": "prefill hd 128 bf16 pool",
+                "prefill_sm90_kernelILi128ELb1E": "prefill hd 128 int8 pool"}
+
+
+def _ptxas_functions(text):
+    """{mangled name: (registers, spill store bytes, spill load bytes)}
+    from nvcc's ``-Xptxas -v`` log."""
+    import re
+    funcs, name = {}, None
+    for ln in text.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", ln)
+        if m:
+            name = m.group(1)
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", ln)
+        if m and name:
+            spill = (int(m.group(1)), int(m.group(2)))
+            funcs[name] = (funcs.get(name, (0,))[0],) + spill
+            continue
+        m = re.search(r"Used (\d+) registers", ln)
+        if m and name:
+            funcs[name] = (int(m.group(1)),) + funcs.get(name, (0, 0, 0))[1:]
+    return funcs
+
+
 def phase_build():
     import re
     from repro_torch.kernels import _cuda
     t0 = time.perf_counter()
     logs = _cuda.build()
     dt = time.perf_counter() - t0
+    seen = {}
     for src, text in logs.items():
         regs = [int(r) for r in re.findall(r"Used (\d+) registers", text)]
         spills = [ln.strip() for ln in text.splitlines()
@@ -145,6 +201,16 @@ def phase_build():
             f"{len(spills)} lines with spills")
         for ln in spills[:6]:
             log(f"[build]   {ln}")
+        for name, (nreg, st, ld) in _ptxas_functions(text).items():
+            for frag, label in ON_PATH_SM90.items():
+                if frag in name:
+                    seen[label] = (nreg, st, ld)
+                    log(f"[build]   {label}: {nreg} registers, spill "
+                        f"stores {st} B, loads {ld} B")
+    if len(seen) != len(ON_PATH_SM90) \
+            or any(st or ld for _, st, ld in seen.values()):
+        raise AssertionError(f"on-path sm90 kernels missing or spilling: "
+                             f"{seen}")
 
 
 # ---------------------------------------------------------------------------
@@ -208,6 +274,41 @@ def _sdpa_case(q, pool, pt, q_pos):
                                                   enable_gqa=True)
 
 
+def _prefill_edge_cases(gen, kind, dev):
+    """bf16 q off the serve shape, on the tensor-core route: C 13 (a ragged
+    64-row tile of 16 queries x G 4), H 8 over KV 2, hd 128, page sizes 32
+    and 64; q_start 0 and mid-page, and request 0 reading up to the last
+    page, whose out-of-range page-table entry must clamp to P-1."""
+    import torch
+    from repro_torch.kernels import (flash_prefill_fwd,
+                                     paged_prefill_reference, quantize_pool)
+    b, c, h, nkv, hd = 3, 13, 8, 2, 128
+    variants = []
+    for ps, npages in ((32, 4), (64, 2)):
+        num_pages = b * npages + 1
+        k = torch.randn(nkv, num_pages, ps, hd, generator=gen, device=dev)
+        v = torch.randn(nkv, num_pages, ps, hd, generator=gen, device=dev)
+        pool = (quantize_pool({"k": k, "v": v}) if kind == "int8"
+                else {"k": k.bfloat16(), "v": v.bfloat16()})
+        scales = dict(k_scale=pool.get("k_scale"),
+                      v_scale=pool.get("v_scale"))
+        pt = (torch.randperm(num_pages - 1, generator=gen, device=dev)
+              + 1).reshape(b, npages).to(torch.int32)
+        pt[0, npages - 1] = num_pages + 5
+        q = torch.randn(b, c, h, hd, generator=gen, device=dev).bfloat16()
+        for start in (0, ps // 2 + 3):
+            qs = torch.full((b,), start, dtype=torch.int32, device=dev)
+            qs[0] = npages * ps - c
+            variants.append((
+                lambda q=q, pool=pool, pt=pt, qs=qs, scales=scales:
+                flash_prefill_fwd(q, pool["k"], pool["v"], pt, qs, **scales),
+                lambda q=q, pool=pool, pt=pt, qs=qs, scales=scales:
+                paged_prefill_reference(q, pool["k"], pool["v"], pt, qs,
+                                        **scales),
+                None, None))
+    return variants
+
+
 def phase_kernels():
     import torch
     from repro_torch.kernels import (default_num_splits, flash_decode_fwd,
@@ -258,7 +359,7 @@ def phase_kernels():
                 lambda: paged_verify_reference(qv, pool["k"], pool["v"], pt,
                                                pos, **scales),
                 qv, pos.long()[:, None] + ar_t[None])],
-            "flash_prefill_fwd": [(
+            "flash_prefill_fwd": _prefill_edge_cases(gen, kind, dev) + [(
                 lambda qs=qs: flash_prefill_fwd(qp, pool["k"], pool["v"], pt,
                                                 qs, **scales),
                 lambda qs=qs: paged_prefill_reference(qp, pool["k"],
@@ -282,7 +383,8 @@ def phase_kernels():
                 rec["max_abs_err"] = max(err, rec.get("max_abs_err", 0.0))
                 if vi != len(variants) - 1:
                     continue
-                # timing on the last variant (prefill: q_start > 0)
+                # timing on the last variant (prefill: the serve shape at
+                # q_start > 0; its edge cases come first)
                 bytes_s = _bytes_needed(pool, pt, q_pos[:, -1], q, got) \
                     / HBM_BYTES_PER_S
                 ops_s = _flops_needed(q_pos) / BF16_FLOPS_PER_S
@@ -350,6 +452,25 @@ def _dense_edge_cases(gen, dev):
     }
 
 
+def _flash_bf16_edge_cases(gen, dev):
+    """bf16 flash attention off the serve shape, on the tensor-core route:
+    Sq = Skv = 77 (ragged 64-row tiles) with G 4 and hd 128, causal and
+    not; and hd 256 (four 64-column sub-tiles) at S 130, G 2."""
+    import torch
+    from repro_torch import kernels as K
+
+    def rn(*shape):
+        return torch.randn(*shape, generator=gen, device=dev).bfloat16()
+
+    q, k, v = rn(2, 77, 8, 128), rn(2, 77, 2, 128), rn(2, 77, 2, 128)
+    q2, k2, v2 = rn(1, 130, 4, 256), rn(1, 130, 2, 256), rn(1, 130, 2, 256)
+    return [(lambda c=c: K.flash_attention_fwd(q, k, v, causal=c),
+             lambda c=c: K.attention_reference(q, k, v, causal=c))
+            for c in (True, False)] + [
+        (lambda: K.flash_attention_fwd(q2, k2, v2),
+         lambda: K.attention_reference(q2, k2, v2))]
+
+
 def _max_err(got, want) -> float:
     if isinstance(got, tuple):                    # SSD: y and the final state
         return max(_max_err(g, w) for g, w in zip(got, want))
@@ -405,6 +526,8 @@ def phase_dense_kernels():
         if kind == "f32":
             for name, extra in _dense_edge_cases(gen, dev).items():
                 cases[name] += extra
+        else:
+            cases["flash_attention_fwd"] += _flash_bf16_edge_cases(gen, dev)
         for name, variants in cases.items():
             rec = results.setdefault(name, {}).setdefault(kind, {})
             for vi, (kern, plain) in enumerate(variants):
@@ -464,7 +587,8 @@ def phase_parity():
     import numpy as np
     import torch
     from repro_torch.configs import get_config
-    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.kernels import (launch_counts, launch_counts_by_route,
+                                     reset_launch_counts)
     from repro_torch.models import get_family, init_params
     from repro_torch.train import (build_paged_decode_step,
                                    build_paged_prefill_step,
@@ -519,6 +643,9 @@ def phase_parity():
     counts = launch_counts()
     if min(counts[k] for k in PAGED + ("rmsnorm_fused",)) < cfg.num_layers:
         raise AssertionError(f"parity phase missed a kernel: {counts}")
+    routes = launch_counts_by_route()["flash_prefill_fwd"]
+    if routes != {"sm90": 0, "cuda_core": counts["flash_prefill_fwd"]}:
+        raise AssertionError(f"f32 prefill left the CUDA-core route: {routes}")
     for kind, err in worst.items():
         log(f"[parity] yi-6b widths, 2 layers, f32: {kind} max|logit "
             f"card-cpu| {err:.3e} (tol {TOL_PARITY})")
@@ -532,7 +659,8 @@ def phase_zamba_parity():
     import numpy as np
     import torch
     from repro_torch.configs import get_config
-    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.kernels import (launch_counts, launch_counts_by_route,
+                                     reset_launch_counts)
     from repro_torch.models import get_family, init_params
     from repro_torch.train import build_decode_step, build_prefill_step
     cfg = get_config("zamba2-1.2b").replace(num_layers=6, dtype="float32")
@@ -580,6 +708,9 @@ def phase_zamba_parity():
     for name in ("rmsnorm_fused", "flash_attention_fwd", "ssd_scan"):
         if counts[name] < 1:
             raise AssertionError(f"zamba parity missed {name}: {counts}")
+    routes = launch_counts_by_route()["flash_attention_fwd"]
+    if routes != {"sm90": 0, "cuda_core": counts["flash_attention_fwd"]}:
+        raise AssertionError(f"f32 flash left the CUDA-core route: {routes}")
     for kind, err in worst.items():
         log(f"[parity] zamba2 widths, {cfg.num_layers} layers, f32, B 2, S "
             f"{ZS}: {kind} "
@@ -595,7 +726,8 @@ def phase_zamba_parity():
 def phase_serve(smi: str):
     import torch
     from repro_torch.configs import get_config
-    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.kernels import (launch_counts, launch_counts_by_route,
+                                     reset_launch_counts)
     from repro_torch.models import get_family, init_params
     from repro_torch.serve import ContinuousBatchingEngine
     from repro_torch.serve.prompts import shared_prefix_prompts
@@ -608,6 +740,7 @@ def phase_serve(smi: str):
                                           spec_tokens=4),
             "int8": dict(kv_cache_dtype="int8")}
     total = dict.fromkeys(REPLACES, 0)
+    prefill_routes = {"sm90": 0, "cuda_core": 0}
     used = PAGED + ("rmsnorm_fused",)        # the kernels of this path
     outs = {}
     for name, kw in runs.items():
@@ -620,6 +753,12 @@ def phase_serve(smi: str):
         torch.cuda.synchronize()
         dt = time.perf_counter() - t0
         counts = launch_counts()
+        routes = launch_counts_by_route()["flash_prefill_fwd"]
+        if routes != {"sm90": counts["flash_prefill_fwd"], "cuda_core": 0}:
+            raise AssertionError(f"serve {name}: a bf16 prefill launch left "
+                                 f"the sm90 route: {routes}")
+        for k, v in routes.items():
+            prefill_routes[k] += v
         toks = out.tokens
         if toks.shape != (len(prompts), max_new) or toks.min() < 0 \
                 or toks.max() >= cfg.vocab_size:
@@ -643,8 +782,9 @@ def phase_serve(smi: str):
     if min(total[k] for k in used) <= 0:
         raise AssertionError(f"a kernel was not launched on the main path: "
                              f"{total}")
-    log(f"[serve] launches on the main path: {total}")
-    return total
+    log(f"[serve] launches on the main path: {total}; paged prefill by "
+        f"route {prefill_routes}")
+    return total, {"flash_prefill_fwd": prefill_routes}
 
 
 def phase_zamba_serve(smi: str):
@@ -654,7 +794,8 @@ def phase_zamba_serve(smi: str):
     once a shared application (6), RMSNorm 89 times a pass over 33 passes."""
     import torch
     from repro_torch.configs import get_config
-    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.kernels import (launch_counts, launch_counts_by_route,
+                                     reset_launch_counts)
     from repro_torch.models import get_family, init_params
     from repro_torch.serve import ServeEngine
     from repro_torch.serve.prompts import static_batch_prompts
@@ -673,6 +814,7 @@ def phase_zamba_serve(smi: str):
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     counts = launch_counts()
+    routes = launch_counts_by_route()["flash_attention_fwd"]
     toks = out.tokens
     if toks.shape != (len(prompts), max_new) or toks.min() < 0 \
             or toks.max() >= cfg.vocab_size:
@@ -686,15 +828,18 @@ def phase_zamba_serve(smi: str):
     if got != want or any(counts[k] for k in PAGED):
         raise AssertionError(f"zamba serve launches {counts}, expected "
                              f"{want} and no paged kernel")
+    if routes != {"sm90": want["flash_attention_fwd"], "cuda_core": 0}:
+        raise AssertionError(f"zamba serve: a bf16 flash launch left the "
+                             f"sm90 route: {routes}")
     log(f"[serve] zamba2-1.2b {cfg.num_layers} layers bf16 "
         f"({n_params / 1e9:.3f} B "
         f"params), static engine: {len(prompts)} prompts (padded to "
         f"{max(len(p) for p in prompts)}) x {max_new} new in {dt:.3f} s = "
-        f"{toks.size / dt:.1f} tok/s (prefill+decode), launches {counts} "
-        f"on {smi}")
+        f"{toks.size / dt:.1f} tok/s (prefill+decode), launches {counts}, "
+        f"flash by route {routes} on {smi}")
     del eng, params
     torch.cuda.empty_cache()
-    return counts
+    return counts, {"flash_attention_fwd": routes}
 
 
 def _leaves(tree):
@@ -727,8 +872,9 @@ def main() -> int:
     kern.update(phase_dense_kernels())
     phase_parity()
     phase_zamba_parity()
-    launches = phase_serve(smi)
-    zamba = phase_zamba_serve(smi)
+    launches, routes = phase_serve(smi)
+    zamba, zamba_routes = phase_zamba_serve(smi)
+    routes.update(zamba_routes)
     record = []
     for name, per_kind in kern.items():
         main_kind = "bf16"
@@ -748,6 +894,8 @@ def main() -> int:
                              ("ms", "plain_ms", "bound_ms", "library_ms")}
         if name == "rmsnorm_fused":
             entry["launches_yi6b"] = launches[name]
+        if name in routes:
+            entry["launches_by_route"] = routes[name]
         record.append(entry)
     print(json.dumps({"kernels": record}))
     print(json.dumps({"ok": True, "device": {

@@ -6,34 +6,45 @@
 // key j visible to query i when j <= i (causal; positions aligned at 0) or
 // always (not causal). Masked scores are -1e30, as in the reference.
 //
-// The TPU kernel walks the KV blocks of a (head, q block) as the sequential
-// innermost grid axis and keeps the online softmax (m, l, acc) in VMEM
-// scratch across grid steps. Hopper blocks run in no order, so here one
-// block owns a (q tile of 32 rows, head, batch) and loops over the KV tiles
-// of 32 keys itself, stopping at the diagonal when causal (the TPU kernel's
-// skipped blocks above it are never visited). Per KV tile: the K and V tile
-// go to shared memory as f32; each warp scores 8 rows against the tile's 32
-// keys (lane = key, the q row a broadcast read), keeps its rows' m and l in
-// registers and folds the tile in with warp shuffles; then each thread
-// updates its share of the f32 output accumulator (hd/4 values, in
-// registers) with p @ V. The output is normalised once, with l floored at
-// 1e-20. q is scaled by 1/sqrt(hd) in f32 before the dot, as the TPU kernel
-// does. p stays f32 (the reference's chunked_attention rounds it to v's
-// dtype before the PV product; compare at bf16 tolerance).
+// Two kernels, chosen by dtype (the wrapper's route; no fallback between
+// them):
 //
-// What bounds it: at the serve path's shapes (S 256, hd 64, G 1) it does
-// ~64 flops a byte of q, k, v and out, below the card's 295 bf16 flops a
-// byte, so the floor is bytes; but this first version runs on CUDA cores in
-// f32 (no wgmma, no TMA) and re-reads K/V once per q tile (from L2), so it
-// is bound by shared-memory and FMA throughput well above that floor.
+// bf16 -> flash_sm90_kernel (wgmma + TMA). What bounds it: at the Zamba2
+// serve shape (B 8, S 256, H 32, hd 64, causal) the work is ~64 flops a
+// byte of q, k, v and out, under the card's ~295 bf16 flops a byte, so the
+// floor is bytes (0.010 ms); what held the first version back was issue
+// rate, not bytes (f32 FMAs out of shared memory, scalar 2-byte loads, no
+// overlap of loads with compute). The design: one block of one warpgroup
+// (128 threads) a (64-row q tile, head, batch), the longest causal tiles
+// launched first. TMA brings the Q tile once and K/V tiles of 64 keys
+// through a ring of two stages, each completing on an mbarrier, 128-byte
+// swizzled, from 3-D tensor maps over (B, S, heads*hd) that zero-fill rows
+// past S; the next tile's load is in flight while this one computes, and
+// tiles above the diagonal are never loaded. S = Q K^T is wgmma
+// m64n64k16 from shared memory (hd/16 k-steps), scaled by 1/sqrt(hd) in f32
+// after the product; the causal and ragged masks run on edge tiles only.
+// The online softmax stays in registers (a row's max and sum over the 4
+// lanes of a quad; exp2 with log2(e) folded into the scale). P is rounded
+// to bf16 into wgmma A-fragments in registers (as the reference's
+// chunked_attention rounds p to v's dtype before PV) and O += P V runs
+// with V MN-major (transpose bit) from the same stage; O stays f32 in
+// registers (hd/2 values a thread). The epilogue normalises once (l
+// floored at 1e-20), writes bf16 into the swizzled Q tile and stores it by
+// TMA, which clips rows past Sq. hd a multiple of 64 up to 256.
 //
-// Tile contract: hd a multiple of 32 with 32 <= hd <= 256; any B, Sq, Skv,
-// H, KV with H % KV == 0 (any G). The ragged edges of Sq and Skv are masked
-// in the kernel. The C entry point returns cudaGetLastError() after the
-// launch; the Python wrapper raises on it.
+// f32 -> flash_f32_kernel (CUDA cores). wgmma has no full-f32 mode: TF32
+// keeps ~3 decimal digits and could not meet the f32 checks at 1e-4, so
+// f32 keeps this first version: one block of 128 threads a (32-row q tile,
+// head, batch) looping over 32-key KV tiles to the diagonal, scores a warp
+// 8 rows (lane = key), (m, l) in registers, the f32 accumulator spread over
+// the block (hd/4 values a thread), q pre-scaled by 1/sqrt(hd) in f32. hd a
+// multiple of 32 up to 256.
+//
+// Both: any B, Sq, Skv, H, KV with H % KV == 0 (any G); the ragged edges
+// of Sq and Skv are masked in the kernel. The C entry points return
+// cudaGetLastError() after the launch; the Python wrapper raises on it.
 
-#include <cuda_runtime.h>
-#include <cuda_bf16.h>
+#include "sm90_attention.cuh"
 
 namespace {
 
@@ -44,16 +55,6 @@ constexpr int NT = 128;          // threads a block
 constexpr int NW = NT / 32;      // warps
 constexpr int RPW = BQ / NW;     // score rows a warp
 
-enum DType { kF32 = 0, kBF16 = 1 };
-
-__device__ __forceinline__ float load_f(const float* p, long i) { return p[i]; }
-__device__ __forceinline__ float load_f(const __nv_bfloat16* p, long i) {
-  return __bfloat162float(p[i]);
-}
-__device__ __forceinline__ void store_f(float* p, long i, float x) { p[i] = x; }
-__device__ __forceinline__ void store_f(__nv_bfloat16* p, long i, float x) {
-  p[i] = __float2bfloat16(x);
-}
 
 __device__ __forceinline__ float warp_max(float x) {
 #pragma unroll
@@ -70,7 +71,7 @@ struct Args {
   const void* q;   // (B, Sq, H, hd)
   const void* k;   // (B, Skv, KV, hd)
   const void* v;
-  void* out;       // (B, Sq, H, hd), q's dtype
+  void* out;       // (B, Sq, H, hd)
   int B, Sq, Skv, H, KV, causal;
   float scale;
 };
@@ -84,8 +85,8 @@ constexpr size_t smem_bytes() {
                           size_t(BK) * HD + size_t(BQ) * (BK + 1) + 2 * BQ);
 }
 
-template <typename T, int HD>
-__global__ void __launch_bounds__(NT) flash_fwd_kernel(Args a) {
+template <int HD>
+__global__ void __launch_bounds__(NT) flash_f32_kernel(Args a) {
   extern __shared__ float smem[];
   float* qS = smem;                    // BQ x HD
   float* kS = qS + BQ * HD;            // BK x (HD+1)
@@ -99,14 +100,14 @@ __global__ void __launch_bounds__(NT) flash_fwd_kernel(Args a) {
   const int kvh = h / (a.H / a.KV);
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int q0 = qt * BQ;
-  const T* q = static_cast<const T*>(a.q);
-  const T* kp = static_cast<const T*>(a.k);
-  const T* vp = static_cast<const T*>(a.v);
+  const float* q = static_cast<const float*>(a.q);
+  const float* kp = static_cast<const float*>(a.k);
+  const float* vp = static_cast<const float*>(a.v);
 
   for (int i = tid; i < BQ * HD; i += NT) {
     const int r = i / HD, d = i % HD, row = q0 + r;
     float x = 0.f;
-    if (row < a.Sq) x = load_f(q, ((long(b) * a.Sq + row) * a.H + h) * HD + d) * a.scale;
+    if (row < a.Sq) x = q[((long(b) * a.Sq + row) * a.H + h) * HD + d] * a.scale;
     qS[i] = x;
   }
   float m[RPW], l[RPW], acc[NPT];
@@ -124,8 +125,8 @@ __global__ void __launch_bounds__(NT) flash_fwd_kernel(Args a) {
       float kx = 0.f, vx = 0.f;
       if (key < a.Skv) {
         const long off = ((long(b) * a.Skv + key) * a.KV + kvh) * HD + d;
-        kx = load_f(kp, off);
-        vx = load_f(vp, off);
+        kx = kp[off];
+        vx = vp[off];
       }
       kS[j * (HD + 1) + d] = kx;
       vS[j * HD + d] = vx;
@@ -173,20 +174,20 @@ __global__ void __launch_bounds__(NT) flash_fwd_kernel(Args a) {
     for (int i = 0; i < RPW; ++i) lS[warp + NW * i] = l[i];
   }
   __syncthreads();
-  T* out = static_cast<T*>(a.out);
+  float* out = static_cast<float*>(a.out);
 #pragma unroll
   for (int i = 0; i < NPT; ++i) {
     const int o = tid + NT * i, r = o / HD, d = o % HD, row = q0 + r;
     if (row < a.Sq)
-      store_f(out, ((long(b) * a.Sq + row) * a.H + h) * HD + d,
-              acc[i] / fmaxf(lS[r], 1e-20f));
+      out[((long(b) * a.Sq + row) * a.H + h) * HD + d] =
+          acc[i] / fmaxf(lS[r], 1e-20f);
   }
 }
 
-template <typename T, int HD>
-int launch_hd(const Args& a, cudaStream_t stream) {
+template <int HD>
+int launch_f32_hd(const Args& a, cudaStream_t stream) {
   constexpr size_t smem = smem_bytes<HD>();
-  auto kern = flash_fwd_kernel<T, HD>;
+  auto kern = flash_f32_kernel<HD>;
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
         kern, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
@@ -197,39 +198,261 @@ int launch_hd(const Args& a, cudaStream_t stream) {
   return int(cudaGetLastError());
 }
 
-template <typename T>
-int launch_t(const Args& a, int hd, cudaStream_t stream) {
-  switch (hd) {
-    case 32: return launch_hd<T, 32>(a, stream);
-    case 64: return launch_hd<T, 64>(a, stream);
-    case 96: return launch_hd<T, 96>(a, stream);
-    case 128: return launch_hd<T, 128>(a, stream);
-    case 160: return launch_hd<T, 160>(a, stream);
-    case 192: return launch_hd<T, 192>(a, stream);
-    case 224: return launch_hd<T, 224>(a, stream);
-    case 256: return launch_hd<T, 256>(a, stream);
+// ---------------------------------------------------------------------------
+// bf16: wgmma + TMA
+// ---------------------------------------------------------------------------
+
+struct Sm90Args {
+  int Sq, Skv, H, KV, causal;
+  float scale_log2;      // 1/sqrt(hd) * log2(e): scores in the exp2 domain
+};
+
+template <int HD>
+__host__ __device__ constexpr uint32_t tile_bytes() { return uint32_t(HD / 64) * sm90::kSub; }
+
+// Q tile, two K stages, two V stages, and 1 KB to align the first to 1 KB.
+template <int HD>
+constexpr size_t sm90_smem_bytes() { return 5 * size_t(tile_bytes<HD>()) + 1024; }
+
+// One thread: K and V tiles of 64 keys from row `row` of batch b, columns
+// col0 .. col0+NC*64, into one ring stage, completing on `bar`.
+template <int NC>
+__device__ __forceinline__ void load_kv(uint8_t* kdst, uint8_t* vdst,
+                                        const CUtensorMap* tk,
+                                        const CUtensorMap* tv, uint64_t* bar,
+                                        int col0, int row, int b) {
+  sm90::mbar_expect_tx(bar, 2 * NC * sm90::kSub);
+#pragma unroll
+  for (int c = 0; c < NC; ++c) {
+    sm90::tma_load_3d(kdst + c * sm90::kSub, tk, bar, col0 + c * 64, row, b);
+    sm90::tma_load_3d(vdst + c * sm90::kSub, tv, bar, col0 + c * 64, row, b);
   }
-  return int(cudaErrorInvalidValue);
+}
+
+// hd 64 (the Zamba2 path) is held to 102 registers so that five blocks
+// share an SM instead of four: 0.0170 against 0.0176 ms at the serve shape.
+template <int HD>
+__global__ void __launch_bounds__(128, HD == 64 ? 5 : 1) flash_sm90_kernel(
+    const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
+    const __grid_constant__ CUtensorMap tv, const __grid_constant__ CUtensorMap to,
+    Sm90Args a) {
+  using namespace sm90;
+  constexpr int NC = HD / 64;                 // 64-column sub-tiles
+  constexpr uint32_t TB = tile_bytes<HD>();
+  extern __shared__ uint8_t smem_raw[];
+  __shared__ uint64_t bars[3];                // Q, KV stage 0, KV stage 1
+  uint8_t* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  uint8_t* qS = smem;                         // also the output tile
+  uint8_t* kS = qS + TB;                      // 2 stages
+  uint8_t* vS = kS + 2 * TB;                  // 2 stages
+
+  const int qt = gridDim.x - 1 - blockIdx.x;  // longest causal rows first
+  const int h = blockIdx.y, b = blockIdx.z;
+  const int kvh = h / (a.H / a.KV);
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int q0 = qt * kTile;
+  const int kv_end = a.causal ? min(a.Skv, q0 + kTile) : a.Skv;
+  const int ntiles = (kv_end + kTile - 1) / kTile;
+
+  if (tid == 0) {
+    for (int i = 0; i < 3; ++i) mbar_init(&bars[i], 1);
+    mbar_fence_init();
+  }
+  __syncthreads();
+  if (tid == 0) {
+    mbar_expect_tx(&bars[0], TB);
+#pragma unroll
+    for (int c = 0; c < NC; ++c)
+      tma_load_3d(qS + c * kSub, &tq, &bars[0], h * HD + c * 64, q0, b);
+    load_kv<NC>(kS, vS, &tk, &tv, &bars[1], kvh * HD, 0, b);
+  }
+
+  float o[NC][32];
+#pragma unroll
+  for (int c = 0; c < NC; ++c)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) o[c][i] = 0.f;
+  const float neg = kNeg * kLog2e;
+  float m[2] = {neg, neg}, l[2] = {0.f, 0.f};   // l: this thread's partial
+  const int r0 = warp * 16 + (lane >> 2), cq = 2 * (lane & 3);
+  const uint32_t qs = smem_u32(qS);
+  mbar_wait(&bars[0], 0);
+
+  for (int t = 0; t < ntiles; ++t) {
+    if (t + 1 < ntiles) {
+      __syncthreads();                        // tile t-1 (same stage) used
+      if (tid == 0)
+        load_kv<NC>(kS + ((t + 1) & 1) * TB, vS + ((t + 1) & 1) * TB, &tk, &tv,
+                    &bars[1 + ((t + 1) & 1)], kvh * HD, (t + 1) * kTile, b);
+    }
+    mbar_wait(&bars[1 + (t & 1)], (t >> 1) & 1);
+    const uint32_t ks = smem_u32(kS + (t & 1) * TB);
+    const uint32_t vs = smem_u32(vS + (t & 1) * TB);
+
+    // S = Q K^T over hd/16 k-steps (32 bytes each inside a 128-byte row).
+    float s[32];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) s[i] = 0.f;
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < HD / 16; ++kk) {
+      const uint32_t off = (kk >> 2) * kSub + (kk & 3) * 32;
+      wgmma_ss(s, desc_sw128(qs + off, 16, 1024), desc_sw128(ks + off, 16, 1024),
+               kk > 0);
+    }
+    wgmma_commit();
+    wgmma_wait0();
+    fence_regs(s);
+
+    // Online softmax in the exp2 domain; masks only on edge tiles.
+    const int k0 = t * kTile;
+    const bool edge = (a.causal && k0 + kTile - 1 > q0) || k0 + kTile > a.Skv;
+    float mx[2] = {m[0], m[1]};
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      float x = s[i] * a.scale_log2;
+      if (edge) {
+        const int row = q0 + r0 + 8 * ((i >> 1) & 1);
+        const int key = k0 + 8 * (i >> 2) + cq + (i & 1);
+        const bool ok = key < a.Skv && (!a.causal || key <= row);
+        x = ok ? x : neg;
+      }
+      s[i] = x;
+      mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], x);
+    }
+    float alpha[2];
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      mx[hh] = quad_max(mx[hh]);
+      alpha[hh] = exp2f(m[hh] - mx[hh]);
+      m[hh] = mx[hh];
+      l[hh] *= alpha[hh];
+    }
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      s[i] = exp2f(s[i] - m[(i >> 1) & 1]);
+      l[(i >> 1) & 1] += s[i];
+    }
+#pragma unroll
+    for (int c = 0; c < NC; ++c)
+#pragma unroll
+      for (int i = 0; i < 32; ++i) o[c][i] *= alpha[(i >> 1) & 1];
+
+    // O += P V: P rounded to bf16 in registers, V MN-major (16 keys of
+    // 128-byte rows a k-step).
+    uint32_t pa[4][4];                        // all of P's A-fragments
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) p_fragment(s, kk, pa[kk]);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+      for (int c = 0; c < NC; ++c)
+        wgmma_rs_t(o[c], pa[kk], desc_sw128(vs + c * kSub + kk * 2048, kSub, 1024));
+    wgmma_commit();
+    wgmma_wait0();
+#pragma unroll
+    for (int c = 0; c < NC; ++c) fence_regs(o[c]);
+  }
+
+  // Epilogue: normalise, bf16 into the swizzled Q tile, one TMA store a
+  // sub-tile (rows past Sq are clipped by the tensor map).
+  float inv[2];
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) inv[hh] = 1.f / fmaxf(quad_sum(l[hh]), 1e-20f);
+  __syncthreads();                            // every wgmma read of Q done
+#pragma unroll
+  for (int c = 0; c < NC; ++c)
+#pragma unroll
+    for (int i = 0; i < 32; i += 2) {
+      const int row = r0 + 8 * ((i >> 1) & 1);
+      const int col = c * 64 + 8 * (i >> 2) + cq;
+      const float w = inv[(i >> 1) & 1];
+      *reinterpret_cast<uint32_t*>(qS + swz_offset(row, col, kTile)) =
+          pack_bf16(o[c][i] * w, o[c][i + 1] * w);
+    }
+  fence_proxy_async();
+  __syncthreads();
+  if (tid == 0) {
+#pragma unroll
+    for (int c = 0; c < NC; ++c) tma_store_3d(&to, qS + c * kSub, h * HD + c * 64, q0, b);
+    tma_store_wait();
+  }
+}
+
+template <int HD>
+int launch_sm90_hd(const void* q, const void* k, const void* v, void* out,
+                   int B, int Sq, int Skv, int H, int KV, int causal,
+                   cudaStream_t stream) {
+  // (B, S, heads*hd) bf16 as 3-D maps, innermost first; 64 x 64 boxes.
+  CUtensorMap tq, tk, tv, to;
+  const cuuint64_t qdim[3] = {cuuint64_t(H) * HD, cuuint64_t(Sq), cuuint64_t(B)};
+  const cuuint64_t qstr[2] = {cuuint64_t(H) * HD * 2, cuuint64_t(Sq) * H * HD * 2};
+  const cuuint64_t kdim[3] = {cuuint64_t(KV) * HD, cuuint64_t(Skv), cuuint64_t(B)};
+  const cuuint64_t kstr[2] = {cuuint64_t(KV) * HD * 2, cuuint64_t(Skv) * KV * HD * 2};
+  const cuuint32_t box[3] = {64, 64, 1};
+  const auto bf = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+  const auto sw = CU_TENSOR_MAP_SWIZZLE_128B;
+  if (!sm90::encode_map(&tq, bf, 3, q, qdim, qstr, box, sw) ||
+      !sm90::encode_map(&tk, bf, 3, k, kdim, kstr, box, sw) ||
+      !sm90::encode_map(&tv, bf, 3, v, kdim, kstr, box, sw) ||
+      !sm90::encode_map(&to, bf, 3, out, qdim, qstr, box, sw))
+    return int(cudaErrorInvalidValue);
+  constexpr size_t smem = sm90_smem_bytes<HD>();
+  auto kern = flash_sm90_kernel<HD>;
+  cudaError_t e = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
+  if (e != cudaSuccess) return int(e);
+  const float scale_log2 = sm90::kLog2e / sqrtf(float(HD));
+  Sm90Args a{Sq, Skv, H, KV, causal, scale_log2};
+  dim3 grid((Sq + sm90::kTile - 1) / sm90::kTile, H, B);
+  kern<<<grid, 128, smem, stream>>>(tq, tk, tv, to, a);
+  return int(cudaGetLastError());
+}
+
+bool bad_shape(int B, int Sq, int Skv, int H, int KV) {
+  return B < 1 || Sq < 1 || Skv < 1 || KV < 1 || H % KV != 0 || B > 65535 ||
+         H > 65535;
 }
 
 }  // namespace
 
 extern "C" {
 
-// q (B,Sq,H,hd), k/v (B,Skv,KV,hd), one dtype (f32 or bf16), contiguous;
-// out (B,Sq,H,hd) in that dtype.
-int flash_attention_fwd(const void* q, const void* k, const void* v, int dtype,
-                        void* out, int B, int Sq, int Skv, int H, int KV,
-                        int hd, int causal, void* stream) {
-  if (B < 1 || Sq < 1 || Skv < 1 || KV < 1 || H % KV != 0 || B > 65535 ||
-      H > 65535)
-    return int(cudaErrorInvalidValue);
+// f32 on CUDA cores. q (B,Sq,H,hd), k/v (B,Skv,KV,hd), out (B,Sq,H,hd),
+// contiguous f32; hd % 32 == 0, 32 <= hd <= 256.
+int flash_attention_f32_fwd(const void* q, const void* k, const void* v,
+                            void* out, int B, int Sq, int Skv, int H, int KV,
+                            int hd, int causal, void* stream) {
+  if (bad_shape(B, Sq, Skv, H, KV)) return int(cudaErrorInvalidValue);
   Args a{q, k, v, out, B, Sq, Skv, H, KV, causal ? 1 : 0,
          1.0f / sqrtf(float(hd))};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (dtype) {
-    case kF32: return launch_t<float>(a, hd, s);
-    case kBF16: return launch_t<__nv_bfloat16>(a, hd, s);
+  switch (hd) {
+    case 32: return launch_f32_hd<32>(a, s);
+    case 64: return launch_f32_hd<64>(a, s);
+    case 96: return launch_f32_hd<96>(a, s);
+    case 128: return launch_f32_hd<128>(a, s);
+    case 160: return launch_f32_hd<160>(a, s);
+    case 192: return launch_f32_hd<192>(a, s);
+    case 224: return launch_f32_hd<224>(a, s);
+    case 256: return launch_f32_hd<256>(a, s);
+  }
+  return int(cudaErrorInvalidValue);
+}
+
+// bf16 on tensor cores, the same layout; hd in {64, 128, 192, 256}.
+int flash_attention_sm90_fwd(const void* q, const void* k, const void* v,
+                             void* out, int B, int Sq, int Skv, int H, int KV,
+                             int hd, int causal, void* stream) {
+  if (bad_shape(B, Sq, Skv, H, KV)) return int(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int c = causal ? 1 : 0;
+  switch (hd) {
+    case 64: return launch_sm90_hd<64>(q, k, v, out, B, Sq, Skv, H, KV, c, s);
+    case 128: return launch_sm90_hd<128>(q, k, v, out, B, Sq, Skv, H, KV, c, s);
+    case 192: return launch_sm90_hd<192>(q, k, v, out, B, Sq, Skv, H, KV, c, s);
+    case 256: return launch_sm90_hd<256>(q, k, v, out, B, Sq, Skv, H, KV, c, s);
   }
   return int(cudaErrorInvalidValue);
 }

@@ -20,10 +20,13 @@
 // design reads each page once per block as a contiguous ps x hd tile
 // (4 KB in bf16 at 16 x 128), dequantizes int8 rows with their f32 scale at
 // load, and skips pages wholly past the tile's last visible position.
-// Prefill (C*G = 256 rows) is the one that could be bound by operations; it
-// tiles its rows over the grid, at most 32 rows a block, so each tile skips
-// the pages past its own last position. This first version uses CUDA cores
-// and shared memory only: wgmma, TMA and pipelined page loads come later.
+// Prefill tiles its rows over the grid, at most 32 rows a block, so each
+// tile skips the pages past its own last position. This version uses CUDA
+// cores and shared memory only. A bf16 prefill (q bf16 over a bf16 or int8
+// pool) does not come here: it runs on the tensor cores in
+// paged_prefill_sm90.cu (wgmma + TMA), and this kernel serves the f32
+// prefill, since wgmma has no full-f32 mode (TF32 could not meet the f32
+// checks at 1e-4). Decode and verify, all dtypes, stay here.
 //
 // Split-KV (decode, verify): each split writes an unnormalised partial
 // (acc, m, l) and a second small kernel combines them (FlashDecoding). With

@@ -2,7 +2,10 @@
 ``kernel.py`` wrapper of its hand-written CUDA kernel (``csrc/*.cu``) and an
 ``ops.py`` entry that dispatches by the tensor's device: the three paged
 attention kernels of the continuous-batching path, and RMSNorm, dense flash
-attention and the Mamba2 SSD scan of the Zamba2 static path."""
+attention and the Mamba2 SSD scan of the Zamba2 static path. Flash
+attention and the paged prefill pick their kernel by dtype
+(``attention_route``) and count launches per route."""
+from ._cuda import attention_route
 from .decode_attention import (default_num_splits, flash_decode_fwd,
                                paged_decode_attention, paged_decode_reference)
 from .flash_attention import (attention_reference, flash_attention,
@@ -27,10 +30,20 @@ KERNEL_WRAPPERS = {"flash_decode_fwd": flash_decode_fwd,
 def reset_launch_counts() -> None:
     for fn in KERNEL_WRAPPERS.values():
         fn.launches = 0
+        for route in getattr(fn, "launches_by_route", {}):
+            fn.launches_by_route[route] = 0
 
 
 def launch_counts() -> dict[str, int]:
     return {name: fn.launches for name, fn in KERNEL_WRAPPERS.items()}
+
+
+def launch_counts_by_route() -> dict[str, dict[str, int]]:
+    """{kernel: {route: launches}} for the wrappers that pick a kernel by
+    dtype (flash attention, the paged prefill)."""
+    return {name: dict(fn.launches_by_route)
+            for name, fn in KERNEL_WRAPPERS.items()
+            if hasattr(fn, "launches_by_route")}
 
 
 __all__ = ["default_num_splits", "flash_decode_fwd", "flash_prefill_fwd",
@@ -42,4 +55,4 @@ __all__ = ["default_num_splits", "flash_decode_fwd", "flash_prefill_fwd",
            "flash_attention", "flash_attention_fwd", "attention_reference",
            "mamba_chunk_scan", "ssd_scan", "ssd_chunked_reference",
            "KERNEL_WRAPPERS", "reset_launch_counts",
-           "launch_counts"]
+           "launch_counts", "launch_counts_by_route", "attention_route"]

@@ -3,8 +3,9 @@
 Each source under ``src/repro_torch/csrc/`` is compiled by ``nvcc`` for
 ``sm_90a`` into a shared library with a plain C interface, loaded with
 ``ctypes``. The library is built at first use into ``csrc/build/`` (listed in
-``.gitignore``) under a name that carries the hash of the source and flags,
-so an edited source is rebuilt and an unchanged one is reused. Nothing here
+``.gitignore``) under a name that carries the hash of the source, of every
+shared header (``csrc/*.cuh``) and of the flags, so an edited source or
+header is rebuilt and an unchanged one is reused. Nothing here
 runs at import: the CPU tests import every module, and ``nvcc`` is needed
 only when a kernel is first launched.
 """
@@ -22,7 +23,7 @@ import torch
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = CSRC / "build"
 SOURCES = ("paged_attention.cu", "rmsnorm.cu", "flash_attention.cu",
-           "ssd_scan.cu")
+           "ssd_scan.cu", "paged_prefill_sm90.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -42,7 +43,11 @@ SIGNATURES = {
     },
     "rmsnorm.cu": {"rmsnorm_fwd": [_P, _I, _P, _P, _I, _I, _F, _P]},
     "flash_attention.cu": {
-        "flash_attention_fwd": [_P, _P, _P, _I, _P] + [_I] * 7 + [_P]},
+        "flash_attention_f32_fwd": [_P] * 4 + [_I] * 7 + [_P],
+        "flash_attention_sm90_fwd": [_P] * 4 + [_I] * 7 + [_P]},
+    "paged_prefill_sm90.cu": {
+        "paged_prefill_sm90_fwd": [_P, _P, _P, _I, _P, _P, _P, _P] + [_I] * 8
+                                  + [_P, _P]},
     "ssd_scan.cu": {
         "ssd_scan_fwd": [_P, _P, _P, _I, _P, _P, _P, _P] + [_I] * 6
                         + [_P]},
@@ -63,8 +68,11 @@ def nvcc_path() -> str:
 
 
 def _target(source: str) -> Path:
-    digest = hashlib.sha256((CSRC / source).read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    h = hashlib.sha256((CSRC / source).read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode() + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    digest = h.hexdigest()[:16]
     return BUILD_DIR / f"{Path(source).stem}-{digest}.so"
 
 
@@ -112,6 +120,26 @@ def library(source: str = "paged_attention.cu") -> ctypes.CDLL:
             fn.restype = ctypes.c_int
         _LIBS[source] = lib
     return lib
+
+
+# Head dims of the tensor-core (wgmma + TMA) attention kernels.
+SM90_HEAD_DIMS = (64, 128, 192, 256)
+
+
+def attention_route(q_dtype, kv_dtype, hd: int) -> str:
+    """The kernel an attention call takes, by dtype: ``"sm90"`` (wgmma +
+    TMA: ``flash_attention.cu``'s bf16 kernel, ``paged_prefill_sm90.cu``)
+    for a bf16 q over bf16 or int8 K/V; ``"cuda_core"`` (the f32 CUDA-core
+    kernels) for f32 q or f32 K/V, since wgmma has no full-f32 mode. Raises
+    for a bf16 call whose hd the tensor-core kernels do not take; it is
+    never rerouted."""
+    if q_dtype == torch.bfloat16 and kv_dtype in (torch.bfloat16, torch.int8):
+        if hd not in SM90_HEAD_DIMS:
+            raise ValueError(f"bf16 attention runs on the wgmma kernels, "
+                             f"whose contract is hd in {SM90_HEAD_DIMS}; "
+                             f"got hd={hd}")
+        return "sm90"
+    return "cuda_core"
 
 
 def ptr(t: torch.Tensor | None):

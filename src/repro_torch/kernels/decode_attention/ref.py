@@ -45,8 +45,7 @@ def masked_attention(q, k, v, q_pos):
     s = torch.einsum("bqkgh,btkh->bkgqt", qg, k.float()) / math.sqrt(hd)
     kv_pos = torch.arange(t, device=q.device)
     mask = kv_pos[None, None, :] <= q_pos[:, :, None]               # (B, C, T)
-    s = torch.where(mask[:, None, None], s,
-                    torch.tensor(MASK_VALUE, device=q.device))
+    s = torch.where(mask[:, None, None], s, MASK_VALUE)
     p = torch.softmax(s, dim=-1)
     out = torch.einsum("bkgqt,btkh->bqkgh", p, v.float())
     return out.reshape(b, c, h, hd).to(q.dtype)

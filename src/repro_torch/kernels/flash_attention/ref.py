@@ -19,7 +19,7 @@ def attention_reference(q, k, v, *, causal: bool = True):
     if causal:
         mask = (torch.arange(sq, device=q.device)[:, None]
                 >= torch.arange(skv, device=q.device)[None, :])
-        s = torch.where(mask, s, torch.tensor(MASK_VALUE, device=q.device))
+        s = torch.where(mask, s, MASK_VALUE)
     p = torch.softmax(s, dim=-1)
     out = torch.einsum("bkgqs,bskh->bqkgh", p, v.float())
     return out.reshape(b, sq, h, hd).to(q.dtype)
