@@ -10,14 +10,18 @@ Phases, each of which must pass (a failure exits nonzero):
    one process a source, all started together; print the registers and
    spills of the tensor-core (wgmma + TMA) instantiations the serve paths
    launch, and fail if one spills;
-3. kernels: each paged attention kernel on bf16 and int8 pools at the yi-6b
-   serve path's shapes (the prefill also at C 13, G 4, page sizes 32 and
-   64), and RMSNorm, dense flash attention and the Mamba2 SSD scan at the
-   Zamba2 serve path's shapes (B 8, S 256) in bf16 and f32 (plus ragged,
-   GQA, hd 256 and multi-chunk cases), each held against its plain PyTorch
-   version on the same inputs and timed beside the plain version and one
-   library call where there is one (``time_ms``: device time between two
-   events, behind a spin kernel that outlasts the host's enqueue);
+3. kernels: each paged attention kernel with bf16 q on bf16 and int8 pools
+   (the tensor-core route) at the yi-6b serve path's shapes and off them
+   (G 4, page sizes 32 and 64; the prefill at C 13; decode and verify at
+   one split, at 4 and 8, and at batch 1 with 32 one-page splits, lengths
+   1, mid-page and full, verify windows of 1 to 8), and in f32 at the serve
+   shapes (the CUDA-core route); RMSNorm, dense flash attention and the
+   Mamba2 SSD scan at the Zamba2 serve path's shapes (B 8, S 256) in bf16
+   and f32 (plus ragged, GQA, hd 256 and multi-chunk cases); each held
+   against its plain PyTorch version on the same inputs and timed beside
+   the plain version and one library call where there is one (``time_ms``:
+   device time between two events, behind a spin kernel that outlasts the
+   host's enqueue), and the paged kernels' host enqueue on both routes;
 4. parity: yi-6b widths at depth 2 in float32 -- prefill, decode and verify
    steps on the card (kernels) against the same weights on the CPU (plain
    versions); then Zamba2 widths at depth 6 (one Mamba group and one shared
@@ -28,8 +32,9 @@ Phases, each of which must pass (a failure exits nonzero):
    decode (K=4) and an int8 pool; then full-width Zamba2-1.2B (38 layers,
    bf16) through the static ``ServeEngine.generate``, 8 prompts of 160-256
    tokens, 32 new each; each kernel's launch count read around each run,
-   and every bf16 flash-attention and paged-prefill launch required to take
-   the tensor-core route (the f32 parity phases, the CUDA-core route).
+   and every bf16 flash-attention and paged decode, prefill and verify
+   launch required to take the tensor-core route (the f32 parity phases,
+   the CUDA-core route).
 
 The second-to-last line of output is a JSON ``kernels`` record; the last
 is ``{"ok": true, "device": {...}}``. Without CUDA, or without the port
@@ -40,6 +45,7 @@ from __future__ import annotations
 
 import json
 import math
+import statistics
 import subprocess
 import sys
 import time
@@ -85,9 +91,9 @@ REPLACES = {
     "ssd_scan": "src/repro/kernels/mamba_scan/kernel.py:70",
 }
 SOURCES = {
-    "flash_decode_fwd": "src/repro_torch/csrc/paged_attention.cu",
-    "flash_prefill_fwd": "src/repro_torch/csrc/paged_prefill_sm90.cu",
-    "flash_verify_fwd": "src/repro_torch/csrc/paged_attention.cu",
+    "flash_decode_fwd": "src/repro_torch/csrc/paged_attention_sm90.cu",
+    "flash_prefill_fwd": "src/repro_torch/csrc/paged_attention_sm90.cu",
+    "flash_verify_fwd": "src/repro_torch/csrc/paged_attention_sm90.cu",
     "rmsnorm_fused": "src/repro_torch/csrc/rmsnorm.cu",
     "flash_attention_fwd": "src/repro_torch/csrc/flash_attention.cu",
     "ssd_scan": "src/repro_torch/csrc/ssd_scan.cu",
@@ -134,6 +140,21 @@ def time_ms(fn, iters: int = 30, warmup: int = 3) -> float:
     raise AssertionError("time_ms: the spin never outlasted the enqueue")
 
 
+def enqueue_ms(fn, calls: int = 20) -> float:
+    """Host time to enqueue one call: the mean over ``calls`` back-to-back
+    calls after a synchronise, the device running behind (the wrapper's
+    checks, allocation, tensor-map encoding and launch)."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    dt = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return dt / calls * 1e3
+
+
 # ---------------------------------------------------------------------------
 # phase 1: device
 # ---------------------------------------------------------------------------
@@ -156,11 +177,16 @@ def phase_device():
 # ---------------------------------------------------------------------------
 
 # The tensor-core instantiations the serve paths launch (mangled-name
-# fragments): flash attention at hd 64 (Zamba2), the paged prefill at hd 128
-# over bf16 and int8 pools (yi-6b). None may spill.
-ON_PATH_SM90 = {"flash_sm90_kernelILi64E": "flash bf16 hd 64",
-                "prefill_sm90_kernelILi128ELb0E": "prefill hd 128 bf16 pool",
-                "prefill_sm90_kernelILi128ELb1E": "prefill hd 128 int8 pool"}
+# fragments): flash attention at hd 64 (Zamba2); the paged kernel at hd 128
+# over bf16 and int8 pools (yi-6b), whole (prefill, and decode and verify
+# at one split) and with split-KV partials (decode and verify at the serve
+# shape's 4 splits). None may spill.
+ON_PATH_SM90 = {
+    "flash_sm90_kernelILi64E": "flash bf16 hd 64",
+    "paged_attn_sm90_kernelILi128ELb0ELb0E": "paged hd 128 bf16 pool",
+    "paged_attn_sm90_kernelILi128ELb1ELb0E": "paged hd 128 int8 pool",
+    "paged_attn_sm90_kernelILi128ELb0ELb1E": "paged split hd 128 bf16 pool",
+    "paged_attn_sm90_kernelILi128ELb1ELb1E": "paged split hd 128 int8 pool"}
 
 
 def _ptxas_functions(text):
@@ -217,14 +243,17 @@ def phase_build():
 # phase 3: kernels against their plain versions
 # ---------------------------------------------------------------------------
 
-def _pool(gen, kind, num_pages, dev):
+def _pool(gen, kind, num_pages, dev, nkv=KV, ps=PS):
+    """A random pool of ``kind``: bf16, int8 with row scales, or f32."""
     import torch
     from repro_torch.kernels import quantize_pool
-    shape = (KV, num_pages, PS, HD)
+    shape = (nkv, num_pages, ps, HD)
     k = torch.randn(shape, generator=gen, device=dev)
     v = torch.randn(shape, generator=gen, device=dev)
     if kind == "int8":
         return quantize_pool({"k": k, "v": v})
+    if kind == "f32":
+        return {"k": k, "v": v}
     return {"k": k.bfloat16(), "v": v.bfloat16()}
 
 
@@ -309,7 +338,69 @@ def _prefill_edge_cases(gen, kind, dev):
     return variants
 
 
+def _decode_verify_edge_cases(gen, kind, dev):
+    """bf16 decode and verify off the serve shape, on the tensor-core route,
+    each against its plain version: G 4 (H 8 over KV 2, B 3) at page sizes
+    32 and 64, at one split and at the split count the ops layer picks (8
+    one-page splits narrower than a 64-key tile, and 4); B 1 at the serve
+    heads with 32 one-page splits. Lengths 1, mid-page and the whole table
+    (request 0's last page-table entry is out of range and must clamp to
+    P-1); verify windows of T 1 to 8 at pos 0, mid-page and the table's
+    end. Returns ({name: [(kernel, plain, None, None)]})."""
+    import torch
+    from repro_torch.kernels import (default_num_splits, flash_decode_fwd,
+                                     flash_verify_fwd, paged_decode_reference,
+                                     paged_verify_reference)
+    out = {"flash_decode_fwd": [], "flash_verify_fwd": []}
+
+    def add(q, pool, pt, base, splits):
+        scales = dict(k_scale=pool.get("k_scale"), v_scale=pool.get("v_scale"))
+        kern, plain, name = (
+            (flash_decode_fwd, paged_decode_reference, "flash_decode_fwd")
+            if q.dim() == 3 else
+            (flash_verify_fwd, paged_verify_reference, "flash_verify_fwd"))
+        out[name].append((
+            lambda: kern(q, pool["k"], pool["v"], pt, base,
+                         num_splits=splits, **scales),
+            lambda: plain(q, pool["k"], pool["v"], pt, base, **scales),
+            None, None))
+
+    def i32(*xs):
+        return torch.tensor(xs, dtype=torch.int32, device=dev)
+
+    for b, h, nkv, ps, npages in ((3, 8, 2, 32, 8), (3, 8, 2, 64, 4),
+                                  (1, H, KV, PS, NPAGES)):
+        num_pages = b * npages + 1
+        pool = _pool(gen, kind, num_pages, dev, nkv=nkv, ps=ps)
+        pt = (torch.randperm(num_pages - 1, generator=gen, device=dev)
+              + 1).reshape(b, npages).to(torch.int32)
+        pt[0, npages - 1] = num_pages + 5
+        span, mid = npages * ps, ps + ps // 2 + 3
+        chosen = default_num_splits(npages, batch=b, split_budget=32)
+        q1 = torch.randn(b, h, HD, generator=gen, device=dev).bfloat16()
+        if b == 1:                       # 32 one-page splits
+            for length in (1, span - 12, span):
+                add(q1, pool, pt, i32(length), chosen)
+            for t in range(1, 9):
+                qv = torch.randn(1, t, h, HD, generator=gen,
+                                 device=dev).bfloat16()
+                for p in (0, mid, span - t):
+                    add(qv, pool, pt, i32(p), chosen)
+            continue
+        for splits in (1, chosen):
+            add(q1, pool, pt, i32(span, 1, mid), splits)
+            for t in (1, 5, 8):
+                qv = torch.randn(b, t, h, HD, generator=gen,
+                                 device=dev).bfloat16()
+                add(qv, pool, pt, i32(span - t, 0, mid), splits)
+    return out
+
+
 def phase_kernels():
+    """The paged kernels against their plain versions: bf16 q over bf16
+    and int8 pools on the tensor-core route (edge cases first, then the
+    yi-6b serve shape, timed), and over an f32 pool at the serve shape on
+    the CUDA-core route (f32, the enqueue timed)."""
     import torch
     from repro_torch.kernels import (default_num_splits, flash_decode_fwd,
                                      flash_prefill_fwd, flash_verify_fwd,
@@ -324,8 +415,10 @@ def phase_kernels():
     if splits < 2:
         raise AssertionError(f"decode must split at these shapes: {splits}")
     max_pos = NPAGES * PS
-    results = {}
-    for kind in ("bf16", "int8"):
+    results, serve_calls = {}, {}
+    for kind in ("bf16", "int8", "f32"):
+        qdt = torch.float32 if kind == "f32" else torch.bfloat16
+        tol = TOL_F32 if kind == "f32" else TOL_BF16
         pool = _pool(gen, kind, num_pages, dev)
         scales = dict(k_scale=pool.get("k_scale"), v_scale=pool.get("v_scale"))
         pt = _page_table(gen, num_pages, dev)
@@ -338,11 +431,11 @@ def phase_kernels():
         q_start = torch.randint(1, max_pos - C_PREFILL + 1, (B,),
                                 generator=gen, device=dev, dtype=torch.int32)
         q_start[0] = max_pos - C_PREFILL
-        q1 = torch.randn(B, H, HD, generator=gen, device=dev).bfloat16()
+        q1 = torch.randn(B, H, HD, generator=gen, device=dev).to(qdt)
         qv = torch.randn(B, T_VERIFY, H, HD, generator=gen,
-                         device=dev).bfloat16()
+                         device=dev).to(qdt)
         qp = torch.randn(B, C_PREFILL, H, HD, generator=gen,
-                         device=dev).bfloat16()
+                         device=dev).to(qdt)
         ar_t = torch.arange(T_VERIFY, device=dev)
         ar_c = torch.arange(C_PREFILL, device=dev)
         cases = {
@@ -359,7 +452,7 @@ def phase_kernels():
                 lambda: paged_verify_reference(qv, pool["k"], pool["v"], pt,
                                                pos, **scales),
                 qv, pos.long()[:, None] + ar_t[None])],
-            "flash_prefill_fwd": _prefill_edge_cases(gen, kind, dev) + [(
+            "flash_prefill_fwd": [(
                 lambda qs=qs: flash_prefill_fwd(qp, pool["k"], pool["v"], pt,
                                                 qs, **scales),
                 lambda qs=qs: paged_prefill_reference(qp, pool["k"],
@@ -368,23 +461,33 @@ def phase_kernels():
                 qp, qs.long()[:, None] + ar_c[None])
                 for qs in (torch.zeros_like(q_start), q_start)],
         }
+        if kind != "f32":
+            cases["flash_prefill_fwd"][:0] = _prefill_edge_cases(gen, kind,
+                                                                 dev)
+            for name, extra in _decode_verify_edge_cases(gen, kind,
+                                                         dev).items():
+                cases[name][:0] = extra
         for name, variants in cases.items():
             for vi, (kern, plain, q, q_pos) in enumerate(variants):
                 got = kern()
                 torch.cuda.synchronize()
                 want = plain()
                 err = (got.float() - want.float()).abs().max().item()
-                ok = math.isfinite(err) and err <= TOL_BF16
+                ok = math.isfinite(err) and err <= tol
                 log(f"[kernels] {name} {kind} case{vi}: max|kernel-plain| "
-                    f"{err:.3e} (tol {TOL_BF16}) {'ok' if ok else 'FAIL'}")
+                    f"{err:.3e} (tol {tol}) {'ok' if ok else 'FAIL'}")
                 if not ok:
                     raise AssertionError(f"{name} {kind} disagrees: {err}")
                 rec = results.setdefault(name, {}).setdefault(kind, {})
                 rec["max_abs_err"] = max(err, rec.get("max_abs_err", 0.0))
                 if vi != len(variants) - 1:
                     continue
-                # timing on the last variant (prefill: the serve shape at
-                # q_start > 0; its edge cases come first)
+                # the serve shape (prefill: at q_start > 0), which comes
+                # after every edge case: the device time on the tensor-core
+                # route; the enqueue of every kind, below
+                serve_calls.setdefault(name, {})[kind] = kern
+                if kind == "f32":
+                    continue
                 bytes_s = _bytes_needed(pool, pt, q_pos[:, -1], q, got) \
                     / HBM_BYTES_PER_S
                 ops_s = _flops_needed(q_pos) / BF16_FLOPS_PER_S
@@ -397,6 +500,20 @@ def phase_kernels():
                     f"plain {rec['plain_ms']:.4f} ms, sdpa "
                     f"{rec['library_ms']:.4f} ms, bound {rec['bound_ms']:.4f}"
                     f" ms ({rec['bound_by']})")
+    # The host's enqueue of each kind's serve-shape call (bf16 and int8
+    # pools: the sm90 route; f32: cuda_core), the kinds in turns so that
+    # drift on the host falls on all of them; the median of 10 each.
+    for name in PAGED:
+        runs = {kind: [] for kind in serve_calls[name]}
+        for _ in range(5):
+            for kind in ("f32", "bf16", "int8", "int8", "bf16", "f32"):
+                runs[kind].append(enqueue_ms(serve_calls[name][kind]))
+        for kind, times in runs.items():
+            results[name][kind]["enqueue_ms"] = statistics.median(times)
+        med = {k: results[name][k]["enqueue_ms"] for k in runs}
+        log(f"[kernels] {name} enqueue (median of 10, in turns): sm90 bf16 "
+            f"{med['bf16']:.4f} ms, int8 {med['int8']:.4f} ms; cuda_core f32 "
+            f"{med['f32']:.4f} ms ({med['bf16'] / med['f32']:.2f}x)")
     return results
 
 
@@ -643,9 +760,11 @@ def phase_parity():
     counts = launch_counts()
     if min(counts[k] for k in PAGED + ("rmsnorm_fused",)) < cfg.num_layers:
         raise AssertionError(f"parity phase missed a kernel: {counts}")
-    routes = launch_counts_by_route()["flash_prefill_fwd"]
-    if routes != {"sm90": 0, "cuda_core": counts["flash_prefill_fwd"]}:
-        raise AssertionError(f"f32 prefill left the CUDA-core route: {routes}")
+    for name in PAGED:
+        routes = launch_counts_by_route()[name]
+        if routes != {"sm90": 0, "cuda_core": counts[name]}:
+            raise AssertionError(f"f32 {name} left the CUDA-core route: "
+                                 f"{routes}")
     for kind, err in worst.items():
         log(f"[parity] yi-6b widths, 2 layers, f32: {kind} max|logit "
             f"card-cpu| {err:.3e} (tol {TOL_PARITY})")
@@ -740,7 +859,7 @@ def phase_serve(smi: str):
                                           spec_tokens=4),
             "int8": dict(kv_cache_dtype="int8")}
     total = dict.fromkeys(REPLACES, 0)
-    prefill_routes = {"sm90": 0, "cuda_core": 0}
+    paged_routes = {name: {"sm90": 0, "cuda_core": 0} for name in PAGED}
     used = PAGED + ("rmsnorm_fused",)        # the kernels of this path
     outs = {}
     for name, kw in runs.items():
@@ -753,12 +872,14 @@ def phase_serve(smi: str):
         torch.cuda.synchronize()
         dt = time.perf_counter() - t0
         counts = launch_counts()
-        routes = launch_counts_by_route()["flash_prefill_fwd"]
-        if routes != {"sm90": counts["flash_prefill_fwd"], "cuda_core": 0}:
-            raise AssertionError(f"serve {name}: a bf16 prefill launch left "
-                                 f"the sm90 route: {routes}")
-        for k, v in routes.items():
-            prefill_routes[k] += v
+        by_route = launch_counts_by_route()
+        for kern in PAGED:
+            routes = by_route[kern]
+            if routes != {"sm90": counts[kern], "cuda_core": 0}:
+                raise AssertionError(f"serve {name}: a bf16 {kern} launch "
+                                     f"left the sm90 route: {routes}")
+            for k, v in routes.items():
+                paged_routes[kern][k] += v
         toks = out.tokens
         if toks.shape != (len(prompts), max_new) or toks.min() < 0 \
                 or toks.max() >= cfg.vocab_size:
@@ -782,9 +903,9 @@ def phase_serve(smi: str):
     if min(total[k] for k in used) <= 0:
         raise AssertionError(f"a kernel was not launched on the main path: "
                              f"{total}")
-    log(f"[serve] launches on the main path: {total}; paged prefill by "
-        f"route {prefill_routes}")
-    return total, {"flash_prefill_fwd": prefill_routes}
+    log(f"[serve] launches on the main path: {total}; paged kernels by "
+        f"route {paged_routes}")
+    return total, paged_routes
 
 
 def phase_zamba_serve(smi: str):
@@ -890,8 +1011,11 @@ def main() -> int:
             "library_ms": rec["library_ms"],
         }
         if name in PAGED:
+            entry["enqueue_ms"] = {"sm90": rec["enqueue_ms"],
+                                   "cuda_core": per_kind["f32"]["enqueue_ms"]}
             entry["int8"] = {k: per_kind[other][k] for k in
-                             ("ms", "plain_ms", "bound_ms", "library_ms")}
+                             ("ms", "plain_ms", "bound_ms", "library_ms",
+                              "enqueue_ms")}
         if name == "rmsnorm_fused":
             entry["launches_yi6b"] = launches[name]
         if name in routes:

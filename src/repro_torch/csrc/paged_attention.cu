@@ -1,5 +1,5 @@
-// Paged GQA attention for Hopper (sm_90a): decode, chunked prefill and
-// speculative verify over the block-paged KV pool.
+// Paged GQA attention for Hopper (sm_90a) on CUDA cores: decode, chunked
+// prefill and speculative verify over the block-paged KV pool, f32.
 //
 // Replaces the three Pallas TPU kernels of the reference package:
 //   decode  -> repro/kernels/decode_attention/kernel.py  flash_decode_fwd
@@ -22,11 +22,11 @@
 // load, and skips pages wholly past the tile's last visible position.
 // Prefill tiles its rows over the grid, at most 32 rows a block, so each
 // tile skips the pages past its own last position. This version uses CUDA
-// cores and shared memory only. A bf16 prefill (q bf16 over a bf16 or int8
-// pool) does not come here: it runs on the tensor cores in
-// paged_prefill_sm90.cu (wgmma + TMA), and this kernel serves the f32
-// prefill, since wgmma has no full-f32 mode (TF32 could not meet the f32
-// checks at 1e-4). Decode and verify, all dtypes, stay here.
+// cores and shared memory only, and now serves f32 only: every call with
+// bf16 q over a bf16 or int8 pool -- decode, prefill and verify alike --
+// runs on the tensor cores in paged_attention_sm90.cu (wgmma + TMA, split-KV
+// for decode and verify), and this kernel takes f32 q or an f32 pool, since
+// wgmma has no full-f32 mode (TF32 could not meet the f32 checks at 1e-4).
 //
 // Split-KV (decode, verify): each split writes an unnormalised partial
 // (acc, m, l) and a second small kernel combines them (FlashDecoding). With

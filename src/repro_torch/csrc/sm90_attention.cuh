@@ -1,5 +1,5 @@
 // Hopper (sm_90a) building blocks shared by the tensor-core attention
-// kernels (flash_attention.cu, paged_prefill_sm90.cu), as inline PTX:
+// kernels (flash_attention.cu, paged_attention_sm90.cu), as inline PTX:
 //
 // - the wgmma shared-memory descriptor of a 128-byte-swizzled tile, and
 //   wgmma.fence / commit_group / wait_group;

@@ -3,7 +3,7 @@
 ``ops.py`` entry that dispatches by the tensor's device: the three paged
 attention kernels of the continuous-batching path, and RMSNorm, dense flash
 attention and the Mamba2 SSD scan of the Zamba2 static path. Flash
-attention and the paged prefill pick their kernel by dtype
+attention and the three paged kernels pick their kernel by dtype
 (``attention_route``) and count launches per route."""
 from ._cuda import attention_route
 from .decode_attention import (default_num_splits, flash_decode_fwd,
@@ -40,7 +40,7 @@ def launch_counts() -> dict[str, int]:
 
 def launch_counts_by_route() -> dict[str, dict[str, int]]:
     """{kernel: {route: launches}} for the wrappers that pick a kernel by
-    dtype (flash attention, the paged prefill)."""
+    dtype (flash attention; paged decode, prefill and verify)."""
     return {name: dict(fn.launches_by_route)
             for name, fn in KERNEL_WRAPPERS.items()
             if hasattr(fn, "launches_by_route")}

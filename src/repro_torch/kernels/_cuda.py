@@ -23,7 +23,7 @@ import torch
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = CSRC / "build"
 SOURCES = ("paged_attention.cu", "rmsnorm.cu", "flash_attention.cu",
-           "ssd_scan.cu", "paged_prefill_sm90.cu")
+           "ssd_scan.cu", "paged_attention_sm90.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -45,9 +45,9 @@ SIGNATURES = {
     "flash_attention.cu": {
         "flash_attention_f32_fwd": [_P] * 4 + [_I] * 7 + [_P],
         "flash_attention_sm90_fwd": [_P] * 4 + [_I] * 7 + [_P]},
-    "paged_prefill_sm90.cu": {
-        "paged_prefill_sm90_fwd": [_P, _P, _P, _I, _P, _P, _P, _P] + [_I] * 8
-                                  + [_P, _P]},
+    "paged_attention_sm90.cu": {
+        "paged_attention_sm90_fwd": [_P, _P, _P, _I, _P, _P, _P, _P]
+                                    + [_I] * 10 + [_P] * 5},
     "ssd_scan.cu": {
         "ssd_scan_fwd": [_P, _P, _P, _I, _P, _P, _P, _P] + [_I] * 6
                         + [_P]},
@@ -128,7 +128,7 @@ SM90_HEAD_DIMS = (64, 128, 192, 256)
 
 def attention_route(q_dtype, kv_dtype, hd: int) -> str:
     """The kernel an attention call takes, by dtype: ``"sm90"`` (wgmma +
-    TMA: ``flash_attention.cu``'s bf16 kernel, ``paged_prefill_sm90.cu``)
+    TMA: ``flash_attention.cu``'s bf16 kernel, ``paged_attention_sm90.cu``)
     for a bf16 q over bf16 or int8 K/V; ``"cuda_core"`` (the f32 CUDA-core
     kernels) for f32 q or f32 K/V, since wgmma has no full-f32 mode. Raises
     for a bf16 call whose hd the tensor-core kernels do not take; it is
@@ -140,6 +140,51 @@ def attention_route(q_dtype, kv_dtype, hd: int) -> str:
                              f"got hd={hd}")
         return "sm90"
     return "cuda_core"
+
+
+# Page sizes of the tensor-core paged kernel (a page is one TMA box and
+# 64 / page_size pages make a 64-key tile).
+SM90_PAGE_SIZES = (8, 16, 32, 64)
+
+
+def paged_route(name: str, q, k_pages) -> str:
+    """``attention_route`` of a paged decode, prefill or verify call, with
+    the tensor-core kernel's page-size and group contract: a bf16 call
+    outside it raises and is never rerouted."""
+    route = attention_route(q.dtype, k_pages.dtype, q.shape[-1])
+    g = q.shape[-2] // k_pages.shape[0]
+    if route == "sm90" and (k_pages.shape[2] not in SM90_PAGE_SIZES
+                            or g > 64):
+        raise ValueError(f"{name}: the bf16 wgmma kernel's contract is "
+                         f"page_size in {SM90_PAGE_SIZES} and G <= 64; got "
+                         f"page_size={k_pages.shape[2]}, G={g}")
+    return route
+
+
+def paged_sm90(name: str, q, k_pages, v_pages, page_table, base, shift: int,
+               k_scale, v_scale, num_splits: int):
+    """Launch ``paged_attention_sm90.cu`` on q (B,C,H,hd) bf16: query c of
+    request b sees the keys at positions <= base[b] + shift + c. With more
+    than one split the f32 partials live in one scratch allocation.
+    Returns (B,C,H,hd) bf16."""
+    b, c, h, hd = q.shape
+    nkv, num_pages, ps, _ = k_pages.shape
+    out = torch.empty_like(q)
+    part = [None] * 3
+    if num_splits > 1:
+        rows = b * nkv * num_splits * c * (h // nkv)
+        ws = torch.empty(rows * (hd + 2), dtype=torch.float32,
+                         device=q.device)
+        p0 = ws.data_ptr()
+        part = [p0, p0 + 4 * rows * hd, p0 + 4 * rows * (hd + 1)]
+    rc = library("paged_attention_sm90.cu").paged_attention_sm90_fwd(
+        q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
+        DTYPE_CODES[k_pages.dtype], ptr(k_scale), ptr(v_scale),
+        page_table.data_ptr(), base.data_ptr(), shift, b, c, h, nkv,
+        num_pages, ps, hd, page_table.shape[1], num_splits, out.data_ptr(),
+        *part, stream_of(q))
+    raise_on(rc, name)
+    return out
 
 
 def ptr(t: torch.Tensor | None):

@@ -88,8 +88,7 @@ def dense_attention(q, k, v, *, causal: bool = True, q_positions=None,
               else q_positions)
         kp = (torch.arange(k.shape[1], device=q.device)
               if kv_positions is None else kv_positions)
-        s = torch.where(qp[:, None] >= kp[None, :], s,
-                        torch.tensor(MASK_VALUE, device=q.device))
+        s = torch.where(qp[:, None] >= kp[None, :], s, MASK_VALUE)
     p = torch.softmax(s, dim=-1).to(v.dtype)
     out = torch.einsum("bkgqs,bskh->bqkgh", p.float(), v.float())
     return out.reshape(b, sq, h, hd).to(q.dtype)
@@ -108,8 +107,7 @@ def decode_attention(q, k_cache, v_cache, pos):
         / math.sqrt(hd)
     idx = torch.arange(k_cache.shape[1], device=q.device)
     mask = idx[None, :] <= pos[:, None]                         # (B,Smax)
-    s = torch.where(mask[:, None, None, :], s,
-                    torch.tensor(MASK_VALUE, device=q.device))
+    s = torch.where(mask[:, None, None, :], s, MASK_VALUE)
     p = torch.softmax(s, dim=-1).to(v_cache.dtype)
     out = torch.einsum("bkgs,bskh->bkgh", p.float(), v_cache.float())
     return out.reshape(b, 1, h, hd).to(q.dtype)

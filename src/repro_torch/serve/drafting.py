@@ -28,13 +28,12 @@ def build_ngram_draft(hist_len: int, k_spec: int, ngram: int):
         dev = hist.device
         pos = pos.long()
         bidx = torch.arange(s, device=dev)
-        neg1 = torch.tensor(-1, device=dev)
         # Latest earlier occurrence of the trailing bigram (hist[pos-1], cur).
         prev = hist[bidx, (pos - 1) % hist_len]
         hit = (hist[:, :-1] == prev[:, None]) & (hist[:, 1:] == cur[:, None])
         j = torch.arange(hist_len - 1, device=dev)
         # the match ends at j+1; only strictly-earlier ends count
-        cand = torch.where(hit & ((j + 1)[None, :] < pos[:, None]), j, neg1)
+        cand = torch.where(hit & ((j + 1)[None, :] < pos[:, None]), j, -1)
         best = cand.max(dim=1).values
         src = torch.where(best >= 0, best + 2, pos + 1)
         if ngram == 3:
@@ -45,7 +44,7 @@ def build_ngram_draft(hist_len: int, k_spec: int, ngram: int):
                    (hist[:, 2:] == cur[:, None])
             j3 = torch.arange(hist_len - 2, device=dev)
             cand3 = torch.where(hit3 & ((j3 + 2)[None, :] < pos[:, None])
-                                & (pos[:, None] >= 2), j3, neg1)
+                                & (pos[:, None] >= 2), j3, -1)
             best3 = cand3.max(dim=1).values
             src = torch.where(best3 >= 0, best3 + 3, src)
         # A recent match reaching past the known history is extrapolated

@@ -1,6 +1,9 @@
 """The port's n-gram drafts equal the reference's exactly: bigram and
 trigram keys, at positions 0, 1 and 2 (where ``hist[pos-1]`` wraps to the
-last column) and deeper, over histories with repeats and periodic runs."""
+last column) and deeper, over histories with repeats and periodic runs.
+Neither the draft nor the dense attention of the Zamba2 shared block
+builds a tensor from a host value, which on a GPU would synchronise the
+stream on every call."""
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -42,3 +45,29 @@ def test_drafts_identical(ngram, k_spec):
 def test_bad_ngram_rejected():
     with pytest.raises(ValueError, match="ngram"):
         build_ngram_draft(HLEN, 4, 4)
+
+
+def test_serve_path_builds_no_device_scalars(monkeypatch):
+    """``torch.tensor`` refused: an n-gram draft and the dense prefill and
+    decode attention still run, and the draft still equals the
+    reference's (the masks take Python scalars in ``torch.where``)."""
+    from repro_torch.models import layers
+    hist, cur, pos = _hist(1)
+    want = np.asarray(jax_draft(HLEN, 4, 3)(
+        jnp.asarray(hist), jnp.asarray(cur), jnp.asarray(pos)))
+    rng = np.random.RandomState(0)
+    q, k, v = (torch.from_numpy(rng.randn(2, 6, n, 8).astype(np.float32))
+               for n in (4, 2, 2))
+    step = torch.from_numpy(np.array([3, 5], np.int32))
+    args = [torch.from_numpy(a) for a in (hist, cur, pos)]
+
+    def refuse(*a, **kw):
+        raise AssertionError("torch.tensor on the serve path")
+
+    monkeypatch.setattr(torch, "tensor", refuse)
+    got = build_ngram_draft(HLEN, 4, 3)(*args)
+    np.testing.assert_array_equal(got.numpy(), want)
+    dense = layers.dense_attention(q, k, v, causal=True)
+    dec = layers.decode_attention(q[:, :1], k, v, step)
+    assert dense.shape == q.shape and dec.shape == (2, 1, 4, 8)
+    assert torch.isfinite(dense).all() and torch.isfinite(dec).all()
