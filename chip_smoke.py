@@ -9,7 +9,7 @@ Phases, each of which must pass (a failure exits nonzero):
 2. build: compile the CUDA kernels from ``src/repro_torch/csrc`` with nvcc,
    one process a source, all started together; print the registers and
    spills of the tensor-core (wgmma + TMA) instantiations the serve paths
-   launch, and fail if one spills;
+   launch (the SSD scan's among them), and fail if one spills;
 3. kernels: each paged attention kernel with bf16 q on bf16 and int8 pools
    (the tensor-core route) at the yi-6b serve path's shapes and off them
    (G 4, page sizes 32 and 64; the prefill at C 13; decode and verify at
@@ -17,7 +17,12 @@ Phases, each of which must pass (a failure exits nonzero):
    1, mid-page and full, verify windows of 1 to 8), and in f32 at the serve
    shapes (the CUDA-core route); RMSNorm, dense flash attention and the
    Mamba2 SSD scan at the Zamba2 serve path's shapes (B 8, S 256) in bf16
-   and f32 (plus ragged, GQA, hd 256 and multi-chunk cases); each held
+   (the SSD scan on the tensor-core route, also at S 40 in one chunk of
+   40, S 384, B 1 and under strong decay) and f32 (the CUDA-core route;
+   plus ragged, GQA, hd 256 and multi-chunk cases), RMSNorm also at
+   decode's rows (1 and 8 rows of 1000, 4097 and 32768; timed at 8 rows
+   of 2048 and 4096 beside ``F.rms_norm``, and at 2048 rows on both its
+   kernels); each held
    against its plain PyTorch version on the same inputs and timed beside
    the plain version and one library call where there is one (``time_ms``:
    device time between two events, behind a spin kernel that outlasts the
@@ -32,9 +37,9 @@ Phases, each of which must pass (a failure exits nonzero):
    decode (K=4) and an int8 pool; then full-width Zamba2-1.2B (38 layers,
    bf16) through the static ``ServeEngine.generate``, 8 prompts of 160-256
    tokens, 32 new each; each kernel's launch count read around each run,
-   and every bf16 flash-attention and paged decode, prefill and verify
-   launch required to take the tensor-core route (the f32 parity phases,
-   the CUDA-core route).
+   and every bf16 flash-attention, SSD-scan and paged decode, prefill and
+   verify launch required to take the tensor-core route (the f32 parity
+   phases, the CUDA-core route).
 
 The second-to-last line of output is a JSON ``kernels`` record; the last
 is ``{"ok": true, "device": {...}}``. Without CUDA, or without the port
@@ -180,9 +185,10 @@ def phase_device():
 # fragments): flash attention at hd 64 (Zamba2); the paged kernel at hd 128
 # over bf16 and int8 pools (yi-6b), whole (prefill, and decode and verify
 # at one split) and with split-KV partials (decode and verify at the serve
-# shape's 4 splits). None may spill.
+# shape's 4 splits); the SSD scan (Zamba2). None may spill.
 ON_PATH_SM90 = {
     "flash_sm90_kernelILi64E": "flash bf16 hd 64",
+    "ssd_sm90_kernel": "ssd bf16 N = P = 64",
     "paged_attn_sm90_kernelILi128ELb0ELb0E": "paged hd 128 bf16 pool",
     "paged_attn_sm90_kernelILi128ELb1ELb0E": "paged hd 128 int8 pool",
     "paged_attn_sm90_kernelILi128ELb0ELb1E": "paged split hd 128 bf16 pool",
@@ -588,6 +594,86 @@ def _flash_bf16_edge_cases(gen, dev):
          lambda: K.attention_reference(q2, k2, v2))]
 
 
+def _ssd_bf16_edge_cases(gen, dev):
+    """bf16 SSD scans off the serve shape, on the tensor-core route: S 40
+    in one chunk of 40 (a ragged tile: rows 40-63 past S), S 384 (three
+    chunks of 128), B 1 at S 256 (HB 1: 64 blocks), and strong decay (dt
+    x 20, so exp(la) underflows within a chunk; x / 20 keeps the outputs
+    of order 1)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch import kernels as K
+
+    def rn(*shape):
+        return torch.randn(*shape, generator=gen, device=dev)
+
+    def case(b, s, chunk, dt_scale=1.0):
+        args = ((rn(b, s, Z_SSM_H, Z_P) / dt_scale).bfloat16(),
+                F.softplus(rn(b, s, Z_SSM_H)) * dt_scale, 0.5 * rn(Z_SSM_H),
+                (rn(b, s, Z_N) * Z_N ** -0.5).bfloat16(),
+                (rn(b, s, Z_N) * Z_N ** -0.5).bfloat16())
+        return (lambda: K.ssd_scan(*args, chunk=chunk),
+                lambda: K.ssd_chunked_reference(*args, chunk=chunk))
+
+    return [case(2, 40, 40), case(2, 384, Z_CHUNK), case(1, ZS, Z_CHUNK),
+            case(2, ZS, Z_CHUNK, dt_scale=20.0)]
+
+
+def _rmsnorm_decode_cases(gen, dev):
+    """bf16 RMSNorm at decode's row counts, 1 and 8, over a width that
+    fills 16-byte vectors (1000), a ragged one (4097: scalar loads) and
+    the largest (32768: the shared-memory kernel)."""
+    import torch
+    from repro_torch import kernels as K
+    cases = []
+    for d in (1000, 4097, 32768):
+        w = 0.25 + 0.05 * torch.randn(d, generator=gen, device=dev)
+        for rows in (1, 8):
+            x = torch.randn(rows, d, generator=gen, device=dev).bfloat16()
+            cases.append((lambda x=x, w=w: K.rmsnorm_fused(x, w),
+                          lambda x=x, w=w: K.rmsnorm_reference(x, w)))
+    return cases
+
+
+def _rmsnorm_decode_rows(gen, dev):
+    """RMSNorm at decode's 8 rows (yi-6b's 4096, Zamba2's 2048 and 4096)
+    and at Zamba2's prefill 2048 rows on both kernels: device ms beside
+    ``F.rms_norm`` and the byte bound (x read once, out written once, w
+    read once)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch import kernels as K
+    from repro_torch.kernels import _cuda
+    out = {}
+    for rows, d in ((8, 4096), (8, 2048), (ZB * ZS, Z_D)):
+        x = torch.randn(rows, d, generator=gen, device=dev).bfloat16()
+        w = 0.25 + 0.05 * torch.randn(d, generator=gen, device=dev)
+        wb = w.bfloat16()
+        err = _max_err(K.rmsnorm_fused(x, w), K.rmsnorm_reference(x, w))
+        if not err <= TOL_BF16:
+            raise AssertionError(f"rmsnorm {rows}x{d} disagrees: {err}")
+        rec = {"max_abs_err": err,
+               "bound_ms": (2 * rows * d * 2 + 4 * d) / HBM_BYTES_PER_S * 1e3,
+               "ms": time_ms(lambda: K.rmsnorm_fused(x, w)),
+               "library_ms": time_ms(lambda: F.rms_norm(x, (d,), wb, 1e-6))}
+        if rows > 8:
+            # the shared-memory kernel at the prefill's rows, for the
+            # choice of kernel by D alone
+            y = torch.empty_like(x)
+            lib = _cuda.library("rmsnorm.cu")
+            rec["smem_ms"] = time_ms(lambda: _cuda.raise_on(
+                lib.rmsnorm_smem_fwd(x.data_ptr(), 1, w.data_ptr(),
+                                     y.data_ptr(), rows, d, 1e-6,
+                                     _cuda.stream_of(x)), "rmsnorm smem"))
+        out[f"{rows}x{d}"] = rec
+        log(f"[kernels] rmsnorm_fused bf16 {rows}x{d}: kernel "
+            f"{rec['ms']:.4f} ms, F.rms_norm {rec['library_ms']:.4f} ms, "
+            f"bound {rec['bound_ms']:.5f} ms"
+            + (f", shared-memory kernel {rec['smem_ms']:.4f} ms"
+               if "smem_ms" in rec else ""))
+    return out
+
+
 def _max_err(got, want) -> float:
     if isinstance(got, tuple):                    # SSD: y and the final state
         return max(_max_err(g, w) for g, w in zip(got, want))
@@ -615,7 +701,8 @@ def _dense_bounds(inp, dtype_bytes: int):
 
 def phase_dense_kernels():
     """RMSNorm, flash attention and the SSD scan against their plain
-    versions at the Zamba2 serve shapes, bf16 (timed) then f32."""
+    versions at the Zamba2 serve shapes, bf16 (timed) then f32, every SSD
+    call on its dtype's route; RMSNorm at decode's rows, timed."""
     import torch
     import torch.nn.functional as F
     from repro_torch import kernels as K
@@ -645,6 +732,9 @@ def phase_dense_kernels():
                 cases[name] += extra
         else:
             cases["flash_attention_fwd"] += _flash_bf16_edge_cases(gen, dev)
+            cases["ssd_scan"] += _ssd_bf16_edge_cases(gen, dev)
+            cases["rmsnorm_fused"] += _rmsnorm_decode_cases(gen, dev)
+        K.reset_launch_counts()
         for name, variants in cases.items():
             rec = results.setdefault(name, {}).setdefault(kind, {})
             for vi, (kern, plain) in enumerate(variants):
@@ -657,11 +747,18 @@ def phase_dense_kernels():
                 if not ok:
                     raise AssertionError(f"{name} {kind} disagrees: {err}")
                 rec["max_abs_err"] = max(err, rec.get("max_abs_err", 0.0))
+        n_ssd = len(cases["ssd_scan"])
+        want = ({"sm90": n_ssd, "cuda_core": 0} if kind == "bf16"
+                else {"sm90": 0, "cuda_core": n_ssd})
+        if K.launch_counts_by_route()["ssd_scan"] != want:
+            raise AssertionError(f"{kind} ssd_scan routes "
+                                 f"{K.launch_counts_by_route()['ssd_scan']},"
+                                 f" expected {want}")
         if kind != "bf16":
             continue
+        wx = w.to(x.dtype)             # cast outside: one call timed
         lib = {
-            "rmsnorm_fused": lambda: F.rms_norm(x, (Z_D,), w.to(x.dtype),
-                                                1e-6),
+            "rmsnorm_fused": lambda: F.rms_norm(x, (Z_D,), wx, 1e-6),
             "flash_attention_fwd": _sdpa_dense(q, k, v),
             "ssd_scan": None,          # no single PyTorch call computes it
         }
@@ -680,6 +777,8 @@ def phase_dense_kernels():
             log(f"[kernels] {name} bf16: kernel {rec['ms']:.4f} ms, plain "
                 f"{rec['plain_ms']:.4f} ms, library {libtxt}, bound "
                 f"{rec['bound_ms']:.4f} ms ({rec['bound_by']})")
+        results["rmsnorm_fused"][kind]["rows"] = _rmsnorm_decode_rows(gen,
+                                                                      dev)
     return results
 
 
@@ -827,9 +926,11 @@ def phase_zamba_parity():
     for name in ("rmsnorm_fused", "flash_attention_fwd", "ssd_scan"):
         if counts[name] < 1:
             raise AssertionError(f"zamba parity missed {name}: {counts}")
-    routes = launch_counts_by_route()["flash_attention_fwd"]
-    if routes != {"sm90": 0, "cuda_core": counts["flash_attention_fwd"]}:
-        raise AssertionError(f"f32 flash left the CUDA-core route: {routes}")
+    for name in ("flash_attention_fwd", "ssd_scan"):
+        routes = launch_counts_by_route()[name]
+        if routes != {"sm90": 0, "cuda_core": counts[name]}:
+            raise AssertionError(f"f32 {name} left the CUDA-core route: "
+                                 f"{routes}")
     for kind, err in worst.items():
         log(f"[parity] zamba2 widths, {cfg.num_layers} layers, f32, B 2, S "
             f"{ZS}: {kind} "
@@ -935,7 +1036,8 @@ def phase_zamba_serve(smi: str):
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     counts = launch_counts()
-    routes = launch_counts_by_route()["flash_attention_fwd"]
+    routes = {name: launch_counts_by_route()[name]
+              for name in ("flash_attention_fwd", "ssd_scan")}
     toks = out.tokens
     if toks.shape != (len(prompts), max_new) or toks.min() < 0 \
             or toks.max() >= cfg.vocab_size:
@@ -949,18 +1051,19 @@ def phase_zamba_serve(smi: str):
     if got != want or any(counts[k] for k in PAGED):
         raise AssertionError(f"zamba serve launches {counts}, expected "
                              f"{want} and no paged kernel")
-    if routes != {"sm90": want["flash_attention_fwd"], "cuda_core": 0}:
-        raise AssertionError(f"zamba serve: a bf16 flash launch left the "
-                             f"sm90 route: {routes}")
+    for name, r in routes.items():
+        if r != {"sm90": want[name], "cuda_core": 0}:
+            raise AssertionError(f"zamba serve: a bf16 {name} launch left "
+                                 f"the sm90 route: {r}")
     log(f"[serve] zamba2-1.2b {cfg.num_layers} layers bf16 "
         f"({n_params / 1e9:.3f} B "
         f"params), static engine: {len(prompts)} prompts (padded to "
         f"{max(len(p) for p in prompts)}) x {max_new} new in {dt:.3f} s = "
         f"{toks.size / dt:.1f} tok/s (prefill+decode), launches {counts}, "
-        f"flash by route {routes} on {smi}")
+        f"by route {routes} on {smi}")
     del eng, params
     torch.cuda.empty_cache()
-    return counts, {"flash_attention_fwd": routes}
+    return counts, routes
 
 
 def _leaves(tree):
@@ -1018,6 +1121,7 @@ def main() -> int:
                               "enqueue_ms")}
         if name == "rmsnorm_fused":
             entry["launches_yi6b"] = launches[name]
+            entry["rows"] = rec["rows"]
         if name in routes:
             entry["launches_by_route"] = routes[name]
         record.append(entry)

@@ -3,23 +3,45 @@
 // Replaces repro/kernels/rmsnorm/kernel.py rmsnorm_fused (the Pallas TPU
 // kernel): out = (x * rsqrt(mean(x^2) + eps) * w) cast back to x's dtype,
 // with the mean square, the rsqrt and the product in f32 and the weight f32.
+// The rsqrt is 1 / sqrtf (IEEE rounded), not the approximate rsqrtf.
 //
 // What bounds it: one multiply-add a byte or less, far below the card's 295
-// bf16 flops a byte, so it is bound by the bytes it moves. The design reads
-// each element of x once and writes it once: one block a row copies the
-// row into shared memory as f32 while it sums the squares (warp shuffles,
-// then one value a warp), and scales from shared memory. The TPU kernel's
-// rows % block_rows contract is gone: the grid is one block a row, so any
-// row count works. The rsqrt is 1 / sqrtf (IEEE rounded), not the
-// approximate rsqrtf. The C entry point returns cudaGetLastError() after the
-// launch; the Python wrapper raises on it.
+// bf16 flops a byte, so its floor is the bytes it moves (each element of x
+// read once and written once). Most calls on the serve paths are decode's:
+// 1-8 rows of 2048 or 4096, a few hundred KB, where the floor is tens of
+// nanoseconds and what a call costs is memory latency: a block a row, and
+// each round of loads that waits on the last adds one. Two kernels, one
+// block a row each (any row count; the TPU kernel's rows % block_rows
+// contract is gone), chosen by the wrapper by D:
+//
+// - rmsnorm_reg_kernel, D up to 1024 16-byte vectors (8192 bf16, 4096
+//   f32): the block is sized to D (D/8 threads for bf16, D/4 for f32,
+//   rounded up to a warp) and each thread issues its one 16-byte load of x
+//   and its loads of w at once, before the reduction, so a row waits out
+//   one memory latency; the row stays in registers through one warp-shuffle
+//   and one shared-memory exchange (every warp sums the warps' partials
+//   itself: one barrier), then one 16-byte store a thread. A ragged D (not
+//   a multiple of the vector, or a misaligned row) takes the same kernel
+//   with scalar loads and stores, still all issued before the reduction.
+// - rmsnorm_smem_kernel, larger D (to 32768): 256 threads a row copy the
+//   row into shared memory as f32 while they sum the squares, and scale
+//   from shared memory.
+//
+// On an H100 (700 W, chip_smoke.py) the register kernel takes 0.0027 ms
+// at 8 x 4096 bf16 (F.rms_norm 0.0052) and 0.0060 ms at 2048 x 2048, where
+// the shared-memory kernel takes 0.0080, so D alone picks the kernel.
+//
+// The C entry points return cudaGetLastError() after the launch; the
+// Python wrapper raises on it.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
+#include <stdint.h>
 
 namespace {
 
-constexpr int kThreads = 256;
+constexpr int kThreads = 256;           // the shared-memory kernel
+constexpr int kMaxThreads = 1024;       // the register kernel
 
 enum DType { kF32 = 0, kBF16 = 1 };
 
@@ -32,15 +54,99 @@ __device__ __forceinline__ void store_f(__nv_bfloat16* p, long i, float x) {
   p[i] = __float2bfloat16(x);
 }
 
+// 16 bytes of T as E floats.
+template <typename T> struct Vec;
+template <> struct Vec<float> {
+  static constexpr int E = 4;
+  __device__ static void load(const float* p, float (&v)[4]) {
+    const float4 q = *reinterpret_cast<const float4*>(p);
+    v[0] = q.x; v[1] = q.y; v[2] = q.z; v[3] = q.w;
+  }
+  __device__ static void store(float* p, const float (&v)[4]) {
+    *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+  }
+};
+template <> struct Vec<__nv_bfloat16> {
+  static constexpr int E = 8;
+  __device__ static void load(const __nv_bfloat16* p, float (&v)[8]) {
+    const uint4 q = *reinterpret_cast<const uint4*>(p);
+    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&q);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float2 f = __bfloat1622float2(h[i]);
+      v[2 * i] = f.x;
+      v[2 * i + 1] = f.y;
+    }
+  }
+  __device__ static void store(__nv_bfloat16* p, const float (&v)[8]) {
+    uint4 q;
+    __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&q);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) h[i] = __floats2bfloat162_rn(v[2 * i], v[2 * i + 1]);
+    *reinterpret_cast<uint4*>(p) = q;
+  }
+};
+
 __device__ __forceinline__ float warp_sum(float x) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
   return x;
 }
 
+// One row a block, E elements a thread in registers: one 16-byte vector
+// (VEC) or E scalars (a ragged or misaligned row).
+template <typename T, bool VEC>
+__global__ void __launch_bounds__(kMaxThreads)
+rmsnorm_reg_kernel(const T* __restrict__ x, const float* __restrict__ w,
+                   T* __restrict__ out, int d, float eps) {
+  constexpr int E = Vec<T>::E;
+  __shared__ float part[kMaxThreads / 32];
+  const long base = long(blockIdx.x) * d;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int e0 = tid * E;
+  float v[E], wv[E];
+  if (VEC) {
+    if (e0 < d) {
+      Vec<T>::load(x + base + e0, v);
+#pragma unroll
+      for (int e = 0; e < E; e += 4) {
+        const float4 q = *reinterpret_cast<const float4*>(w + e0 + e);
+        wv[e] = q.x; wv[e + 1] = q.y; wv[e + 2] = q.z; wv[e + 3] = q.w;
+      }
+    } else {
+#pragma unroll
+      for (int e = 0; e < E; ++e) v[e] = wv[e] = 0.f;
+    }
+  } else {
+#pragma unroll
+    for (int e = 0; e < E; ++e) {
+      const bool in = e0 + e < d;
+      v[e] = in ? load_f(x, base + e0 + e) : 0.f;
+      wv[e] = in ? w[e0 + e] : 0.f;
+    }
+  }
+  float ss = 0.f;
+#pragma unroll
+  for (int e = 0; e < E; ++e) ss = fmaf(v[e], v[e], ss);
+  ss = warp_sum(ss);
+  if (lane == 0) part[warp] = ss;
+  __syncthreads();
+  const float tot = warp_sum(lane < int(blockDim.x >> 5) ? part[lane] : 0.f);
+  const float r = 1.0f / sqrtf(tot / float(d) + eps);
+#pragma unroll
+  for (int e = 0; e < E; ++e) v[e] = v[e] * r * wv[e];
+  if (VEC) {
+    if (e0 < d) Vec<T>::store(out + base + e0, v);
+  } else {
+#pragma unroll
+    for (int e = 0; e < E; ++e)
+      if (e0 + e < d) store_f(out, base + e0 + e, v[e]);
+  }
+}
+
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
-rmsnorm_kernel(const T* x, const float* w, T* out, int d, float eps) {
+rmsnorm_smem_kernel(const T* x, const float* w, T* out, int d, float eps) {
   extern __shared__ float row[];             // d floats
   __shared__ float part[kThreads / 32];
   const long base = long(blockIdx.x) * d;
@@ -65,10 +171,26 @@ rmsnorm_kernel(const T* x, const float* w, T* out, int d, float eps) {
 }
 
 template <typename T>
-int launch(const void* x, const float* w, void* out, int rows, int d, float eps,
-           cudaStream_t stream) {
+int launch_reg(const void* x, const float* w, void* out, int rows, int d,
+               float eps, cudaStream_t stream) {
+  constexpr int E = Vec<T>::E;
+  const int nvec = (d + E - 1) / E;
+  if (nvec > kMaxThreads) return int(cudaErrorInvalidValue);
+  const int threads = (nvec + 31) / 32 * 32;
+  const bool vec = d % E == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0 &&
+                   reinterpret_cast<uintptr_t>(w) % 16 == 0 &&
+                   reinterpret_cast<uintptr_t>(out) % 16 == 0;
+  auto kern = vec ? rmsnorm_reg_kernel<T, true> : rmsnorm_reg_kernel<T, false>;
+  kern<<<rows, threads, 0, stream>>>(static_cast<const T*>(x), w,
+                                     static_cast<T*>(out), d, eps);
+  return int(cudaGetLastError());
+}
+
+template <typename T>
+int launch_smem(const void* x, const float* w, void* out, int rows, int d,
+                float eps, cudaStream_t stream) {
   const size_t smem = sizeof(float) * size_t(d);
-  auto kern = rmsnorm_kernel<T>;
+  auto kern = rmsnorm_smem_kernel<T>;
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
         kern, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
@@ -83,14 +205,28 @@ int launch(const void* x, const float* w, void* out, int rows, int d, float eps,
 
 extern "C" {
 
-// x (rows, d) f32/bf16 contiguous; w (d,) f32; out like x.
-int rmsnorm_fwd(const void* x, int dtype, const float* w, void* out, int rows,
-                int d, float eps, void* stream) {
+// x (rows, d) f32/bf16 contiguous; w (d,) f32; out like x. The register
+// kernel: d <= 1024 vectors of 16 bytes (8192 bf16, 4096 f32).
+int rmsnorm_reg_fwd(const void* x, int dtype, const float* w, void* out,
+                    int rows, int d, float eps, void* stream) {
   if (rows < 1 || d < 1) return int(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype) {
-    case kF32: return launch<float>(x, w, out, rows, d, eps, s);
-    case kBF16: return launch<__nv_bfloat16>(x, w, out, rows, d, eps, s);
+    case kF32: return launch_reg<float>(x, w, out, rows, d, eps, s);
+    case kBF16: return launch_reg<__nv_bfloat16>(x, w, out, rows, d, eps, s);
+  }
+  return int(cudaErrorInvalidValue);
+}
+
+// The same arguments; the shared-memory kernel, any d whose f32 row fits
+// in shared memory.
+int rmsnorm_smem_fwd(const void* x, int dtype, const float* w, void* out,
+                     int rows, int d, float eps, void* stream) {
+  if (rows < 1 || d < 1) return int(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (dtype) {
+    case kF32: return launch_smem<float>(x, w, out, rows, d, eps, s);
+    case kBF16: return launch_smem<__nv_bfloat16>(x, w, out, rows, d, eps, s);
   }
   return int(cudaErrorInvalidValue);
 }

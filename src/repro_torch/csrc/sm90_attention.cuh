@@ -1,13 +1,17 @@
-// Hopper (sm_90a) building blocks shared by the tensor-core attention
-// kernels (flash_attention.cu, paged_attention_sm90.cu), as inline PTX:
+// Hopper (sm_90a) building blocks shared by the tensor-core kernels
+// (flash_attention.cu, paged_attention_sm90.cu, ssd_scan.cu), as inline
+// PTX:
 //
 // - the wgmma shared-memory descriptor of a 128-byte-swizzled tile, and
 //   wgmma.fence / commit_group / wait_group;
 // - m64n64k16 bf16 -> f32 wgmma with both operands in shared memory
-//   (K-major, for S = Q K^T) and with A in registers and B MN-major (for
-//   O += P V, V stored key-major);
+//   (K-major, for S = Q K^T; K-major A with MN-major B, for C h with h
+//   stored state-row-major; both MN-major, for B^T X with B and X stored
+//   time-major) and with A in registers and B MN-major (for O += P V, V
+//   stored key-major);
 // - the f32 accumulator -> bf16 A-fragment conversion (P into PV);
-// - quad (4-lane) row max and row sum over the accumulator layout;
+// - quad (4-lane) row max and row sum over the accumulator layout, and a
+//   named barrier for one warpgroup;
 // - mbarrier init / arrive-expect-tx / bounded try-wait;
 // - TMA loads (2-D, 3-D, 5-D) completing on an mbarrier, TMA stores, and
 //   the host-side tensor-map encoding, looked up with
@@ -109,6 +113,31 @@ __device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t da,
       : "l"(da), "l"(db), "r"(scale_d));
 }
 
+// d (+)= A B, A 64x16 K-major and B 16x64 MN-major (N contiguous, 16 rows
+// of 128 bytes a k-step), both in shared memory.
+__device__ __forceinline__ void wgmma_ss_tb(float (&d)[32], uint64_t da,
+                                            uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " SM90_D32
+      ", %32, %33, p, 1, 1, 0, 1;\n}\n"
+      : SM90_D32_OUT(d)
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// d (+)= A B, A 64x16 MN-major (M contiguous) and B 16x64 MN-major, both
+// in shared memory: A is stored as its transpose, 16 rows of 128 bytes a
+// k-step, as B is.
+__device__ __forceinline__ void wgmma_ss_tab(float (&d)[32], uint64_t da,
+                                             uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " SM90_D32
+      ", %32, %33, p, 1, 1, 1, 1;\n}\n"
+      : SM90_D32_OUT(d)
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
 // d += A B, A 64x16 bf16 from registers (a[4], the A-fragment), B 16x64
 // MN-major in shared memory (transpose bit set).
 __device__ __forceinline__ void wgmma_rs_t(float (&d)[32], const uint32_t (&a)[4],
@@ -144,6 +173,12 @@ __device__ __forceinline__ float quad_max(float x) {
 __device__ __forceinline__ float quad_sum(float x) {
   x += __shfl_xor_sync(0xffffffffu, x, 1);
   return x + __shfl_xor_sync(0xffffffffu, x, 2);
+}
+
+// Barrier `id` (1..15; 0 is __syncthreads) over the `count` threads that
+// reach it, e.g. the 128 threads of one warpgroup.
+__device__ __forceinline__ void bar_sync(int id, int count) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(count) : "memory");
 }
 
 // ---------------------------------------------------------------------------

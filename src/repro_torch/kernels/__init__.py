@@ -3,9 +3,10 @@
 ``ops.py`` entry that dispatches by the tensor's device: the three paged
 attention kernels of the continuous-batching path, and RMSNorm, dense flash
 attention and the Mamba2 SSD scan of the Zamba2 static path. Flash
-attention and the three paged kernels pick their kernel by dtype
-(``attention_route``) and count launches per route."""
-from ._cuda import attention_route
+attention and the three paged kernels (``attention_route``) and the SSD
+scan (``ssd_route``) pick their kernel by dtype and count launches per
+route."""
+from ._cuda import attention_route, ssd_route
 from .decode_attention import (default_num_splits, flash_decode_fwd,
                                paged_decode_attention, paged_decode_reference)
 from .flash_attention import (attention_reference, flash_attention,
@@ -40,7 +41,8 @@ def launch_counts() -> dict[str, int]:
 
 def launch_counts_by_route() -> dict[str, dict[str, int]]:
     """{kernel: {route: launches}} for the wrappers that pick a kernel by
-    dtype (flash attention; paged decode, prefill and verify)."""
+    dtype (flash attention; paged decode, prefill and verify; the SSD
+    scan)."""
     return {name: dict(fn.launches_by_route)
             for name, fn in KERNEL_WRAPPERS.items()
             if hasattr(fn, "launches_by_route")}
@@ -55,4 +57,5 @@ __all__ = ["default_num_splits", "flash_decode_fwd", "flash_prefill_fwd",
            "flash_attention", "flash_attention_fwd", "attention_reference",
            "mamba_chunk_scan", "ssd_scan", "ssd_chunked_reference",
            "KERNEL_WRAPPERS", "reset_launch_counts",
-           "launch_counts", "launch_counts_by_route", "attention_route"]
+           "launch_counts", "launch_counts_by_route", "attention_route",
+           "ssd_route"]

@@ -41,7 +41,8 @@ SIGNATURES = {
         "paged_verify_fwd": [_P, _I, _P, _P, _I, _P, _P, _P, _P] + [_I] * 9
                             + [_P, _P, _P, _P, _P],
     },
-    "rmsnorm.cu": {"rmsnorm_fwd": [_P, _I, _P, _P, _I, _I, _F, _P]},
+    "rmsnorm.cu": {"rmsnorm_reg_fwd": [_P, _I, _P, _P, _I, _I, _F, _P],
+                   "rmsnorm_smem_fwd": [_P, _I, _P, _P, _I, _I, _F, _P]},
     "flash_attention.cu": {
         "flash_attention_f32_fwd": [_P] * 4 + [_I] * 7 + [_P],
         "flash_attention_sm90_fwd": [_P] * 4 + [_I] * 7 + [_P]},
@@ -49,8 +50,8 @@ SIGNATURES = {
         "paged_attention_sm90_fwd": [_P, _P, _P, _I, _P, _P, _P, _P]
                                     + [_I] * 10 + [_P] * 5},
     "ssd_scan.cu": {
-        "ssd_scan_fwd": [_P, _P, _P, _I, _P, _P, _P, _P] + [_I] * 6
-                        + [_P]},
+        "ssd_scan_f32_fwd": [_P] * 7 + [_I] * 6 + [_P],
+        "ssd_scan_sm90_fwd": [_P] * 7 + [_I] * 7 + [_P]},
 }
 
 _LIBS: dict[str, ctypes.CDLL] = {}
@@ -138,6 +139,25 @@ def attention_route(q_dtype, kv_dtype, hd: int) -> str:
             raise ValueError(f"bf16 attention runs on the wgmma kernels, "
                              f"whose contract is hd in {SM90_HEAD_DIMS}; "
                              f"got hd={hd}")
+        return "sm90"
+    return "cuda_core"
+
+
+# State width N and head width P of the tensor-core SSD scan.
+SM90_SSD_WIDTH = 64
+
+
+def ssd_route(dtype, n: int, p: int) -> str:
+    """The kernel an SSD scan takes, by dtype: ``"sm90"`` (``ssd_scan.cu``'s
+    wgmma + TMA kernel) for bf16, ``"cuda_core"`` (the f32 CUDA-core
+    kernel) for f32, since wgmma has no full-f32 mode. Raises for a bf16
+    call whose N or P the tensor-core kernel does not take; it is never
+    rerouted."""
+    if dtype == torch.bfloat16:
+        if n != SM90_SSD_WIDTH or p != SM90_SSD_WIDTH:
+            raise ValueError(f"bf16 ssd_scan runs on the wgmma kernel, whose "
+                             f"contract is N = P = {SM90_SSD_WIDTH}; got "
+                             f"N={n}, P={p}")
         return "sm90"
     return "cuda_core"
 

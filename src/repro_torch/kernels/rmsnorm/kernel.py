@@ -1,10 +1,16 @@
-"""Wrapper of the fused RMSNorm CUDA kernel.
+"""Wrapper of the fused RMSNorm CUDA kernels.
 
-Replaces ``repro/kernels/rmsnorm/kernel.py::rmsnorm_fused``. The kernel
-(``csrc/rmsnorm.cu``) runs one block a row: it reads each element once into
-shared memory as f32 while summing squares, and writes each once. It is
-bound by those bytes. Any row count works (no ``rows % block_rows``
-contract).
+Replaces ``repro/kernels/rmsnorm/kernel.py::rmsnorm_fused``. Both kernels
+(``csrc/rmsnorm.cu``) run one block a row, read each element once and write
+it once, and take any row count (no ``rows % block_rows`` contract). The
+wrapper picks one by D (``rmsnorm_path``):
+
+- ``"registers"``: D up to 1024 vectors of 16 bytes (8192 bf16, 4096 f32):
+  the block is sized to D and each thread holds one vector of the row in
+  registers, its loads all issued before the reduction -- the kernel of
+  decode's 1-8 rows of 2048 or 4096;
+- ``"smem"``: larger D, up to ``MAX_D``: 256 threads stage the row in
+  shared memory as f32.
 """
 from __future__ import annotations
 
@@ -12,7 +18,14 @@ import torch
 
 from .. import _cuda
 
-MAX_D = 32768            # the row is staged in shared memory as f32
+MAX_D = 32768            # the shared-memory kernel stages the row as f32
+MAX_VECTORS = 1024       # the register kernel: a 16-byte vector a thread
+
+
+def rmsnorm_path(d: int, dtype) -> str:
+    """The kernel a row of ``d`` elements of ``dtype`` takes."""
+    per_vector = 16 // (2 if dtype == torch.bfloat16 else 4)
+    return "registers" if -(-d // per_vector) <= MAX_VECTORS else "smem"
 
 
 def rmsnorm_fused(x, weight, eps: float = 1e-6):
@@ -28,9 +41,11 @@ def rmsnorm_fused(x, weight, eps: float = 1e-6):
         raise ValueError(f"rmsnorm_fused: x{tuple(x.shape)} weight"
                          f"{tuple(weight.shape)}; need 1 <= D <= {MAX_D}")
     out = torch.empty_like(x2)
-    rc = _cuda.library("rmsnorm.cu").rmsnorm_fwd(
-        x2.data_ptr(), _cuda.DTYPE_CODES[x.dtype], w.data_ptr(),
-        out.data_ptr(), x2.shape[0], d, float(eps), _cuda.stream_of(x2))
+    lib = _cuda.library("rmsnorm.cu")
+    fn = (lib.rmsnorm_reg_fwd if rmsnorm_path(d, x.dtype) == "registers"
+          else lib.rmsnorm_smem_fwd)
+    rc = fn(x2.data_ptr(), _cuda.DTYPE_CODES[x.dtype], w.data_ptr(),
+            out.data_ptr(), x2.shape[0], d, float(eps), _cuda.stream_of(x2))
     _cuda.raise_on(rc, "rmsnorm_fused")
     rmsnorm_fused.launches += 1
     return out.reshape(x.shape)

@@ -13,8 +13,9 @@ zamba2-1.2b (38 Mamba2 layers, 6 shared-attention applications) through
 the static ``ServeEngine``. It prints both wall times, the summed device
 time of all kernels, the busy share (that device time over the unprofiled
 wall time; one stream, so kernels do not overlap), the kernel launch count,
-the kernels that took the most device time, and every attention kernel
-of the port with its device time and launches. Needs a CUDA device.
+the kernels that took the most device time, and every kernel of the port
+(attention, the SSD scan, RMSNorm) with its device time and launches.
+Needs a CUDA device.
 """
 from __future__ import annotations
 
@@ -32,8 +33,8 @@ from repro_torch.serve.prompts import (shared_prefix_prompts,
 MAX_NEW = 32
 MAX_LEN = 512
 TOP = 12
-# Name fragments of the port's attention kernels, listed wherever they rank.
-ATTENTION_KERNELS = ("attn", "flash", "prefill")
+# Name fragments of the port's kernels, listed wherever they rank.
+PORT_KERNELS = ("attn", "flash", "prefill", "ssd", "rmsnorm")
 
 
 def main(argv=None) -> None:
@@ -90,9 +91,9 @@ def main(argv=None) -> None:
     for e in ranked[:TOP]:
         print(f"  {e.self_device_time_total / 1e3:9.2f} ms {e.count:7d}x "
               f"{e.key[:100]}")
-    print("attention kernels:")
+    print("port kernels:")
     for e in ranked:
-        if any(w in e.key for w in ATTENTION_KERNELS):
+        if any(w in e.key for w in PORT_KERNELS):
             print(f"  {e.self_device_time_total / 1e3:9.2f} ms {e.count:7d}x "
                   f"{e.key[:100]}")
 
