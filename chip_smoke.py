@@ -19,7 +19,9 @@ Phases, each of which must pass (a failure exits nonzero):
    Mamba2 SSD scan at the Zamba2 serve path's shapes (B 8, S 256) in bf16
    (the SSD scan on the tensor-core route, also at S 40 in one chunk of
    40, S 384, B 1 and under strong decay) and f32 (the CUDA-core route;
-   plus ragged, GQA, hd 256 and multi-chunk cases), RMSNorm also at
+   plus ragged, GQA, hd 256 and multi-chunk cases), the SSD scan in both
+   also with a ragged last chunk (S 130 and 200 at chunk 128, S 40 at
+   chunk 16), RMSNorm also at
    decode's rows (1 and 8 rows of 1000, 4097 and 32768; timed at 8 rows
    of 2048 and 4096 beside ``F.rms_norm``, and at 2048 rows on both its
    kernels); each held
@@ -30,24 +32,39 @@ Phases, each of which must pass (a failure exits nonzero):
 4. parity: yi-6b widths at depth 2 in float32 -- prefill, decode and verify
    steps on the card (kernels) against the same weights on the CPU (plain
    versions); then Zamba2 widths at depth 6 (one Mamba group and one shared
-   attention application), float32, batch 2, prompt 256, prefill and four
-   decode steps, card against CPU;
+   attention application), float32, batch 2, prompts of 256 and of 200
+   (a ragged last SSD chunk), prefill and four decode steps, card against
+   CPU;
 5. serve: full-width yi-6b (32 layers, bf16, random weights from a seed)
    through ``ContinuousBatchingEngine.generate``: plain decode, speculative
    decode (K=4) and an int8 pool; then full-width Zamba2-1.2B (38 layers,
    bf16) through the static ``ServeEngine.generate``, 8 prompts of 160-256
-   tokens, 32 new each; each kernel's launch count read around each run,
+   tokens, 32 new each, then untimed the same prompts cut to 200 tokens (a
+   ragged last SSD chunk); each kernel's launch count read around each run,
    and every bf16 flash-attention, SSD-scan and paged decode, prefill and
    verify launch required to take the tensor-core route (the f32 parity
-   phases, the CUDA-core route).
+   phases, the CUDA-core route);
+6. residency: full-width yi-6b again, bf16 and int8 pools, plain and
+   speculative (K=4), each held exactly to its uninterrupted ``generate``:
+   two requests preempted for a chunk and resumed; a live and a paused
+   request exported (reason EVACUATE) and imported into a second engine;
+   every finished stream demoted at retirement into a ``TieredKVStore``
+   whose HOST tier holds about half of them, one restored from each tier
+   into a fresh engine (bit for bit) and extended by a prompt that only
+   prefills its suffix, held to a twin restored from a copy taken before
+   the store held it (a fresh engine that recomputes the stream is
+   compared and reported, not held); and the export and ``import_pages``
+   of all 8 requests timed (plain engines).
 
-The second-to-last line of output is a JSON ``kernels`` record; the last
-is ``{"ok": true, "device": {...}}``. Without CUDA, or without the port
-beside this script, it prints no result and exits nonzero. It takes no
-arguments: every run drives all five phases.
+The second-to-last line of output is a JSON ``kernels`` record (with the
+residency phase's move times); the last is ``{"ok": true, "device":
+{...}}``. Without CUDA, or without the port beside this script, it prints
+no result and exits nonzero. It takes no arguments: every run drives all
+six phases.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import math
 import statistics
@@ -549,8 +566,9 @@ def _dense_inputs(gen, dtype, dev):
 
 def _dense_edge_cases(gen, dev):
     """Shapes off the serve path, f32: a ragged row width, a ragged causal
-    and non-causal GQA attention (G = 4, hd 128), and a three-chunk SSD scan
-    with a chunk, N and P that are not the serve path's."""
+    and non-causal GQA attention (G = 4, hd 128), a three-chunk SSD scan
+    with a chunk, N and P that are not the serve path's, and the SSD scan's
+    ragged last chunks of ``SSD_RAGGED`` at the Zamba2 widths."""
     import torch
     import torch.nn.functional as F
     from repro_torch import kernels as K
@@ -571,7 +589,9 @@ def _dense_edge_cases(gen, dev):
             for c in (True, False)],
         "ssd_scan": [(lambda: K.ssd_scan(sx, sdt, sa, sb, sc, chunk=32),
                       lambda: K.ssd_chunked_reference(sx, sdt, sa, sb, sc,
-                                                      chunk=32))],
+                                                      chunk=32))] + [
+            _ssd_case(gen, dev, torch.float32, 2, s, chunk)
+            for s, chunk in SSD_RAGGED],
     }
 
 
@@ -594,12 +614,10 @@ def _flash_bf16_edge_cases(gen, dev):
          lambda: K.attention_reference(q2, k2, v2))]
 
 
-def _ssd_bf16_edge_cases(gen, dev):
-    """bf16 SSD scans off the serve shape, on the tensor-core route: S 40
-    in one chunk of 40 (a ragged tile: rows 40-63 past S), S 384 (three
-    chunks of 128), B 1 at S 256 (HB 1: 64 blocks), and strong decay (dt
-    x 20, so exp(la) underflows within a chunk; x / 20 keeps the outputs
-    of order 1)."""
+def _ssd_case(gen, dev, dtype, b, s, chunk, dt_scale=1.0):
+    """An SSD scan at the Zamba2 widths (H 64, N = P = 64) and its plain
+    version on the same inputs; x / dt_scale keeps the outputs of order 1
+    under a strong decay."""
     import torch
     import torch.nn.functional as F
     from repro_torch import kernels as K
@@ -607,16 +625,33 @@ def _ssd_bf16_edge_cases(gen, dev):
     def rn(*shape):
         return torch.randn(*shape, generator=gen, device=dev)
 
-    def case(b, s, chunk, dt_scale=1.0):
-        args = ((rn(b, s, Z_SSM_H, Z_P) / dt_scale).bfloat16(),
-                F.softplus(rn(b, s, Z_SSM_H)) * dt_scale, 0.5 * rn(Z_SSM_H),
-                (rn(b, s, Z_N) * Z_N ** -0.5).bfloat16(),
-                (rn(b, s, Z_N) * Z_N ** -0.5).bfloat16())
-        return (lambda: K.ssd_scan(*args, chunk=chunk),
-                lambda: K.ssd_chunked_reference(*args, chunk=chunk))
+    args = ((rn(b, s, Z_SSM_H, Z_P) / dt_scale).to(dtype),
+            F.softplus(rn(b, s, Z_SSM_H)) * dt_scale, 0.5 * rn(Z_SSM_H),
+            (rn(b, s, Z_N) * Z_N ** -0.5).to(dtype),
+            (rn(b, s, Z_N) * Z_N ** -0.5).to(dtype))
+    return (lambda: K.ssd_scan(*args, chunk=chunk),
+            lambda: K.ssd_chunked_reference(*args, chunk=chunk))
 
-    return [case(2, 40, 40), case(2, 384, Z_CHUNK), case(1, ZS, Z_CHUNK),
-            case(2, ZS, Z_CHUNK, dt_scale=20.0)]
+
+# (S, chunk) with a ragged last chunk: 2 and 72 rows of 128 (the Zamba2
+# engine's chunk at longest prompts of 130 and 200), 8 rows of 16.
+SSD_RAGGED = ((130, Z_CHUNK), (200, Z_CHUNK), (40, 16))
+
+
+def _ssd_bf16_edge_cases(gen, dev):
+    """bf16 SSD scans off the serve shape, on the tensor-core route: S 40
+    in one chunk of 40 (a ragged tile: rows 40-63 past S), S 384 (three
+    chunks of 128), B 1 at S 256 (HB 1: 64 blocks), strong decay (dt x 20,
+    so exp(la) underflows within a chunk), and the ragged last chunks of
+    ``SSD_RAGGED`` (at S 130 the last chunk's second 64-row box lies wholly
+    past S)."""
+    import torch
+    bf = torch.bfloat16
+    return [_ssd_case(gen, dev, bf, 2, 40, 40),
+            _ssd_case(gen, dev, bf, 2, 384, Z_CHUNK),
+            _ssd_case(gen, dev, bf, 1, ZS, Z_CHUNK),
+            _ssd_case(gen, dev, bf, 2, ZS, Z_CHUNK, dt_scale=20.0)] + [
+        _ssd_case(gen, dev, bf, 2, s, chunk) for s, chunk in SSD_RAGGED]
 
 
 def _rmsnorm_decode_cases(gen, dev):
@@ -872,8 +907,10 @@ def phase_parity():
 
 
 def phase_zamba_parity():
-    """Zamba2 widths at depth 6, f32, batch 2, prompt 256 (two SSD chunks):
-    prefill and four decode steps on the card against the CPU."""
+    """Zamba2 widths at depth 6, f32, batch 2: prompts of 256 (two SSD
+    chunks) and of 200 (a ragged last chunk of 72 rows, which the reference
+    cannot prefill), prefill and four decode steps on the card against the
+    CPU."""
     import numpy as np
     import torch
     from repro_torch.configs import get_config
@@ -888,9 +925,8 @@ def phase_zamba_parity():
     params = {"cuda": gpu, "cpu": cpu}
     prefill, decode = build_prefill_step(cfg), build_decode_step(cfg)
     rng = np.random.RandomState(0)
-    toks = rng.randint(0, cfg.vocab_size, size=(2, ZS)).astype(np.int64)
     reset_launch_counts()
-    caches, worst = {}, {}
+    worst = {}
 
     def check(kind, logits):
         err = (logits["cuda"].float().cpu() - logits["cpu"].float()).abs() \
@@ -899,29 +935,32 @@ def phase_zamba_parity():
         if not math.isfinite(err) or err > TOL_PARITY:
             raise AssertionError(f"zamba parity {kind}: max|logit diff| {err}")
 
-    logits = {}
-    for d in ("cuda", "cpu"):
-        logits[d], cache = prefill(params[d],
-                                   {"tokens": torch.from_numpy(toks).to(d)})
-        for name in ("attn_k", "attn_v"):          # room for the decodes
-            cache[name] = torch.nn.functional.pad(cache[name],
-                                                  (0, 0, 0, 0, 0, 8))
-        caches[d] = cache
-    check("prefill", logits)
-    cur = logits["cpu"].argmax(-1)
-    for step in range(4):
-        pos = torch.full((2,), ZS + step, dtype=torch.int32)
+    for seq in (ZS, 200):
+        toks = rng.randint(0, cfg.vocab_size, size=(2, seq)).astype(np.int64)
+        caches, logits = {}, {}
         for d in ("cuda", "cpu"):
-            _, logits[d], caches[d] = decode(
-                params[d], {"tokens": cur[:, None].to(d), "pos": pos.to(d)},
-                caches[d])
-        check("decode", logits)
+            logits[d], cache = prefill(params[d],
+                                       {"tokens": torch.from_numpy(toks).to(d)})
+            for name in ("attn_k", "attn_v"):          # room for the decodes
+                cache[name] = torch.nn.functional.pad(cache[name],
+                                                      (0, 0, 0, 0, 0, 8))
+            caches[d] = cache
+        check(f"S {seq} prefill", logits)
         cur = logits["cpu"].argmax(-1)
-    for name in ("conv", "ssm"):
-        err = (caches["cuda"]["mamba"][name].float().cpu()
-               - caches["cpu"]["mamba"][name].float()).abs().max().item()
-        if not math.isfinite(err) or err > TOL_PARITY:
-            raise AssertionError(f"zamba parity {name} cache: {err}")
+        for step in range(4):
+            pos = torch.full((2,), seq + step, dtype=torch.int32)
+            for d in ("cuda", "cpu"):
+                _, logits[d], caches[d] = decode(
+                    params[d], {"tokens": cur[:, None].to(d),
+                                "pos": pos.to(d)}, caches[d])
+            check(f"S {seq} decode", logits)
+            cur = logits["cpu"].argmax(-1)
+        for name in ("conv", "ssm"):
+            err = (caches["cuda"]["mamba"][name].float().cpu()
+                   - caches["cpu"]["mamba"][name].float()).abs().max().item()
+            if not math.isfinite(err) or err > TOL_PARITY:
+                raise AssertionError(f"zamba parity S {seq} {name} cache: "
+                                     f"{err}")
     counts = launch_counts()
     for name in ("rmsnorm_fused", "flash_attention_fwd", "ssd_scan"):
         if counts[name] < 1:
@@ -932,9 +971,8 @@ def phase_zamba_parity():
             raise AssertionError(f"f32 {name} left the CUDA-core route: "
                                  f"{routes}")
     for kind, err in worst.items():
-        log(f"[parity] zamba2 widths, {cfg.num_layers} layers, f32, B 2, S "
-            f"{ZS}: {kind} "
-            f"max|logit card-cpu| {err:.3e} (tol {TOL_PARITY})")
+        log(f"[parity] zamba2 widths, {cfg.num_layers} layers, f32, B 2, "
+            f"{kind} max|logit card-cpu| {err:.3e} (tol {TOL_PARITY})")
     del gpu, caches
     torch.cuda.empty_cache()
 
@@ -1055,6 +1093,28 @@ def phase_zamba_serve(smi: str):
         if r != {"sm90": want[name], "cuda_core": 0}:
             raise AssertionError(f"zamba serve: a bf16 {name} launch left "
                                  f"the sm90 route: {r}")
+    # Untimed: the same prompts cut to 200 tokens at most, so the batch pads
+    # to 200 and every scan ends in a ragged chunk of 72 rows.
+    ragged = [p[:200] for p in prompts]
+    reset_launch_counts()
+    rtoks = eng.generate(ragged, max_new=8).tokens
+    torch.cuda.synchronize()
+    rcounts = launch_counts()
+    rssd = launch_counts_by_route()["ssd_scan"]
+    if rtoks.shape != (len(ragged), 8) or rtoks.min() < 0 \
+            or rtoks.max() >= cfg.vocab_size:
+        raise AssertionError(f"zamba serve, longest prompt 200: bad tokens "
+                             f"{rtoks.shape}")
+    rwant = {"ssd_scan": cfg.num_layers,
+             "flash_attention_fwd": fam.n_shared_applications(cfg),
+             "rmsnorm_fused": norms * (1 + 8)}
+    if {k: rcounts[k] for k in rwant} != rwant \
+            or rssd != {"sm90": cfg.num_layers, "cuda_core": 0}:
+        raise AssertionError(f"zamba serve, longest prompt 200: launches "
+                             f"{rcounts}, SSD by route {rssd}, expected "
+                             f"{rwant} all on sm90")
+    log(f"[serve] zamba2-1.2b, longest prompt 200 (SSD chunks 128 + 72), 8 "
+        f"new: launches {rcounts}, SSD by route {rssd}")
     log(f"[serve] zamba2-1.2b {cfg.num_layers} layers bf16 "
         f"({n_params / 1e9:.3f} B "
         f"params), static engine: {len(prompts)} prompts (padded to "
@@ -1064,6 +1124,288 @@ def phase_zamba_serve(smi: str):
     del eng, params
     torch.cuda.empty_cache()
     return counts, routes
+
+
+# ---------------------------------------------------------------------------
+# phase 6: the residency surface at full width
+# ---------------------------------------------------------------------------
+
+RESIDENCY_CHUNK = 4          # decode steps a chunk: 32 new tokens take 8+
+
+
+def _drain(*engines):
+    """Admit and decode on every engine until all are idle; returns
+    {rid: tokens} over all of them."""
+    done = {}
+    for _ in range(1000):
+        if not any(e.has_work for e in engines):
+            return done
+        for e in engines:
+            e.admit()
+            for req, toks in e.decode_step():
+                done[req.rid] = toks
+            e._debug_check_refcounts()
+    raise AssertionError("residency: engines did not drain")
+
+
+def _check_tokens(what, done, gold):
+    import numpy as np
+    got = np.stack([np.asarray(done[i], np.int32) for i in range(len(gold))])
+    if not np.array_equal(got, gold):
+        bad = sorted({int(r) for r in np.nonzero(got != gold)[0]})
+        first = {r: int(np.nonzero(got[r] != gold[r])[0][0]) for r in bad}
+        raise AssertionError(f"residency {what}: tokens differ from the "
+                             f"uninterrupted run in requests {bad} (first "
+                             f"differing step {first})")
+
+
+def _time_moves(mk, prompts, max_new, gold):
+    """Export all 8 requests from one engine after a chunk and import them
+    into another, each call timed alone (host clock, synchronised before
+    and after); the destination then finishes them. Returns the medians."""
+    import torch
+    from repro_torch.serve import EngineRequest, ExportReason
+    src, dst = mk(), mk()
+    for i, p in enumerate(prompts):
+        src.enqueue(EngineRequest(i, p, max_new))
+    src.admit()
+    src.decode_step()
+    t_exp, t_imp, nbytes = [], [], []
+    payloads = []
+    for slot in sorted(src._live):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        pl = src.export(slot=slot, reason=ExportReason.EVACUATE)
+        torch.cuda.synchronize()
+        t_exp.append(time.perf_counter() - t0)
+        nbytes.append(pl.nbytes)
+        payloads.append(pl)
+    for pl in payloads:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        dst.import_pages(pl)
+        torch.cuda.synchronize()
+        t_imp.append(time.perf_counter() - t0)
+    _check_tokens("export/import of all 8", _drain(dst), gold)
+    med = statistics.median
+    return {"export_ms": med(t_exp) * 1e3, "import_ms": med(t_imp) * 1e3,
+            "bytes": med(nbytes),
+            "export_gb_s": med(b / t for b, t in zip(nbytes, t_exp)) / 1e9,
+            "import_gb_s": med(b / t for b, t in zip(nbytes, t_imp)) / 1e9,
+            "page_nbytes": src.page_nbytes()}
+
+
+def _residency_variant(name, mk, prompts, max_new, tail):
+    """Preempt/resume, evacuate (a live and a paused request into a second
+    engine) and demote/restore (HOST and OBJECT tiers) for one engine
+    configuration, each held to the uninterrupted run's tokens exactly."""
+    import torch
+    from repro_torch.serve import (EngineRequest, ExportReason, Tier,
+                                   TieredKVStore)
+    ns = ("tenant0", "public")
+    gold = mk().generate(prompts, max_new=max_new).tokens
+
+    # 1. preempt two slots for a chunk, then resume them
+    eng = mk()
+    for i, p in enumerate(prompts):
+        eng.enqueue(EngineRequest(i, p, max_new))
+    eng.admit()
+    eng.decode_step()
+    live = sorted(eng._live)
+    if len(live) < len(prompts):
+        raise AssertionError(f"residency {name}: a request finished in the "
+                             "first chunk")
+    paused = [eng.preempt(live[1]), eng.preempt(live[4])]
+    done = {req.rid: toks for req, toks in eng.decode_step()}
+    for pr in paused:
+        eng.resume(pr)
+    if eng.stats["preempted"] != 2 or eng.stats["resumed"] != 2:
+        raise AssertionError(f"residency {name}: stats {eng.stats}")
+    done.update(_drain(eng))
+    _check_tokens(f"{name} preempt/resume", done, gold)
+
+    # 2. evacuate a live and a paused request into engine b
+    a, b = mk(), mk()
+    for i, p in enumerate(prompts):
+        a.enqueue(EngineRequest(i, p, max_new))
+    a.admit()
+    a.decode_step()
+    live = sorted(a._live)
+    parked = a.preempt(live[2])
+    shipped = [a.export(slot=live[5], reason=ExportReason.EVACUATE),
+               a.export(rid=parked.req.rid, reason=ExportReason.EVACUATE)]
+    for pl in shipped:
+        b.import_pages(pl)
+    for pl in shipped:
+        try:
+            b.import_pages(pl)
+        except ValueError:
+            continue
+        raise AssertionError(f"residency {name}: a payload imported twice")
+    _check_tokens(f"{name} evacuate", _drain(a, b), gold)
+
+    # 3. demote every finished stream, with HOST room for about half of
+    # them; restore one from each tier into a fresh engine and extend it
+    eng = mk()
+    eng.demote_on_retire = True
+    for i, p in enumerate(prompts):
+        eng.enqueue(EngineRequest(i, p, max_new, namespace=ns))
+    _check_tokens(f"{name} demote on retire", _drain(eng), gold)
+    out = eng.demoted_out
+    if len(out) != len(prompts):
+        raise AssertionError(f"residency {name}: {len(out)} demotions")
+    kept = {pl.req.rid: {k: t.clone() for k, t in pl.content.items()}
+            for pl in out}
+    store = TieredKVStore(host_capacity_bytes=sum(pl.nbytes for pl in out)
+                          // 2)
+    for t, pl in enumerate(out):
+        store.demote(pl, "tenant0", now=float(t))
+    streams = [list(p) + [int(x) for x in g] for p, g in zip(prompts, gold)]
+    tiers = [store.tier_of((ns, tuple(st))) for st in streams]
+    picks = [max(r for r, t in enumerate(tiers) if t is Tier.HOST),
+             min(r for r, t in enumerate(tiers) if t is Tier.OBJECT)]
+    restored = {}
+    for rid in picks:
+        stream = streams[rid]
+        ext = stream + tail
+        key, n, tier = store.match(ns, ext)
+        if n != len(stream) or tier is not tiers[rid]:
+            raise AssertionError(f"residency {name}: match {n}, {tier}")
+        payload = store.complete_restore(store.request_restore(key, rid,
+                                                               now=100.0))
+        for k, t in payload.content.items():
+            if not torch.equal(t.view(torch.uint8), kept[rid][k]
+                               .view(torch.uint8)):
+                raise AssertionError(f"residency {name}: {tier.value} "
+                                     f"round trip changed {k}")
+        # The restored engine, and its twin restored from the copy taken
+        # before the store ever held the payload: the same KV, bit for bit,
+        # so the same tokens exactly.
+        got = {}
+        for who, pl in (("store", payload),
+                        ("twin", dataclasses.replace(payload,
+                                                     content=kept[rid]))):
+            dst = mk()
+            pages = dst.restore_pages(pl)
+            idx = torch.tensor(pages, device="cuda")
+            for k, t in pl.content.items():
+                if not torch.equal(dst.pool[k][:, :, idx].cpu(), t):
+                    raise AssertionError(f"residency {name}: restored {k} "
+                                         "differs from the payload")
+            dst.enqueue(EngineRequest("ext", ext, 8, namespace=ns))
+            got[who] = _drain(dst)["ext"]
+            cached = dst.stats["cached_tokens"]
+            full = len(stream) // PS * PS
+            if cached < full or \
+                    dst.stats["prefill_tokens"] != len(ext) - cached:
+                raise AssertionError(
+                    f"residency {name}: {tier.value} restore cached {cached} "
+                    f"of {len(ext)} tokens (restored full pages hold {full}),"
+                    f" prefilled {dst.stats['prefill_tokens']}")
+        if got["store"] != got["twin"]:
+            raise AssertionError(
+                f"residency {name}: {tier.value} restore extends to "
+                f"{got['store']}, the store-free restore to {got['twin']}")
+        restored[tier.value] = dict(
+            rid=rid, cached=cached, prompt=len(ext),
+            **_against_fresh(mk, ext, ns, kept[rid], len(prompts[rid]),
+                             len(stream), got["store"]))
+    return restored
+
+
+def _against_fresh(mk, ext, ns, content, plen, slen, got):
+    """A fresh engine on the extended prompt recomputes the whole stream in
+    prefill chunks at batch 1, where the restored pages hold KV from the
+    batch-8 prefill and from decode steps. Measured, not held: its tokens'
+    agreement with the restored engine's, and over the stream's full pages
+    the share of K/V values that differ (prompt and generated positions
+    apart) and the largest difference (in the pool's own units: bf16
+    values, or int8 steps)."""
+    import torch
+    from repro_torch.serve import EngineRequest
+    fresh = mk()
+    fresh.enqueue(EngineRequest("ext", ext, 8, namespace=ns))
+    want = _drain(fresh)["ext"]
+    n = slen // PS                               # the stream's full pages
+    chain, _ = fresh.prefix_cache.lookup(ext, ns)
+    idx = torch.tensor(chain[:n], device="cuda")
+    share_p, share_g, worst = [], [], 0.0
+    for k in ("k", "v"):
+        mine = fresh.pool[k][:, :, idx].cpu().float()
+        theirs = content[k][:, :, :n].float()
+        # (L, KV, n, ps, hd) -> (position, values)
+        d = (mine - theirs).abs().permute(2, 3, 0, 1, 4).reshape(n * PS, -1)
+        share_p.append(float((d[:plen] > 0).float().mean()))
+        share_g.append(float((d[plen:] > 0).float().mean()))
+        worst = max(worst, float(d.max()))
+    return {"fresh_tokens_equal": sum(a == b for a, b in zip(got, want)),
+            "fresh_first_differing": next(
+                (i for i, (a, b) in enumerate(zip(got, want)) if a != b),
+                None),
+            "kv_values_differ_prompt": max(share_p),
+            "kv_values_differ_generated": max(share_g),
+            "kv_max_abs_diff": worst}
+
+
+def phase_residency(smi: str):
+    """The residency surface on full-width yi-6b (32 layers, bf16 weights
+    from seed 0), the serve phase's 8 prompts, 32 new tokens, 8 slots,
+    max_len 512, decode chunks of RESIDENCY_CHUNK steps: bf16 and int8
+    pools, plain and speculative (K=4); the moves timed on the plain
+    engines."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import (launch_counts, launch_counts_by_route,
+                                     reset_launch_counts)
+    from repro_torch.models import get_family, init_params
+    from repro_torch.serve import ContinuousBatchingEngine
+    from repro_torch.serve.prompts import shared_prefix_prompts
+    cfg = get_config("yi-6b")
+    params = init_params(cfg, get_family(cfg).layout(cfg), seed=0,
+                         device="cuda")
+    prompts = shared_prefix_prompts(cfg.vocab_size)
+    tail = [7, 11, 13, 17]
+    max_new = 32
+    variants = {"bf16": {}, "bf16 spec": dict(enable_spec_decode=True,
+                                              spec_tokens=4),
+                "int8": dict(kv_cache_dtype="int8"),
+                "int8 spec": dict(kv_cache_dtype="int8",
+                                  enable_spec_decode=True, spec_tokens=4)}
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    moves = {}
+    for name, kw in variants.items():
+        def mk(kw=kw):
+            return ContinuousBatchingEngine(
+                cfg, params, max_len=SERVE_MAX_LEN, max_slots=B,
+                decode_chunk=RESIDENCY_CHUNK, device="cuda", **kw)
+        restored = _residency_variant(name, mk, prompts, max_new, tail)
+        log(f"[residency] yi-6b {name}: preempt/resume, evacuate and "
+            f"demote/restore token-identical to the uninterrupted run; "
+            f"restored {restored}")
+        if "spec" not in name:
+            gold = mk().generate(prompts, max_new=max_new).tokens
+            m = moves[name] = _time_moves(mk, prompts, max_new, gold)
+            log(f"[residency] yi-6b {name} pool, a request after one chunk "
+                f"(median of 8): export {m['export_ms']:.3f} ms, "
+                f"import_pages {m['import_ms']:.3f} ms, "
+                f"{m['bytes'] / 1e6:.3f} MB ({m['page_nbytes']} B a page): "
+                f"{m['export_gb_s']:.2f} GB/s device to host, "
+                f"{m['import_gb_s']:.2f} GB/s host to device, on {smi}")
+    torch.cuda.synchronize()
+    counts, by_route = launch_counts(), launch_counts_by_route()
+    for kern in PAGED + ("rmsnorm_fused",):
+        if counts[kern] <= 0:
+            raise AssertionError(f"residency: {kern} not launched {counts}")
+    for kern in PAGED:
+        if by_route[kern] != {"sm90": counts[kern], "cuda_core": 0}:
+            raise AssertionError(f"residency: a bf16 {kern} launch left the "
+                                 f"sm90 route: {by_route[kern]}")
+    log(f"[residency] {time.perf_counter() - t0:.1f} s, launches {counts}")
+    del params
+    torch.cuda.empty_cache()
+    return moves
 
 
 def _leaves(tree):
@@ -1099,6 +1441,7 @@ def main() -> int:
     launches, routes = phase_serve(smi)
     zamba, zamba_routes = phase_zamba_serve(smi)
     routes.update(zamba_routes)
+    moves = phase_residency(smi)
     record = []
     for name, per_kind in kern.items():
         main_kind = "bf16"
@@ -1125,7 +1468,7 @@ def main() -> int:
         if name in routes:
             entry["launches_by_route"] = routes[name]
         record.append(entry)
-    print(json.dumps({"kernels": record}))
+    print(json.dumps({"kernels": record, "residency": moves}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -68,7 +68,10 @@
 // relative, as P's in flash attention. Shared memory at HB 4: C, B and x
 // in two buffers each (96 KB), y staging (16 KB), the states (HB x 24 KB),
 // la, dt and s (HB x 1.5 KB): 215 KB, one block an SM. Contract: N = P =
-// 64, any chunk 1 <= L <= 128 with S % L == 0, H % HB == 0.
+// 64, any chunk 1 <= L <= 128, H % HB == 0, any S: a ragged last chunk
+// (S % L rows) keeps the boxes of a full one, TMA zero-filling them past S,
+// and takes its own row count Lc for every mask above, la's scan and its
+// last value (the state decay exp2(la[Lc-1]) and s).
 // On an H100 (700 W) it takes 0.0384 ms at the serve shape, 3.0x the byte
 // floor (chip_smoke.py). Each step still runs its phases one after the
 // other, two block barriers apart: W on CUDA cores (the larger share, on
@@ -79,14 +82,14 @@
 // ~3 decimal digits, short of the f32 checks at 1e-4), so f32 keeps the
 // first version: one block of 8 warps a (batch, head) walks its chunks
 // with the (N,P) f32 state in shared memory for the whole walk. Per chunk
-// it stages x, B, C and dt in shared memory, takes the cumulative
-// log-decay with a warp scan, forms W = (C B^T) . exp(segsum) . dt (L x L,
+// it stages x, B, C and dt in shared memory (L rows, fewer in a ragged last
+// chunk), takes the cumulative log-decay with a warp scan, forms W = (C B^T) . exp(segsum) . dt (L x L,
 // lower triangle), writes y = exp(la) (C h) + W x and then updates the
 // state, each phase a register tile: lane = output column (two columns a
 // thread, 64 a warp), warp = a stride of output rows, the row operand a
-// broadcast shared-memory read. Contract: 1 <= chunk <= 128, S % chunk ==
-// 0, N <= 128, and the staged chunk must fit in 227 KB of shared memory
-// (true at L = 128 for N, P <= 64).
+// broadcast shared-memory read. Contract: 1 <= chunk <= 128, any S, N <=
+// 128, and the staged chunk must fit in 227 KB of shared memory (true at
+// L = 128 for N, P <= 64).
 //
 // The C entry points return cudaGetLastError() after the launch
 // (cudaErrorInvalidValue for a shape outside the contract); the Python
@@ -126,15 +129,15 @@ size_t smem_bytes(int L, int N, int P) {
 template <typename T>
 __global__ void __launch_bounds__(NT) ssd_kernel(Args a) {
   extern __shared__ float smem[];
-  const int L = a.L, N = a.N, P = a.P;
+  const int LC = a.L, N = a.N, P = a.P;  // LC: the chunk, the layout's rows
   float* hS = smem;                    // N x P
-  float* bS = hS + N * P;              // L x (N+1)
-  float* cS = bS + L * (N + 1);        // L x N
-  float* xS = cS + L * N;              // L x P
-  float* wS = xS + L * P;              // L x L
-  float* laS = wS + L * L;             // L
-  float* dtS = laS + L;                // L
-  float* sS = dtS + L;                 // L
+  float* bS = hS + N * P;              // LC x (N+1)
+  float* cS = bS + LC * (N + 1);       // LC x N
+  float* xS = cS + LC * N;             // LC x P
+  float* wS = xS + LC * P;             // L x L of this chunk
+  float* laS = wS + LC * LC;           // LC
+  float* dtS = laS + LC;               // LC
+  float* sS = dtS + LC;                // LC
 
   const int h = blockIdx.x, b = blockIdx.y;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
@@ -147,7 +150,9 @@ __global__ void __launch_bounds__(NT) ssd_kernel(Args a) {
 
   for (int i = tid; i < N * P; i += NT) hS[i] = 0.f;
 
-  for (int c0 = 0; c0 < a.S; c0 += L) {
+  for (int c0 = 0; c0 < a.S; c0 += LC) {
+    // This chunk's rows: LC, or fewer for a ragged last chunk (S % LC).
+    const int L = min(LC, a.S - c0);
     __syncthreads();                   // previous chunk fully used
     for (int i = tid; i < L * P; i += NT) {
       const int l = i / P, p = i % P;
@@ -503,7 +508,7 @@ __global__ void __launch_bounds__(kT, 1) ssd_sm90_kernel(
   const int wg = tid >> 7, t128 = tid & 127;
   const int r0 = (warp & 3) * 16 + (lane >> 2), cq = 2 * (lane & 3);
   const int nsub = (L + 63) / 64;              // 64-row boxes a tile
-  const int nchunks = S / L, steps = nchunks * HB;
+  const int nchunks = (S + L - 1) / L, steps = nchunks * HB;
   const bool has_rows = 64 * wg < L;           // warpgroup 1 idles if L <= 64
 
   if (tid == 0) {
@@ -518,6 +523,10 @@ __global__ void __launch_bounds__(kT, 1) ssd_sm90_kernel(
   float cb[2][32];
   for (int t = 0; t < steps; ++t) {
     const int c = t / HB, j = t - c * HB, h = h0 + j, c0 = c * L;
+    // This chunk's rows: L, or S - c0 for a ragged last chunk. The boxes
+    // stay nsub deep (TMA zero-fills rows past S); everything below masks,
+    // and takes la's last value, at Lc.
+    const int Lc = min(L, S - c0);
     __syncthreads();                           // step t-1 done with its buffers
     if (tid == kIssuer && t + 1 < steps) {
       const int c1 = (t + 1) / HB, j1 = t + 1 - c1 * HB;
@@ -531,8 +540,8 @@ __global__ void __launch_bounds__(kT, 1) ssd_sm90_kernel(
       if (warp < HB) {
         const int hw = h0 + warp;
         const float A = -expf(a.a_log[hw]) * kLog2e;
-        const int per = (L + 31) / 32, lo = min(L, lane * per),
-                  hi = min(L, lo + per);
+        const int per = (Lc + 31) / 32, lo = min(Lc, lane * per),
+                  hi = min(Lc, lo + per);
         float* la = laS + warp * kRows;
         float* dtw = dtS + warp * kRows;
         float run = 0.f;
@@ -554,7 +563,7 @@ __global__ void __launch_bounds__(kT, 1) ssd_sm90_kernel(
           la[l] = acc;
         }
         __syncwarp();
-        const float last = la[L - 1];
+        const float last = la[Lc - 1];
         for (int l = lo; l < hi; ++l)
           sS[warp * kRows + l] = exp2f(last - la[l]) * dtw[l];
       }
@@ -574,9 +583,9 @@ __global__ void __launch_bounds__(kT, 1) ssd_sm90_kernel(
       }
       float acc[32];
       const uint32_t hs = smem_u32(hB + j * kSub);
-      if (wg == 0) head_y<1>(cb, acc, cs, hs, xs, la, dtS + j * kRows, L, c > 0, r0, cq);
-      else head_y<2>(cb, acc, cs, hs, xs, la, dtS + j * kRows, L, c > 0, r0, cq);
-      // y in bf16: swizzled staging, then 16-byte stores of rows below L.
+      if (wg == 0) head_y<1>(cb, acc, cs, hs, xs, la, dtS + j * kRows, Lc, c > 0, r0, cq);
+      else head_y<2>(cb, acc, cs, hs, xs, la, dtS + j * kRows, Lc, c > 0, r0, cq);
+      // y in bf16: swizzled staging, then 16-byte stores of rows below Lc.
       uint8_t* ys = yS + wg * kSub;
 #pragma unroll
       for (int i = 0; i < 32; i += 2)
@@ -588,7 +597,7 @@ __global__ void __launch_bounds__(kT, 1) ssd_sm90_kernel(
       for (int it = 0; it < 4; ++it) {
         const int idx = it * 128 + t128, r = idx >> 3, ch = idx & 7;
         const int l = 64 * wg + r;
-        if (l < L)
+        if (l < Lc)
           *reinterpret_cast<uint4*>(a.y + ((long(b) * S + c0 + l) * H + h) * kState +
                                     8 * ch) =
               *reinterpret_cast<const uint4*>(ys + r * 128 + ((ch ^ (r & 7)) << 4));
@@ -596,11 +605,11 @@ __global__ void __launch_bounds__(kT, 1) ssd_sm90_kernel(
     }
     __syncthreads();                           // every wgmma read of x done
 
-    // x <- bf16(s x) in place, rows past L zeroed.
+    // x <- bf16(s x) in place, rows past Lc zeroed.
     const float* sj = sS + j * kRows;
     for (int k = tid; k < nsub * 512; k += kT) {
       const int row = k >> 3;
-      const float sv = row < L ? sj[row] : 0.f;
+      const float sv = row < Lc ? sj[row] : 0.f;
       uint4* p4 = reinterpret_cast<uint4*>(xstage + 16 * k);
       uint4 v = *p4;
       uint32_t* w = reinterpret_cast<uint32_t*>(&v);
@@ -619,7 +628,7 @@ __global__ void __launch_bounds__(kT, 1) ssd_sm90_kernel(
       // accumulator order.
       float hacc[32];
       float* hf = hF + j * kState * kState;
-      const float decay = exp2f(la[L - 1]);
+      const float decay = exp2f(la[Lc - 1]);
 #pragma unroll
       for (int i = 0; i < 32; ++i) hacc[i] = c > 0 ? decay * hf[i * 128 + t128] : 0.f;
       if (nsub == 2) state_mma<8>(hacc, bs, xs);
@@ -676,13 +685,13 @@ int launch_sm90(const void* x, const void* bm, const void* cm, Sm90Args a,
 extern "C" {
 
 // f32 on CUDA cores. x, bm, cm (B,S,H,P) / (B,S,N); dt, a_log, h_final;
-// all f32 and contiguous.
+// all f32 and contiguous. Any S: the last chunk has S - c0 rows.
 int ssd_scan_f32_fwd(const void* x, const void* bm, const void* cm,
                      const float* dt, const float* a_log, void* y,
                      float* h_final, int B, int S, int H, int P, int N,
                      int chunk, void* stream) {
   if (B < 1 || S < 1 || H < 1 || P < 1 || N < 1 || chunk < 1 ||
-      chunk > NW * MAXR || N > NW * MAXR || S % chunk != 0 || B > 65535 ||
+      chunk > NW * MAXR || N > NW * MAXR || B > 65535 ||
       smem_bytes(chunk, N, P) > size_t(MAX_SMEM))
     return int(cudaErrorInvalidValue);
   Args a{x, bm, cm, dt, a_log, y, h_final, B, S, H, P, N, chunk};
@@ -690,14 +699,15 @@ int ssd_scan_f32_fwd(const void* x, const void* bm, const void* cm,
 }
 
 // bf16 on tensor cores, the same layout (x, bm, cm, y bf16; dt, a_log,
-// h_final f32); N = P = 64, 1 <= chunk <= 128, S % chunk == 0, a group of
-// head_block (1, 2 or 4) heads a block, H % head_block == 0.
+// h_final f32); N = P = 64, 1 <= chunk <= 128, any S (a ragged last chunk
+// of S - c0 rows), a group of head_block (1, 2 or 4) heads a block,
+// H % head_block == 0.
 int ssd_scan_sm90_fwd(const void* x, const void* bm, const void* cm,
                       const float* dt, const float* a_log, void* y,
                       float* h_final, int B, int S, int H, int P, int N,
                       int chunk, int head_block, void* stream) {
   if (B < 1 || S < 1 || H < 1 || P != kState || N != kState || chunk < 1 ||
-      chunk > kRows || S % chunk != 0 || B > 65535 ||
+      chunk > kRows || B > 65535 ||
       (head_block != 1 && head_block != 2 && head_block != 4) ||
       H % head_block != 0)
     return int(cudaErrorInvalidValue);

@@ -15,7 +15,8 @@ dtype (``_cuda.ssd_route``), never by trying one and then the other:
   full-f32 mode), a block a (batch, head); N <= 128 and one chunk staged
   in 227 KB of shared memory.
 
-Both take any chunk from 1 to 128 with S a multiple of it.
+Both take any chunk from 1 to 128 and any S: when S is not a multiple of
+the chunk, the last chunk has ``S - c0`` rows.
 """
 from __future__ import annotations
 
@@ -50,9 +51,9 @@ def head_block(b: int, h: int) -> int:
 def ssd_scan(x, dt, a_log, bmat, cmat, *, chunk: int = 128):
     """x: (B,S,H,P) f32/bf16; dt: (B,S,H); a_log: (H,); bmat/cmat: (B,S,N)
     in x's dtype -> (y (B,S,H,P) in x's dtype, h_final (B,H,N,P) f32), the
-    state starting at zero. Chunks of ``min(chunk, S)`` steps; S must be a
-    multiple of it. Contract per route in the module docstring. CUDA
-    tensors only."""
+    state starting at zero. Chunks of ``min(chunk, S)`` steps, the last
+    one ragged when S is not a multiple. Contract per route in the module
+    docstring. CUDA tensors only."""
     b, s, h, p = x.shape
     n = bmat.shape[-1]
     chunk = check_chunk(s, chunk)

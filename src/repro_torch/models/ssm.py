@@ -67,7 +67,9 @@ def ssd_chunked(xh, dt, a_log, bmat, cmat, d_skip, chunk: int):
     -exp(a_log); bmat/cmat: (B,S,N) shared across heads. The scan's y comes
     back in xh's dtype (each chunk cast, as the reference casts it); the
     D-skip is added in f32 and cast again. Returns (y (B,S,H,P),
-    h_final (B,H,N,P) f32). S must be a multiple of ``chunk``.
+    h_final (B,H,N,P) f32). When S is not a multiple of ``chunk`` the last
+    chunk is shorter; the reference asserts a multiple (models/ssm.py) and
+    so cannot prefill those lengths.
     """
     y, h_final = mamba_chunk_scan(xh, dt, a_log, bmat, cmat, chunk=chunk)
     y = y.float() + d_skip.float()[None, None, :, None] * xh.float()

@@ -26,8 +26,24 @@ The PyTorch port of the reference engine's token loop:
   f32 scale pages, quantized on scatter and dequantized in the kernels.
 
 The stepped API (``enqueue`` / ``admit`` / ``decode_step`` / ``abort``) is
-what a control plane drives; ``generate`` is a loop over it. Preemption,
-page export/import and telemetry binding are not ported yet (ROADMAP.md).
+what a control plane drives; ``generate`` is a loop over it. On top of it
+sits the residency surface the control plane moves requests with:
+
+- **Preemption** (``preempt`` / ``resume``): a request pauses mid-stream at
+  a chunk boundary with its pages pinned (refcounts untouched) and its
+  slot state parked host-side in a :class:`PausedRequest`; ``resume``
+  re-attaches the pages to a free slot with zero re-prefill.
+- **Page export** (``export(slot=|rid=, reason=)``): a live or paused
+  request's content pages, the ``ceil(pos / page_size)`` pages holding KV
+  rows, are gathered off the device into a :class:`ShippedKV` of CPU
+  tensors in the pool's own dtype (bf16 at full width, so a page is half
+  the reference's f32 bytes). ``import_pages`` revives a payload as a live
+  request on another engine; ``restore_pages`` lands it as free-but-
+  hittable prefix-cache pages. ``demote_on_retire`` exports every finished
+  request before its pages are released, for a tiered store
+  (:mod:`repro_torch.serve.kv_store`) to drain from ``demoted_out``.
+- **Telemetry** (``bind_registry``): ``stats`` becomes a write-through view
+  over :class:`~repro_torch.serve.telemetry.MetricsRegistry` counters.
 
 ``ServeEngine`` is the reference's static-batch engine: one left-padded
 batch, a dense per-request cache, greedy decode. It serves the families
@@ -35,6 +51,7 @@ without a paged path (the Zamba2 hybrid).
 """
 from __future__ import annotations
 
+import enum
 import math
 import time
 from collections import deque
@@ -50,6 +67,7 @@ from ..train.train_step import (build_decode_step, build_fused_spec_step,
                                 build_paged_prefill_step, build_prefill_step)
 from .drafting import build_ngram_draft
 from .paging import PageAllocator, PrefixCache
+from .telemetry import RegistryDict
 
 
 @dataclass
@@ -151,6 +169,87 @@ class _Live:
     pages: list[int]
     emitted: int = 0
     tokens: list[int] = field(default_factory=list)
+
+
+@dataclass
+class PausedRequest:
+    """A preempted request parked host-side, its KV pages still pinned.
+
+    ``pages`` keep their refcounts, so the allocator can never hand them
+    out while the request is paused; ``cur``/``pos``/``limit`` and, under
+    speculative decode, ``hist`` (the first ``hist_len`` columns of the
+    slot's drafting-history row, int32) plus the adaptive window and
+    accept-rate EMA are the slot state at the chunk boundary where it was
+    paused. ``resume`` restores all of it with zero re-prefill.
+    """
+    req: EngineRequest
+    pages: list[int]
+    emitted: int
+    tokens: list[int]
+    cur: int
+    pos: int
+    limit: int
+    hist: np.ndarray | None = None
+    kslot: int = 0
+    ema: float = 0.0
+
+
+class ExportReason(str, enum.Enum):
+    """Why a request's pages leave the device pool: a disaggregated
+    prefill -> decode hop (``HANDOFF``), a revocation-notice migration
+    (``EVACUATE``) or a tier demotion into a tiered KV store (``DEMOTE``).
+    The gather is the same for all three."""
+
+    HANDOFF = "handoff"
+    EVACUATE = "evacuate"
+    DEMOTE = "demote"
+
+
+@dataclass
+class ShippedKV:
+    """A request's KV pages in flight between engines or tiers.
+
+    ``content`` maps every pool leaf name to a ``(L, KV, n_content,
+    page_size[, hd])`` CPU tensor in the pool's dtype: ``k``/``v`` in
+    ``cfg.dtype`` (bf16 at full width; numpy has no bf16, hence tensors),
+    plus the f32 ``k_scale``/``v_scale`` pages of an int8 pool. Sizes come
+    from ``numel() * element_size()``, so a bf16 page is half the bytes of
+    the reference's f32 one. ``tokens``/``emitted``/``cur``/``pos`` (and
+    the drafting ``hist`` and adaptive ``kslot``/``ema`` under speculative
+    decode) let the destination continue token-identically.
+    ``consumed`` flips on a successful import or restore: a payload is a
+    one-shot move.
+    """
+    req: EngineRequest
+    emitted: int
+    tokens: list[int]
+    cur: int                    # next token to emit (seeds dest decode)
+    pos: int                    # == len(prompt) + emitted
+    content: dict[str, torch.Tensor]
+    kv_cache_dtype: str
+    page_size: int
+    hist: np.ndarray | None = None     # spec-decode drafting history, if any
+    kslot: int = 0              # adaptive speculative window (0 = untracked)
+    ema: float = 0.0            # accept-rate EMA riding along with kslot
+    consumed: bool = False      # set by a successful import / restore
+    reason: ExportReason = ExportReason.HANDOFF
+
+    @property
+    def n_content(self) -> int:
+        return next(iter(self.content.values())).shape[2]
+
+    def page_nbytes(self) -> int:
+        """Bytes of ONE shipped page across every content leaf, data and
+        scale pages alike: the one sizing truth that ship budgets, tier
+        capacities and metrics multiply by a page count."""
+        n = self.n_content
+        return sum(a.numel() * a.element_size() // n
+                   for a in self.content.values())
+
+    @property
+    def nbytes(self) -> int:
+        """Bytes of the shipped pages, from :meth:`page_nbytes`."""
+        return self.page_nbytes() * self.n_content
 
 
 def _next_pow2(n: int) -> int:
@@ -308,6 +407,14 @@ class ContinuousBatchingEngine:
             (s, self.hist_len + 2 * self.spec_tokens + 2), dtype=torch.int32,
             device=self.device) if self.spec_decode else None
         self._live: dict[int, _Live] = {}
+        # Preempted requests parked host-side; their pages stay pinned.
+        self._paused: dict[object, PausedRequest] = {}
+        # Tier demotion: with ``demote_on_retire`` set (by the control plane
+        # that attaches a tiered store), a finishing request is exported
+        # (reason DEMOTE) before its pages are released, and its payload
+        # waits in ``demoted_out`` for the store to drain.
+        self.demote_on_retire = False
+        self.demoted_out: list[ShippedKV] = []
         # Admission queue, consumed front-first by ``admit``.
         self._queue: deque[EngineRequest] = deque()
         self.stats: dict[str, float] = {}
@@ -332,10 +439,40 @@ class ContinuousBatchingEngine:
     _STAT_ZEROS = {"admitted": 0, "prefill_tokens": 0, "cached_tokens": 0,
                    "cow_copies": 0, "admit_seconds": 0.0,
                    "spec_steps": 0, "spec_emitted": 0,
+                   "preempted": 0, "resumed": 0,
+                   "page_exports": 0, "page_imports": 0,
+                   "page_demotes": 0, "page_restores": 0,
                    "accept_ema_sum": 0.0, "accept_ema_n": 0}
+    # Keys exported when bound to a MetricsRegistry; the scratch
+    # accumulators (admit_seconds, the accept-EMA terms) stay local.
+    _STAT_EXPORTED = ("admitted", "prefill_tokens", "cached_tokens",
+                      "cow_copies", "spec_steps", "spec_emitted",
+                      "preempted", "resumed", "page_exports", "page_imports",
+                      "page_demotes", "page_restores")
 
     def _reset_stats(self):
-        self.stats = dict(self._STAT_ZEROS)
+        if isinstance(self.stats, RegistryDict):
+            # Registry-bound: zero the local mirror in place; counters take
+            # positive deltas only, so the bound series stay monotonic.
+            for k, v in self._STAT_ZEROS.items():
+                self.stats[k] = v
+        else:
+            self.stats = dict(self._STAT_ZEROS)
+
+    def bind_registry(self, registry, engine: str) -> None:
+        """Swap ``stats`` for a write-through view over ``registry``
+        counters labelled ``{engine=...}``; totals so far carry into the
+        series, and call sites keep the plain-dict idiom."""
+        rd = RegistryDict()
+        for key in self._STAT_EXPORTED:
+            fam = registry.counter(
+                f"kotta_engine_{key}_total",
+                f"Engine {key.replace('_', ' ')} (cumulative)", ("engine",))
+            rd.bind(key, fam, initial=self.stats[key], engine=engine)
+        for key in self._STAT_ZEROS:
+            if key not in self._STAT_EXPORTED:
+                rd.bind(key, None, initial=self.stats[key])
+        self.stats = rd
 
     @property
     def prefix_hit_rate(self) -> float:
@@ -529,23 +666,18 @@ class ContinuousBatchingEngine:
         live = self._live.pop(slot)
         for p in live.pages:
             self.alloc.release(p)       # refcount--: aliased pages survive
-        self._active[slot] = False
-        self._page_table[slot] = 0          # all-zero row -> sink page 0
-        self._pos[slot] = 0
-        self._cur[slot] = 0
-        self._limit[slot] = 0               # spec writes masked until re-seeded
         if self.spec_decode:
             self.stats["accept_ema_sum"] += float(self._ema[slot])
             self.stats["accept_ema_n"] += 1
-            self._kslot[slot] = 0
-            self._ema[slot] = 0.0
+        self._clear_slot(slot)
         return live
 
     def _debug_check_refcounts(self) -> None:
-        """Every physical page's refcount == page-table rows referencing it."""
+        """Every physical page's refcount == page-table rows referencing it
+        (a paused request's pinned pages count as one reference each)."""
         counts = np.zeros(self.num_pages, np.int64)
-        for live in self._live.values():
-            for p in live.pages:
+        for held in (*self._live.values(), *self._paused.values()):
+            for p in held.pages:
                 counts[p] += 1
         if not np.array_equal(counts[1:], self.alloc.refs[1:]):
             bad = np.nonzero(counts[1:] != self.alloc.refs[1:])[0] + 1
@@ -590,12 +722,18 @@ class ContinuousBatchingEngine:
         return len(self._live)
 
     @property
+    def paused(self) -> int:
+        return len(self._paused)
+
+    @property
     def free_slots(self) -> int:
+        """Unoccupied decode slots; paused requests hold pages but no slot,
+        so this is what ``resume`` and ``import_pages`` need."""
         return int(self.max_slots - np.count_nonzero(self._active))
 
     @property
     def has_work(self) -> bool:
-        return bool(self._queue or self._live)
+        return bool(self._queue or self._live or self._paused)
 
     @property
     def open_slots(self) -> int:
@@ -607,21 +745,331 @@ class ContinuousBatchingEngine:
         return [l.req.max_new - l.emitted for l in self._live.values()]
 
     def drop_queued(self) -> list[EngineRequest]:
-        """Hand back queued-but-unadmitted requests; live ones stay."""
+        """Hand back queued-but-unadmitted requests; live and paused ones
+        stay."""
         dropped = list(self._queue)
         self._queue.clear()
         return dropped
 
     def abort(self) -> list[EngineRequest]:
-        """Drop all live and queued requests and return them for re-enqueue.
-        Pages are released through the refcount path, so cached prefixes
-        survive until reallocated."""
+        """Drop all live, paused and queued requests and return them for
+        re-enqueue. Pages, a paused request's pinned ones included, are
+        released through the refcount path, so cached prefixes survive
+        until reallocated."""
         dropped = [self._live[s].req for s in sorted(self._live)]
         for slot in list(self._live):
             self._retire(slot)
+        for paused in self._paused.values():
+            for p in paused.pages:
+                self.alloc.release(p)
+            dropped.append(paused.req)
+        self._paused.clear()
         dropped.extend(self._queue)
         self._queue.clear()
         return dropped
+
+    # -- preemption ------------------------------------------------------------
+    def _clear_slot(self, slot: int) -> None:
+        """Return a vacated slot to idle: all-zero page-table row (sink page
+        0), zero cursor and write limit, no speculation state."""
+        self._active[slot] = False
+        self._page_table[slot] = 0
+        self._pos[slot] = 0
+        self._cur[slot] = 0
+        self._limit[slot] = 0               # spec writes masked until re-seeded
+        self._kslot[slot] = 0
+        self._ema[slot] = 0.0
+
+    def _hist_row(self, slot: int) -> np.ndarray | None:
+        """The slot's drafting history (first ``hist_len`` columns) on the
+        host, or None without speculative decode."""
+        if not self.spec_decode:
+            return None
+        return self._hist[slot, :self.hist_len].cpu().numpy().copy()
+
+    def _occupy(self, slot: int, req: EngineRequest, pages: list[int], *,
+                emitted: int, tokens: list[int], cur: int, pos: int,
+                limit: int, hist: np.ndarray, kslot: int,
+                ema: float) -> None:
+        """Attach a request mid-stream to a free slot: page-table row,
+        cursor, write limit and, under speculative decode, the drafting
+        history (one copy into the device row) and adaptive window."""
+        row = np.zeros(self.pages_per_seq, np.int32)
+        row[:len(pages)] = pages
+        self._page_table[slot] = row
+        self._active[slot] = True
+        self._pos[slot] = pos
+        self._cur[slot] = cur
+        self._limit[slot] = limit
+        if self.spec_decode:
+            self._hist[slot, :self.hist_len].copy_(torch.from_numpy(hist))
+            self._kslot[slot] = kslot
+            self._ema[slot] = ema
+        self._live[slot] = _Live(req, pages, emitted, tokens)
+
+    def _free_slot(self, what: str) -> int:
+        for i in range(self.max_slots):
+            if not self._active[i]:
+                return i
+        raise RuntimeError(f"no free slot to {what} into")
+
+    def preempt(self, slot: int) -> PausedRequest:
+        """Pause the request in ``slot`` mid-stream and free the slot.
+
+        Its KV pages stay allocated and pinned (refcounts untouched), so no
+        admission can reallocate them nor eviction scrub the prefix-cache
+        entries they anchor. The cursor, emitted tokens, write limit and,
+        under speculative decode, the drafting-history row (copied to the
+        host) and adaptive window park in the returned
+        :class:`PausedRequest`.
+        """
+        if slot not in self._live:
+            raise KeyError(f"slot {slot} has no live request to preempt")
+        live = self._live.pop(slot)
+        paused = PausedRequest(
+            req=live.req, pages=live.pages, emitted=live.emitted,
+            tokens=live.tokens, cur=int(self._cur[slot]),
+            pos=int(self._pos[slot]), limit=int(self._limit[slot]),
+            hist=self._hist_row(slot), kslot=int(self._kslot[slot]),
+            ema=float(self._ema[slot]))
+        self._paused[live.req.rid] = paused
+        # As _retire, except the pages are not released.
+        self._clear_slot(slot)
+        self.stats["preempted"] += 1
+        return paused
+
+    def resume(self, paused: PausedRequest) -> int:
+        """Re-admit a preempted request into a free slot; returns the slot.
+
+        Zero re-prefill: the parked pages are re-attached through the page
+        table and the cursor, limit and history restored, so greedy tokens
+        equal a never-paused run's. Raises ``RuntimeError`` when every slot
+        is occupied (check :attr:`free_slots` first).
+        """
+        if self._paused.get(paused.req.rid) is not paused:
+            raise KeyError(f"request {paused.req.rid} is not paused on this "
+                           "engine")
+        slot = self._free_slot("resume")
+        del self._paused[paused.req.rid]
+        # kslot 0: paused before this engine tracked it; re-warm from K.
+        self._occupy(slot, paused.req, paused.pages, emitted=paused.emitted,
+                     tokens=paused.tokens, cur=paused.cur, pos=paused.pos,
+                     limit=paused.limit, hist=paused.hist,
+                     kslot=paused.kslot or self.spec_tokens, ema=paused.ema)
+        self.stats["resumed"] += 1
+        return slot
+
+    # -- page residency: one export, two ways back in ---------------------------
+    def export(self, slot: int | None = None, *, rid: object = None,
+               reason: ExportReason = ExportReason.HANDOFF) -> ShippedKV:
+        """Ship a request out of this engine as a :class:`ShippedKV`.
+
+        ``slot=`` takes a live request (gathered, then retired through the
+        refcount path), ``rid=`` a request parked by :meth:`preempt`
+        (gathered, then unpinned); exactly one must be given, since slot
+        numbers and caller rids can share values. ``reason`` tags the
+        payload without changing the gather.
+
+        Only content pages travel, ``ceil(pos / page_size)`` of them;
+        trailing pages allocated against the decode budget are empty and
+        are released. Aliased prefix pages are gathered like any other, so
+        the payload is a private copy, and this engine's prefix-cache
+        entries survive. Works mid-decode: the payload carries the decoded
+        rows, emitted tokens and (speculative decode) the drafting history
+        and adaptive window.
+        """
+        if (slot is None) == (rid is None):
+            raise ValueError("export needs exactly one of slot= (live "
+                             "request) or rid= (paused request)")
+        if slot is not None:
+            if slot not in self._live:
+                raise KeyError(f"slot {slot} has no live request to export")
+            live = self._live[slot]
+            payload = self._export(
+                req=live.req, emitted=live.emitted, tokens=list(live.tokens),
+                cur=int(self._cur[slot]), pos=int(self._pos[slot]),
+                pages=live.pages, hist=self._hist_row(slot),
+                kslot=int(self._kslot[slot]), ema=float(self._ema[slot]),
+                reason=reason)
+            self._retire(slot)
+            return payload
+        paused = self._paused.get(rid)
+        if paused is None:
+            raise KeyError(f"request {rid} is not paused on this engine")
+        payload = self._export(
+            req=paused.req, emitted=paused.emitted,
+            tokens=list(paused.tokens), cur=paused.cur, pos=paused.pos,
+            pages=paused.pages, hist=paused.hist, kslot=paused.kslot,
+            ema=paused.ema, reason=reason)
+        del self._paused[rid]
+        for p in paused.pages:
+            self.alloc.release(p)       # unpin: aliased pages survive
+        return payload
+
+    def export_pages(self, slot: int, *,
+                     reason: ExportReason = ExportReason.HANDOFF
+                     ) -> ShippedKV:
+        """Alias of ``export(slot=...)``."""
+        return self.export(slot=slot, reason=reason)
+
+    def export_paused(self, rid: object, *,
+                      reason: ExportReason = ExportReason.EVACUATE
+                      ) -> ShippedKV:
+        """Alias of ``export(rid=...)``."""
+        return self.export(rid=rid, reason=reason)
+
+    def _export(self, *, req, emitted, tokens, cur, pos, pages, hist,
+                kslot, ema, reason: ExportReason) -> ShippedKV:
+        """Gather the ``ceil(pos / page_size)`` content pages: one
+        ``index_select`` a pool leaf, then its copy to the host."""
+        n_content = math.ceil(pos / self.page_size)
+        idx = self._dev(np.asarray(pages[:n_content], np.int64))
+        content = {name: leaf.index_select(2, idx).cpu()
+                   for name, leaf in self.pool.items()}
+        self.stats["page_exports"] += 1
+        return ShippedKV(
+            req=req, emitted=emitted, tokens=tokens, cur=cur, pos=pos,
+            content=content, kv_cache_dtype=self.kv_cache_dtype,
+            page_size=self.page_size, hist=hist, kslot=kslot, ema=ema,
+            reason=reason)
+
+    def page_nbytes(self) -> int:
+        """Bytes of ONE shipped page across every pool leaf (data and scale
+        pages), what a planner multiplies by a request's content-page count
+        to budget a move without exporting first."""
+        return sum(leaf.numel() * leaf.element_size() // leaf.shape[2]
+                   for leaf in self.pool.values())
+
+    def _check_payload(self, payload: ShippedKV, verb: str) -> None:
+        """Refuse a consumed payload or one whose layout is not this pool's
+        (pool dtype, page size, leaf names, each leaf's shape and dtype)."""
+        if payload.consumed:
+            raise ValueError(
+                f"payload for request {payload.req.rid} was already "
+                "imported or restored; a ShippedKV is a one-shot move")
+        if payload.kv_cache_dtype != self.kv_cache_dtype:
+            raise ValueError(
+                f"{verb} pages are {payload.kv_cache_dtype!r} but this "
+                f"engine's pool is {self.kv_cache_dtype!r}")
+        if payload.page_size != self.page_size:
+            raise ValueError(
+                f"{verb} page_size {payload.page_size} != engine "
+                f"page_size {self.page_size}")
+        if set(payload.content) != set(self.pool):
+            raise ValueError(
+                f"{verb} pool leaves {sorted(payload.content)} != engine "
+                f"pool leaves {sorted(self.pool)}")
+        n = payload.n_content
+        for name, leaf in self.pool.items():
+            a = payload.content[name]
+            want = leaf.shape[:2] + (n,) + leaf.shape[3:]
+            if tuple(a.shape) != tuple(want) or a.dtype != leaf.dtype:
+                raise ValueError(
+                    f"{verb} leaf {name!r} is {tuple(a.shape)} {a.dtype}; "
+                    f"this pool takes {tuple(want)} {leaf.dtype}")
+
+    def _scatter(self, payload: ShippedKV, pages: list[int]) -> None:
+        """Write the payload's content pages into ``pages`` of the pool, in
+        place, one indexed copy a leaf."""
+        dst = self._dev(np.asarray(pages[:payload.n_content], np.int64))
+        for name, leaf in self.pool.items():
+            leaf[:, :, dst] = payload.content[name].to(self.device)
+
+    def import_pages(self, payload: ShippedKV) -> int:
+        """Re-register a :class:`ShippedKV` here as a live request; returns
+        the slot.
+
+        Fresh pages come from this engine's allocator (the whole
+        prompt + budget span), the content scatters into them in place, the
+        prompt re-registers in this engine's prefix cache (existing entries
+        win, as at admission) and decoding resumes where the source
+        stopped. Raises ``ValueError`` on a layout mismatch or a consumed
+        payload and ``RuntimeError`` when no slot or not enough pages are
+        free; only a successful import marks the payload consumed.
+        """
+        self._check_payload(payload, "shipped")
+        req = payload.req
+        self._validate_request(req)
+        if payload.pos != len(req.prompt) + payload.emitted:
+            raise ValueError(
+                f"inconsistent payload for request {req.rid}: pos "
+                f"{payload.pos} != prompt {len(req.prompt)} + emitted "
+                f"{payload.emitted}")
+        slot = self._free_slot("import")
+        need_total = math.ceil((len(req.prompt) + req.max_new)
+                               / self.page_size)
+        if payload.n_content > need_total:
+            raise ValueError(
+                f"payload ships {payload.n_content} content pages but "
+                f"request {req.rid} spans only {need_total}")
+        if self.alloc.available() < need_total:
+            raise RuntimeError(
+                f"insufficient free pages to import request {req.rid}: "
+                f"need {need_total}, have {self.alloc.available()}")
+        pages = [self.alloc.alloc() for _ in range(need_total)]
+        self._scatter(payload, pages)
+        hist = None
+        if self.spec_decode:
+            # The source's row if it ran speculative decode too, else
+            # rebuilt from prompt + emitted tokens (the same content: draft
+            # tails past pos are rewritten before they are read).
+            if payload.hist is not None and                     len(payload.hist) == self.hist_len:
+                hist = np.asarray(payload.hist, np.int32)
+            else:
+                hist = np.zeros(self.hist_len, np.int32)
+                hist[:len(req.prompt)] = req.prompt
+                hist[len(req.prompt):payload.pos] = payload.tokens[
+                    :payload.pos - len(req.prompt)]
+        # The source's tuned window, capped at this engine's K (0: the
+        # source never tracked one, warm from K).
+        self._occupy(slot, req, pages, emitted=payload.emitted,
+                     tokens=list(payload.tokens), cur=payload.cur,
+                     pos=payload.pos,
+                     limit=len(req.prompt) + req.max_new, hist=hist,
+                     kslot=min(payload.kslot, self.spec_tokens)
+                     or self.spec_tokens, ema=payload.ema)
+        if self.prefix_cache is not None:
+            self.prefix_cache.register(req.prompt, pages, req.namespace)
+        self.stats["page_imports"] += 1
+        payload.consumed = True
+        return slot
+
+    def restore_pages(self, payload: ShippedKV) -> list[int]:
+        """Land a demoted payload's content pages back in the pool without
+        taking a slot; returns the restored pages.
+
+        The content scatters into freshly allocated pages, the covered
+        token stream (prompt + emitted tokens) is registered in the prefix
+        cache under the payload's namespace, and the pages drop straight to
+        refcount 0: free-but-hittable, as a retired request's pages are.
+        The next admission of a prompt that extends the stream aliases them
+        with zero re-prefill; if none does, the allocator reuses them and
+        eviction scrubs the entries. Raises ``ValueError`` on a layout
+        mismatch or a consumed payload and ``RuntimeError`` without the
+        prefix cache or enough free pages.
+        """
+        self._check_payload(payload, "restored")
+        if self.prefix_cache is None:
+            raise RuntimeError("restore_pages needs the prefix cache: "
+                               "restored pages are only reachable through "
+                               "the radix index")
+        n_content = payload.n_content
+        if self.alloc.available() < n_content:
+            raise RuntimeError(
+                f"insufficient free pages to restore request "
+                f"{payload.req.rid}: need {n_content}, have "
+                f"{self.alloc.available()}")
+        pages = [self.alloc.alloc() for _ in range(n_content)]
+        self._scatter(payload, pages)
+        req = payload.req
+        stream = list(req.prompt) + list(
+            payload.tokens[:payload.pos - len(req.prompt)])
+        self.prefix_cache.register(stream, pages, req.namespace)
+        for p in pages:
+            self.alloc.release(p)       # free-but-hittable, like retirement
+        self.stats["page_restores"] += 1
+        payload.consumed = True
+        return pages
 
     # -- decode chunks ---------------------------------------------------------
     def _decode_chunk(self, cur, pos, page_table, active, budget):
@@ -757,8 +1205,32 @@ class ContinuousBatchingEngine:
             live.emitted += ntok
             if live.emitted >= live.req.max_new:
                 finished.append((live.req, live.tokens[:live.req.max_new]))
-                self._retire(slot)
+                if self.demote_on_retire:
+                    self._demote(slot)
+                else:
+                    self._retire(slot)
         return finished
+
+    def _demote(self, slot: int) -> None:
+        """Export a finished request (reason DEMOTE) into ``demoted_out``
+        before its pages are released, so an eviction that later scrubs
+        its index entries finds the content already off the device.
+
+        The payload is trimmed to what the request delivered: ``max_new``
+        tokens and ``pos = prompt + max_new``. A chunk runs past a spent
+        budget (plain decode emits the whole chunk; a speculative step can
+        carry the cursor past the write limit, whose rows are never
+        written), and the reference ships that overshoot as if it were
+        content.
+        """
+        live = self._live[slot]
+        max_new = live.req.max_new
+        live.emitted = max_new
+        del live.tokens[max_new:]
+        self._pos[slot] = len(live.req.prompt) + max_new
+        self.demoted_out.append(self.export(slot=slot,
+                                            reason=ExportReason.DEMOTE))
+        self.stats["page_demotes"] += 1
 
     # -- the serving loop ----------------------------------------------------
     def generate(self, prompts: list[list[int]], max_new: int = 16,

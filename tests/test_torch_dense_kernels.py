@@ -145,18 +145,29 @@ def _ssd_inputs(b, s, h, p, n, seed):
 def test_ssd_plain_versions_match_oracle(chunk):
     """The chunked plain version (what the CPU path runs), y and the final
     state, against the sequential jnp oracle; chunk 12 does not divide
-    S = 32 and is refused, as the reference asserts."""
+    S = 32, so the last chunk has 8 rows (the reference asserts a multiple;
+    the port takes the ragged chunk)."""
     x, dt, a_log, bm, cm = _ssd_inputs(2, 32, 3, 8, 6, seed=5)
     want_y, want_h = j_ssd(*(jnp.asarray(a) for a in (x, dt, a_log, bm, cm)))
     args = [_t(a) for a in (x, dt, a_log, bm, cm)]
-    if chunk == 12:
-        with pytest.raises(ValueError, match="not a multiple"):
-            tk.ssd_chunked_reference(*args, chunk=chunk)
-        return
     y, h = tk.ssd_chunked_reference(*args, chunk=chunk)
     _close(y, want_y, SSD)
     _close(h, want_h, SSD)
     y, h = tk.mamba_chunk_scan(*args, chunk=chunk)
+    _close(y, want_y, SSD)
+    _close(h, want_h, SSD)
+
+
+@pytest.mark.parametrize("s,chunk", [(130, 128), (200, 128), (40, 16)])
+def test_ssd_plain_ragged_last_chunk_matches_oracle(s, chunk):
+    """A last chunk of 2, 72 and 8 rows (the Zamba2 engine's chunk 128 at
+    prompts of 130 and 200): y and the final state against the sequential
+    oracle, which has no chunk, within 1e-4 in f32."""
+    x, dt, a_log, bm, cm = _ssd_inputs(1, s, 2, 8, 6, seed=s)
+    want_y, want_h = j_ssd(*(jnp.asarray(a) for a in (x, dt, a_log, bm, cm)))
+    y, h = tk.mamba_chunk_scan(*(_t(a) for a in (x, dt, a_log, bm, cm)),
+                               chunk=chunk)
+    assert y.shape == (1, s, 2, 8) and h.shape == (1, 2, 6, 8)
     _close(y, want_y, SSD)
     _close(h, want_h, SSD)
 

@@ -12,8 +12,8 @@ checked on the CPU where their CUDA code cannot run:
     . dt_m on the lower triangle carried into W x as two bf16 parts (hi =
     bf16(W), lo = bf16(W - hi)), the carried term from h's bf16 copy, s x
     rounded to bf16 for the state product, the f32 state, and the rows of
-    a ragged chunk's 64-row tiles past L (the next chunk's rows, or zeros
-    past S) masked -- held against the JAX package's sequential oracle
+    a chunk's 64-row tiles past its L (the next chunk's rows, or zeros
+    past S, a ragged last chunk's L being S - c0) masked -- held against the JAX package's sequential oracle
     ``ssd_reference`` (y and the final state) and its Pallas ``ssd_scan``
     in interpret mode, and against the port's plain version where outputs
     exceed 4 (a bf16 ulp there is 0.031: a W rounded once to bf16 would
@@ -99,6 +99,8 @@ def _ssd_call(dtype, *, b=2, s=96, h=8, p=64, n=64, chunk=32):
     (torch.bfloat16, 96, 32, "ssd_scan_sm90_fwd"),
     (torch.bfloat16, 40, 128, "ssd_scan_sm90_fwd"),
     (torch.float32, 96, 32, "ssd_scan_f32_fwd"),
+    (torch.bfloat16, 130, 128, "ssd_scan_sm90_fwd"),   # ragged last chunk
+    (torch.float32, 200, 128, "ssd_scan_f32_fwd"),
 ])
 def test_ssd_wrapper_launches_its_route(stand_in, dtype, s, chunk, entry):
     y, h_final = _ssd_call(dtype, s=s, chunk=chunk)()
@@ -126,7 +128,7 @@ def test_ssd_wrapper_launches_its_route(stand_in, dtype, s, chunk, entry):
     (dict(n=32), "N = P = 64"),
     (dict(p=128), "N = P = 64"),
     (dict(s=256, chunk=256), "chunk 256"),
-    (dict(s=96, chunk=36), "not a multiple"),
+    (dict(s=96, chunk=0), "must be >= 1"),
 ])
 def test_off_contract_bf16_ssd_calls_raise(stand_in, kw, match):
     with pytest.raises(ValueError, match=match):
@@ -178,22 +180,23 @@ def ssd_sm90_emulation(x, dt, a_log, bm, cm, *, chunk, hb):
     rows = 64 * math.ceil(L / 64)
     A = -torch.exp(a_log) * LOG2E                  # exp2 domain
     ar = torch.arange(rows)
-    lower = (ar[None, :] <= ar[:, None]) & (ar[:, None] < L)
-    live = ar < L
     y = torch.zeros(b, s, h, p)
     h_final = torch.zeros(b, h, n, p)
     for bi in range(b):
         for h0 in range(0, h, hb):
             state = torch.zeros(hb, n, p)
             for c0 in range(0, s, L):
+                lc = min(L, s - c0)                # a ragged last chunk: S - c0
+                lower = (ar[None, :] <= ar[:, None]) & (ar[:, None] < lc)
+                live = ar < lc
                 ct, bt = _tile(cm, bi, c0, rows), _tile(bm, bi, c0, rows)
                 cb = ct @ bt.T                     # once for the group
                 for j in range(hb):
                     hh = h0 + j
                     d = torch.zeros(rows)
-                    d[:L] = dt[bi, c0:c0 + L, hh]
+                    d[:lc] = dt[bi, c0:c0 + lc, hh]
                     la = torch.zeros(rows)
-                    la[:L] = torch.cumsum(d[:L] * A[hh], 0)
+                    la[:lc] = torch.cumsum(d[:lc] * A[hh], 0)
                     seg = (la[:, None] - la[None, :]).masked_fill(
                         ~lower, -math.inf)
                     w = cb * torch.exp2(seg) * d[None, :]
@@ -205,10 +208,10 @@ def ssd_sm90_emulation(x, dt, a_log, bm, cm, *, chunk, hb):
                         e = torch.where(live, torch.exp2(la), 0.0)
                         acc = (ct @ _bf16(state[j])) * e[:, None]
                     acc = acc + w @ xt
-                    y[bi, c0:c0 + L, hh] = _bf16(acc[:L])
-                    sw = torch.where(live, torch.exp2(la[L - 1] - la) * d,
+                    y[bi, c0:c0 + lc, hh] = _bf16(acc[:lc])
+                    sw = torch.where(live, torch.exp2(la[lc - 1] - la) * d,
                                      0.0)
-                    state[j] = torch.exp2(la[L - 1]) * state[j] \
+                    state[j] = torch.exp2(la[lc - 1]) * state[j] \
                         + bt.T @ _bf16(xt * sw[:, None])
             h_final[bi, h0:h0 + hb] = state
     return y, h_final
@@ -230,6 +233,9 @@ def _inputs(b, s, h, p, n, seed, dt_scale=1.0):
     (96, 32, 4, 1.0, True),      # three chunks; rows 32-63 the next chunk's
     (40, 40, 2, 1.0, False),     # one ragged chunk; rows 40-63 past S
     (96, 32, 1, 20.0, False),    # strong decay: exp(la) underflows
+    (130, 128, 4, 1.0, False),   # a last chunk of 2 rows: its second box
+                                 # (rows 192-255) wholly past S
+    (40, 16, 2, 1.0, False),     # a last chunk of 8 rows of 16
 ])
 def test_ssd_sm90_emulation_matches_reference(s, chunk, hb, dt_scale, pallas):
     args = _inputs(2, s, 4, 16, 16, seed=s + hb, dt_scale=dt_scale)

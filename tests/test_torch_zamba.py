@@ -61,6 +61,16 @@ def _np_params(layout, seed):
     return tree_map_specs(leaf, layout)
 
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """The reduced models are a few KB wide: one intra-op thread a test
+    process runs them fastest, and leaves the other workers their cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
 @pytest.fixture(scope="module")
 def model():
     jcfg = jax_reduced("zamba2-1.2b").replace(dtype="float32", ssm_chunk=16)
@@ -314,3 +324,47 @@ def test_static_launcher_and_devices(model, capsys):
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             ServeEngine(tcfg, tparams)
+
+
+def test_engine_serves_a_ragged_last_ssd_chunk(model):
+    """Longest prompt 130 at ``ssm_chunk`` 128: the scan's last chunk has 2
+    rows. The reference asserts a multiple of the chunk and cannot prefill
+    this batch; the port serves it. Its prefill logits are within 1e-4 of
+    the same model at ``ssm_chunk`` 256 (one chunk, which the reference
+    also serves: its prefill is held to the port's within 1e-3, as above),
+    every SSM state within 1e-4, and each greedy token of the chunk-128
+    engine is the argmax of a full chunk-256 prefill over the prompt and
+    the tokens before it, wherever that argmax has a margin."""
+    jcfg, tcfg, jparams, tparams, _ = model
+    c128, c256 = tcfg.replace(ssm_chunk=128), tcfg.replace(ssm_chunk=256)
+    rng = np.random.RandomState(6)
+    prompts = [rng.randint(0, tcfg.vocab_size, size=n).tolist()
+               for n in (130, 97)]
+    toks = np.zeros((B, 130), np.int64)
+    for i, p in enumerate(prompts):
+        toks[i, 130 - len(p):] = p
+    batch = {"tokens": torch.from_numpy(toks)}
+    logits, cache = get_family(c128).prefill(c128, tparams, batch)
+    want, want_cache = get_family(c256).prefill(c256, tparams, batch)
+    _close(logits, want.numpy(), OP, "chunk 128 vs 256 logits")
+    _close(cache["mamba"]["ssm"], want_cache["mamba"]["ssm"].numpy(), OP,
+           "chunk 128 vs 256 ssm state")
+    jprefill = jax.jit(jts.build_prefill_step(jcfg.replace(ssm_chunk=256)))
+    jlogits, _ = jprefill(jparams, {"tokens": jnp.asarray(toks, jnp.int32)})
+    _close(logits, jlogits, LOGITS, "port chunk 128 vs reference chunk 256")
+
+    max_new = 4
+    out = ServeEngine(c128, tparams, max_len=MAX_LEN + 100,
+                      device="cpu").generate(prompts, max_new=max_new).tokens
+    assert out.shape == (B, max_new)
+    fam = get_family(c256)
+    compared = 0
+    for t in range(max_new):
+        seq = torch.from_numpy(np.concatenate([toks, out[:, :t]], axis=1))
+        step_logits, _ = fam.prefill(c256, tparams, {"tokens": seq})
+        top2 = torch.topk(step_logits.double(), 2).values
+        for i in range(B):
+            if top2[i, 0] - top2[i, 1] > MARGIN:
+                assert out[i, t] == int(step_logits[i].argmax())
+                compared += 1
+    assert compared >= out.size // 2
