@@ -54,17 +54,32 @@ Phases, each of which must pass (a failure exits nonzero):
    prefills its suffix, held to a twin restored from a copy taken before
    the store held it (a fresh engine that recomputes the stream is
    compared and reported, not held); and the export and ``import_pages``
-   of all 8 requests timed (plain engines).
+   of all 8 requests timed (plain engines);
+7. gateway: ``KottaServeGateway`` over full-width yi-6b engines (one
+   parameter tree for every replica, 8 slots, max_len 512, decode chunks of
+   4), the serve phase's 8 prompts over two tenants in two waves, 32 new
+   tokens: an undisturbed two-replica fleet (bf16 and int8 pools, plain
+   and spec), the same trace with the busier replica revoked after its
+   first chunk under a 120 s notice (every live request evacuated, tokens
+   held exactly to the undisturbed fleet's, the evacuation timed against
+   the notice), a notice too short to ship anything (requeue with
+   backoff), a disaggregated 1:1 fleet, a tiered KV store restoring
+   extensions of the first waves' streams, and an open-loop trace into a
+   StateStore; rounds, wall a round and the host's share outside the
+   engines' stepped API a scenario, the card's measured service rates
+   beside ``ServiceModel``'s, and the phase's launches (every bf16 paged
+   one on ``sm90``) and peak device memory.
 
 The second-to-last line of output is a JSON ``kernels`` record (with the
-residency phase's move times); the last is ``{"ok": true, "device":
-{...}}``. Without CUDA, or without the port beside this script, it prints
-no result and exits nonzero. It takes no arguments: every run drives all
-six phases.
+residency phase's move times and the gateway phase's results); the last is
+``{"ok": true, "device": {...}}``. Without CUDA, or without the port beside
+this script, it prints no result and exits nonzero. It takes no arguments:
+every run drives all seven phases.
 """
 from __future__ import annotations
 
 import dataclasses
+import gc
 import json
 import math
 import statistics
@@ -1408,6 +1423,507 @@ def phase_residency(smi: str):
     return moves
 
 
+# ---------------------------------------------------------------------------
+# phase 7: the Kotta serving gateway at full width
+# ---------------------------------------------------------------------------
+
+GATEWAY_CHUNK = 4            # decode steps a chunk
+GATEWAY_NEW = 32             # new tokens a request
+GATEWAY_NOTICE_S = 120.0     # the spot market's revocation notice
+GATEWAY_VARIANTS = {"bf16": {}, "bf16 spec": dict(enable_spec_decode=True,
+                                                  spec_tokens=4),
+                    "int8": dict(kv_cache_dtype="int8"),
+                    "int8 spec": dict(kv_cache_dtype="int8",
+                                      enable_spec_decode=True, spec_tokens=4)}
+ENGINE_API = ("admit", "decode_step", "export", "import_pages",
+              "restore_pages")
+
+
+class _EngineTimer:
+    """Wall time inside the engines' stepped API, over every engine a
+    gateway builds: each outermost call of ``ENGINE_API`` is bracketed by a
+    device synchronise, so the device work it queued is charged to it (a
+    call made inside another, such as the export a demoting
+    ``decode_step`` makes, is part of that one). Keeps one sample a call
+    (method, seconds, prefill tokens, payload bytes, export reason) for the
+    service rates."""
+
+    def __init__(self, sync):
+        self.sync = sync
+        self.seconds = 0.0
+        self.calls: list[dict] = []
+        self._depth = 0
+
+    def wrap(self, eng):
+        for name in ENGINE_API:
+            setattr(eng, name, self._timed(eng, name, getattr(eng, name)))
+        return eng
+
+    def _timed(self, eng, name, fn):
+        def call(*args, **kw):
+            if self._depth:
+                return fn(*args, **kw)
+            pt = eng.stats["prefill_tokens"]
+            self.sync()
+            t0 = time.perf_counter()
+            self._depth += 1
+            try:
+                out = fn(*args, **kw)
+            finally:
+                self._depth -= 1
+            self.sync()
+            dt = time.perf_counter() - t0
+            self.seconds += dt
+            payload = out if name == "export" else \
+                args[0] if name in ("import_pages", "restore_pages") else None
+            self.calls.append({
+                "name": name, "s": dt,
+                "prefill_tokens": eng.stats["prefill_tokens"] - pt,
+                "bytes": payload.nbytes if payload is not None else 0,
+                "reason": getattr(kw.get("reason"), "value", None)})
+            return out
+        return call
+
+
+def _gateway_engine(cfg, params, device, timer=None, **kw):
+    """A replica's engine: 8 slots, max_len 512, ``GATEWAY_CHUNK`` steps a
+    decode chunk, over the shared ``params``; timed by ``timer``."""
+    from repro_torch.serve import ContinuousBatchingEngine
+    kw.setdefault("decode_chunk", GATEWAY_CHUNK)
+    eng = ContinuousBatchingEngine(cfg, params, max_len=SERVE_MAX_LEN,
+                                   max_slots=B, device=device, **kw)
+    return timer.wrap(eng) if timer is not None else eng
+
+
+def _direct_generates(cfg, params, device, sync):
+    """Tokens/s of one direct ``generate`` of the 8 prompts a variant: the
+    yardstick for the same prompts through the gateway."""
+    from repro_torch.serve.prompts import shared_prefix_prompts
+    prompts = shared_prefix_prompts(cfg.vocab_size)
+    direct = {}
+    for name, kw in GATEWAY_VARIANTS.items():
+        eng = _gateway_engine(cfg, params, device, **kw)
+        sync()
+        t0 = time.perf_counter()
+        out = eng.generate(prompts, max_new=GATEWAY_NEW)
+        sync()
+        direct[name] = out.tokens.size / (time.perf_counter() - t0)
+    return direct
+
+
+def _gateway_scenarios(cfg, params, device, sync, log_line, direct):
+    """The six gateway scenarios on ``cfg``'s model (every engine shares
+    ``params``): held checks raise, reported numbers are returned."""
+    from repro_torch.core import (PolicyEngine, ScalingPolicy, StateStore,
+                                  VirtualClock, provision_tenant)
+    from repro_torch.serve import (DeadlineCostPolicy, JobState,
+                                   KottaServeGateway, ServiceModel,
+                                   TieredKVStore, TrafficConfig,
+                                   generate_trace, run_open_loop)
+    from repro_torch.serve.prompts import shared_prefix_prompts
+    prompts = shared_prefix_prompts(cfg.vocab_size)
+    svc = ServiceModel()
+    tenants = ("tenant0", "tenant1")
+
+    def engine(timer, **kw):
+        return _gateway_engine(cfg, params, device, timer, **kw)
+
+    def gateway(timer, kw, *, replicas=2, telemetry=False, **gw_kw):
+        sec = PolicyEngine(clock=VirtualClock())
+        toks = [provision_tenant(sec, t, f"pw-{t}", data_zones=("public",))
+                for t in tenants]
+        gw_kw.setdefault("admission", DeadlineCostPolicy(model=svc))
+        if telemetry:
+            gw_kw["telemetry_store"] = StateStore(clock=sec.clock,
+                                                  write_capacity=200.0)
+        gw = KottaServeGateway(
+            lambda: engine(timer, **kw), sec, service_model=svc,
+            scaling=ScalingPolicy.none(replicas, market="on_demand"),
+            routing="affinity", **gw_kw)
+        return gw, sec, toks
+
+    def engines(gw):
+        return [r.engine for r in gw.replicas()] + list(gw._standby)
+
+    def two_waves(gw, toks, hook=None):
+        """The launcher's two waves: one prompt a tenant, drained; then the
+        rest. ``hook(gw, wave)`` runs after each round. Returns the rids."""
+        n, rids = len(toks), []
+        for wave, part in ((1, prompts[:n]), (2, prompts[n:])):
+            rids += [gw.submit(toks[i % n], p, max_new=GATEWAY_NEW,
+                               data_zone="public")
+                     for i, p in enumerate(part)]
+            for _ in range(20_000):
+                if not gw.outstanding():
+                    break
+                gw.step()
+                if hook is not None:
+                    hook(gw, wave)
+            else:
+                raise AssertionError(f"gateway: wave {wave} did not drain")
+        return rids
+
+    def done_tokens(what, gw, rids):
+        out = {}
+        for rid in rids:
+            job = gw.jobs[rid]
+            if job.status is not JobState.DONE:
+                raise AssertionError(f"gateway {what}: job {rid} "
+                                     f"{job.status.value} ({job.error})")
+            toks = [int(t) for t in job.tokens]
+            if len(toks) != GATEWAY_NEW or min(toks) < 0 \
+                    or max(toks) >= cfg.vocab_size:
+                raise AssertionError(f"gateway {what}: job {rid} tokens "
+                                     f"{toks}")
+            out[rid] = toks
+        return out
+
+    def report(what, gw, timer, wall, tokens, direct_tps):
+        rounds = gw.stats["rounds"]
+        host = (wall - timer.seconds) / wall
+        row = {"rounds": rounds, "wall_s": wall,
+               "wall_ms_a_round": wall / rounds * 1e3,
+               "host_share_outside_engine": host,
+               "tok_s": tokens / wall, "direct_generate_tok_s": direct_tps}
+        log_line(f"[gateway] {what}: {rounds} rounds, {wall:.3f} s wall, "
+                 f"{row['wall_ms_a_round']:.1f} ms a round, host share "
+                 f"outside the engine {host:.3f}, {tokens} tokens at "
+                 f"{row['tok_s']:.1f} tok/s through the gateway (direct "
+                 f"generate {direct_tps:.1f} tok/s)")
+        for e in engines(gw):
+            if e.params is not params:
+                raise AssertionError(f"gateway {what}: an engine holds its "
+                                     "own parameter tree")
+        return row
+
+    def agree(got, want):
+        return sum(got[r] == want[r] for r in want)
+
+    results = {}
+    # 1. undisturbed fleet and 2. notice-window evacuation, per variant
+    gold, rates, ship = {}, {}, []
+    for name, kw in GATEWAY_VARIANTS.items():
+        timer = _EngineTimer(sync)
+        gw, sec, toks = gateway(timer, kw)
+        t0 = time.perf_counter()
+        rids = two_waves(gw, toks)
+        sync()
+        wall = time.perf_counter() - t0
+        gold[name] = done_tokens(f"undisturbed {name}", gw, rids)
+        results[f"undisturbed {name}"] = report(
+            f"1 undisturbed fleet, {name}", gw, timer, wall,
+            sum(map(len, gold[name].values())), direct[name])
+        if name == "bf16":
+            admits = [c for c in timer.calls
+                      if c["name"] == "admit" and c["prefill_tokens"]]
+            steps = [c["s"] for c in timer.calls
+                     if c["name"] == "decode_step"]
+            rates["prefill_tok_s"] = sum(c["prefill_tokens"] for c in admits) \
+                / sum(c["s"] for c in admits)
+            rates["decode_step_s"] = statistics.median(steps) / GATEWAY_CHUNK
+        del gw
+        gc.collect()
+
+        timer = _EngineTimer(sync)
+        gw, sec, toks = gateway(timer, kw)
+        state = {}
+
+        def revoke(gw, wave, state=state):
+            if state or wave == 1:
+                return
+            busy = [r for r in gw.replicas() if r.engine.live and all(
+                l.emitted > 0 for l in r.engine._live.values())]
+            if busy:
+                victim = max(busy, key=lambda r: (r.engine.live, -r.id))
+                state.update(live=victim.engine.live, id=victim.id,
+                             mark=len(timer.calls))
+                gw.revoke_replica(victim.id, notice_s=GATEWAY_NOTICE_S)
+        t0 = time.perf_counter()
+        rids = two_waves(gw, toks, revoke)
+        sync()
+        wall = time.perf_counter() - t0
+        m = gw.metrics()
+        got = done_tokens(f"evacuation {name}", gw, rids)
+        moved = [c for c in timer.calls[state["mark"]:]
+                 if (c["name"] == "export" and c["reason"] == "evacuate")
+                 or c["name"] == "import_pages"]
+        shipped = sum(c["bytes"] for c in moved if c["name"] == "export")
+        evac = [a for a in sec.audit.records()
+                if a.action == "serve:Evacuate"]
+        if m["evacuations"] != state["live"] or m["requeues"] or \
+                m["retries"] or len(evac) != state["live"] or \
+                m["evacuated_pages_bytes"] != shipped or \
+                sum(c["name"] == "import_pages" for c in moved) \
+                != state["live"]:
+            raise AssertionError(
+                f"gateway evacuation {name}: {state['live']} live on replica "
+                f"{state['id']}, evacuations {m['evacuations']}, requeues "
+                f"{m['requeues']}, retries {m['retries']}, {len(evac)} "
+                f"Evacuate records, {m['evacuated_pages_bytes']} B counted "
+                f"vs {shipped} B exported")
+        if got != gold[name]:
+            bad = sorted(r for r in got if got[r] != gold[name][r])
+            raise AssertionError(f"gateway evacuation {name}: tokens of jobs "
+                                 f"{bad} differ from the undisturbed fleet's")
+        evac_s = sum(c["s"] for c in moved)
+        row = report(f"2 notice-window evacuation, {name}", gw, timer, wall,
+                     sum(map(len, got.values())), direct[name])
+        row.update(evacuated=state["live"], evacuated_bytes=shipped,
+                   evacuation_wall_s=evac_s,
+                   model_ship_s=svc.ship_s(shipped),
+                   notice_s=GATEWAY_NOTICE_S)
+        results[f"evacuation {name}"] = row
+        log_line(f"[gateway] 2 {name}: {state['live']} live requests "
+                 f"evacuated off replica {state['id']} (tokens equal to the "
+                 f"undisturbed fleet's, 0 requeues): {shipped} B in "
+                 f"{evac_s * 1e3:.2f} ms of exports and imports "
+                 f"({shipped / evac_s / 1e9:.2f} GB/s), ServiceModel ship "
+                 f"estimate {svc.ship_s(shipped) * 1e3:.2f} ms, against a "
+                 f"{GATEWAY_NOTICE_S:.0f} s notice")
+        ship.append(shipped / evac_s)
+        del gw
+        gc.collect()
+    for name in GATEWAY_VARIANTS:
+        if name != "bf16":
+            log_line(f"[gateway] undisturbed {name} tokens equal to bf16 "
+                     f"plain's: {agree(gold[name], gold['bf16'])} of "
+                     f"{len(prompts)} jobs (reported)")
+
+    # 3. a notice too short for any payload: requeue with backoff
+    timer = _EngineTimer(sync)
+    gw, sec, toks = gateway(timer, {})
+    short = svc.ship_s(engines(gw)[0].page_nbytes()) / 2
+    state = {}
+
+    def short_notice(gw, wave):
+        if not state and wave == 2:
+            victim = max(gw.replicas(), key=lambda r: (r.engine.live, -r.id))
+            state["live"] = victim.engine.live
+            gw.revoke_replica(victim.id, notice_s=short)
+    t0 = time.perf_counter()
+    rids = two_waves(gw, toks, short_notice)
+    sync()
+    wall = time.perf_counter() - t0
+    m = gw.metrics()
+    got = done_tokens("short notice", gw, rids)
+    worst = max(gw.jobs[r].retries for r in rids)
+    if m["evacuations"] or not m["requeues"] or worst > gw.retry_budget \
+            or m["completed"] != len(prompts) or m["shed"]:
+        raise AssertionError(f"gateway short notice: {m['evacuations']} "
+                             f"evacuations, {m['requeues']} requeues, "
+                             f"retries up to {worst}")
+    row = report(f"3 notice of {short * 1e6:.1f} us", gw, timer, wall,
+                 sum(map(len, got.values())), direct["bf16"])
+    row.update(requeues=m["requeues"], equal_to_undisturbed=agree(
+        got, gold["bf16"]))
+    results["short notice"] = row
+    log_line(f"[gateway] 3: {state['live']} live requests, 0 evacuated, "
+             f"{m['requeues']} requeued (retries <= {worst}), tokens equal "
+             f"to the undisturbed fleet's for {row['equal_to_undisturbed']} "
+             f"of {len(prompts)} jobs (reported)")
+    del gw
+    gc.collect()
+
+    # 4. disaggregated 1:1: a prefill replica ships to a decode replica
+    timer = _EngineTimer(sync)
+    gw, sec, toks = gateway(
+        timer, {"role": "decode"}, replicas=1, prefill_replicas=1,
+        prefill_engine_factory=lambda: engine(timer, role="prefill",
+                                              prefill_chunk=2 * C_PREFILL))
+    dec = next(r.engine for r in gw.replicas() if r.role == "decode")
+    registered = {}
+    imported = dec.import_pages
+
+    def import_and_check(payload):
+        # the shipped prompt's full pages are hittable on arrival
+        slot = imported(payload)
+        req = payload.req
+        registered[req.rid] = dec.prefix_cache.lookup(
+            req.prompt, req.namespace)[1] >= len(req.prompt) // PS * PS
+        return slot
+    dec.import_pages = import_and_check
+    t0 = time.perf_counter()
+    rids = two_waves(gw, toks)
+    sync()
+    wall = time.perf_counter() - t0
+    m = gw.metrics()
+    got = done_tokens("disaggregated", gw, rids)
+    unregistered = [r for r in rids if not registered.get(r)]
+    if m["page_ships"] != len(prompts) or unregistered or \
+            dec.stats["page_imports"] != len(prompts) or \
+            dec.stats["prefill_tokens"]:
+        raise AssertionError(f"gateway disaggregated: {m['page_ships']} "
+                             f"ships, {dec.stats['page_imports']} imports, "
+                             f"prefixes not registered {unregistered}")
+    row = report("4 disaggregated 1:1", gw, timer, wall,
+                 sum(map(len, got.values())), direct["bf16"])
+    row.update(page_ships=m["page_ships"],
+               bytes_a_ship=m["page_ship_bytes_per_ship"],
+               equal_to_undisturbed=agree(got, gold["bf16"]))
+    results["disaggregated"] = row
+    log_line(f"[gateway] 4: {m['page_ships']} ships of "
+             f"{m['page_ship_bytes_per_ship'] / 1e6:.3f} MB, every prompt's "
+             f"full pages registered on the decode replica; tokens equal to "
+             f"the undisturbed fleet's for {row['equal_to_undisturbed']} of "
+             f"{len(prompts)} jobs (reported)")
+    del gw
+    gc.collect()
+
+    # 5. tiered KV: later requests extend the first waves' streams, which
+    # were demoted at retirement and are restored. Six extensions arrive at
+    # once (reported: restores landing in one round can evict each other's
+    # free pages before admission), then two one at a time (held: the
+    # admission serves the whole stream from the restored pages).
+    timer = _EngineTimer(sync)
+    store = TieredKVStore(host_capacity_bytes=1 << 34)
+    gw, sec, toks = gateway(timer, {}, kv_store=store)
+    t0 = time.perf_counter()
+    first = two_waves(gw, toks)
+    streams = {r: list(gw.jobs[r].prompt)
+               + [int(t) for t in gw.jobs[r].tokens] for r in first}
+    tail = [7, 11, 13, 17]
+
+    def cached_now():
+        return sum(e.stats["cached_tokens"] for e in engines(gw))
+
+    def extend(origins):
+        mark = cached_now()
+        rids = [gw.submit(toks[o % len(toks)], streams[o] + tail,
+                          max_new=GATEWAY_NEW, data_zone="public")
+                for o in origins]
+        gw.drain()
+        return rids, cached_now() - mark
+    together, cached_together = extend(first[2:])
+    alone = {}
+    for o in first[:2]:
+        (rid,), cached = extend([o])
+        alone[rid] = (o, cached)
+    sync()
+    wall = time.perf_counter() - t0
+    m = gw.metrics()
+    got = done_tokens("tiered", gw, list(first) + together + list(alone))
+    want_together = sum(len(streams[o]) for o in first[2:])
+    short_restore = [r for r, (o, cached) in alone.items()
+                     if gw.jobs[r].restored_tokens != len(streams[o])
+                     or cached != len(streams[o])]
+    if not m["kv_restores"] or short_restore:
+        raise AssertionError(f"gateway tiered: {m['kv_restores']} restores, "
+                             f"jobs restored short {short_restore}: "
+                             f"{alone}")
+    row = report("5 tiered KV", gw, timer, wall,
+                 sum(map(len, got.values())), direct["bf16"])
+    row.update(demotions=m["kv_demotions"], restores=m["kv_restores"],
+               restored_tokens=m["restored_tokens"],
+               together_cached=cached_together,
+               together_streams=want_together)
+    results["tiered"] = row
+    log_line(f"[gateway] 5: {m['kv_demotions']} demotions "
+             f"({m['kv_demoted_bytes'] / 1e6:.1f} MB), {m['kv_restores']} "
+             f"restores of {m['restored_tokens']} tokens; six extensions at "
+             f"once served {cached_together} of their streams' "
+             f"{want_together} tokens from cache (reported), two alone "
+             f"served {[c for _, c in alone.values()]} tokens, their "
+             f"streams' length exactly")
+    del gw
+    gc.collect()
+
+    # 6. open loop into a StateStore
+    timer = _EngineTimer(sync)
+    gw, sec, toks = gateway(timer, {}, telemetry=True, idle_tick_s=0.05,
+                            telemetry_flush_s=1.0)
+    store = gw.telemetry_store
+    tc = TrafficConfig(duration_s=5.0, base_rate_rps=4.0, tenants=2,
+                       vocab_size=cfg.vocab_size, prefix_tokens=16,
+                       interactive_max_new=8, batch_max_new=8, seed=0)
+    trace = generate_trace(tc)
+    t0 = time.perf_counter()
+    run_open_loop(gw, toks, trace)
+    gw.flush_telemetry()
+    sync()
+    wall = time.perf_counter() - t0
+    m = gw.metrics()
+    jobs = store.scan("servejob/")
+    if m["completed"] + m["shed"] != len(trace) or len(jobs) != len(trace) \
+            or gw.stats["telemetry_writes"] != store.write_count \
+            or len(store.scan("audit/")) != len(sec.audit.records()) \
+            or len(store.scan("metrics/")) != gw.stats["telemetry_flushes"] + 1:
+        raise AssertionError(f"gateway open loop: {len(trace)} arrivals, "
+                             f"{m['completed']} completed, {m['shed']} shed, "
+                             f"{len(jobs)} job records, "
+                             f"{gw.stats['telemetry_writes']} writes vs "
+                             f"{store.write_count}")
+    row = report(f"6 open loop, {len(trace)} arrivals over {tc.duration_s} s",
+                 gw, timer, wall, m["tokens"], direct["bf16"])
+    row.update(arrivals=len(trace), completed=m["completed"], shed=m["shed"],
+               sla_rate=m["sla_rate"], telemetry_writes=store.write_count)
+    results["open loop"] = row
+    log_line(f"[gateway] 6: {len(trace)} arrivals, {m['completed']} "
+             f"completed, {m['shed']} shed, SLA {m['sla_rate']:.3f}; "
+             f"{store.write_count} StateStore writes "
+             f"({m['statestore_throttled']} throttled)")
+    del gw
+    gc.collect()
+
+    rates["ship_bytes_per_s"] = statistics.median(ship)
+    rates.update(model_prefill_tok_s=svc.prefill_tok_per_s,
+                 model_decode_step_s=svc.decode_step_s,
+                 model_ship_bytes_per_s=svc.kv_ship_bytes_per_s)
+    results["service_rates"] = rates
+    log_line(f"[gateway] service rates measured through the bf16 fleet "
+             f"(ServiceModel's in brackets): prefill "
+             f"{rates['prefill_tok_s']:.0f} tok/s ({svc.prefill_tok_per_s:.0f})"
+             f", {rates['decode_step_s'] * 1e3:.2f} ms a decode step "
+             f"({svc.decode_step_s * 1e3:.0f}), ship (median of the four "
+             f"evacuations) {rates['ship_bytes_per_s'] / 1e9:.2f} GB/s "
+             f"({svc.kv_ship_bytes_per_s / 1e9:.0f})")
+    return results
+
+
+def phase_gateway(smi: str):
+    """The Kotta serving gateway (``repro_torch.serve.gateway``) over
+    full-width yi-6b engines (32 layers, bf16 weights from seed 0, one tree
+    for every replica; 8 slots, max_len 512, decode chunks of
+    GATEWAY_CHUNK), the serve phase's 8 prompts over two tenants, 32 new
+    tokens: an undisturbed two-replica fleet; a notice-window evacuation of
+    the busier replica after its first chunk (bf16 and int8 pools, plain
+    and spec); a notice too short to ship anything; disaggregated 1:1; a
+    tiered KV store restoring a second wave; an open-loop trace into a
+    StateStore."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import (launch_counts, launch_counts_by_route,
+                                     reset_launch_counts)
+    from repro_torch.models import get_family, init_params
+    cfg = get_config("yi-6b")
+    params = init_params(cfg, get_family(cfg).layout(cfg), seed=0,
+                         device="cuda")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    direct = _direct_generates(cfg, params, "cuda", torch.cuda.synchronize)
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    results = _gateway_scenarios(cfg, params, "cuda", torch.cuda.synchronize,
+                                 log, direct)
+    torch.cuda.synchronize()
+    counts, by_route = launch_counts(), launch_counts_by_route()
+    for kern in PAGED + ("rmsnorm_fused",):
+        if counts[kern] <= 0:
+            raise AssertionError(f"gateway: {kern} not launched {counts}")
+    for kern in PAGED:
+        if by_route[kern] != {"sm90": counts[kern], "cuda_core": 0}:
+            raise AssertionError(f"gateway: a bf16 {kern} launch left the "
+                                 f"sm90 route: {by_route[kern]}")
+    peak = torch.cuda.max_memory_allocated()
+    results["max_memory_allocated_bytes"] = peak
+    log(f"[gateway] {time.perf_counter() - t0:.1f} s, launches {counts}, "
+        f"paged by route {({k: by_route[k] for k in PAGED})}, peak device "
+        f"memory {peak / 2**30:.2f} GiB, on {smi}")
+    del params
+    torch.cuda.empty_cache()
+    return counts, results
+
+
 def _leaves(tree):
     for v in tree.values():
         yield from (_leaves(v) if isinstance(v, dict) else (v,))
@@ -1442,6 +1958,7 @@ def main() -> int:
     zamba, zamba_routes = phase_zamba_serve(smi)
     routes.update(zamba_routes)
     moves = phase_residency(smi)
+    gateway_launches, gateway = phase_gateway(smi)
     record = []
     for name, per_kind in kern.items():
         main_kind = "bf16"
@@ -1467,8 +1984,10 @@ def main() -> int:
             entry["rows"] = rec["rows"]
         if name in routes:
             entry["launches_by_route"] = routes[name]
+        entry["launches_gateway"] = gateway_launches[name]
         record.append(entry)
-    print(json.dumps({"kernels": record, "residency": moves}))
+    print(json.dumps({"kernels": record, "residency": moves,
+                      "gateway": gateway}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

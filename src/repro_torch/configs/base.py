@@ -60,6 +60,11 @@ class ModelConfig:
     max_decode_slots: int = 8        # concurrent requests the serve engine admits
     prefill_chunk: int = 32          # query tokens per paged-prefill step
     enable_prefix_cache: bool = True # share prompt-prefix pages copy-on-write
+    # Gateway decode preemption: an otherwise-infeasible interactive request
+    # may pause the latest-deadline batch-class slot (pages pinned, resumed
+    # with zero re-prefill). Read by the serving launcher when it builds the
+    # gateway's DeadlineCostPolicy.
+    enable_decode_preemption: bool = True
     enable_spec_decode: bool = False
     spec_tokens: int = 4             # drafted tokens per verify step (K)
     spec_ngram: int = 2              # draft key: 2 = bigram, 3 = trigram

@@ -3,9 +3,13 @@ from .admission import (AdmissionError, AdmissionPolicy, CostBudgetExceeded,
                         JobState, PreemptCandidate, RetryBudgetExhausted,
                         ServeJob, ServiceModel, StorageBudgetExceeded)
 from .drafting import build_ngram_draft
-from .engine import (ContinuousBatchingEngine, EngineRequest, ExportReason,
-                     PausedRequest, ServeEngine, ServeResult, ShippedKV)
+from .engine import (CapacityError, ContinuousBatchingEngine, EngineRequest,
+                     ExportReason, PausedRequest, ServeEngine, ServeResult,
+                     ShippedKV)
+from .faults import FaultEvent, FaultInjector
+from .gateway import KottaServeGateway
 from .kv_store import PageResidency, RestoreTicket, Tier, TieredKVStore
+from .loadgen import Arrival, TrafficConfig, generate_trace, run_open_loop
 from .paging import EvictionEvent, PageAllocator, PrefixCache, chain_hashes
 from .routing import (HEALTH_DEGRADED, HEALTH_QUARANTINED, HEALTH_UP,
                       FingerprintTracker, FleetRouter, ReplicaView,
@@ -25,4 +29,6 @@ __all__ = ["ContinuousBatchingEngine", "EngineRequest", "ServeEngine",
            "RetryBudgetExhausted", "StorageBudgetExceeded",
            "MetricsRegistry", "RegistryDict", "parse_exposition",
            "LATENCY_BUCKETS_S", "PageResidency", "RestoreTicket", "Tier",
-           "TieredKVStore"]
+           "TieredKVStore", "CapacityError", "KottaServeGateway",
+           "FaultEvent", "FaultInjector", "TrafficConfig", "Arrival",
+           "generate_trace", "run_open_loop"]

@@ -194,6 +194,14 @@ class PausedRequest:
     ema: float = 0.0
 
 
+class CapacityError(RuntimeError):
+    """The engine refuses a request for want of room: no free slot, or not
+    enough free pages in the pool. The control plane takes it as "try
+    another replica"; every other ``RuntimeError`` (a failed kernel launch,
+    a CUDA fault, an out-of-memory in the scatter) is a device failure and
+    propagates. A subclass, so ``except RuntimeError`` still catches it."""
+
+
 class ExportReason(str, enum.Enum):
     """Why a request's pages leave the device pool: a disaggregated
     prefill -> decode hop (``HANDOFF``), a revocation-notice migration
@@ -811,7 +819,7 @@ class ContinuousBatchingEngine:
         for i in range(self.max_slots):
             if not self._active[i]:
                 return i
-        raise RuntimeError(f"no free slot to {what} into")
+        raise CapacityError(f"no free slot to {what} into")
 
     def preempt(self, slot: int) -> PausedRequest:
         """Pause the request in ``slot`` mid-stream and free the slot.
@@ -984,8 +992,9 @@ class ContinuousBatchingEngine:
         prompt re-registers in this engine's prefix cache (existing entries
         win, as at admission) and decoding resumes where the source
         stopped. Raises ``ValueError`` on a layout mismatch or a consumed
-        payload and ``RuntimeError`` when no slot or not enough pages are
-        free; only a successful import marks the payload consumed.
+        payload and :class:`CapacityError` (a ``RuntimeError``) when no slot
+        or not enough pages are free; only a successful import marks the
+        payload consumed.
         """
         self._check_payload(payload, "shipped")
         req = payload.req
@@ -1003,7 +1012,7 @@ class ContinuousBatchingEngine:
                 f"payload ships {payload.n_content} content pages but "
                 f"request {req.rid} spans only {need_total}")
         if self.alloc.available() < need_total:
-            raise RuntimeError(
+            raise CapacityError(
                 f"insufficient free pages to import request {req.rid}: "
                 f"need {need_total}, have {self.alloc.available()}")
         pages = [self.alloc.alloc() for _ in range(need_total)]
@@ -1045,8 +1054,8 @@ class ContinuousBatchingEngine:
         The next admission of a prompt that extends the stream aliases them
         with zero re-prefill; if none does, the allocator reuses them and
         eviction scrubs the entries. Raises ``ValueError`` on a layout
-        mismatch or a consumed payload and ``RuntimeError`` without the
-        prefix cache or enough free pages.
+        mismatch or a consumed payload, ``RuntimeError`` without the prefix
+        cache and :class:`CapacityError` without enough free pages.
         """
         self._check_payload(payload, "restored")
         if self.prefix_cache is None:
@@ -1055,7 +1064,7 @@ class ContinuousBatchingEngine:
                                "the radix index")
         n_content = payload.n_content
         if self.alloc.available() < n_content:
-            raise RuntimeError(
+            raise CapacityError(
                 f"insufficient free pages to restore request "
                 f"{payload.req.rid}: need {n_content}, have "
                 f"{self.alloc.available()}")
