@@ -24,7 +24,10 @@ Phases, each of which must pass (a failure exits nonzero):
    chunk 16), RMSNorm also at
    decode's rows (1 and 8 rows of 1000, 4097 and 32768; timed at 8 rows
    of 2048 and 4096 beside ``F.rms_norm``, and at 2048 rows on both its
-   kernels); each held
+   kernels); the paged kernels at olmoe-1b-7b's shapes (G 1), flash
+   attention at the dense and MoE transformers' static prefill (B 8, S
+   256, hd 128, G 1, 4 and 7, and a dense-admission bucket) and RMSNorm at
+   D 5120 and 7168 (2048 and 8 rows), timed where new; each held
    against its plain PyTorch version on the same inputs and timed beside
    the plain version and one library call where there is one (``time_ms``:
    device time between two events, behind a spin kernel that outlasts the
@@ -34,14 +37,24 @@ Phases, each of which must pass (a failure exits nonzero):
    versions); then Zamba2 widths at depth 6 (one Mamba group and one shared
    attention application), float32, batch 2, prompts of 256 and of 200
    (a ragged last SSD chunk), prefill and four decode steps, card against
-   CPU;
+   CPU; olmoe-1b-7b widths at depth 2 (the paged steps, and the static
+   prefill and decode at S 256 and 300: 600 tokens leave a ragged MoE
+   group) and mistral-nemo-12b widths at depth 2 (static, S 256 and 200);
 5. serve: full-width yi-6b (32 layers, bf16, random weights from a seed)
    through ``ContinuousBatchingEngine.generate``: plain decode, speculative
    decode (K=4) and an int8 pool; then full-width Zamba2-1.2B (38 layers,
    bf16) through the static ``ServeEngine.generate``, 8 prompts of 160-256
    tokens, 32 new each, then untimed the same prompts cut to 200 tokens (a
-   ragged last SSD chunk); each kernel's launch count read around each run,
-   and every bf16 flash-attention, SSD-scan and paged decode, prefill and
+   ragged last SSD chunk); full-width olmoe-1b-7b (16 layers, 64 experts
+   top 8) through the continuous engine (plain, spec, int8) and the static
+   one (timed, and untimed at 200: a ragged MoE group), full-width
+   mistral-nemo-12b (40 layers) through the static engine and the
+   continuous one with paged and dense admission (tokens equal, in bf16
+   and again in f32), arctic-480b at full widths and depth 1 through the
+   static engine (untimed), with tokens/s, peak device memory and each
+   phase's seconds; each kernel's launch count read around each run (the
+   static and dense-admission runs' flash and RMSNorm counts exact), and
+   every bf16 flash-attention, SSD-scan and paged decode, prefill and
    verify launch required to take the tensor-core route (the f32 parity
    phases, the CUDA-core route);
 6. residency: full-width yi-6b again, bf16 and int8 pools, plain and
@@ -71,7 +84,8 @@ Phases, each of which must pass (a failure exits nonzero):
    one on ``sm90``) and peak device memory.
 
 The second-to-last line of output is a JSON ``kernels`` record (with the
-residency phase's move times and the gateway phase's results); the last is
+launches on the transformer runs, the residency phase's move times and the
+gateway phase's results); the last is
 ``{"ok": true, "device": {...}}``. Without CUDA, or without the port beside
 this script, it prints no result and exits nonzero. It takes no arguments:
 every run drives all seven phases.
@@ -136,6 +150,11 @@ SOURCES = {
     "ssd_scan": "src/repro_torch/csrc/ssd_scan.cu",
 }
 PAGED = ("flash_decode_fwd", "flash_prefill_fwd", "flash_verify_fwd")
+# The continuous engine's three serve runs: plain decode, speculative decode
+# (K = 4) and an int8 pool.
+SERVE_RUNS = {"plain": {}, "spec": dict(enable_spec_decode=True,
+                                        spec_tokens=4),
+              "int8": dict(kv_cache_dtype="int8")}
 
 
 def log(*a):
@@ -214,12 +233,15 @@ def phase_device():
 # ---------------------------------------------------------------------------
 
 # The tensor-core instantiations the serve paths launch (mangled-name
-# fragments): flash attention at hd 64 (Zamba2); the paged kernel at hd 128
+# fragments): flash attention at hd 64 (Zamba2) and hd 128 (the dense and
+# MoE transformers' static prefill and dense admission); the paged kernel
+# at hd 128
 # over bf16 and int8 pools (yi-6b), whole (prefill, and decode and verify
 # at one split) and with split-KV partials (decode and verify at the serve
 # shape's 4 splits); the SSD scan (Zamba2). None may spill.
 ON_PATH_SM90 = {
     "flash_sm90_kernelILi64E": "flash bf16 hd 64",
+    "flash_sm90_kernelILi128E": "flash bf16 hd 128",
     "ssd_sm90_kernel": "ssd bf16 N = P = 64",
     "paged_attn_sm90_kernelILi128ELb0ELb0E": "paged hd 128 bf16 pool",
     "paged_attn_sm90_kernelILi128ELb1ELb0E": "paged hd 128 int8 pool",
@@ -374,6 +396,52 @@ def _prefill_edge_cases(gen, kind, dev):
                                         **scales),
                 None, None))
     return variants
+
+
+def _olmoe_paged_cases(gen, kind, dev):
+    """The paged kernels at olmoe-1b-7b's serve shapes on the tensor-core
+    route: B 8, H 16 over KV 16 (G 1), hd 128, page size 16, 32 pages a
+    row; decode at the split count the ops layer picks, prefill C 32 at
+    q_start 0 and past it, verify T 5. Returns {name: [(kernel, plain)]}."""
+    import torch
+    from repro_torch.kernels import (default_num_splits, flash_decode_fwd,
+                                     flash_prefill_fwd, flash_verify_fwd,
+                                     paged_decode_reference,
+                                     paged_prefill_reference,
+                                     paged_verify_reference)
+    h = nkv = 16
+    num_pages = B * NPAGES + 1
+    pool = _pool(gen, kind, num_pages, dev, nkv=nkv)
+    scales = dict(k_scale=pool.get("k_scale"), v_scale=pool.get("v_scale"))
+    pt = _page_table(gen, num_pages, dev)
+    span = NPAGES * PS
+    splits = default_num_splits(NPAGES, batch=B, split_budget=32)
+
+    def rn(*shape):
+        return torch.randn(*shape, generator=gen, device=dev).bfloat16()
+
+    def ri(lo, hi):
+        return torch.randint(lo, hi, (B,), generator=gen, device=dev,
+                             dtype=torch.int32)
+
+    q1, qv, qp = rn(B, h, HD), rn(B, T_VERIFY, h, HD), rn(B, C_PREFILL, h, HD)
+    lengths, pos, q_start = (ri(1, span + 1), ri(0, span - T_VERIFY + 1),
+                             ri(1, span - C_PREFILL + 1))
+    args = (pool["k"], pool["v"], pt)
+    return {
+        "flash_decode_fwd": [(
+            lambda: flash_decode_fwd(q1, *args, lengths, num_splits=splits,
+                                     **scales),
+            lambda: paged_decode_reference(q1, *args, lengths, **scales))],
+        "flash_verify_fwd": [(
+            lambda: flash_verify_fwd(qv, *args, pos, num_splits=splits,
+                                     **scales),
+            lambda: paged_verify_reference(qv, *args, pos, **scales))],
+        "flash_prefill_fwd": [(
+            lambda qs=qs: flash_prefill_fwd(qp, *args, qs, **scales),
+            lambda qs=qs: paged_prefill_reference(qp, *args, qs, **scales))
+            for qs in (torch.zeros_like(q_start), q_start)],
+    }
 
 
 def _decode_verify_edge_cases(gen, kind, dev):
@@ -538,6 +606,19 @@ def phase_kernels():
                     f"plain {rec['plain_ms']:.4f} ms, sdpa "
                     f"{rec['library_ms']:.4f} ms, bound {rec['bound_ms']:.4f}"
                     f" ms ({rec['bound_by']})")
+    for kind in ("bf16", "int8"):
+        for name, variants in _olmoe_paged_cases(gen, kind, dev).items():
+            rec = results[name][kind]
+            for vi, (kern, plain) in enumerate(variants):
+                err = _max_err(kern(), plain())
+                ok = math.isfinite(err) and err <= TOL_BF16
+                log(f"[kernels] {name} {kind} olmoe-1b-7b shape case{vi}: "
+                    f"max|kernel-plain| {err:.3e} (tol {TOL_BF16}) "
+                    f"{'ok' if ok else 'FAIL'}")
+                if not ok:
+                    raise AssertionError(f"{name} {kind} disagrees at the "
+                                         f"olmoe shape: {err}")
+                rec["max_abs_err"] = max(err, rec["max_abs_err"])
     # The host's enqueue of each kind's serve-shape call (bf16 and int8
     # pools: the sm90 route; f32: cuda_core), the kinds in turns so that
     # drift on the host falls on all of them; the median of 10 each.
@@ -724,6 +805,72 @@ def _rmsnorm_decode_rows(gen, dev):
     return out
 
 
+# The static engine's prefill attention at full width (8 prompts padded to
+# ZS): (label, H, KV), hd 128 each; and one dense-admission pad bucket.
+FLASH_TRANSFORMERS = (("olmoe-1b-7b", 16, 16), ("mistral-nemo-12b", 32, 8),
+                      ("arctic-480b", 56, 8))
+
+
+def _flash_transformer_shapes(gen, dev):
+    """bf16 flash attention at the dense and MoE transformers' shapes on
+    the tensor-core route, held against the plain version and timed beside
+    causal SDPA and the bound: B 8, S 256 at G 1, 4 and 7 (hd 128), and
+    mistral-nemo-12b's dense-admission bucket of 2 prompts padded to 96."""
+    import torch
+    from repro_torch import kernels as K
+    out = {}
+    shapes = [(label, ZB, ZS, h, nkv) for label, h, nkv in FLASH_TRANSFORMERS]
+    shapes.append(("mistral-nemo-12b bucket", 2, 96, 32, 8))
+    for label, b, s, h, nkv in shapes:
+        q = torch.randn(b, s, h, 128, generator=gen, device=dev).bfloat16()
+        k, v = (torch.randn(b, s, nkv, 128, generator=gen,
+                            device=dev).bfloat16() for _ in range(2))
+        err = _max_err(K.flash_attention_fwd(q, k, v),
+                       K.attention_reference(q, k, v))
+        if not (math.isfinite(err) and err <= TOL_BF16):
+            raise AssertionError(f"flash {label} disagrees: {err}")
+        pairs = b * h * s * (s + 1) // 2
+        bound_s = max((2 * b * s * h + 2 * b * s * nkv) * 128 * 2
+                      / HBM_BYTES_PER_S, 4.0 * 128 * pairs / BF16_FLOPS_PER_S)
+        rec = {"shape": [b, s, h, nkv, 128], "max_abs_err": err,
+               "bound_ms": bound_s * 1e3,
+               "ms": time_ms(lambda: K.flash_attention_fwd(q, k, v)),
+               "library_ms": time_ms(_sdpa_dense(q, k, v))}
+        out[label] = rec
+        log(f"[kernels] flash_attention_fwd bf16 {label} (B {b}, S {s}, H "
+            f"{h}, KV {nkv}, hd 128): max|kernel-plain| {err:.3e}, kernel "
+            f"{rec['ms']:.4f} ms, sdpa {rec['library_ms']:.4f} ms, bound "
+            f"{rec['bound_ms']:.4f} ms")
+    return out
+
+
+def _rmsnorm_transformer_widths(gen, dev):
+    """bf16 RMSNorm at the new widths (mistral-nemo-12b's 5120, Arctic's
+    7168) over the static prefill's 2048 rows and decode's 8, held against
+    the plain version and timed beside ``F.rms_norm`` and the byte
+    bound."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch import kernels as K
+    out = {}
+    for rows, d in ((ZB * ZS, 5120), (ZB * ZS, 7168), (8, 5120), (8, 7168)):
+        x = torch.randn(rows, d, generator=gen, device=dev).bfloat16()
+        w = 0.25 + 0.05 * torch.randn(d, generator=gen, device=dev)
+        wb = w.bfloat16()
+        err = _max_err(K.rmsnorm_fused(x, w), K.rmsnorm_reference(x, w))
+        if not (math.isfinite(err) and err <= TOL_BF16):
+            raise AssertionError(f"rmsnorm {rows}x{d} disagrees: {err}")
+        rec = {"max_abs_err": err,
+               "bound_ms": (2 * rows * d * 2 + 4 * d) / HBM_BYTES_PER_S * 1e3,
+               "ms": time_ms(lambda: K.rmsnorm_fused(x, w)),
+               "library_ms": time_ms(lambda: F.rms_norm(x, (d,), wb, 1e-6))}
+        out[f"{rows}x{d}"] = rec
+        log(f"[kernels] rmsnorm_fused bf16 {rows}x{d}: max|kernel-plain| "
+            f"{err:.3e}, kernel {rec['ms']:.4f} ms, F.rms_norm "
+            f"{rec['library_ms']:.4f} ms, bound {rec['bound_ms']:.5f} ms")
+    return out
+
+
 def _max_err(got, want) -> float:
     if isinstance(got, tuple):                    # SSD: y and the final state
         return max(_max_err(g, w) for g, w in zip(got, want))
@@ -827,6 +974,12 @@ def phase_dense_kernels():
             log(f"[kernels] {name} bf16: kernel {rec['ms']:.4f} ms, plain "
                 f"{rec['plain_ms']:.4f} ms, library {libtxt}, bound "
                 f"{rec['bound_ms']:.4f} ms ({rec['bound_by']})")
+        for name, fn in (("flash_attention_fwd", _flash_transformer_shapes),
+                         ("rmsnorm_fused", _rmsnorm_transformer_widths)):
+            rec = results[name][kind]
+            rec["transformers"] = fn(gen, dev)
+            rec["max_abs_err"] = max([rec["max_abs_err"]] + [
+                r["max_abs_err"] for r in rec["transformers"].values()])
         results["rmsnorm_fused"][kind]["rows"] = _rmsnorm_decode_rows(gen,
                                                                       dev)
     return results
@@ -837,7 +990,9 @@ def _sdpa_dense(q, k, v):
     timed call."""
     import torch.nn.functional as F
     qq, kk, vv = (t.transpose(1, 2).contiguous() for t in (q, k, v))
-    return lambda: F.scaled_dot_product_attention(qq, kk, vv, is_causal=True)
+    gqa = {"enable_gqa": True} if q.shape[2] != k.shape[2] else {}
+    return lambda: F.scaled_dot_product_attention(qq, kk, vv, is_causal=True,
+                                                  **gqa)
 
 
 # ---------------------------------------------------------------------------
@@ -849,17 +1004,19 @@ def _to(tree, dev):
             for k, v in tree.items()}
 
 
-def phase_parity():
+def _paged_parity(cfg, label):
+    """Paged prefill (four requests of one chunk), three decode steps and a
+    verify window of T_VERIFY, f32, on the card (kernels) against the same
+    weights on the CPU (plain versions), every paged launch on the
+    CUDA-core route."""
     import numpy as np
     import torch
-    from repro_torch.configs import get_config
     from repro_torch.kernels import (launch_counts, launch_counts_by_route,
                                      reset_launch_counts)
     from repro_torch.models import get_family, init_params
     from repro_torch.train import (build_paged_decode_step,
                                    build_paged_prefill_step,
                                    build_paged_verify_step)
-    cfg = get_config("yi-6b").replace(num_layers=2, dtype="float32")
     fam = get_family(cfg)
     gpu = init_params(cfg, fam.layout(cfg), seed=0, device="cuda")
     cpu = _to(gpu, "cpu")
@@ -889,7 +1046,8 @@ def phase_parity():
         err = (outs["cuda"][1] - outs["cpu"][1]).abs().max().item()
         worst[kind] = max(err, worst.get(kind, 0.0))
         if not math.isfinite(err) or err > TOL_PARITY:
-            raise AssertionError(f"parity {kind}: max|logit diff| {err}")
+            raise AssertionError(f"parity {label} {kind}: max|logit diff| "
+                                 f"{err}")
         return outs["cpu"][0]
 
     first = run("prefill", {"tokens": toks,
@@ -908,59 +1066,55 @@ def phase_parity():
                    "write_limit": (pos + T_VERIFY).astype(np.int32)})
     counts = launch_counts()
     if min(counts[k] for k in PAGED + ("rmsnorm_fused",)) < cfg.num_layers:
-        raise AssertionError(f"parity phase missed a kernel: {counts}")
+        raise AssertionError(f"parity {label} missed a kernel: {counts}")
     for name in PAGED:
         routes = launch_counts_by_route()[name]
         if routes != {"sm90": 0, "cuda_core": counts[name]}:
             raise AssertionError(f"f32 {name} left the CUDA-core route: "
                                  f"{routes}")
     for kind, err in worst.items():
-        log(f"[parity] yi-6b widths, 2 layers, f32: {kind} max|logit "
-            f"card-cpu| {err:.3e} (tol {TOL_PARITY})")
+        log(f"[parity] {label} widths, {cfg.num_layers} layers, f32: {kind} "
+            f"max|logit card-cpu| {err:.3e} (tol {TOL_PARITY})")
     del gpu, pools
     torch.cuda.empty_cache()
 
 
-def phase_zamba_parity():
-    """Zamba2 widths at depth 6, f32, batch 2: prompts of 256 (two SSD
-    chunks) and of 200 (a ragged last chunk of 72 rows, which the reference
-    cannot prefill), prefill and four decode steps on the card against the
-    CPU."""
+def _static_parity(cfg, seqs, label):
+    """The static engine's steps, f32, batch 2: a prefill of each length in
+    ``seqs`` and four decode steps over the cache grown by 8 rows, on the
+    card against the CPU; logits and every cache leaf within TOL_PARITY,
+    every flash launch on the CUDA-core route."""
     import numpy as np
     import torch
-    from repro_torch.configs import get_config
     from repro_torch.kernels import (launch_counts, launch_counts_by_route,
                                      reset_launch_counts)
     from repro_torch.models import get_family, init_params
     from repro_torch.train import build_decode_step, build_prefill_step
-    cfg = get_config("zamba2-1.2b").replace(num_layers=6, dtype="float32")
     fam = get_family(cfg)
     gpu = init_params(cfg, fam.layout(cfg), seed=0, device="cuda")
-    cpu = _to(gpu, "cpu")
-    params = {"cuda": gpu, "cpu": cpu}
+    params = {"cuda": gpu, "cpu": _to(gpu, "cpu")}
     prefill, decode = build_prefill_step(cfg), build_decode_step(cfg)
     rng = np.random.RandomState(0)
     reset_launch_counts()
     worst = {}
 
-    def check(kind, logits):
-        err = (logits["cuda"].float().cpu() - logits["cpu"].float()).abs() \
-            .max().item()
+    def check(kind, got, want):
+        err = (got.float().cpu() - want.float()).abs().max().item()
         worst[kind] = max(err, worst.get(kind, 0.0))
         if not math.isfinite(err) or err > TOL_PARITY:
-            raise AssertionError(f"zamba parity {kind}: max|logit diff| {err}")
+            raise AssertionError(f"{label} parity {kind}: max|diff| {err}")
 
-    for seq in (ZS, 200):
+    for seq in seqs:
         toks = rng.randint(0, cfg.vocab_size, size=(2, seq)).astype(np.int64)
         caches, logits = {}, {}
         for d in ("cuda", "cpu"):
             logits[d], cache = prefill(params[d],
                                        {"tokens": torch.from_numpy(toks).to(d)})
-            for name in ("attn_k", "attn_v"):          # room for the decodes
+            for name in fam.grown_cache_leaves:        # room for the decodes
                 cache[name] = torch.nn.functional.pad(cache[name],
                                                       (0, 0, 0, 0, 0, 8))
             caches[d] = cache
-        check(f"S {seq} prefill", logits)
+        check(f"S {seq} prefill logits", logits["cuda"], logits["cpu"])
         cur = logits["cpu"].argmax(-1)
         for step in range(4):
             pos = torch.full((2,), seq + step, dtype=torch.int32)
@@ -968,87 +1122,134 @@ def phase_zamba_parity():
                 _, logits[d], caches[d] = decode(
                     params[d], {"tokens": cur[:, None].to(d),
                                 "pos": pos.to(d)}, caches[d])
-            check(f"S {seq} decode", logits)
+            check(f"S {seq} decode logits", logits["cuda"], logits["cpu"])
             cur = logits["cpu"].argmax(-1)
-        for name in ("conv", "ssm"):
-            err = (caches["cuda"]["mamba"][name].float().cpu()
-                   - caches["cpu"]["mamba"][name].float()).abs().max().item()
-            if not math.isfinite(err) or err > TOL_PARITY:
-                raise AssertionError(f"zamba parity S {seq} {name} cache: "
-                                     f"{err}")
+        for got, want in zip(_leaves(caches["cuda"]), _leaves(caches["cpu"])):
+            check(f"S {seq} cache", got, want)
     counts = launch_counts()
-    for name in ("rmsnorm_fused", "flash_attention_fwd", "ssd_scan"):
-        if counts[name] < 1:
-            raise AssertionError(f"zamba parity missed {name}: {counts}")
+    if counts["rmsnorm_fused"] < 1 or counts["flash_attention_fwd"] < 1:
+        raise AssertionError(f"{label} parity missed a kernel: {counts}")
     for name in ("flash_attention_fwd", "ssd_scan"):
         routes = launch_counts_by_route()[name]
         if routes != {"sm90": 0, "cuda_core": counts[name]}:
             raise AssertionError(f"f32 {name} left the CUDA-core route: "
                                  f"{routes}")
     for kind, err in worst.items():
-        log(f"[parity] zamba2 widths, {cfg.num_layers} layers, f32, B 2, "
-            f"{kind} max|logit card-cpu| {err:.3e} (tol {TOL_PARITY})")
-    del gpu, caches
+        log(f"[parity] {label} widths, {cfg.num_layers} layers, f32, B 2, "
+            f"{kind} max|card-cpu| {err:.3e} (tol {TOL_PARITY})")
+    del gpu, params, caches
     torch.cuda.empty_cache()
+    return counts
+
+
+def phase_parity():
+    """yi-6b widths at depth 2: the paged steps."""
+    from repro_torch.configs import get_config
+    _paged_parity(get_config("yi-6b").replace(num_layers=2, dtype="float32"),
+                  "yi-6b")
+
+
+def phase_zamba_parity():
+    """Zamba2 widths at depth 6, f32, batch 2: prompts of 256 (two SSD
+    chunks) and of 200 (a ragged last chunk of 72 rows, which the reference
+    cannot prefill), prefill and four decode steps on the card against the
+    CPU."""
+    from repro_torch.configs import get_config
+    counts = _static_parity(get_config("zamba2-1.2b").replace(
+        num_layers=6, dtype="float32"), (ZS, 200), "zamba2")
+    if counts["ssd_scan"] < 1:
+        raise AssertionError(f"zamba parity missed ssd_scan: {counts}")
+
+
+def phase_moe_dense_parity():
+    """olmoe-1b-7b widths at depth 2, f32: the paged steps, and the static
+    prefill and decode at S 256 (one MoE group of 512 tokens) and S 300
+    (600 tokens: a group of 512 and a ragged one of 88, which the reference
+    cannot route); mistral-nemo-12b widths at depth 2, f32: the static
+    prefill and decode at S 256 and 200. Card against CPU."""
+    from repro_torch.configs import get_config
+    olmoe = get_config("olmoe-1b-7b").replace(num_layers=2, dtype="float32")
+    _paged_parity(olmoe, "olmoe-1b-7b")
+    _static_parity(olmoe, (ZS, 300), "olmoe-1b-7b")
+    _static_parity(get_config("mistral-nemo-12b").replace(
+        num_layers=2, dtype="float32"), (ZS, 200), "mistral-nemo-12b")
 
 
 # ---------------------------------------------------------------------------
 # phase 5: the main path at full width
 # ---------------------------------------------------------------------------
 
+def _route_of(cfg) -> str:
+    """The attention kernels' route for the config's compute dtype."""
+    return "sm90" if cfg.dtype == "bfloat16" else "cuda_core"
+
+
+def _continuous_run(cfg, params, label, kw, prompts, max_new, smi):
+    """One full-width ``ContinuousBatchingEngine.generate`` (8 slots,
+    max_len 512), timed on the host clock around work that ends in a
+    synchronise, with the kernels' launches counted around it. Every paged
+    launch must take its dtype's route (bf16: sm90, f32: cuda_core), and
+    the tokens must be in the vocabulary. Returns (tokens, launches,
+    launches by route, decode steps, engine)."""
+    import torch
+    from repro_torch.kernels import (launch_counts, launch_counts_by_route,
+                                     reset_launch_counts)
+    from repro_torch.serve import ContinuousBatchingEngine
+    eng = ContinuousBatchingEngine(cfg, params, max_len=SERVE_MAX_LEN,
+                                   max_slots=B, device="cuda", **kw)
+    chunks = []
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    out = eng.generate(prompts, max_new=max_new,
+                       on_chunk=lambda steps, _: chunks.append(steps))
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    counts, by_route = launch_counts(), launch_counts_by_route()
+    route = _route_of(cfg)
+    for kern in PAGED:
+        if by_route[kern][route] != counts[kern]:
+            raise AssertionError(f"serve {label}: a {cfg.dtype} {kern} "
+                                 f"launch left the {route} route: "
+                                 f"{by_route[kern]}")
+    toks = out.tokens
+    if toks.shape != (len(prompts), max_new) or toks.min() < 0 \
+            or toks.max() >= cfg.vocab_size:
+        raise AssertionError(f"serve {label}: bad tokens {toks.shape}")
+    extra = (f", mean accepted {eng.mean_accepted_len:.2f}"
+             if eng.spec_decode else "")
+    log(f"[serve] {label} {cfg.num_layers} layers {cfg.dtype}: {len(prompts)} "
+        f"prompts x {max_new} new in {dt:.3f} s = {toks.size / dt:.1f} tok/s "
+        f"(prefill+decode), prefix hit rate {eng.prefix_hit_rate:.3f}{extra},"
+        f" launches {counts} on {smi}")
+    return toks, counts, by_route, sum(chunks), eng
+
+
 def phase_serve(smi: str):
     import torch
     from repro_torch.configs import get_config
-    from repro_torch.kernels import (launch_counts, launch_counts_by_route,
-                                     reset_launch_counts)
     from repro_torch.models import get_family, init_params
-    from repro_torch.serve import ContinuousBatchingEngine
     from repro_torch.serve.prompts import shared_prefix_prompts
     cfg = get_config("yi-6b")
     params = init_params(cfg, get_family(cfg).layout(cfg), seed=0,
                          device="cuda")
     prompts = shared_prefix_prompts(cfg.vocab_size)
     max_new = 32
-    runs = {"plain": dict(), "spec": dict(enable_spec_decode=True,
-                                          spec_tokens=4),
-            "int8": dict(kv_cache_dtype="int8")}
     total = dict.fromkeys(REPLACES, 0)
     paged_routes = {name: {"sm90": 0, "cuda_core": 0} for name in PAGED}
     used = PAGED + ("rmsnorm_fused",)        # the kernels of this path
     outs = {}
-    for name, kw in runs.items():
-        eng = ContinuousBatchingEngine(cfg, params, max_len=SERVE_MAX_LEN,
-                                       max_slots=B, device="cuda", **kw)
-        torch.cuda.synchronize()
-        reset_launch_counts()
-        t0 = time.perf_counter()
-        out = eng.generate(prompts, max_new=max_new)
-        torch.cuda.synchronize()
-        dt = time.perf_counter() - t0
-        counts = launch_counts()
-        by_route = launch_counts_by_route()
-        for kern in PAGED:
-            routes = by_route[kern]
-            if routes != {"sm90": counts[kern], "cuda_core": 0}:
-                raise AssertionError(f"serve {name}: a bf16 {kern} launch "
-                                     f"left the sm90 route: {routes}")
-            for k, v in routes.items():
-                paged_routes[kern][k] += v
-        toks = out.tokens
-        if toks.shape != (len(prompts), max_new) or toks.min() < 0 \
-                or toks.max() >= cfg.vocab_size:
-            raise AssertionError(f"serve {name}: bad tokens {toks.shape}")
+    for name, kw in SERVE_RUNS.items():
+        toks, counts, by_route, _, eng = _continuous_run(
+            cfg, params, f"yi-6b {name}", kw, prompts, max_new, smi)
         if eng.stats["cached_tokens"] <= 0:
             raise AssertionError(f"serve {name}: no prefix-cache hits")
+        for kern in PAGED:
+            for k, v in by_route[kern].items():
+                paged_routes[kern][k] += v
         for k, v in counts.items():
             total[k] += v
         outs[name] = toks
-        extra = (f", mean accepted {eng.mean_accepted_len:.2f}"
-                 if eng.spec_decode else "")
-        log(f"[serve] yi-6b 32 layers bf16 {name}: {len(prompts)} prompts x "
-            f"{max_new} new in {dt:.3f} s = {toks.size / dt:.1f} tok/s "
-            f"(prefill+decode), prefix hit rate {eng.prefix_hit_rate:.3f}"
-            f"{extra}, launches {counts} on {smi}")
         del eng
         torch.cuda.empty_cache()
     for name in ("spec", "int8"):
@@ -1077,7 +1278,7 @@ def phase_zamba_serve(smi: str):
     cfg = get_config("zamba2-1.2b")
     fam = get_family(cfg)
     params = init_params(cfg, fam.layout(cfg), seed=0, device="cuda")
-    n_params = sum(t.numel() for t in _leaves(params))
+    n_params = _param_count(params)
     prompts = static_batch_prompts(cfg.vocab_size)
     max_new = 32
     eng = ServeEngine(cfg, params, max_len=SERVE_MAX_LEN, device="cuda")
@@ -1139,6 +1340,221 @@ def phase_zamba_serve(smi: str):
     del eng, params
     torch.cuda.empty_cache()
     return counts, routes
+
+
+# ---------------------------------------------------------------------------
+# phase 5b: the dense and MoE transformers at full width
+# ---------------------------------------------------------------------------
+
+def _static_run(cfg, params, label, prompts, max_new, smi, timed=True):
+    """One full-width ``ServeEngine.generate`` (max_len 512), after a
+    warm-up call when timed. Its launches are exact: flash attention once a
+    layer (one prefill), RMSNorm 2L + 1 times a pass over 1 + max_new
+    passes (the MoE block's norm is the FFN's), no paged kernel and no SSD
+    scan, every flash launch on the sm90 route. Returns (tokens, launches,
+    seconds)."""
+    import torch
+    from repro_torch.kernels import (launch_counts, launch_counts_by_route,
+                                     reset_launch_counts)
+    from repro_torch.serve import ServeEngine
+    eng = ServeEngine(cfg, params, max_len=SERVE_MAX_LEN, device="cuda")
+    if timed:
+        eng.generate(prompts, max_new=2)                 # warm-up
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    out = eng.generate(prompts, max_new=max_new)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    counts = launch_counts()
+    flash = launch_counts_by_route()["flash_attention_fwd"]
+    n = cfg.num_layers
+    want = {"flash_attention_fwd": n,
+            "rmsnorm_fused": (2 * n + 1) * (1 + max_new)}
+    if {k: counts[k] for k in want} != want \
+            or any(counts[k] for k in PAGED + ("ssd_scan",)) \
+            or flash != {"sm90": n, "cuda_core": 0}:
+        raise AssertionError(f"static {label}: launches {counts}, flash by "
+                             f"route {flash}, expected {want}, all on sm90, "
+                             f"and no paged kernel or SSD scan")
+    toks = out.tokens
+    if toks.shape != (len(prompts), max_new) or toks.min() < 0 \
+            or toks.max() >= cfg.vocab_size:
+        raise AssertionError(f"static {label}: bad tokens {toks.shape}")
+    plen = max(len(p) for p in prompts)
+    rate = (f" in {dt:.3f} s = {toks.size / dt:.1f} tok/s (prefill+decode)"
+            if timed else " (untimed)")
+    log(f"[serve] {label} {n} layers bf16, static engine: {len(prompts)} "
+        f"prompts (padded to {plen}) x {max_new} new{rate}, launches "
+        f"{counts}, flash by route {flash} on {smi}")
+    return toks, counts, dt
+
+
+def _param_count(params) -> int:
+    return sum(t.numel() for t in _leaves(params))
+
+
+def _end_model_phase(label, t0, smi):
+    """Log the phase's peak device memory and seconds; return both."""
+    import torch
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    dt = time.perf_counter() - t0
+    log(f"[serve] {label}: peak device memory {peak / 2**30:.2f} GiB, "
+        f"phase {dt:.1f} s, on {smi}")
+    torch.cuda.empty_cache()
+    return {"max_memory_allocated_bytes": peak, "seconds": dt}
+
+
+def phase_moe_serve(smi: str):
+    """Full-width olmoe-1b-7b (16 layers, 64 experts top 8, bf16, seed 0):
+    the continuous engine's three serve runs over the serve phase's 8
+    prompts (32 new tokens), every bf16 paged launch on sm90; then the
+    static engine over the Zamba2 phase's 8 prompts of 160-256 tokens (one
+    prefill of 2048 tokens: four MoE groups of 512), timed, and untimed at
+    a longest prompt of 200 (1600 tokens: a ragged last group of 64, which
+    the reference cannot route), flash and RMSNorm launches exact."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import get_family, init_params
+    from repro_torch.serve.prompts import (shared_prefix_prompts,
+                                           static_batch_prompts)
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = get_config("olmoe-1b-7b")
+    params = init_params(cfg, get_family(cfg).layout(cfg), seed=0,
+                         device="cuda")
+    log(f"[serve] olmoe-1b-7b: {_param_count(params) / 1e9:.3f} B params")
+    launches, outs = {}, {}
+    for name, kw in SERVE_RUNS.items():
+        toks, counts, _, _, eng = _continuous_run(
+            cfg, params, f"olmoe-1b-7b {name}", kw,
+            shared_prefix_prompts(cfg.vocab_size), 32, smi)
+        launches[f"olmoe-1b-7b continuous {name}"] = counts
+        outs[name] = toks
+        del eng
+        torch.cuda.empty_cache()
+    for kern in PAGED + ("rmsnorm_fused",):
+        if not sum(c[kern] for c in launches.values()):
+            raise AssertionError(f"olmoe-1b-7b continuous: {kern} was not "
+                                 f"launched: {launches}")
+    for name in ("spec", "int8"):
+        agree = float((outs[name] == outs["plain"]).mean())
+        log(f"[serve] olmoe-1b-7b tokens equal to plain decode (reported: "
+            f"MoE routing depends on the batch): {name} {agree:.3f}")
+    prompts = static_batch_prompts(cfg.vocab_size)
+    _, counts, _ = _static_run(cfg, params, "olmoe-1b-7b", prompts, 32, smi)
+    launches["olmoe-1b-7b static"] = counts
+    _, counts, _ = _static_run(cfg, params, "olmoe-1b-7b, longest prompt "
+                               "200 (MoE groups 3 x 512 + 64)",
+                               [p[:200] for p in prompts], 8, smi,
+                               timed=False)
+    launches["olmoe-1b-7b static S 200"] = counts
+    del params
+    return launches, _end_model_phase("olmoe-1b-7b", t0, smi)
+
+
+def _dense_admission_identity(cfg, params, prompts, smi, label):
+    """The continuous engine with paged and with dense admission on the
+    same prompts, whose tokens must be equal (a dense config: no expert
+    capacity for the pads to compete for); returns the two runs' launches.
+    The dense run's launches are exact: flash attention once a layer a pad
+    bucket (one wave, one bucket a distinct page count), RMSNorm 2L + 1 a
+    pass over the buckets and the decode steps, paged decode once a layer
+    a step, no paged prefill."""
+    toks_p, counts_p, _, _, eng = _continuous_run(
+        cfg, params, f"{label} paged", {}, prompts, 32, smi)
+    del eng
+    toks_d, counts, by_route, steps, eng = _continuous_run(
+        cfg, params, f"{label} dense prefill", dict(prefill_mode="dense"),
+        prompts, 32, smi)
+    del eng
+    n = cfg.num_layers
+    buckets = len({math.ceil(len(p) / PS) * PS for p in prompts})
+    want = {"flash_attention_fwd": n * buckets,
+            "rmsnorm_fused": (2 * n + 1) * (buckets + steps),
+            "flash_decode_fwd": n * steps, "flash_prefill_fwd": 0}
+    flash = by_route["flash_attention_fwd"]
+    if {k: counts[k] for k in want} != want \
+            or flash[_route_of(cfg)] != want["flash_attention_fwd"]:
+        raise AssertionError(f"{label} dense prefill: launches {counts}, "
+                             f"flash by route {flash}, expected {want} on "
+                             f"{_route_of(cfg)}")
+    if not (toks_p == toks_d).all():
+        same = sum(bool((a == b).all()) for a, b in zip(toks_p, toks_d))
+        raise AssertionError(f"{label}: dense admission's tokens differ from "
+                             f"paged admission's in {len(prompts) - same} of "
+                             f"{len(prompts)} streams")
+    log(f"[serve] {label} dense vs paged admission: every token of "
+        f"{len(prompts)} streams equal")
+    return counts_p, counts
+
+
+def phase_dense_serve(smi: str):
+    """Full-width mistral-nemo-12b (40 layers, G 4, bf16, seed 0): the
+    static engine over the Zamba2 phase's prompts (timed, and untimed at a
+    longest prompt of 200), flash and RMSNorm launches exact; the
+    continuous engine over the serve phase's prompts with paged and with
+    dense admission (``prefill_mode="dense"``), whose tokens must be equal,
+    the dense run's launches exact; then the same two admissions in
+    float32 (the CUDA-core routes), held alike."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import get_family, init_params
+    from repro_torch.serve.prompts import (shared_prefix_prompts,
+                                           static_batch_prompts)
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = get_config("mistral-nemo-12b")
+    params = init_params(cfg, get_family(cfg).layout(cfg), seed=0,
+                         device="cuda")
+    log(f"[serve] mistral-nemo-12b: {_param_count(params) / 1e9:.3f} B "
+        f"params")
+    launches = {}
+    prompts = static_batch_prompts(cfg.vocab_size)
+    _, launches["mistral-nemo-12b static"], _ = _static_run(
+        cfg, params, "mistral-nemo-12b", prompts, 32, smi)
+    _, launches["mistral-nemo-12b static S 200"], _ = _static_run(
+        cfg, params, "mistral-nemo-12b, longest prompt 200",
+        [p[:200] for p in prompts], 8, smi, timed=False)
+    shared = shared_prefix_prompts(cfg.vocab_size)
+    (launches["mistral-nemo-12b continuous paged"],
+     launches["mistral-nemo-12b continuous dense prefill"]) = \
+        _dense_admission_identity(cfg, params, shared, smi,
+                                  "mistral-nemo-12b")
+    del params
+    torch.cuda.empty_cache()
+    cfg32 = cfg.replace(dtype="float32")
+    params = init_params(cfg32, get_family(cfg32).layout(cfg32), seed=0,
+                         device="cuda")
+    _dense_admission_identity(cfg32, params, shared, smi,
+                              "mistral-nemo-12b f32")
+    del params
+    return launches, _end_model_phase("mistral-nemo-12b", t0, smi)
+
+
+def phase_arctic_serve(smi: str):
+    """arctic-480b at full widths and depth 1 (128 experts top 2 beside
+    the dense residual FFN, bf16, seed 0; one layer and the embeddings are
+    14.27 B parameters) through the static engine, untimed: the Zamba2
+    phase's 8 prompts, 8 new tokens, launches exact."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import get_family, init_params
+    from repro_torch.serve.prompts import static_batch_prompts
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = get_config("arctic-480b").replace(num_layers=1)
+    params = init_params(cfg, get_family(cfg).layout(cfg), seed=0,
+                         device="cuda")
+    log(f"[serve] arctic-480b depth 1: {_param_count(params) / 1e9:.3f} B "
+        f"params")
+    _, counts, _ = _static_run(cfg, params, "arctic-480b",
+                               static_batch_prompts(cfg.vocab_size), 8, smi,
+                               timed=False)
+    del params
+    return {"arctic-480b static": counts}, _end_model_phase(
+        "arctic-480b depth 1", t0, smi)
 
 
 # ---------------------------------------------------------------------------
@@ -1948,17 +2364,33 @@ def main() -> int:
               f"({SRC / 'repro_torch'} missing)", file=sys.stderr)
         return 2
     sys.path.insert(0, str(SRC))
-    smi = phase_device()
-    phase_build()
-    kern = phase_kernels()
-    kern.update(phase_dense_kernels())
-    phase_parity()
-    phase_zamba_parity()
-    launches, routes = phase_serve(smi)
-    zamba, zamba_routes = phase_zamba_serve(smi)
+    t0 = time.perf_counter()
+    seconds = {}
+
+    def timed(name, phase, *args):
+        t = time.perf_counter()
+        out = phase(*args)
+        seconds[name] = round(time.perf_counter() - t, 1)
+        return out
+
+    smi = timed("device", phase_device)
+    timed("build", phase_build)
+    kern = timed("kernels", phase_kernels)
+    kern.update(timed("dense kernels", phase_dense_kernels))
+    timed("parity", phase_parity)
+    timed("zamba parity", phase_zamba_parity)
+    timed("moe and dense parity", phase_moe_dense_parity)
+    launches, routes = timed("serve", phase_serve, smi)
+    zamba, zamba_routes = timed("zamba serve", phase_zamba_serve, smi)
     routes.update(zamba_routes)
-    moves = phase_residency(smi)
-    gateway_launches, gateway = phase_gateway(smi)
+    transformers, transformer_runs = {}, {}
+    for label, phase in (("olmoe-1b-7b", phase_moe_serve),
+                         ("mistral-nemo-12b", phase_dense_serve),
+                         ("arctic-480b", phase_arctic_serve)):
+        runs, transformers[label] = timed(f"{label} serve", phase, smi)
+        transformer_runs.update(runs)
+    moves = timed("residency", phase_residency, smi)
+    gateway_launches, gateway = timed("gateway", phase_gateway, smi)
     record = []
     for name, per_kind in kern.items():
         main_kind = "bf16"
@@ -1984,10 +2416,16 @@ def main() -> int:
             entry["rows"] = rec["rows"]
         if name in routes:
             entry["launches_by_route"] = routes[name]
+        if "transformers" in rec:
+            entry["transformer_shapes"] = rec["transformers"]
         entry["launches_gateway"] = gateway_launches[name]
+        entry["launches_transformers"] = {
+            run: counts[name] for run, counts in transformer_runs.items()}
         record.append(entry)
-    print(json.dumps({"kernels": record, "residency": moves,
-                      "gateway": gateway}))
+    log(f"[done] every phase passed in {time.perf_counter() - t0:.1f} s on "
+        f"{smi}; seconds a phase: {seconds}")
+    print(json.dumps({"kernels": record, "transformers": transformers,
+                      "residency": moves, "gateway": gateway}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

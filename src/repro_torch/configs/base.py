@@ -1,9 +1,10 @@
 """Model configuration for the PyTorch port.
 
 The port keeps its own copy of the reference ``ModelConfig``: the fields the
-dense transformer's and the Zamba2 hybrid's serving paths read, with the
-``dtype`` strings mapped to torch dtypes. Families that the port does not
-run yet (MoE, xLSTM, audio, VLM) add their fields when they are ported.
+dense transformer's (with or without experts) and the Zamba2 hybrid's
+serving paths read, with the ``dtype`` strings mapped to torch dtypes.
+Families that the port does not run yet (xLSTM, audio, VLM) add their
+fields, the modality frontend's among them, when they are ported.
 """
 from __future__ import annotations
 
@@ -26,7 +27,7 @@ def torch_dtype(name: str) -> torch.dtype:
 @dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str                      # "dense" | "hybrid" run in the port
+    family: str                      # "dense" | "moe" | "hybrid" run in the port
     num_layers: int
     d_model: int
     num_heads: int
@@ -34,6 +35,16 @@ class ModelConfig:
     d_ff: int
     vocab_size: int
     head_dim: int = 0                # 0 -> d_model // num_heads
+
+    # --- MoE ---------------------------------------------------------------
+    num_experts: int = 0
+    experts_per_token: int = 0
+    capacity_factor: float = 1.25
+    moe_group_size: int = 512        # GShard dispatch group size (tokens)
+    moe_impl: str = "einsum"         # "einsum" (GShard one-hot) | "sort"
+    moe_dense_ff: int = 0            # Arctic: parallel dense-residual FFN width
+    router_z_loss: float = 1e-3
+    load_balance_loss: float = 1e-2
 
     # --- SSM (Mamba2) ----------------------------------------------------------
     ssm_variant: str = ""            # "mamba2"

@@ -1,0 +1,18 @@
+"""InternLM2-1.8B [arXiv:2403.17297]: GQA kv=8."""
+from .base import ModelConfig
+
+CONFIG = ModelConfig(
+    name="internlm2-1.8b",
+    family="dense",
+    num_layers=24,
+    d_model=2048,
+    num_heads=16,
+    num_kv_heads=8,
+    d_ff=8192,
+    vocab_size=92544,
+)
+
+
+def reduced() -> ModelConfig:
+    return CONFIG.replace(num_layers=2, d_model=64, num_heads=4, num_kv_heads=2,
+                          head_dim=16, d_ff=128, vocab_size=256)

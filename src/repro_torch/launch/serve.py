@@ -3,13 +3,18 @@ the Kotta serving gateway.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch yi-6b \\
         --batch 4 --max-new 16 [--spec [--adaptive-k]] [--kv-dtype int8] \\
-        [--device cpu]
+        [--prefill-mode dense] [--device cpu]
     PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-1.2b \\
         --engine static --batch 4 --max-new 8 [--device cpu]
 
-``--engine auto`` (the default) picks the continuous-batching engine for a
-family with a paged decode path (yi-6b) and the static ``ServeEngine``
-otherwise (Zamba2). Weights are random, drawn on the device from seed 0;
+``--arch`` takes every config of the port: the dense transformers yi-6b,
+internlm2-1.8b, mistral-nemo-12b and starcoder2-7b, the MoE transformers
+olmoe-1b-7b and arctic-480b, and the Zamba2 hybrid. ``--engine auto`` (the
+default) picks the continuous-batching engine for a family with a paged
+decode path (every transformer, with or without experts) and the static
+``ServeEngine`` otherwise (Zamba2). ``--prefill-mode dense`` admits
+prompts to the continuous engine by ragged dense prefill instead of paged
+chunks (no prefix cache, no int8 pool). Weights are random, drawn on the device from seed 0;
 prompts from seed 1. Prints ``engine: <kind> (<device>)`` and then
 ``prompt -> tokens`` lines. The default device is ``cuda``, which fails
 without a GPU: pass ``--device cpu`` to run the plain PyTorch path.
@@ -371,6 +376,12 @@ def main(argv=None) -> None:
                     help="paged KV pool layout (default: config "
                          "kv_cache_dtype); int8 stores pages quantized "
                          "with per-row scales")
+    ap.add_argument("--prefill-mode", choices=("paged", "dense"),
+                    default="paged",
+                    help="continuous engine admission: paged chunked "
+                         "prefill, or one ragged dense prefill a pad bucket "
+                         "re-laid into pages (no prefix cache, no int8 "
+                         "pool)")
     ap.add_argument("--adaptive-k", action="store_true",
                     help="with --spec: per-slot adaptive speculative window")
     ap.add_argument("--gateway", action="store_true",
@@ -433,6 +444,9 @@ def main(argv=None) -> None:
     gateway_mode = (args.gateway or args.interactive_burst or args.saturation
                     or args.chaos_seed is not None)
     if gateway_mode:
+        if args.prefill_mode != "paged":
+            raise SystemExit("--prefill-mode dense is for a direct continuous"
+                             " engine; the gateway's engines prefill paged")
         if not hasattr(fam, "decode_paged"):
             raise SystemExit("the gateway modes require a paged-decode "
                              "family")
@@ -469,6 +483,8 @@ def main(argv=None) -> None:
     if engine_kind == "static":
         if args.spec:
             raise SystemExit("--spec requires the continuous engine")
+        if args.prefill_mode != "paged":
+            raise SystemExit("--prefill-mode requires the continuous engine")
         if args.kv_dtype == "int8":
             raise SystemExit("--kv-dtype int8 requires the continuous engine "
                              "(the static engine keeps a dense unquantized "
@@ -480,7 +496,7 @@ def main(argv=None) -> None:
     if engine_kind == "continuous":
         engine = ContinuousBatchingEngine(
             cfg, params, max_len=args.max_len, enable_spec_decode=args.spec,
-            kv_cache_dtype=args.kv_dtype,
+            kv_cache_dtype=args.kv_dtype, prefill_mode=args.prefill_mode,
             spec_adaptive_k=args.adaptive_k or None, device=args.device)
     else:
         engine = ServeEngine(cfg, params, max_len=args.max_len,

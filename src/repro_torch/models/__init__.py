@@ -1,4 +1,5 @@
 from .params import init_params, params_from_reference
-from .registry import get_family
+from .registry import count_params, get_family
 
-__all__ = ["get_family", "init_params", "params_from_reference"]
+__all__ = ["count_params", "get_family", "init_params",
+           "params_from_reference"]

@@ -1,14 +1,17 @@
-"""Model families: the dense transformer's paged serving paths and the
-Zamba2 hybrid's static serving path.
+"""Model families: the dense transformer (with or without experts) and the
+Zamba2 hybrid.
 
-``TransformerFamily`` keeps the reference's surface for the methods the
-continuous-batching engine calls: ``layout``, ``prefill_paged``,
-``decode_paged``, ``decode_verify``, ``paged_pool_shape`` and ``paged_pool``.
-``ZambaFamily`` keeps the surface the static ``ServeEngine`` calls:
-``layout``, ``prefill``, ``decode`` and ``cache_layout``. The reference's
-``lax.scan`` over the stacked layers becomes a loop over the layer axis.
-Pools and decode caches are dicts of stacked tensors updated in place; each
-method returns the same dict.
+All families expose the surface the static ``ServeEngine`` calls:
+``layout``, ``prefill``, ``decode``, ``cache_layout`` and
+``grown_cache_leaves`` (the decode-cache leaves whose axis 2 is the
+sequence, which the engine grows to ``max_len``). ``TransformerFamily``
+adds the continuous-batching engine's surface: ``prefill_ragged`` (dense
+admission), ``prefill_paged``, ``decode_paged``, ``decode_verify``,
+``paged_pool_shape`` and ``paged_pool``. Every dense path runs the MoE FFN
+(``models/moe.py``) in place of the dense one when ``cfg.num_experts`` is
+set. The reference's ``lax.scan`` over the stacked layers becomes a loop
+over the layer axis. Pools and decode caches are dicts of stacked tensors
+updated in place; each method returns the same dict.
 """
 from __future__ import annotations
 
@@ -16,6 +19,7 @@ import torch
 
 from ..device import resolve_device
 from . import layers as L
+from .moe import moe_block, moe_param_specs
 from .params import stack_specs
 from .ssm import mamba_block, mamba_cache_shapes, mamba_param_specs
 
@@ -26,13 +30,23 @@ def _layer(tree, i: int):
             for k, v in tree.items()}
 
 
+def _ffn(cfg, p, x):
+    """The layer's FFN block: the MoE block with experts (its aux losses
+    are for training, which is not ported yet), else the dense one."""
+    if cfg.num_experts:
+        return moe_block(cfg, p, x)[0]
+    return L.mlp_block(cfg, p, x)
+
+
 class TransformerFamily:
     name = "transformer"
+    grown_cache_leaves = ("k", "v")
 
     # -- params ---------------------------------------------------------------
     def layer_specs(self, cfg) -> dict:
         return {"attn": L.attention_param_specs(cfg),
-                "ffn": L.mlp_param_specs(cfg)}
+                "ffn": (moe_param_specs(cfg) if cfg.num_experts
+                        else L.mlp_param_specs(cfg))}
 
     def layout(self, cfg) -> dict:
         return {
@@ -41,13 +55,78 @@ class TransformerFamily:
             "final_norm": L.norm_spec(cfg.d_model),
         }
 
+    # -- token embedding ------------------------------------------------------
+    def _embed(self, cfg, params, batch):
+        """Returns (x, positions): tokens only. The reference's audio and
+        VLM frontends (``frames``, ``patches``) are not ported yet."""
+        if cfg.family in ("audio", "vlm") or "tokens" not in batch:
+            raise NotImplementedError(
+                f"{cfg.name}: the {cfg.family} frontend is not ported yet "
+                "(ROADMAP.md, Queue 1, item 2b)")
+        x = L.embed_tokens(cfg, params, batch["tokens"])
+        return x, torch.arange(x.shape[1], device=x.device)
+
+    # -- full forward over a dense cache --------------------------------------
+    def _stack_forward(self, cfg, params, x, positions):
+        """Every layer at ``positions``; returns (final-normed x, (k, v)
+        stacked (L,B,S,KV,hd))."""
+        ks, vs = [], []
+        for i in range(cfg.num_layers):
+            lp = _layer(params["layers"], i)
+            x, (k, v) = L.attention_block(cfg, lp["attn"], x, positions)
+            x = _ffn(cfg, lp["ffn"], x)
+            ks.append(k)
+            vs.append(v)
+        x = L.rmsnorm(x, params["final_norm"], cfg.norm_eps)
+        return x, (torch.stack(ks), torch.stack(vs))
+
+    def prefill(self, cfg, params, batch):
+        """batch: tokens (B,S) at positions 0..S-1. Returns (logits (B,V) at
+        the last position, cache {"k","v"} (L,B,S,KV,hd))."""
+        x, positions = self._embed(cfg, params, batch)
+        x, (k, v) = self._stack_forward(cfg, params, x, positions)
+        return L.logits_fn(cfg, params, x[:, -1:])[:, 0], {"k": k, "v": v}
+
+    def decode(self, cfg, params, batch, cache):
+        """batch: tokens (B,1), pos (B,) the token's position. Writes its
+        K/V row into ``cache`` (L,B,Smax,KV,hd) in place; returns (logits
+        (B,V), cache)."""
+        x = L.embed_tokens(cfg, params, batch["tokens"])
+        pos = batch["pos"]
+        for i in range(cfg.num_layers):
+            lp = _layer(params["layers"], i)
+            x, _ = L.attention_block(cfg, lp["attn"], x, pos[:, None],
+                                     cache=(cache["k"][i], cache["v"][i]),
+                                     decode_pos=pos)
+            x = _ffn(cfg, lp["ffn"], x)
+        x = L.rmsnorm(x, params["final_norm"], cfg.norm_eps)
+        return L.logits_fn(cfg, params, x)[:, 0], cache
+
+    def prefill_ragged(self, cfg, params, batch):
+        """Right-padded prompts, batch tokens (B,S) and length (B,): logits
+        at ``length - 1`` and the whole (L,B,S,KV,hd) cache. Causal masking
+        keeps rows below a prompt's length independent of its pad (the
+        experts' capacity aside: pad tokens take part in routing)."""
+        x, positions = self._embed(cfg, params, batch)
+        x, (k, v) = self._stack_forward(cfg, params, x, positions)
+        idx = batch["length"].long() - 1
+        last = x[torch.arange(x.shape[0], device=x.device), idx]     # (B,d)
+        return L.logits_fn(cfg, params, last), {"k": k, "v": v}
+
+    def cache_layout(self, cfg, batch: int, cache_len: int) -> dict:
+        """Decode-cache leaves as (shape, dtype), keyed as the cache is."""
+        kv = ((cfg.num_layers, batch, cache_len, cfg.num_kv_heads,
+               cfg.head_dim), cfg.cdtype)
+        return {"k": kv, "v": kv}
+
+    # -- the paged paths ----------------------------------------------------------
     def _stack(self, cfg, params, x, pool, attn):
         """Run every layer: ``attn(layer_attn_params, h, layer_pool)`` then
         the FFN; returns the final-normed activations."""
         for i in range(cfg.num_layers):
             lp = _layer(params["layers"], i)
             x, _ = attn(lp["attn"], x, _layer(pool, i))
-            x = L.mlp_block(cfg, lp["ffn"], x)
+            x = _ffn(cfg, lp["ffn"], x)
         return L.rmsnorm(x, params["final_norm"], cfg.norm_eps)
 
     # -- paged chunked prefill ----------------------------------------------------
@@ -132,6 +211,7 @@ class TransformerFamily:
 
 class ZambaFamily:
     name = "zamba"
+    grown_cache_leaves = ("attn_k", "attn_v")
 
     def group_sizes(self, cfg) -> list[int]:
         k, n = cfg.shared_attn_every, cfg.num_layers

@@ -9,6 +9,10 @@ The PyTorch port of the reference engine's token loop:
   prefill pads and budget overshoot route their KV writes there.
 - **Paged chunked prefill.** Prompts are admitted in fixed
   ``prefill_chunk``-token steps whose KV rows land straight in pool pages.
+  ``prefill_mode="dense"`` admits instead by one ragged dense prefill per
+  pad bucket (prompt length rounded up to whole pages), whose cache is
+  re-laid into the request's pages; it takes neither the prefix cache nor
+  an int8 pool, as in the reference.
 - **Copy-on-write prefix sharing.** A page-granular radix index
   (:mod:`repro_torch.serve.paging`) aliases fully matched pages
   (refcount++), copies the one partially matched boundary page, and
@@ -46,8 +50,9 @@ sits the residency surface the control plane moves requests with:
   over :class:`~repro_torch.serve.telemetry.MetricsRegistry` counters.
 
 ``ServeEngine`` is the reference's static-batch engine: one left-padded
-batch, a dense per-request cache, greedy decode. It serves the families
-without a paged path (the Zamba2 hybrid).
+batch, a dense per-request cache, greedy decode. It serves every family:
+the dense transformer (with or without experts) and the Zamba2 hybrid,
+which has no paged path.
 """
 from __future__ import annotations
 
@@ -64,7 +69,8 @@ from ..device import resolve_device
 from ..models import get_family
 from ..train.train_step import (build_decode_step, build_fused_spec_step,
                                 build_paged_decode_step,
-                                build_paged_prefill_step, build_prefill_step)
+                                build_paged_prefill_step,
+                                build_prefill_ragged_step, build_prefill_step)
 from .drafting import build_ngram_draft
 from .paging import PageAllocator, PrefixCache
 from .telemetry import RegistryDict
@@ -87,13 +93,12 @@ class ServeEngine:
     read, as in the reference. Tokens accumulate on the device and cross to
     the host once, at the end.
 
-    Only the attention caches grow, picked by name (``attn_k``/``attn_v``,
-    axis 2). The reference grows every cache leaf whose axis 2 equals the
+    Only the leaves the family names in ``grown_cache_leaves`` grow, along
+    axis 2: ``k``/``v`` for the dense transformer, ``attn_k``/``attn_v``
+    for Zamba2. The reference grows every cache leaf whose axis 2 equals the
     prompt length, which also catches a Mamba2 state or conv tail whose
     head count or window happens to equal it (ROADMAP.md, Queue 3).
     """
-
-    GROWN = ("attn_k", "attn_v")
 
     def __init__(self, cfg, params, *, max_len: int = 512, device="cuda"):
         if cfg.encoder_only:
@@ -104,11 +109,6 @@ class ServeEngine:
             raise ValueError(f"params live on {leaf.device}, the engine on "
                              f"{self.device}: build them on the same device")
         self.family = get_family(cfg)
-        if not hasattr(self.family, "prefill"):
-            raise NotImplementedError(
-                f"{cfg.name}: the static engine's dense prefill for the "
-                f"{self.family.name} family is not ported yet (ROADMAP.md, "
-                "Queue 1); use ContinuousBatchingEngine")
         self.cfg = cfg
         self.params = params
         self.max_len = max_len
@@ -116,8 +116,9 @@ class ServeEngine:
         self._decode = build_decode_step(cfg)
 
     def _pad_cache(self, cache, cur_len: int):
-        """Grow the attention caches to ``max_len`` rows along axis 2."""
-        for name in self.GROWN:
+        """Grow the family's sequence leaves to ``max_len`` rows along axis
+        2."""
+        for name in self.family.grown_cache_leaves:
             if name in cache:
                 x = cache[name]
                 pad = x.new_zeros(x.shape[:2] + (self.max_len - cur_len,)
@@ -286,6 +287,7 @@ class ContinuousBatchingEngine:
                  max_slots: int | None = None, num_pages: int | None = None,
                  decode_chunk: int | None = None,
                  prefill_chunk: int | None = None,
+                 prefill_mode: str = "paged",
                  enable_prefix_cache: bool | None = None,
                  enable_spec_decode: bool | None = None,
                  spec_tokens: int | None = None,
@@ -295,6 +297,9 @@ class ContinuousBatchingEngine:
                  role: str = "unified", device="cuda"):
         if cfg.encoder_only:
             raise ValueError("encoder-only models cannot decode")
+        if prefill_mode not in ("paged", "dense"):
+            raise ValueError(f"prefill_mode must be 'paged' or 'dense', got "
+                             f"{prefill_mode!r}")
         if role not in ("unified", "prefill", "decode"):
             raise ValueError(f"role must be 'unified', 'prefill' or "
                              f"'decode', got {role!r}")
@@ -317,6 +322,19 @@ class ContinuousBatchingEngine:
         if self.kv_cache_dtype not in ("f32", "int8"):
             raise ValueError(f"kv_cache_dtype must be 'f32' or 'int8', got "
                              f"{self.kv_cache_dtype!r}")
+        # Dense admission prefills an unquantized cache and re-lays it into
+        # whole pages, past the quantize-on-scatter of the paged path.
+        if self.kv_cache_dtype == "int8" and prefill_mode == "dense":
+            raise ValueError("kv_cache_dtype='int8' requires "
+                             "prefill_mode='paged' (dense prefill re-layouts "
+                             "an unquantized cache into pool pages and "
+                             "bypasses quantize-on-scatter)")
+        # It also re-writes whole pad-rounded pages, which would clobber
+        # aliased prefix pages: it runs without the prefix cache.
+        if enable_prefix_cache and prefill_mode == "dense":
+            raise ValueError("enable_prefix_cache=True requires "
+                             "prefill_mode='paged' (dense prefill re-writes "
+                             "whole pages and cannot alias shared prefixes)")
         self._step = build_paged_decode_step(cfg)
         self.cfg = cfg
         self.params = params
@@ -382,6 +400,7 @@ class ContinuousBatchingEngine:
         if self.prefill_chunk < 1:
             raise ValueError(f"prefill_chunk must be >= 1, got "
                              f"{self.prefill_chunk}")
+        self.prefill_mode = prefill_mode
 
         self.pool = self.family.paged_pool(cfg, self.num_pages,
                                            self.kv_cache_dtype,
@@ -390,7 +409,7 @@ class ContinuousBatchingEngine:
         if enable_prefix_cache is None:
             enable_prefix_cache = cfg.enable_prefix_cache
         self.prefix_cache = PrefixCache(self.page_size) \
-            if enable_prefix_cache else None
+            if enable_prefix_cache and prefill_mode == "paged" else None
         if self.prefix_cache is not None:
             self.alloc.on_alloc = self.prefix_cache.evict
 
@@ -429,6 +448,7 @@ class ContinuousBatchingEngine:
         self._reset_stats()
 
         self._prefill_step = build_paged_prefill_step(cfg)
+        self._prefill_ragged = build_prefill_ragged_step(cfg)
         if self.spec_decode:
             # Verify-window buckets: each chunk dispatches at the smallest
             # bucket covering every live slot's adaptive window. Powers of
@@ -583,7 +603,11 @@ class ContinuousBatchingEngine:
         if wave:
             for g in sorted({a.group for a in wave}):
                 self._dispatch_cows(cow_pairs.get(g, ()))
-                self._prefill_paged_wave([a for a in wave if a.group == g])
+                members = [a for a in wave if a.group == g]
+                if self.prefill_mode == "dense":
+                    self._prefill_dense(members)
+                else:
+                    self._prefill_paged_wave(members)
             for a in wave:
                 self._live[a.slot] = _Live(a.req, a.pages)
             if self.spec_decode:
@@ -669,6 +693,46 @@ class ContinuousBatchingEngine:
                 host[j] = step_toks[j].cpu().numpy()
             self._cur[a.slot] = host[j][i]
             self._pos[a.slot] = len(a.req.prompt)
+
+    def _prefill_dense(self, wave: list[_Admit]) -> None:
+        """Dense admission: one ragged prefill per pad bucket (prompt length
+        rounded up to whole pages), its cache re-laid into the requests'
+        pages (``_write_pages``); one host sync a bucket for the first
+        tokens."""
+        ps = self.page_size
+        by_pad: dict[int, list[_Admit]] = {}
+        for a in wave:
+            s_pad = math.ceil(len(a.req.prompt) / ps) * ps
+            by_pad.setdefault(s_pad, []).append(a)
+        for s_pad, items in by_pad.items():
+            npp = s_pad // ps
+            toks = np.zeros((len(items), s_pad), np.int32)
+            lens = np.zeros(len(items), np.int32)
+            for i, a in enumerate(items):
+                toks[i, :len(a.req.prompt)] = a.req.prompt
+                lens[i] = len(a.req.prompt)
+            first, _, cache = self._prefill_ragged(
+                self.params, {"tokens": self._dev(toks),
+                              "length": self._dev(lens)})
+            self._write_pages(cache["k"], cache["v"], np.concatenate(
+                [np.asarray(a.pages[:npp], np.int64) for a in items]))
+            first = first.cpu().numpy()
+            for i, a in enumerate(items):
+                self._pos[a.slot] = len(a.req.prompt)
+                self._cur[a.slot] = first[i]
+
+    def _write_pages(self, k, v, pages: np.ndarray) -> None:
+        """Re-lay a prompt cache k/v (L,G,S_pad,KV,hd) into ``pages`` (G *
+        S_pad / page_size,) of the pool, in place: request g's rows fill its
+        pages in order."""
+        nl, g, s_pad, nkv, hd = k.shape
+        npp = g * (s_pad // self.page_size)
+        dst = self._dev(pages)
+        for name, rows in (("k", k), ("v", v)):
+            leaf = self.pool[name]
+            leaf[:, :, dst] = rows.reshape(
+                nl, npp, self.page_size, nkv, hd).permute(
+                    0, 3, 1, 2, 4).to(leaf.dtype)
 
     def _retire(self, slot: int) -> _Live:
         live = self._live.pop(slot)

@@ -1,5 +1,6 @@
 """Serving step construction: the static engine's dense prefill and decode
-steps, and the continuous engine's steps over the shared paged KV pool.
+steps, the continuous engine's dense (ragged) admission step, and its steps
+over the shared paged KV pool.
 
 Each builder returns a plain function that runs one model pass and, for
 the decode-like steps, takes the greedy argmax over the compute-dtype
@@ -39,6 +40,19 @@ def build_decode_step(cfg) -> Callable:
         return _argmax(logits), logits, cache
 
     return decode_step
+
+
+def build_prefill_ragged_step(cfg) -> Callable:
+    """Dense admission of right-padded prompts: batch tokens (B,S), length
+    (B,) -> (next_token (B,) from the logits at ``length - 1``, logits
+    (B,V), cache {"k","v"} (L,B,S,KV,hd))."""
+    family = get_family(cfg)
+
+    def prefill_ragged_step(params, batch):
+        logits, cache = family.prefill_ragged(cfg, params, batch)
+        return _argmax(logits), logits, cache
+
+    return prefill_ragged_step
 
 
 def build_paged_decode_step(cfg) -> Callable:

@@ -17,11 +17,13 @@ import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 import numpy as np  # noqa: E402
 
+from repro.configs import get_config as jax_config  # noqa: E402
 from repro.configs import get_reduced_config as jax_reduced  # noqa: E402
 from repro.models import get_family as jax_family  # noqa: E402
 from repro.models.params import init_params as jax_init  # noqa: E402
 from repro.train import train_step as jts  # noqa: E402
-from repro_torch.configs import get_reduced_config  # noqa: E402
+from repro_torch.configs import (ARCH_NAMES, ModelConfig,  # noqa: E402
+                                 get_config, get_reduced_config)
 from repro_torch.models import (get_family, init_params,  # noqa: E402
                                 params_from_reference)
 from repro_torch.train import train_step as tts  # noqa: E402
@@ -173,7 +175,39 @@ def test_init_params_on_device_and_unported_family():
     assert float(a["layers"]["attn"]["wq"].float().abs().max()) <= 2.0 * (
         tcfg.num_layers * tcfg.d_model) ** -0.5 + 1e-2
     with pytest.raises(NotImplementedError, match="not ported"):
-        get_family(tcfg.replace(family="moe"))
+        get_family(tcfg.replace(family="vlm"))
+
+
+@pytest.mark.parametrize("arch", ARCH_NAMES)
+def test_config_fields_match_reference(arch):
+    """Every field of the port's config, full and reduced, equals the
+    reference's (the port has no ``remat``, ``param_dtype`` or frontend
+    fields, and none the reference lacks)."""
+    import dataclasses
+    from repro.configs.base import ModelConfig as JaxModelConfig
+    names = [f.name for f in dataclasses.fields(ModelConfig)]
+    assert set(names) <= {f.name for f in dataclasses.fields(JaxModelConfig)}
+    for mine, ref in ((get_config(arch), jax_config(arch)),
+                      (get_reduced_config(arch), jax_reduced(arch))):
+        assert {n: getattr(mine, n) for n in names} \
+            == {n: getattr(ref, n) for n in names}
+
+
+@pytest.mark.parametrize("arch", ["internlm2-1.8b", "mistral-nemo-12b",
+                                  "starcoder2-7b", "olmoe-1b-7b",
+                                  "arctic-480b"])
+def test_count_params_matches_reference(arch):
+    """Total and per-token active parameters of the full configs, from the
+    layouts alone (nothing is allocated)."""
+    from repro.models.registry import count_params as jax_count
+    from repro_torch.models import count_params
+    cfg, jcfg = get_config(arch), jax_config(arch)
+    for active in (False, True):
+        assert count_params(cfg, active_only=active) \
+            == jax_count(jcfg, active_only=active)
+    if cfg.num_experts:
+        assert count_params(cfg, active_only=True) < count_params(cfg)
+    assert round(count_params(get_config("olmoe-1b-7b")) / 1e9, 2) == 6.92
 
 
 def test_greedy_argmax_on_bf16_logits_takes_the_first_tie():
