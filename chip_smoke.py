@@ -9,7 +9,9 @@ Phases, each of which must pass (a failure exits nonzero):
 2. build: compile the CUDA kernels from ``src/repro_torch/csrc`` with nvcc,
    one process a source, all started together; print the registers and
    spills of the tensor-core (wgmma + TMA) instantiations the serve paths
-   launch (the SSD scan's among them), and fail if one spills;
+   launch (the SSD scan's among them), and fail if one spills; list the
+   training path's backward kernels (CUDA cores) with their registers and
+   spills, which are reported and not fatal;
 3. kernels: each paged attention kernel with bf16 q on bf16 and int8 pools
    (the tensor-core route) at the yi-6b serve path's shapes and off them
    (G 4, page sizes 32 and 64; the prefill at C 13; decode and verify at
@@ -32,6 +34,13 @@ Phases, each of which must pass (a failure exits nonzero):
    the plain version and one library call where there is one (``time_ms``:
    device time between two events, behind a spin kernel that outlasts the
    host's enqueue), and the paged kernels' host enqueue on both routes;
+   then the backward kernels (flash attention's and RMSNorm's, the port's
+   own) against autograd of their plain versions in bf16 and f32, each
+   twice for bit equality: flash at internlm2-1.8b's training shape (B 8,
+   S 1024, H 16, KV 8, hd 128, causal), at hd 64 G 1, G 7, a ragged S 1000
+   and non-causal; RMSNorm at 8192 x 2048 and D 5120 and 7168; the
+   training shapes timed beside the plain version, the library's backward
+   (SDPA, ``F.rms_norm``) and the bound;
 4. parity: yi-6b widths at depth 2 in float32 -- prefill, decode and verify
    steps on the card (kernels) against the same weights on the CPU (plain
    versions); then Zamba2 widths at depth 6 (one Mamba group and one shared
@@ -83,12 +92,26 @@ Phases, each of which must pass (a failure exits nonzero):
    beside ``ServiceModel``'s, and the phase's launches (every bf16 paged
    one on ``sm90``) and peak device memory.
 
+8. train: the training path's f32 parity, card against CPU, at
+   internlm2-1.8b and olmoe-1b-7b widths (depth 2, B 2, S 256: the loss
+   within 1e-5 and every gradient within 1e-4 of its leaf's max); then
+   full-width, full-depth internlm2-1.8b (24 layers, bf16 over f32 master
+   weights, remat "full") trained by ``ElasticTrainer`` on a synthetic
+   corpus in the port's ``ObjectStore``, batch 8 x 1024, int8 AdamW
+   moments, 6 steps with checkpoints every 3, once uninterrupted and once
+   revoked at step 4, under ``torch.use_deterministic_algorithms``: the
+   two final states bit for bit equal, the loss falling, every step's
+   launches exact (flash forward 2L on sm90, backward L; RMSNorm forward
+   4L + 1, backward 2L + 1) and no plain version called; prints step ms,
+   tokens/s, peak device memory and the checkpoints' save and restore
+   seconds and GB/s.
+
 The second-to-last line of output is a JSON ``kernels`` record (with the
-launches on the transformer runs, the residency phase's move times and the
-gateway phase's results); the last is
+launches on the transformer runs, the residency phase's move times, the
+gateway phase's results and the train phase's numbers); the last is
 ``{"ok": true, "device": {...}}``. Without CUDA, or without the port beside
 this script, it prints no result and exits nonzero. It takes no arguments:
-every run drives all seven phases.
+every run drives all eight phases.
 """
 from __future__ import annotations
 
@@ -96,11 +119,16 @@ import dataclasses
 import gc
 import json
 import math
+import os
 import statistics
 import subprocess
 import sys
 import time
 from pathlib import Path
+
+# The train phase runs under torch.use_deterministic_algorithms, where
+# cuBLAS needs a fixed workspace, set before CUDA starts.
+os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
 
 ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
@@ -148,6 +176,8 @@ SOURCES = {
     "rmsnorm_fused": "src/repro_torch/csrc/rmsnorm.cu",
     "flash_attention_fwd": "src/repro_torch/csrc/flash_attention.cu",
     "ssd_scan": "src/repro_torch/csrc/ssd_scan.cu",
+    "rmsnorm_bwd": "src/repro_torch/csrc/rmsnorm.cu",
+    "flash_attention_bwd": "src/repro_torch/csrc/flash_attention_bwd.cu",
 }
 PAGED = ("flash_decode_fwd", "flash_prefill_fwd", "flash_verify_fwd")
 # The continuous engine's three serve runs: plain decode, speculative decode
@@ -249,6 +279,17 @@ ON_PATH_SM90 = {
     "paged_attn_sm90_kernelILi128ELb1ELb1E": "paged split hd 128 int8 pool"}
 
 
+# The backward kernels the training path launches (hd 128, bf16 and f32).
+BACKWARD_KERNELS = {
+    "flash_bwd_delta_kernelI13__nv_bfloat16": "flash bwd delta bf16",
+    "flash_bwd_dkdv_kernelI13__nv_bfloat16Li128": "flash bwd dK/dV bf16 hd 128",
+    "flash_bwd_dq_kernelI13__nv_bfloat16Li128": "flash bwd dQ bf16 hd 128",
+    "flash_bwd_dkdv_kernelIfLi128": "flash bwd dK/dV f32 hd 128",
+    "flash_bwd_dq_kernelIfLi128": "flash bwd dQ f32 hd 128",
+    "rmsnorm_bwd_kernelI13__nv_bfloat16": "rmsnorm bwd bf16",
+    "rmsnorm_bwd_kernelIf": "rmsnorm bwd f32"}
+
+
 def _ptxas_functions(text):
     """{mangled name: (registers, spill store bytes, spill load bytes)}
     from nvcc's ``-Xptxas -v`` log."""
@@ -297,6 +338,19 @@ def phase_build():
             or any(st or ld for _, st, ld in seen.values()):
         raise AssertionError(f"on-path sm90 kernels missing or spilling: "
                              f"{seen}")
+    # The backward kernels (CUDA cores): listed, a spill reported, not fatal.
+    bwd = {name: v for text in logs.values()
+           for name, v in _ptxas_functions(text).items() if "bwd" in name}
+    for frag, label in BACKWARD_KERNELS.items():
+        hits = [v for name, v in bwd.items() if frag in name]
+        if not hits:
+            raise AssertionError(f"backward kernel {label} was not built")
+        for nreg, st, ld in hits:
+            log(f"[build]   {label}: {nreg} registers, spill stores {st} B, "
+                f"loads {ld} B")
+    spilled = [name for name, (_, st, ld) in bwd.items() if st or ld]
+    log(f"[build]   backward kernels: {len(bwd)} instantiations, "
+        f"{len(spilled)} with spills: {spilled}")
 
 
 # ---------------------------------------------------------------------------
@@ -1228,6 +1282,7 @@ def _continuous_run(cfg, params, label, kw, prompts, max_new, smi):
 def phase_serve(smi: str):
     import torch
     from repro_torch.configs import get_config
+    from repro_torch.kernels import KERNEL_WRAPPERS
     from repro_torch.models import get_family, init_params
     from repro_torch.serve.prompts import shared_prefix_prompts
     cfg = get_config("yi-6b")
@@ -1235,7 +1290,7 @@ def phase_serve(smi: str):
                          device="cuda")
     prompts = shared_prefix_prompts(cfg.vocab_size)
     max_new = 32
-    total = dict.fromkeys(REPLACES, 0)
+    total = dict.fromkeys(KERNEL_WRAPPERS, 0)
     paged_routes = {name: {"sm90": 0, "cuda_core": 0} for name in PAGED}
     used = PAGED + ("rmsnorm_fused",)        # the kernels of this path
     outs = {}
@@ -2346,6 +2401,452 @@ def _leaves(tree):
 
 
 # ---------------------------------------------------------------------------
+# phase 8: training -- the backward kernels, f32 parity, full-width training
+# ---------------------------------------------------------------------------
+
+# internlm2-1.8b's training shape (configs/internlm2_1_8b.py): batch 8 x
+# sequence 1024, 16 heads of 128 over 8 KV heads, d_model 2048.
+TB, TS, TH, TKV, THD, TD = 8, 1024, 16, 8, 128, 2048
+TRAIN_STEPS, TRAIN_EVERY, TRAIN_REVOKE = 6, 3, 4
+# Peak learning rate after 2 warm-up steps. Adam's first steps move every
+# weight by about the learning rate, all at once: in this phase on the card
+# the loss rose over the 6 steps at 1e-3 (11.83 -> 12.34, 15.24 at step 4)
+# and fell with a bump at 1e-4 (11.30 at step 3, 11.82 at step 4).
+TRAIN_LR = 3e-5
+
+
+def _rel_err(got, want) -> float:
+    """max|got - want| over max|want|, in f32."""
+    want = want.float()
+    return ((got.float() - want).abs().max()
+            / want.abs().max().clamp_min(1e-30)).item()
+
+
+def _flash_bwd_case(gen, dev, dtype, b, s, h, nkv, hd, causal=True):
+    """(kernel, plain, inputs) of one flash-attention backward: the forward
+    kernel's out and lse made once outside the timed call."""
+    from repro_torch import kernels as K
+
+    def rn(*shape):
+        return (0.5 * torch_randn(gen, dev, *shape)).to(dtype)
+
+    q, k, v = rn(b, s, h, hd), rn(b, s, nkv, hd), rn(b, s, nkv, hd)
+    dout = rn(b, s, h, hd)
+    out, lse = K.flash_attention_fwd(q, k, v, causal=causal, return_lse=True)
+    return (lambda: K.flash_attention_bwd(q, k, v, out, dout, lse,
+                                          causal=causal),
+            lambda: K.attention_bwd_reference(q, k, v, dout, causal=causal),
+            (q, k, v, dout))
+
+
+def torch_randn(gen, dev, *shape):
+    import torch
+    return torch.randn(*shape, generator=gen, device=dev)
+
+
+def _rms_bwd_case(gen, dev, dtype, rows, d):
+    from repro_torch import kernels as K
+    x = torch_randn(gen, dev, rows, d).to(dtype)
+    g = torch_randn(gen, dev, rows, d).to(dtype)
+    w = 1.0 + 0.1 * torch_randn(gen, dev, d)
+    return (lambda: K.rmsnorm_bwd(x, w, g),
+            lambda: K.rmsnorm_bwd_reference(x, w, g), (x, w, g))
+
+
+def _sdpa_bwd(q, k, v, dout):
+    """Library yardstick: the backward of causal SDPA (flash backend where
+    it takes the call) on (B,H,S,hd) copies, graph built outside the timed
+    call; KV repeated beforehand where ``enable_gqa`` is absent."""
+    import torch
+    import torch.nn.functional as F
+    qq, kk, vv = (t.transpose(1, 2).contiguous().requires_grad_()
+                  for t in (q, k, v))
+    kw = {}
+    g = q.shape[2] // k.shape[2]
+    if g > 1:
+        if "enable_gqa" in (F.scaled_dot_product_attention.__doc__ or ""):
+            kw["enable_gqa"] = True
+        else:
+            kk, vv = (t.detach().repeat_interleave(g, dim=1).requires_grad_()
+                      for t in (kk, vv))
+    out = F.scaled_dot_product_attention(qq, kk, vv, is_causal=True, **kw)
+    gg = dout.transpose(1, 2).contiguous()
+    return lambda: torch.autograd.grad(out, (qq, kk, vv), gg,
+                                       retain_graph=True)
+
+
+def _rms_bwd_lib(x, w, g):
+    import torch
+    import torch.nn.functional as F
+    xx = x.detach().requires_grad_()
+    ww = w.to(x.dtype).detach().requires_grad_()
+    out = F.rms_norm(xx, (x.shape[-1],), ww, 1e-6)
+    return lambda: torch.autograd.grad(out, (xx, ww), g, retain_graph=True)
+
+
+def _flash_bwd_bound(b, s, h, nkv, hd, dtype_bytes, causal=True):
+    """(bytes, flops) of a flash-attention backward: q, k, v, out, dout and
+    lse read once, dq, dk, dv written once; five products of 2 hd flops a
+    visible (query, key) pair a head (S recomputed, dP, dV, dK, dQ)."""
+    nbytes = (4 * b * s * h * hd + 4 * b * s * nkv * hd) * dtype_bytes \
+        + 4 * b * h * s
+    pairs = b * h * (s * (s + 1) // 2 if causal else s * s)
+    return nbytes, 10.0 * hd * pairs
+
+
+def _rms_bwd_bound(rows, d, dtype_bytes):
+    """x and g read, dx written, w read and dw written (f32); ~8 flops an
+    element."""
+    return 3 * rows * d * dtype_bytes + 8 * d, 8.0 * rows * d
+
+
+def phase_backward_kernels():
+    """The port's backward kernels against autograd of their plain
+    versions on the same inputs, in bf16 (within TOL_BF16 of each
+    gradient's max |value|) and f32 (TOL_F32): flash attention at
+    internlm2-1.8b's training shape (B 8, S 1024, H 16, KV 8, hd 128,
+    causal) and at hd 64, G 1 and 7, a ragged S of 1000 and non-causal;
+    RMSNorm at 8192 x 2048 and at D 5120 and 7168. Each twice, bit for bit
+    the same (no atomics). The training shapes in bf16 timed beside the
+    plain version, the library's backward and the bound."""
+    import torch
+    from repro_torch import kernels as K
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(19)
+    flash_shapes = [("train", (TB, TS, TH, TKV, THD, True)),
+                    ("hd64 G1", (2, 512, 8, 8, 64, True)),
+                    ("G7", (2, 256, 7, 1, 128, True)),
+                    ("ragged S 1000", (2, 1000, 4, 2, 128, True)),
+                    ("non-causal", (2, 384, 4, 2, 64, False))]
+    rms_shapes = [("train", (TB * TS, TD)), ("D 5120", (512, 5120)),
+                  ("D 7168", (512, 7168))]
+    results = {"flash_attention_bwd": {}, "rmsnorm_bwd": {}}
+    for dtype, tol, kind in ((torch.bfloat16, TOL_BF16, "bf16"),
+                             (torch.float32, TOL_F32, "f32")):
+        cases = ([("flash_attention_bwd", label,
+                   _flash_bwd_case(gen, dev, dtype, *shape), shape)
+                  for label, shape in flash_shapes]
+                 + [("rmsnorm_bwd", label, _rms_bwd_case(gen, dev, dtype,
+                                                         *shape), shape)
+                    for label, shape in rms_shapes])
+        for name, label, (kern, plain, inputs), shape in cases:
+            got, again = kern(), kern()
+            torch.cuda.synchronize()
+            same = all(torch.equal(a, b) for a, b in zip(got, again))
+            errs = [_rel_err(a, b) for a, b in zip(got, plain())]
+            err = max(errs)
+            ok = same and math.isfinite(err) and err <= tol
+            log(f"[kernels] {name} {kind} {label} {shape}: max|kernel-plain|"
+                f"/max|plain| by gradient {['%.2e' % e for e in errs]} "
+                f"(tol {tol}), repeat bitwise {same} "
+                f"{'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise AssertionError(f"{name} {kind} {label} disagrees: "
+                                     f"{errs}, repeat equal {same}")
+            rec = results[name].setdefault(kind, {"max_abs_err": 0.0})
+            rec["max_abs_err"] = max(rec["max_abs_err"], err)
+            if kind != "bf16" or label != "train":
+                continue
+            if name == "flash_attention_bwd":
+                nbytes, flops = _flash_bwd_bound(*shape[:5], 2)
+                lib = _sdpa_bwd(*inputs)
+            else:
+                nbytes, flops = _rms_bwd_bound(*shape, 2)
+                lib = _rms_bwd_lib(*inputs)
+            bytes_s, ops_s = nbytes / HBM_BYTES_PER_S, flops / BF16_FLOPS_PER_S
+            rec.update(bound_ms=max(bytes_s, ops_s) * 1e3,
+                       bound_by="bytes" if bytes_s >= ops_s else "operations",
+                       ms=time_ms(kern, iters=10),
+                       plain_ms=time_ms(plain, iters=3, warmup=1),
+                       library_ms=time_ms(lib, iters=10), shape=list(shape))
+            log(f"[kernels] {name} bf16 {shape}: kernel {rec['ms']:.4f} ms, "
+                f"plain {rec['plain_ms']:.4f} ms, library "
+                f"{rec['library_ms']:.4f} ms, bound {rec['bound_ms']:.4f} ms "
+                f"({rec['bound_by']})")
+        del cases
+        torch.cuda.empty_cache()
+    return results
+
+
+def _train_grads(fam, cfg, params, batch):
+    import torch
+    from repro_torch.train import adamw
+    leaves = adamw.tree_leaves(params)
+    for p in leaves:
+        p.requires_grad_(True)
+    loss, metrics = fam.train_loss(cfg, params, batch)
+    return loss.detach(), torch.autograd.grad(loss, leaves)
+
+
+def _train_parity(cfg, label):
+    """``train_loss`` and every gradient at ``cfg`` (f32, depth 2, B 2, S
+    256) on the card (kernels, backward kernels) against the CPU (plain
+    versions, autograd) from the same weights."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import (launch_counts, launch_counts_by_route,
+                                     reset_launch_counts)
+    from repro_torch.models import get_family, init_params
+    fam = get_family(cfg)
+    gpu = init_params(cfg, fam.layout(cfg), seed=0, device="cuda",
+                      dtype=torch.float32)
+    cpu = _to(gpu, "cpu")
+    rng = np.random.default_rng(2)
+    batch = {k: rng.integers(0, cfg.vocab_size, (2, ZS)).astype(np.int64)
+             for k in ("tokens", "labels")}
+    reset_launch_counts()
+    gl, gg = _train_grads(fam, cfg, gpu, {k: torch.from_numpy(v).cuda()
+                                          for k, v in batch.items()})
+    torch.cuda.synchronize()
+    counts, routes = launch_counts(), launch_counts_by_route()
+    cl, cg = _train_grads(fam, cfg, cpu, {k: torch.from_numpy(v)
+                                          for k, v in batch.items()})
+    loss_err = abs(gl.item() - cl.item())
+    grad_err = max(_rel_err(a.cpu(), b) for a, b in zip(gg, cg))
+    log(f"[train parity] {label} widths, {cfg.num_layers} layers, f32, B 2, "
+        f"S {ZS}: loss card {gl.item():.6f} cpu {cl.item():.6f} "
+        f"(|diff| {loss_err:.2e}, tol 1e-5), max gradient error / leaf max "
+        f"{grad_err:.2e} (tol 1e-4) over {len(cg)} leaves, launches "
+        f"{counts}")
+    if not (loss_err <= 1e-5 and grad_err <= 1e-4):
+        raise AssertionError(f"train parity {label}: loss {loss_err}, "
+                             f"grads {grad_err}")
+    for name in ("flash_attention_fwd", "flash_attention_bwd", "rmsnorm_fused",
+                 "rmsnorm_bwd"):
+        if counts[name] < cfg.num_layers:
+            raise AssertionError(f"train parity {label} missed {name}: "
+                                 f"{counts}")
+    if routes["flash_attention_fwd"]["sm90"]:
+        raise AssertionError(f"f32 flash left the CUDA-core route: {routes}")
+    del gpu, cpu, gg, cg
+    torch.cuda.empty_cache()
+
+
+def phase_train_parity():
+    """internlm2-1.8b widths and olmoe-1b-7b widths (the MoE aux losses) at
+    depth 2 in f32, card against CPU."""
+    from repro_torch.configs import get_config
+    for name in ("internlm2-1.8b", "olmoe-1b-7b"):
+        _train_parity(get_config(name).replace(num_layers=2, dtype="float32"),
+                      name)
+
+
+class _StepProbe:
+    """Wraps the trainer's step: per step, the wall time (synchronized) and
+    the kernels' launch counts, reset just before it and read just after."""
+
+    def __init__(self, fn):
+        self.fn = fn
+        self.steps = []
+
+    def __call__(self, params, opt_state, batch):
+        import torch
+        from repro_torch import kernels as K
+        torch.cuda.synchronize()
+        K.reset_launch_counts()
+        t0 = time.perf_counter()
+        out = self.fn(params, opt_state, batch)
+        torch.cuda.synchronize()
+        self.steps.append((time.perf_counter() - t0, K.launch_counts(),
+                           K.launch_counts_by_route()))
+        return out
+
+
+def _timed_checkpointer(store, run):
+    """A Checkpointer whose saves and restores are timed (synchronized)."""
+    import torch
+    from repro_torch.checkpoint import Checkpointer
+
+    class Timed(Checkpointer):
+        events = []
+
+        def save(self, step, tree, blocking=True):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            super().save(step, tree, blocking)
+            self.events.append(("save", step, time.perf_counter() - t0,
+                                _tree_bytes(tree)))
+
+        def restore(self, like, step=None):
+            t0 = time.perf_counter()
+            out = super().restore(like, step)
+            torch.cuda.synchronize()
+            self.events.append(("restore", out[0], time.perf_counter() - t0,
+                                _tree_bytes(out[1])))
+            return out
+
+    ck = Timed(store, run)
+    ck.events = []
+    return ck
+
+
+def _tree_bytes(tree) -> int:
+    from repro_torch.checkpoint.checkpointer import _flatten
+    return sum(t.numel() * t.element_size() for _, t in _flatten(tree))
+
+
+def _plain_call_counter():
+    """Count calls of the plain versions behind the ops entries, so a run
+    can show that no backward on the card went through one."""
+    from repro_torch.kernels.flash_attention import ops as fops
+    from repro_torch.kernels.rmsnorm import ops as rops
+    calls = {"attention_reference": 0, "rmsnorm_reference": 0}
+
+    def wrap(mod, name):
+        fn = getattr(mod, name)
+
+        def counted(*a, **kw):
+            calls[name] += 1
+            return fn(*a, **kw)
+        setattr(mod, name, counted)
+        return lambda: setattr(mod, name, fn)
+
+    undo = [wrap(fops, "attention_reference"), wrap(rops, "rmsnorm_reference")]
+    return calls, lambda: [u() for u in undo]
+
+
+def _train_run(cfg, opt, revoke: bool):
+    """One ElasticTrainer run of TRAIN_STEPS steps on a fresh store; returns
+    (trainer, report, probe, checkpoint events)."""
+    from repro_torch.core import ObjectStore, VirtualClock
+    from repro_torch.data import SyntheticCorpus, TokenLoader
+    from repro_torch.train import ElasticTrainer
+    store = ObjectStore(clock=VirtualClock())
+    keys = SyntheticCorpus.build(store, "train", num_shards=2,
+                                 tokens_per_shard=65_536,
+                                 vocab_size=cfg.vocab_size, seed=0)
+    loader = TokenLoader(store.get, keys, batch_size=TB, seq_len=TS, seed=0)
+    ck = _timed_checkpointer(store, "revoked" if revoke else "plain")
+    trainer = ElasticTrainer(cfg, opt, ck, seed=0, device="cuda")
+    probe = _StepProbe(trainer._step_fn)
+    trainer._step_fn = probe
+    fired = []
+
+    def revoke_at(step):
+        if revoke and step == TRAIN_REVOKE and not fired:
+            fired.append(step)
+            return True
+        return False
+
+    rep = trainer.train(loader, TRAIN_STEPS, checkpoint_every=TRAIN_EVERY,
+                        revoke_at=revoke_at)
+    return trainer, rep, probe, ck.events
+
+
+def phase_train(smi: str):
+    """Full-width, full-depth internlm2-1.8b (24 layers, bf16 compute over
+    f32 master weights, remat "full", seed 0) trained by ``ElasticTrainer``
+    on a ``SyntheticCorpus`` in the port's ``ObjectStore``, batch 8 x 1024,
+    AdamW with int8 moments, 6 steps with checkpoints every 3: once
+    uninterrupted (timed), once revoked at step 4 and resumed from the
+    step-3 checkpoint. Under ``torch.use_deterministic_algorithms``; the
+    two runs' final parameters and optimizer state are held bit for bit
+    equal, the loss at step 6 below step 1's, and every step's launches
+    exactly to the code's: flash forward 2L (forward and remat recompute,
+    all on sm90), flash backward L, RMSNorm forward 4L + 1 and backward
+    2L + 1, nothing else; no plain version called."""
+    import statistics as st
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import count_params
+    from repro_torch.train import AdamWConfig
+    from repro_torch.train.adamw import tree_leaves
+    cfg = get_config("internlm2-1.8b")
+    assert cfg.remat == "full" and cfg.param_dtype == "float32"
+    opt = AdamWConfig(learning_rate=TRAIN_LR, warmup_steps=2,
+                      decay_steps=100, state_dtype="int8")
+    L = cfg.num_layers
+    want = {"flash_attention_fwd": 2 * L, "flash_attention_bwd": L,
+            "rmsnorm_fused": 4 * L + 1, "rmsnorm_bwd": 2 * L + 1}
+    plain_calls, undo = _plain_call_counter()
+    torch.use_deterministic_algorithms(True)
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        ref, ref_rep, ref_probe, ref_ck = _train_run(cfg, opt, revoke=False)
+        peak = torch.cuda.max_memory_allocated()
+        ref_wall = time.perf_counter() - t0
+        ref_final = [t.detach() for t in _state_leaves(ref.final_state)]
+        del ref
+        gc.collect()
+        torch.cuda.empty_cache()
+        rev, rev_rep, rev_probe, rev_ck = _train_run(cfg, opt, revoke=True)
+        rev_final = [t.detach() for t in _state_leaves(rev.final_state)]
+        del rev
+        gc.collect()
+    finally:
+        torch.use_deterministic_algorithms(False)
+        undo()
+    bitwise = (len(ref_final) == len(rev_final)
+               and all(torch.equal(a, b) for a, b in zip(ref_final,
+                                                          rev_final)))
+    step_s = [dt for dt, _, _ in ref_probe.steps]
+    steady = st.median(step_s[1:])
+    saves = [e for e in ref_ck + rev_ck if e[0] == "save"]
+    restores = [e for e in rev_ck if e[0] == "restore"]
+    gb = saves[0][3] / 1e9
+    rec = {
+        "config": "internlm2-1.8b", "layers": L, "params": count_params(cfg),
+        "batch": TB, "seq": TS, "steps": TRAIN_STEPS,
+        "state_dtype": "int8", "losses": {str(k): v for k, v in
+                                          ref_rep.losses.items()},
+        "step_ms": [s * 1e3 for s in step_s],
+        "step_ms_median_after_first": steady * 1e3,
+        "tokens_per_s": TB * TS / steady,
+        "max_memory_allocated_bytes": peak,
+        "uninterrupted_run_s": ref_wall,
+        "checkpoint_gb": gb,
+        "save_s": [e[2] for e in saves],
+        "save_gb_per_s": [e[3] / 1e9 / e[2] for e in saves],
+        "restore_s": [e[2] for e in restores],
+        "restore_gb_per_s": [e[3] / 1e9 / e[2] for e in restores],
+        "launches_per_step": want, "bitwise_restart": bitwise}
+    log(f"[train] internlm2-1.8b {L} layers ({rec['params'] / 1e9:.3f} B "
+        f"params), bf16 over f32 masters, remat full, int8 moments, B {TB} "
+        f"x S {TS}: losses {[round(x, 4) for x in ref_rep.losses.values()]}; "
+        f"step ms {[round(x * 1e3, 1) for x in step_s]} (median after the "
+        f"first {steady * 1e3:.1f} ms = {rec['tokens_per_s']:.0f} tokens/s);"
+        f" peak device memory {peak / 2**30:.2f} GiB; checkpoint "
+        f"{gb:.2f} GB: saves {[round(e[2], 2) for e in saves]} s "
+        f"({[round(x, 2) for x in rec['save_gb_per_s']]} GB/s), restore "
+        f"{[round(e[2], 2) for e in restores]} s "
+        f"({[round(x, 2) for x in rec['restore_gb_per_s']]} GB/s); revoked "
+        f"at step {TRAIN_REVOKE}, resumed from step {TRAIN_EVERY}: final "
+        f"params and optimizer state bit for bit equal: {bitwise} "
+        f"({len(ref_final)} tensors); launches a step {want}; on {smi}")
+    for label, rep, probe in (("uninterrupted", ref_rep, ref_probe),
+                              ("revoked", rev_rep, rev_probe)):
+        for i, (_, counts, routes) in enumerate(probe.steps):
+            got = {k: v for k, v in counts.items() if v}
+            if got != want or routes["flash_attention_fwd"] != {
+                    "sm90": 2 * L, "cuda_core": 0}:
+                raise AssertionError(f"train {label} step {i + 1}: launches "
+                                     f"{got} routes {routes}, want {want}")
+        if not rep.losses[TRAIN_STEPS] < rep.losses[1]:
+            raise AssertionError(f"train {label}: loss did not fall "
+                                 f"{rep.losses}")
+    if sum(plain_calls.values()):
+        raise AssertionError(f"train: a plain version ran on the card: "
+                             f"{plain_calls}")
+    if rev_rep.restarts != 1 or rev_rep.steps_run != TRAIN_STEPS + 1 \
+            or not bitwise:
+        raise AssertionError("train: the revoked run's final state is not "
+                             "bit for bit the uninterrupted run's")
+    if rev_rep.losses[TRAIN_STEPS] != ref_rep.losses[TRAIN_STEPS]:
+        raise AssertionError(f"train: final losses differ "
+                             f"{rev_rep.losses} {ref_rep.losses}")
+    torch.cuda.empty_cache()
+    return rec
+
+
+def _state_leaves(state):
+    from repro_torch.checkpoint.checkpointer import _flatten
+    return [t for _, t in _flatten(state)]
+
+
+# ---------------------------------------------------------------------------
 # main
 # ---------------------------------------------------------------------------
 
@@ -2377,6 +2878,7 @@ def main() -> int:
     timed("build", phase_build)
     kern = timed("kernels", phase_kernels)
     kern.update(timed("dense kernels", phase_dense_kernels))
+    bwd = timed("backward kernels", phase_backward_kernels)
     timed("parity", phase_parity)
     timed("zamba parity", phase_zamba_parity)
     timed("moe and dense parity", phase_moe_dense_parity)
@@ -2391,6 +2893,8 @@ def main() -> int:
         transformer_runs.update(runs)
     moves = timed("residency", phase_residency, smi)
     gateway_launches, gateway = timed("gateway", phase_gateway, smi)
+    timed("train parity", phase_train_parity)
+    train = timed("train", phase_train, smi)
     record = []
     for name, per_kind in kern.items():
         main_kind = "bf16"
@@ -2421,11 +2925,30 @@ def main() -> int:
         entry["launches_gateway"] = gateway_launches[name]
         entry["launches_transformers"] = {
             run: counts[name] for run, counts in transformer_runs.items()}
+        if name in train["launches_per_step"]:
+            entry["launches_train"] = (train["launches_per_step"][name]
+                                       * train["steps"])
         record.append(entry)
+    for name, fwd in (("rmsnorm_bwd", "rmsnorm_fused"),
+                      ("flash_attention_bwd", "flash_attention_fwd")):
+        rec = bwd[name]["bf16"]
+        record.append({
+            "name": name, "route": "cuda", "source": SOURCES[name],
+            "replaces": REPLACES[fwd],
+            "kind": "backward: the port's own kernel, no TPU counterpart "
+                    "(the reference differentiates its jnp version with "
+                    "XLA); 'replaces' names the forward's TPU kernel",
+            "launches": train["launches_per_step"][name] * train["steps"],
+            "launches_per_step": train["launches_per_step"][name],
+            "max_abs_err": max(r["max_abs_err"] for r in bwd[name].values()),
+            "ms": rec["ms"], "plain_ms": rec["plain_ms"],
+            "bound_ms": rec["bound_ms"], "bound_by": rec["bound_by"],
+            "library_ms": rec["library_ms"], "shape": rec["shape"]})
     log(f"[done] every phase passed in {time.perf_counter() - t0:.1f} s on "
         f"{smi}; seconds a phase: {seconds}")
     print(json.dumps({"kernels": record, "transformers": transformers,
-                      "residency": moves, "gateway": gateway}))
+                      "residency": moves, "gateway": gateway,
+                      "train": train}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -20,6 +20,10 @@ CONFIG = ModelConfig(
     num_experts=128,
     experts_per_token=2,
     moe_dense_ff=14336,
+    # The reference's training state: bf16 parameters (with int8 moments)
+    # to fit 480B on its TPU mesh; serving stores weights in ``dtype``.
+    param_dtype="bfloat16",
+    remat="full",
 )
 
 
@@ -27,4 +31,4 @@ def reduced() -> ModelConfig:
     return CONFIG.replace(
         num_layers=2, d_model=64, num_heads=8, num_kv_heads=2, head_dim=8,
         d_ff=96, moe_dense_ff=128, num_experts=8, experts_per_token=2,
-        moe_group_size=64, vocab_size=256)
+        moe_group_size=64, vocab_size=256, param_dtype="float32", remat="none")

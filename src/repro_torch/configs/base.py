@@ -2,7 +2,8 @@
 
 The port keeps its own copy of the reference ``ModelConfig``: the fields the
 dense transformer's (with or without experts) and the Zamba2 hybrid's
-serving paths read, with the ``dtype`` strings mapped to torch dtypes.
+serving and training paths read, with the ``dtype`` strings mapped to torch
+dtypes.
 Families that the port does not run yet (xLSTM, audio, VLM) add their
 fields, the modality frontend's among them, when they are ported.
 """
@@ -90,11 +91,18 @@ class ModelConfig:
     kv_cache_dtype: str = "f32"
     spec_adaptive_k: bool = False
 
-    # --- numerics ---------------------------------------------------------------
+    # --- numerics / execution ---------------------------------------------------
     norm_eps: float = 1e-6
-    # activation/compute dtype; matrix weights are stored in it too (the
-    # reference keeps f32 parameters and casts them at every use)
+    # activation/compute dtype; serving stores matrix weights in it, and
+    # every weight is cast to it at its use
     dtype: str = "bfloat16"
+    # training's master weights (``init_params(..., dtype=)``)
+    param_dtype: str = "float32"
+    logit_dtype: str = "float32"
+    # "none" | "full" (one torch.utils.checkpoint a layer) | "dots" (the
+    # reference's policy that saves matmul outputs; not ported yet)
+    remat: str = "none"
+    logit_chunk: int = 0             # chunk the loss over seq (0 = off)
     tie_embeddings: bool = False
 
     def __post_init__(self):
@@ -110,6 +118,10 @@ class ModelConfig:
     @property
     def cdtype(self) -> torch.dtype:
         return torch_dtype(self.dtype)
+
+    @property
+    def pdtype(self) -> torch.dtype:
+        return torch_dtype(self.param_dtype)
 
     def replace(self, **kw) -> "ModelConfig":
         return dataclasses.replace(self, **kw)

@@ -10,6 +10,7 @@ CONFIG = ModelConfig(
     num_kv_heads=8,
     d_ff=8192,
     vocab_size=92544,
+    remat="full",
 )
 
 

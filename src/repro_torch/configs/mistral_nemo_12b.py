@@ -15,9 +15,10 @@ CONFIG = ModelConfig(
     d_ff=14336,
     vocab_size=131072,
     rope_theta=1_000_000.0,
+    remat="full",
 )
 
 
 def reduced() -> ModelConfig:
     return CONFIG.replace(num_layers=2, d_model=64, num_heads=4, num_kv_heads=2,
-                          head_dim=16, d_ff=128, vocab_size=256)
+                          head_dim=16, d_ff=128, vocab_size=256, remat="none")

@@ -12,6 +12,7 @@ CONFIG = ModelConfig(
     vocab_size=50304,
     num_experts=64,
     experts_per_token=8,
+    remat="full",
 )
 
 
@@ -19,4 +20,4 @@ def reduced() -> ModelConfig:
     return CONFIG.replace(
         num_layers=2, d_model=64, num_heads=4, num_kv_heads=4, head_dim=16,
         d_ff=64, num_experts=8, experts_per_token=4, moe_group_size=64,
-        vocab_size=256)
+        vocab_size=256, remat="none")

@@ -12,9 +12,10 @@ CONFIG = ModelConfig(
     vocab_size=49152,
     mlp_gated=False,
     mlp_act="gelu",
+    remat="full",
 )
 
 
 def reduced() -> ModelConfig:
     return CONFIG.replace(num_layers=2, d_model=64, num_heads=4, num_kv_heads=2,
-                          head_dim=16, d_ff=256, vocab_size=256)
+                          head_dim=16, d_ff=256, vocab_size=256, remat="none")

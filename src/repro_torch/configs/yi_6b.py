@@ -10,9 +10,10 @@ CONFIG = ModelConfig(
     num_kv_heads=4,
     d_ff=11008,
     vocab_size=64000,
+    remat="full",
 )
 
 
 def reduced() -> ModelConfig:
     return CONFIG.replace(num_layers=2, d_model=64, num_heads=4, num_kv_heads=2,
-                          head_dim=16, d_ff=128, vocab_size=256)
+                          head_dim=16, d_ff=128, vocab_size=256, remat="none")

@@ -19,6 +19,7 @@ CONFIG = ModelConfig(
     ssm_expand=2,
     ssm_headdim=64,
     shared_attn_every=6,
+    remat="full",
 )
 
 

@@ -1,8 +1,10 @@
 """Storage and instance pricing (paper §V, §VII-B, §VII-E), the part of the
 reference's ``repro/core/cost.py`` the serve modules read: the tiered KV
-store prices HOST and OBJECT residency from :class:`StoragePricing`, and
-the gateway prices replicas from :class:`ComputePricing`. The reference's
-lifecycle-cost functions (paper Eqs 1-5, Table III) are not copied yet.
+store prices HOST and OBJECT residency from :class:`StoragePricing`, the
+gateway prices replicas from :class:`ComputePricing`, and the object store
+(:mod:`repro_torch.core.lifecycle`) prices its tiers with the monthly
+storage functions below. The reference's lifecycle-cost and placement
+functions (paper Eqs 1-5, Table III) are not copied yet.
 
 Sizes are decimal GB, as in the paper.
 """
@@ -44,3 +46,26 @@ class ComputePricing:
     # Long-run average spot discount observed in the paper's Table VII-C
     # ($10.26 spot vs $74.57 on-demand for the same node-hours).
     typical_spot_fraction: float = 0.138
+
+
+def s3_std_monthly(gb: float, pricing: StoragePricing | None = None) -> float:
+    """Tiered S3-Standard $/month for ``gb`` stored."""
+    p = pricing or StoragePricing()
+    remaining, cost = gb, 0.0
+    for tier_gb, rate in p.s3_std_tiers:
+        take = min(remaining, tier_gb)
+        cost += take * rate
+        remaining -= take
+        if remaining <= 0:
+            break
+    return cost
+
+
+def s3_ia_monthly(gb: float, pricing: StoragePricing | None = None) -> float:
+    p = pricing or StoragePricing()
+    return gb * p.s3_ia_per_gb_month
+
+
+def glacier_monthly(gb: float, pricing: StoragePricing | None = None) -> float:
+    p = pricing or StoragePricing()
+    return gb * p.glacier_per_gb_month

@@ -41,8 +41,12 @@
 // multiple of 32 up to 256.
 //
 // Both: any B, Sq, Skv, H, KV with H % KV == 0 (any G); the ragged edges
-// of Sq and Skv are masked in the kernel. The C entry points return
-// cudaGetLastError() after the launch; the Python wrapper raises on it.
+// of Sq and Skv are masked in the kernel. Both write each row's natural
+// log-sum-exp of the scaled scores, lse (B,H,Sq) f32, when given a non-null
+// `lse` (training: the backward kernels in flash_attention_bwd.cu recompute
+// P = exp(S / sqrt(hd) - lse) from it); the serve paths pass null. The C
+// entry points return cudaGetLastError() after the launch; the Python
+// wrapper raises on it.
 
 #include "sm90_attention.cuh"
 
@@ -72,6 +76,7 @@ struct Args {
   const void* k;   // (B, Skv, KV, hd)
   const void* v;
   void* out;       // (B, Sq, H, hd)
+  float* lse;      // (B, H, Sq) or null
   int B, Sq, Skv, H, KV, causal;
   float scale;
 };
@@ -171,7 +176,13 @@ __global__ void __launch_bounds__(NT) flash_f32_kernel(Args a) {
   }
   if (lane == 0) {
 #pragma unroll
-    for (int i = 0; i < RPW; ++i) lS[warp + NW * i] = l[i];
+    for (int i = 0; i < RPW; ++i) {
+      const int r = warp + NW * i;
+      lS[r] = l[i];
+      // m is the max of the pre-scaled scores: lse = m + log(l).
+      if (a.lse != nullptr && q0 + r < a.Sq)
+        a.lse[(long(b) * a.H + h) * a.Sq + q0 + r] = m[i] + logf(l[i]);
+    }
   }
   __syncthreads();
   float* out = static_cast<float*>(a.out);
@@ -205,6 +216,7 @@ int launch_f32_hd(const Args& a, cudaStream_t stream) {
 struct Sm90Args {
   int Sq, Skv, H, KV, causal;
   float scale_log2;      // 1/sqrt(hd) * log2(e): scores in the exp2 domain
+  float* lse;            // (B, H, Sq) natural log-sum-exp, or null
 };
 
 template <int HD>
@@ -359,7 +371,15 @@ __global__ void __launch_bounds__(128, HD == 64 ? 5 : 1) flash_sm90_kernel(
   // sub-tile (rows past Sq are clipped by the tensor map).
   float inv[2];
 #pragma unroll
-  for (int hh = 0; hh < 2; ++hh) inv[hh] = 1.f / fmaxf(quad_sum(l[hh]), 1e-20f);
+  for (int hh = 0; hh < 2; ++hh) {
+    const float lsum = quad_sum(l[hh]);
+    inv[hh] = 1.f / fmaxf(lsum, 1e-20f);
+    // m and lsum are in the exp2 domain: lse = (m + log2(l)) * ln(2).
+    const int row = q0 + r0 + 8 * hh;
+    if (a.lse != nullptr && (lane & 3) == 0 && row < a.Sq)
+      a.lse[(long(b) * a.H + h) * a.Sq + row] =
+          (m[hh] + log2f(lsum)) * 0.6931471805599453f;
+  }
   __syncthreads();                            // every wgmma read of Q done
 #pragma unroll
   for (int c = 0; c < NC; ++c)
@@ -382,8 +402,8 @@ __global__ void __launch_bounds__(128, HD == 64 ? 5 : 1) flash_sm90_kernel(
 
 template <int HD>
 int launch_sm90_hd(const void* q, const void* k, const void* v, void* out,
-                   int B, int Sq, int Skv, int H, int KV, int causal,
-                   cudaStream_t stream) {
+                   float* lse, int B, int Sq, int Skv, int H, int KV,
+                   int causal, cudaStream_t stream) {
   // (B, S, heads*hd) bf16 as 3-D maps, innermost first; 64 x 64 boxes.
   CUtensorMap tq, tk, tv, to;
   const cuuint64_t qdim[3] = {cuuint64_t(H) * HD, cuuint64_t(Sq), cuuint64_t(B)};
@@ -404,7 +424,7 @@ int launch_sm90_hd(const void* q, const void* k, const void* v, void* out,
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
   if (e != cudaSuccess) return int(e);
   const float scale_log2 = sm90::kLog2e / sqrtf(float(HD));
-  Sm90Args a{Sq, Skv, H, KV, causal, scale_log2};
+  Sm90Args a{Sq, Skv, H, KV, causal, scale_log2, lse};
   dim3 grid((Sq + sm90::kTile - 1) / sm90::kTile, H, B);
   kern<<<grid, 128, smem, stream>>>(tq, tk, tv, to, a);
   return int(cudaGetLastError());
@@ -420,12 +440,12 @@ bool bad_shape(int B, int Sq, int Skv, int H, int KV) {
 extern "C" {
 
 // f32 on CUDA cores. q (B,Sq,H,hd), k/v (B,Skv,KV,hd), out (B,Sq,H,hd),
-// contiguous f32; hd % 32 == 0, 32 <= hd <= 256.
+// contiguous f32; hd % 32 == 0, 32 <= hd <= 256. lse (B,H,Sq) f32 or null.
 int flash_attention_f32_fwd(const void* q, const void* k, const void* v,
                             void* out, int B, int Sq, int Skv, int H, int KV,
-                            int hd, int causal, void* stream) {
+                            int hd, int causal, float* lse, void* stream) {
   if (bad_shape(B, Sq, Skv, H, KV)) return int(cudaErrorInvalidValue);
-  Args a{q, k, v, out, B, Sq, Skv, H, KV, causal ? 1 : 0,
+  Args a{q, k, v, out, lse, B, Sq, Skv, H, KV, causal ? 1 : 0,
          1.0f / sqrtf(float(hd))};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (hd) {
@@ -444,15 +464,15 @@ int flash_attention_f32_fwd(const void* q, const void* k, const void* v,
 // bf16 on tensor cores, the same layout; hd in {64, 128, 192, 256}.
 int flash_attention_sm90_fwd(const void* q, const void* k, const void* v,
                              void* out, int B, int Sq, int Skv, int H, int KV,
-                             int hd, int causal, void* stream) {
+                             int hd, int causal, float* lse, void* stream) {
   if (bad_shape(B, Sq, Skv, H, KV)) return int(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int c = causal ? 1 : 0;
   switch (hd) {
-    case 64: return launch_sm90_hd<64>(q, k, v, out, B, Sq, Skv, H, KV, c, s);
-    case 128: return launch_sm90_hd<128>(q, k, v, out, B, Sq, Skv, H, KV, c, s);
-    case 192: return launch_sm90_hd<192>(q, k, v, out, B, Sq, Skv, H, KV, c, s);
-    case 256: return launch_sm90_hd<256>(q, k, v, out, B, Sq, Skv, H, KV, c, s);
+    case 64: return launch_sm90_hd<64>(q, k, v, out, lse, B, Sq, Skv, H, KV, c, s);
+    case 128: return launch_sm90_hd<128>(q, k, v, out, lse, B, Sq, Skv, H, KV, c, s);
+    case 192: return launch_sm90_hd<192>(q, k, v, out, lse, B, Sq, Skv, H, KV, c, s);
+    case 256: return launch_sm90_hd<256>(q, k, v, out, lse, B, Sq, Skv, H, KV, c, s);
   }
   return int(cudaErrorInvalidValue);
 }

@@ -31,6 +31,22 @@
 // at 8 x 4096 bf16 (F.rms_norm 0.0052) and 0.0060 ms at 2048 x 2048, where
 // the shared-memory kernel takes 0.0080, so D alone picks the kernel.
 //
+// Backward (the port's own kernel: the JAX package differentiates its jnp
+// rmsnorm with XLA and has no backward kernel). With r = rsqrt(mean(x^2) +
+// eps), out = x r w gives
+//
+//   dx = r (g w) - x r^3 mean((g w) x),    dw = sum over rows of g x r.
+//
+// rmsnorm_bwd_kernel: 256 threads a block, a row at a time (rows
+// blockIdx.x, blockIdx.x + gridDim.x, ...): one pass over x and g for the
+// two row sums (r recomputed from x, so the forward kernels stay as they
+// are), a second for dx, which also adds g x r into the block's f32 dw
+// partial in shared memory (a column a thread: no atomics). Each block
+// writes its partial row; rmsnorm_dw_reduce_kernel sums the partials of a
+// column in block order. Both sums run in a fixed order, so the gradients
+// are the same bits on every run. Like the forward it moves a few bytes an
+// operation, so bytes bound it: x and g read, dx written, and the partials.
+//
 // The C entry points return cudaGetLastError() after the launch; the
 // Python wrapper raises on it.
 
@@ -201,6 +217,79 @@ int launch_smem(const void* x, const float* w, void* out, int rows, int d,
   return int(cudaGetLastError());
 }
 
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+rmsnorm_bwd_kernel(const T* __restrict__ x, const float* __restrict__ w,
+                   const T* __restrict__ g, T* __restrict__ dx,
+                   float* __restrict__ part, int rows, int d, float eps) {
+  extern __shared__ float acc[];             // d floats: this block's dw
+  __shared__ float red[2][kThreads / 32];
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  for (int i = tid; i < d; i += kThreads) acc[i] = 0.f;
+  for (int row = blockIdx.x; row < rows; row += gridDim.x) {
+    const long base = long(row) * d;
+    float ss = 0.f, sgx = 0.f;
+    for (int i = tid; i < d; i += kThreads) {
+      const float xv = load_f(x, base + i);
+      ss = fmaf(xv, xv, ss);
+      sgx = fmaf(load_f(g, base + i) * w[i], xv, sgx);
+    }
+    ss = warp_sum(ss);
+    sgx = warp_sum(sgx);
+    if (lane == 0) {
+      red[0][warp] = ss;
+      red[1][warp] = sgx;
+    }
+    __syncthreads();
+    float tss = 0.f, tsg = 0.f;              // every thread, in warp order
+#pragma unroll
+    for (int i = 0; i < kThreads / 32; ++i) {
+      tss += red[0][i];
+      tsg += red[1][i];
+    }
+    __syncthreads();                         // red is reused by the next row
+    const float r = 1.0f / sqrtf(tss / float(d) + eps);
+    const float c = r * r * r * (tsg / float(d));
+    for (int i = tid; i < d; i += kThreads) {
+      const float xv = load_f(x, base + i), gv = load_f(g, base + i);
+      store_f(dx, base + i, r * (gv * w[i]) - xv * c);
+      acc[i] = fmaf(gv * xv, r, acc[i]);
+    }
+  }
+  for (int i = tid; i < d; i += kThreads) part[long(blockIdx.x) * d + i] = acc[i];
+}
+
+__global__ void rmsnorm_dw_reduce_kernel(const float* __restrict__ part,
+                                         int nparts, int d,
+                                         float* __restrict__ dw) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= d) return;
+  float s = 0.f;
+  for (int p = 0; p < nparts; ++p) s += part[long(p) * d + i];
+  dw[i] = s;
+}
+
+template <typename T>
+int launch_bwd(const void* x, const float* w, const void* g, void* dx,
+               float* part, int nparts, float* dw, int rows, int d, float eps,
+               cudaStream_t stream) {
+  const size_t smem = sizeof(float) * size_t(d);
+  auto kern = rmsnorm_bwd_kernel<T>;
+  if (smem > 48 * 1024) {
+    cudaError_t e = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
+    if (e != cudaSuccess) return int(e);
+  }
+  kern<<<nparts, kThreads, smem, stream>>>(
+      static_cast<const T*>(x), w, static_cast<const T*>(g), static_cast<T*>(dx),
+      part, rows, d, eps);
+  int e = int(cudaGetLastError());
+  if (e) return e;
+  rmsnorm_dw_reduce_kernel<<<(d + kThreads - 1) / kThreads, kThreads, 0,
+                             stream>>>(part, nparts, d, dw);
+  return int(cudaGetLastError());
+}
+
 }  // namespace
 
 extern "C" {
@@ -227,6 +316,24 @@ int rmsnorm_smem_fwd(const void* x, int dtype, const float* w, void* out,
   switch (dtype) {
     case kF32: return launch_smem<float>(x, w, out, rows, d, eps, s);
     case kBF16: return launch_smem<__nv_bfloat16>(x, w, out, rows, d, eps, s);
+  }
+  return int(cudaErrorInvalidValue);
+}
+
+// Backward. x and g (rows, d) f32/bf16 contiguous, w (d,) f32; dx like x;
+// part (nparts, d) f32 scratch, 1 <= nparts <= rows blocks; dw (d,) f32.
+int rmsnorm_bwd(const void* x, int dtype, const float* w, const void* g,
+                void* dx, float* part, int nparts, float* dw, int rows, int d,
+                float eps, void* stream) {
+  if (rows < 1 || d < 1 || nparts < 1 || nparts > rows)
+    return int(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (dtype) {
+    case kF32:
+      return launch_bwd<float>(x, w, g, dx, part, nparts, dw, rows, d, eps, s);
+    case kBF16:
+      return launch_bwd<__nv_bfloat16>(x, w, g, dx, part, nparts, dw, rows, d,
+                                       eps, s);
   }
   return int(cudaErrorInvalidValue);
 }

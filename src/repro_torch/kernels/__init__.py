@@ -5,17 +5,22 @@ attention kernels of the continuous-batching path, and RMSNorm, dense flash
 attention and the Mamba2 SSD scan of the Zamba2 static path. Flash
 attention and the three paged kernels (``attention_route``) and the SSD
 scan (``ssd_route``) pick their kernel by dtype and count launches per
-route."""
+route. RMSNorm and flash attention also have backward kernels of the port's
+own (``rmsnorm_bwd``, ``flash_attention_bwd``), which their ``ops`` entries
+call through ``torch.autograd.Function``s when a gradient is wanted."""
 from ._cuda import attention_route, ssd_route
 from .decode_attention import (default_num_splits, flash_decode_fwd,
                                paged_decode_attention, paged_decode_reference)
-from .flash_attention import (attention_reference, flash_attention,
+from .flash_attention import (attention_bwd_reference,
+                              attention_lse_reference, attention_reference,
+                              flash_attention, flash_attention_bwd,
                               flash_attention_fwd)
 from .kv_quant import dequantize_rows, quantize_pool, quantize_rows
 from .mamba_scan import mamba_chunk_scan, ssd_chunked_reference, ssd_scan
 from .prefill_attention import (flash_prefill_fwd, paged_prefill_attention,
                                 paged_prefill_reference)
-from .rmsnorm import rmsnorm, rmsnorm_fused, rmsnorm_reference
+from .rmsnorm import (rmsnorm, rmsnorm_bwd, rmsnorm_bwd_reference,
+                      rmsnorm_fused, rmsnorm_reference)
 from .verify_attention import (flash_verify_fwd, paged_verify_attention,
                                paged_verify_reference)
 
@@ -25,7 +30,9 @@ KERNEL_WRAPPERS = {"flash_decode_fwd": flash_decode_fwd,
                    "flash_verify_fwd": flash_verify_fwd,
                    "rmsnorm_fused": rmsnorm_fused,
                    "flash_attention_fwd": flash_attention_fwd,
-                   "ssd_scan": ssd_scan}
+                   "ssd_scan": ssd_scan,
+                   "rmsnorm_bwd": rmsnorm_bwd,
+                   "flash_attention_bwd": flash_attention_bwd}
 
 
 def reset_launch_counts() -> None:
@@ -55,6 +62,8 @@ __all__ = ["default_num_splits", "flash_decode_fwd", "flash_prefill_fwd",
            "paged_verify_reference", "quantize_rows", "dequantize_rows",
            "quantize_pool", "rmsnorm", "rmsnorm_fused", "rmsnorm_reference",
            "flash_attention", "flash_attention_fwd", "attention_reference",
+           "flash_attention_bwd", "attention_bwd_reference",
+           "attention_lse_reference", "rmsnorm_bwd", "rmsnorm_bwd_reference",
            "mamba_chunk_scan", "ssd_scan", "ssd_chunked_reference",
            "KERNEL_WRAPPERS", "reset_launch_counts",
            "launch_counts", "launch_counts_by_route", "attention_route",

@@ -23,7 +23,7 @@ import torch
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = CSRC / "build"
 SOURCES = ("paged_attention.cu", "rmsnorm.cu", "flash_attention.cu",
-           "ssd_scan.cu", "paged_attention_sm90.cu")
+           "ssd_scan.cu", "paged_attention_sm90.cu", "flash_attention_bwd.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -42,10 +42,14 @@ SIGNATURES = {
                             + [_P, _P, _P, _P, _P],
     },
     "rmsnorm.cu": {"rmsnorm_reg_fwd": [_P, _I, _P, _P, _I, _I, _F, _P],
-                   "rmsnorm_smem_fwd": [_P, _I, _P, _P, _I, _I, _F, _P]},
+                   "rmsnorm_smem_fwd": [_P, _I, _P, _P, _I, _I, _F, _P],
+                   "rmsnorm_bwd": [_P, _I, _P, _P, _P, _P, _I, _P, _I, _I,
+                                   _F, _P]},
     "flash_attention.cu": {
-        "flash_attention_f32_fwd": [_P] * 4 + [_I] * 7 + [_P],
-        "flash_attention_sm90_fwd": [_P] * 4 + [_I] * 7 + [_P]},
+        "flash_attention_f32_fwd": [_P] * 4 + [_I] * 7 + [_P, _P],
+        "flash_attention_sm90_fwd": [_P] * 4 + [_I] * 7 + [_P, _P]},
+    "flash_attention_bwd.cu": {
+        "flash_attention_bwd": [_P] * 6 + [_I] + [_P] * 4 + [_I] * 7 + [_P]},
     "paged_attention_sm90.cu": {
         "paged_attention_sm90_fwd": [_P, _P, _P, _I, _P, _P, _P, _P]
                                     + [_I] * 10 + [_P] * 5},

@@ -12,7 +12,12 @@ dtype (``_cuda.attention_route``), never by trying one and then the other:
 - f32 -> ``flash_attention_f32_fwd``: the CUDA-core kernel (wgmma has no
   full-f32 mode), 32-row q tiles; hd % 32 == 0, 32 <= hd <= 256.
 
-Both mask the ragged edges themselves: no ``S % block`` contract.
+Both mask the ragged edges themselves: no ``S % block`` contract. With
+``return_lse`` both also write each row's log-sum-exp (B,H,Sq) f32, which
+``flash_attention_bwd`` reads: the port's own backward kernel
+(``csrc/flash_attention_bwd.cu``, CUDA cores, f32 sums, no atomics), which
+has no TPU counterpart -- the reference differentiates its jnp attention
+with XLA.
 """
 from __future__ import annotations
 
@@ -21,38 +26,86 @@ import torch
 from .. import _cuda
 
 
-def flash_attention_fwd(q, k, v, *, causal: bool = True):
-    """q: (B,Sq,H,hd); k/v: (B,Skv,KV,hd), one dtype (f32/bf16) ->
-    (B,Sq,H,hd). H % KV == 0; hd per route (module docstring). CUDA
-    tensors only."""
-    _cuda.check_cuda("flash_attention_fwd", q, k, v)
+def _check(name, q, k, v):
+    """The shapes and dtypes both directions take; raises otherwise."""
+    _cuda.check_cuda(name, q, k, v)
     if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape:
-        raise ValueError(f"flash_attention_fwd: q{tuple(q.shape)} "
-                         f"k{tuple(k.shape)} v{tuple(v.shape)}")
-    b, sq, h, hd = q.shape
-    _, skv, nkv, khd = k.shape
+        raise ValueError(f"{name}: q{tuple(q.shape)} k{tuple(k.shape)} "
+                         f"v{tuple(v.shape)}")
     if q.dtype not in (torch.float32, torch.bfloat16) \
             or k.dtype != q.dtype or v.dtype != q.dtype:
-        raise ValueError(f"flash_attention_fwd: dtypes {q.dtype} {k.dtype} "
-                         f"{v.dtype}; need one of f32/bf16")
-    if k.shape[0] != b or khd != hd or h % nkv:
-        raise ValueError(f"flash_attention_fwd: q{tuple(q.shape)} "
-                         f"k{tuple(k.shape)}; contract is H % KV == 0")
-    route = _cuda.attention_route(q.dtype, k.dtype, hd)
-    if route == "cuda_core" and (hd % 32 or not 32 <= hd <= 256):
-        raise ValueError(f"flash_attention_fwd: the f32 kernel's contract is "
+        raise ValueError(f"{name}: dtypes {q.dtype} {k.dtype} {v.dtype}; "
+                         f"need one of f32/bf16")
+    if k.shape[0] != q.shape[0] or k.shape[3] != q.shape[3] \
+            or q.shape[2] % k.shape[2]:
+        raise ValueError(f"{name}: q{tuple(q.shape)} k{tuple(k.shape)}; "
+                         f"contract is H % KV == 0")
+
+
+def _check_cuda_core_hd(name, hd):
+    if hd % 32 or not 32 <= hd <= 256:
+        raise ValueError(f"{name}: the CUDA-core kernel's contract is "
                          f"hd % 32 == 0, 32 <= hd <= 256; got hd={hd}")
+
+
+def flash_attention_fwd(q, k, v, *, causal: bool = True,
+                        return_lse: bool = False):
+    """q: (B,Sq,H,hd); k/v: (B,Skv,KV,hd), one dtype (f32/bf16) ->
+    (B,Sq,H,hd), and with ``return_lse`` also the rows' natural
+    log-sum-exp of the scaled scores (B,H,Sq) f32. H % KV == 0; hd per
+    route (module docstring). CUDA tensors only."""
+    _check("flash_attention_fwd", q, k, v)
+    b, sq, h, hd = q.shape
+    _, skv, nkv, _ = k.shape
+    route = _cuda.attention_route(q.dtype, k.dtype, hd)
+    if route == "cuda_core":
+        _check_cuda_core_hd("flash_attention_fwd", hd)
     lib = _cuda.library("flash_attention.cu")
     fn = (lib.flash_attention_sm90_fwd if route == "sm90"
           else lib.flash_attention_f32_fwd)
     out = torch.empty_like(q)
+    lse = (torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
+           if return_lse else None)
     rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, sq,
-            skv, h, nkv, hd, int(causal), _cuda.stream_of(q))
+            skv, h, nkv, hd, int(causal), _cuda.ptr(lse), _cuda.stream_of(q))
     _cuda.raise_on(rc, "flash_attention_fwd")
     flash_attention_fwd.launches += 1
     flash_attention_fwd.launches_by_route[route] += 1
-    return out
+    return (out, lse) if return_lse else out
 
 
 flash_attention_fwd.launches = 0
 flash_attention_fwd.launches_by_route = {"sm90": 0, "cuda_core": 0}
+
+
+def flash_attention_bwd(q, k, v, out, dout, lse, *, causal: bool = True):
+    """Gradients of ``flash_attention_fwd`` (q, k, v, its ``out`` and
+    ``lse``) for the output gradient ``dout`` -> (dq, dk, dv) in q's dtype.
+    Three launches (the delta = rowsum(dout * out) pass, then the dK/dV and
+    dQ kernels), counted as one. The CUDA-core kernel for both dtypes:
+    hd % 32 == 0, 32 <= hd <= 256, any S and G; CUDA tensors only."""
+    _check("flash_attention_bwd", q, k, v)
+    _cuda.check_cuda("flash_attention_bwd", q, out, dout, lse)
+    b, sq, h, hd = q.shape
+    _, skv, nkv, _ = k.shape
+    if out.shape != q.shape or dout.shape != q.shape \
+            or out.dtype != q.dtype or dout.dtype != q.dtype \
+            or lse.shape != (b, h, sq) or lse.dtype != torch.float32:
+        raise ValueError(f"flash_attention_bwd: out{tuple(out.shape)} "
+                         f"{out.dtype}, dout{tuple(dout.shape)} {dout.dtype}, "
+                         f"lse{tuple(lse.shape)} {lse.dtype} for "
+                         f"q{tuple(q.shape)} {q.dtype}")
+    _check_cuda_core_hd("flash_attention_bwd", hd)
+    delta = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    rc = _cuda.library("flash_attention_bwd.cu").flash_attention_bwd(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        dout.data_ptr(), lse.data_ptr(), _cuda.DTYPE_CODES[q.dtype],
+        delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, sq,
+        skv, h, nkv, hd, int(causal), _cuda.stream_of(q))
+    _cuda.raise_on(rc, "flash_attention_bwd")
+    flash_attention_bwd.launches += 1
+    return dq, dk, dv
+
+
+flash_attention_bwd.launches = 0

@@ -1,5 +1,6 @@
-from .kernel import rmsnorm_fused
-from .ops import rmsnorm
-from .ref import rmsnorm_reference
+from .kernel import rmsnorm_bwd, rmsnorm_fused
+from .ops import RMSNorm, rmsnorm
+from .ref import rmsnorm_bwd_reference, rmsnorm_reference
 
-__all__ = ["rmsnorm", "rmsnorm_fused", "rmsnorm_reference"]
+__all__ = ["RMSNorm", "rmsnorm", "rmsnorm_bwd", "rmsnorm_bwd_reference",
+           "rmsnorm_fused", "rmsnorm_reference"]

@@ -11,6 +11,11 @@ wrapper picks one by D (``rmsnorm_path``):
   decode's 1-8 rows of 2048 or 4096;
 - ``"smem"``: larger D, up to ``MAX_D``: 256 threads stage the row in
   shared memory as f32.
+
+``rmsnorm_bwd`` wraps the port's own backward kernel (no TPU counterpart:
+the reference differentiates its jnp rmsnorm with XLA): dx a row at a time
+with r recomputed from x, dw from per-block f32 partials reduced in a fixed
+order by a second launch, so the same inputs give the same bits.
 """
 from __future__ import annotations
 
@@ -52,3 +57,41 @@ def rmsnorm_fused(x, weight, eps: float = 1e-6):
 
 
 rmsnorm_fused.launches = 0
+
+# Blocks of the backward's dx pass, each a dw partial row: four an SM.
+BWD_BLOCKS = 4 * 132
+
+
+def rmsnorm_bwd(x, weight, g, eps: float = 1e-6):
+    """Gradients of ``rmsnorm_fused(x, weight, eps)`` for the output
+    gradient ``g`` (x's shape and dtype) -> (dx like x, dw (D,) in the
+    weight's dtype). Two launches (dx with the dw partials, then their
+    reduction), counted as one. CUDA tensors only."""
+    d = x.shape[-1]
+    x2 = x.reshape(-1, d).contiguous()
+    g2 = g.reshape(-1, d).contiguous()
+    w = weight.float().contiguous()
+    _cuda.check_cuda("rmsnorm_bwd", x2, w, g2)
+    if x.dtype not in (torch.float32, torch.bfloat16) or g.dtype != x.dtype \
+            or g.shape != x.shape:
+        raise ValueError(f"rmsnorm_bwd: x{tuple(x.shape)} {x.dtype}, "
+                         f"g{tuple(g.shape)} {g.dtype}; need one f32/bf16 "
+                         f"shape and dtype")
+    rows = x2.shape[0]
+    if w.shape != (d,) or not 1 <= d <= MAX_D or rows < 1:
+        raise ValueError(f"rmsnorm_bwd: x{tuple(x.shape)} weight"
+                         f"{tuple(weight.shape)}; need 1 <= D <= {MAX_D}")
+    nparts = min(rows, BWD_BLOCKS)
+    dx = torch.empty_like(x2)
+    part = torch.empty((nparts, d), dtype=torch.float32, device=x2.device)
+    dw = torch.empty(d, dtype=torch.float32, device=x2.device)
+    rc = _cuda.library("rmsnorm.cu").rmsnorm_bwd(
+        x2.data_ptr(), _cuda.DTYPE_CODES[x.dtype], w.data_ptr(),
+        g2.data_ptr(), dx.data_ptr(), part.data_ptr(), nparts, dw.data_ptr(),
+        rows, d, float(eps), _cuda.stream_of(x2))
+    _cuda.raise_on(rc, "rmsnorm_bwd")
+    rmsnorm_bwd.launches += 1
+    return dx.reshape(x.shape), dw.to(weight.dtype)
+
+
+rmsnorm_bwd.launches = 0

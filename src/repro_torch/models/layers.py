@@ -1,15 +1,20 @@
-"""The serving subset of the reference's layers: RMSNorm, RoPE, the q/k/v
-projections, the dense attention block (prefill and decode over a dense
-per-request cache), the three paged attention blocks, the gated FFN,
-embedding and logits.
+"""The reference's layers for the dense transformer: RMSNorm, RoPE, the q/k/v
+projections, the dense attention block (prefill, training and decode over
+a dense per-request cache), the three paged attention blocks, the gated
+FFN, embedding, logits and the training losses.
+
+Every weight is cast to the activation dtype at its use, as the reference
+casts: training holds f32 master weights and computes in ``cfg.dtype``;
+serving stores weights in ``cfg.dtype``, where the cast is a no-op.
 
 Matrix products stay ``torch.matmul`` (the reference leaves them to XLA);
 RMSNorm, prefill attention and the paged attention go through the kernels'
 ``ops`` entries, which launch the CUDA kernels for CUDA tensors and run the
-plain versions for CPU tensors. Caches are updated IN PLACE: where the
-reference returns a new pool or cache (and the engine donates the old one),
-the port writes new KV rows into the tensors with indexed assignment and
-returns the same objects.
+plain versions for CPU tensors (RMSNorm and dense attention with their
+backward kernels where a gradient is wanted). Caches are updated IN PLACE:
+where the reference returns a new pool or cache (and the engine donates
+the old one), the port writes new KV rows into the tensors with indexed
+assignment and returns the same objects.
 """
 from __future__ import annotations
 
@@ -17,6 +22,7 @@ import math
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from ..kernels.decode_attention import paged_decode_attention
 from ..kernels.flash_attention import flash_attention
@@ -144,8 +150,9 @@ def attention_param_specs(cfg) -> dict:
 
 
 def _proj(x, w):
-    """x (..., d) @ w (d, *out) -> (..., *out)."""
-    return (x @ w.reshape(w.shape[0], -1)).reshape(*x.shape[:-1], *w.shape[1:])
+    """x (..., d) @ w (d, *out) -> (..., *out), w cast to x's dtype."""
+    w2 = w.to(x.dtype).reshape(w.shape[0], -1)
+    return (x @ w2).reshape(*x.shape[:-1], *w.shape[1:])
 
 
 def _qkv_proj(cfg, p, x, positions):
@@ -157,8 +164,9 @@ def _qkv_proj(cfg, p, x, positions):
 
 
 def _out_proj(o, wo):
-    """o (B,S,H,hd) @ wo (H,hd,d) -> (B,S,d)."""
-    return o.reshape(*o.shape[:2], -1) @ wo.reshape(-1, wo.shape[-1])
+    """o (B,S,H,hd) @ wo (H,hd,d) -> (B,S,d), wo cast to o's dtype."""
+    return o.reshape(*o.shape[:2], -1) @ wo.to(o.dtype).reshape(
+        -1, wo.shape[-1])
 
 
 def attention_block(cfg, p, x, positions, *, cache=None, decode_pos=None):
@@ -286,11 +294,12 @@ def _act(name: str, x):
 
 
 def mlp_block(cfg, p, x):
+    dt = cfg.cdtype
     xn = rmsnorm(x, p["norm"], cfg.norm_eps)
-    up = xn @ p["w_up"]
-    h = _act(cfg.mlp_act, xn @ p["w_gate"]) * up if cfg.mlp_gated \
+    up = xn @ p["w_up"].to(dt)
+    h = _act(cfg.mlp_act, xn @ p["w_gate"].to(dt)) * up if cfg.mlp_gated \
         else _act(cfg.mlp_act, up)
-    return x + h @ p["w_down"]
+    return x + h @ p["w_down"].to(dt)
 
 
 def embed_param_specs(cfg) -> dict:
@@ -308,3 +317,36 @@ def embed_tokens(cfg, p, tokens):
 def logits_fn(cfg, p, x):
     w = p["embedding"].T if cfg.tie_embeddings else p["unembed"]
     return x @ w.to(cfg.cdtype)
+
+
+def _label_logits(lg, labels):
+    """``lg[..., labels]`` as a masked sum over the vocabulary: exact (one
+    term is not zero), and its backward is elementwise, where a gather's is
+    a scatter-add that deterministic mode refuses on the card."""
+    hit = torch.arange(lg.shape[-1], device=lg.device) == labels[..., None]
+    return torch.where(hit, lg, 0.0).sum(-1)
+
+
+def softmax_xent(logits, labels, logit_dtype=torch.float32):
+    """Mean token cross-entropy, stats in float32."""
+    lg = logits.to(logit_dtype)
+    return torch.mean(torch.logsumexp(lg, dim=-1)
+                      - _label_logits(lg, labels.long()))
+
+
+def chunked_xent(cfg, p, x, labels, chunk: int):
+    """Loss without materializing full-seq logits: one sequence chunk at a
+    time, each chunk's logits recomputed in backward
+    (``torch.utils.checkpoint``). Falls back to the whole sequence when the
+    chunk does not divide it, as the reference does."""
+    b, s, d = x.shape
+    chunk = min(chunk, s)
+    if s % chunk:
+        return softmax_xent(logits_fn(cfg, p, x), labels)
+
+    def one(xs, ys):
+        return softmax_xent(logits_fn(cfg, p, xs), ys) * chunk
+
+    parts = [checkpoint(one, x[:, i:i + chunk], labels[:, i:i + chunk],
+                        use_reentrant=False) for i in range(0, s, chunk)]
+    return torch.stack(parts).sum() / s

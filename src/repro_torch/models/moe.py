@@ -4,7 +4,8 @@ The reference's ``moe_block``: tokens are cut into groups of
 ``moe_group_size``; each token's router picks its top-k experts; every
 expert takes at most ``expert_capacity`` assignments a group, the first
 choices of all tokens before any second choice, and the rest are dropped.
-The expert FFNs are three batched products over expert-stacked weights.
+The expert FFNs are three batched products over expert-stacked weights,
+cast to the compute dtype at their use.
 Arctic's dense residual branch (a dense FFN beside the routed experts) runs
 under ``cfg.moe_dense_ff``. Aux outputs: the Switch load-balance loss, the
 router z-loss and the dropped share of assignments.
@@ -132,7 +133,7 @@ def _groups(cfg, tokens: int):
 def moe_block(cfg, p, x):
     """x: (B,S,D) -> (x + y, aux). Pre-norm block, residual added inside."""
     b, s, d = x.shape
-    e = cfg.num_experts
+    e, dt = cfg.num_experts, cfg.cdtype
     xn = rmsnorm(x, p["norm"], cfg.norm_eps)
     dispatch_fn = (_sort_dispatch if cfg.moe_impl == "sort"
                    else _einsum_dispatch)
@@ -147,9 +148,9 @@ def moe_block(cfg, p, x):
                                               expert_capacity(cfg, gs))
         # expert FFNs: (e, g*c, d) batched over experts
         h_in = ein.reshape(e, -1, d)
-        hg = torch.bmm(h_in, p["we_gate"])
-        hu = torch.bmm(h_in, p["we_up"])
-        eo = torch.bmm(_act(cfg.mlp_act, hg) * hu, p["we_down"])
+        hg = torch.bmm(h_in, p["we_gate"].to(dt))
+        hu = torch.bmm(h_in, p["we_up"].to(dt))
+        eo = torch.bmm(_act(cfg.mlp_act, hg) * hu, p["we_down"].to(dt))
         ys.append(undispatch(eo.reshape(ein.shape)).reshape(-1, d))
         logits_all.append(logits.reshape(-1, e))
         probs_all.append(probs.reshape(-1, e))
@@ -158,8 +159,9 @@ def moe_block(cfg, p, x):
     y = torch.cat(ys).reshape(b, s, d)
 
     if cfg.moe_dense_ff:                       # Arctic's dense residual branch
-        h = _act(cfg.mlp_act, xn @ p["dense_gate"]) * (xn @ p["dense_up"])
-        y = y + h @ p["dense_down"]
+        h = _act(cfg.mlp_act, xn @ p["dense_gate"].to(dt)) \
+            * (xn @ p["dense_up"].to(dt))
+        y = y + h @ p["dense_down"].to(dt)
 
     # Switch load balance: e * sum_e f_e P_e (f = share routed top-1).
     logits, probs = torch.cat(logits_all), torch.cat(probs_all)

@@ -3,9 +3,10 @@
 A model is a nested dict of ``ParamSpec`` leaves, as in the reference;
 layer weights carry a leading ``L`` axis (``stack_specs``) and the model
 loops over it. Parameters are a nested dict of tensors of the same shape.
-Matrix weights are stored in the compute dtype ``cfg.dtype`` (cast once at
-load, which equals the reference's cast at every use); leaves whose spec
-names a dtype (the f32 norm weights) keep it.
+Matrix weights are stored in the compute dtype ``cfg.dtype`` for serving
+(cast once at load, which equals the reference's cast at every use), or in
+the ``dtype=`` given, e.g. ``cfg.pdtype`` for training's master weights;
+leaves whose spec names a dtype (the f32 norm weights) keep it.
 """
 from __future__ import annotations
 
@@ -60,8 +61,12 @@ def count_params_in_layout(layout, predicate=None) -> int:
     return total
 
 
-def _leaf_dtype(spec: ParamSpec, cfg) -> torch.dtype:
-    return torch_dtype(spec.dtype) if spec.dtype else cfg.cdtype
+def _leaf_dtype(spec: ParamSpec, cfg, dtype=None) -> torch.dtype:
+    if spec.dtype:
+        return torch_dtype(spec.dtype)
+    if dtype is None:
+        return cfg.cdtype
+    return torch_dtype(dtype) if isinstance(dtype, str) else dtype
 
 
 def _std(spec: ParamSpec) -> float:
@@ -80,8 +85,9 @@ def _std(spec: ParamSpec) -> float:
 SCRATCH_ELEMS = 1 << 28
 
 
-def init_params(cfg, layout, *, seed: int = 0, device="cuda"):
-    """Materialize ``layout`` on ``device`` from a ``torch.Generator``.
+def init_params(cfg, layout, *, seed: int = 0, device="cuda", dtype=None):
+    """Materialize ``layout`` on ``device`` from a ``torch.Generator``, matrix
+    weights in ``dtype`` (default ``cfg.dtype``).
 
     Normal leaves are truncated at two standard deviations, as in the
     reference (whose ``jax.random`` bits this does not reproduce). Stacked
@@ -95,7 +101,7 @@ def init_params(cfg, layout, *, seed: int = 0, device="cuda"):
     gen.manual_seed(seed)
 
     def leaf(spec: ParamSpec):
-        dt = _leaf_dtype(spec, cfg)
+        dt = _leaf_dtype(spec, cfg, dtype)
         if spec.init == "zeros":
             return torch.zeros(spec.shape, dtype=dt, device=dev)
         if spec.init == "ones":
@@ -114,10 +120,12 @@ def init_params(cfg, layout, *, seed: int = 0, device="cuda"):
     return tree_map_specs(leaf, layout)
 
 
-def params_from_reference(cfg, layout, np_tree, *, device="cuda"):
+def params_from_reference(cfg, layout, np_tree, *, device="cuda",
+                          dtype=None):
     """The reference's parameters (a nested dict of numpy arrays, e.g.
     ``jax.tree.map(np.asarray, params)``) as the port's tensors on
-    ``device``, each checked against ``layout``'s shape."""
+    ``device``, matrix weights in ``dtype`` (default ``cfg.dtype``), each
+    checked against ``layout``'s shape."""
     dev = resolve_device(device)
 
     def go(node, tree, path):
@@ -126,8 +134,8 @@ def params_from_reference(cfg, layout, np_tree, *, device="cuda"):
             if tuple(arr.shape) != node.shape:
                 raise ValueError(f"{path}: reference shape {arr.shape} != "
                                  f"layout {node.shape}")
-            return torch.from_numpy(arr).to(device=dev,
-                                            dtype=_leaf_dtype(node, cfg))
+            return torch.from_numpy(arr).to(
+                device=dev, dtype=_leaf_dtype(node, cfg, dtype))
         missing = set(node) ^ set(tree)
         if missing:
             raise ValueError(f"{path}: keys differ from the layout: "

@@ -4,7 +4,9 @@ Zamba2 hybrid.
 All families expose the surface the static ``ServeEngine`` calls:
 ``layout``, ``prefill``, ``decode``, ``cache_layout`` and
 ``grown_cache_leaves`` (the decode-cache leaves whose axis 2 is the
-sequence, which the engine grows to ``max_len``). ``TransformerFamily``
+sequence, which the engine grows to ``max_len``), and ``train_loss``
+(dense and MoE transformers; the Zamba2 hybrid's raises until the SSD scan
+has a backward kernel). ``TransformerFamily``
 adds the continuous-batching engine's surface: ``prefill_ragged`` (dense
 admission), ``prefill_paged``, ``decode_paged``, ``decode_verify``,
 ``paged_pool_shape`` and ``paged_pool``. Every dense path runs the MoE FFN
@@ -16,6 +18,7 @@ updated in place; each method returns the same dict.
 from __future__ import annotations
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from ..device import resolve_device
 from . import layers as L
@@ -32,10 +35,38 @@ def _layer(tree, i: int):
 
 def _ffn(cfg, p, x):
     """The layer's FFN block: the MoE block with experts (its aux losses
-    are for training, which is not ported yet), else the dense one."""
+    are for training, ``train_loss``), else the dense one."""
     if cfg.num_experts:
         return moe_block(cfg, p, x)[0]
     return L.mlp_block(cfg, p, x)
+
+
+AUX_KEYS = ("moe_lb_loss", "moe_z_loss", "moe_drop_frac")
+
+
+def _unbind_layers(tree) -> list[dict]:
+    """Every layer of a stacked parameter tree, by one ``torch.unbind`` a
+    leaf: its backward stacks the layers' gradients once, where indexing a
+    layer at a time would add a zero-filled stack a layer."""
+    flat = {k: (_unbind_layers(v) if isinstance(v, dict) else v.unbind(0))
+            for k, v in tree.items()}
+    n = len(next(iter(flat.values())))
+    return [{k: v[i] for k, v in flat.items()} for i in range(n)]
+
+
+def _remat(cfg, fn):
+    """``cfg.remat``: "full" recomputes each layer in backward (one
+    non-reentrant ``torch.utils.checkpoint`` a layer, the reference's
+    ``nothing_saveable``); "none" keeps its activations."""
+    if cfg.remat == "full":
+        return lambda *args: checkpoint(fn, *args, use_reentrant=False)
+    if cfg.remat == "dots":
+        raise NotImplementedError(
+            f"{cfg.name}: remat='dots' (save the matmul outputs) is not "
+            "ported yet (ROADMAP.md, Queue 1, item 5)")
+    if cfg.remat != "none":
+        raise ValueError(f"{cfg.name}: unknown remat {cfg.remat!r}")
+    return fn
 
 
 class TransformerFamily:
@@ -65,6 +96,51 @@ class TransformerFamily:
                 "(ROADMAP.md, Queue 1, item 2b)")
         x = L.embed_tokens(cfg, params, batch["tokens"])
         return x, torch.arange(x.shape[1], device=x.device)
+
+    # -- training loss ----------------------------------------------------------
+    def train_loss(self, cfg, params, batch):
+        """batch: tokens and labels (B,S), optionally loss_mask (B,S).
+        Returns (total loss, metrics): the mean token cross-entropy plus, with
+        experts, ``load_balance_loss * moe_lb_loss + router_z_loss *
+        moe_z_loss``, each aux the mean over layers (zeros without
+        experts)."""
+        x, positions = self._embed(cfg, params, batch)
+        moe = bool(cfg.num_experts)
+
+        def layer(h, lp):
+            h, _ = L.attention_block(cfg, lp["attn"], h, positions)
+            if moe:
+                h, aux = moe_block(cfg, lp["ffn"], h)
+                return (h, *(torch.as_tensor(aux[k], dtype=torch.float32,
+                                             device=h.device)
+                             for k in AUX_KEYS))
+            return (L.mlp_block(cfg, lp["ffn"], h),)
+
+        body = _remat(cfg, layer)
+        auxes = []
+        for lp in _unbind_layers(params["layers"]):
+            x, *aux = body(x, lp)
+            auxes.append(aux)
+        x = L.rmsnorm(x, params["final_norm"], cfg.norm_eps)
+        aux = ({k: torch.stack(v).mean() for k, v in zip(AUX_KEYS,
+                                                          zip(*auxes))}
+               if moe else {k: torch.zeros((), device=x.device)
+                            for k in AUX_KEYS})
+        labels = batch["labels"].long()
+        if cfg.logit_chunk:
+            loss = L.chunked_xent(cfg, params, x, labels, cfg.logit_chunk)
+        else:
+            logits = L.logits_fn(cfg, params, x)
+            if "loss_mask" in batch:
+                m = batch["loss_mask"].float()
+                lg = logits.float()
+                nll = torch.logsumexp(lg, dim=-1) - L._label_logits(lg, labels)
+                loss = (nll * m).sum() / m.sum().clamp_min(1.0)
+            else:
+                loss = L.softmax_xent(logits, labels)
+        total = (loss + cfg.load_balance_loss * aux["moe_lb_loss"]
+                 + cfg.router_z_loss * aux["moe_z_loss"])
+        return total, {"loss": loss, **aux}
 
     # -- full forward over a dense cache --------------------------------------
     def _stack_forward(self, cfg, params, x, positions):
@@ -212,6 +288,12 @@ class TransformerFamily:
 class ZambaFamily:
     name = "zamba"
     grown_cache_leaves = ("attn_k", "attn_v")
+
+    def train_loss(self, cfg, params, batch):
+        raise NotImplementedError(
+            f"{cfg.name}: training the Zamba2 hybrid needs a backward kernel "
+            "for the SSD scan (csrc/ssd_scan.cu), which is not written yet "
+            "(ROADMAP.md, Queue 1, item 5)")
 
     def group_sizes(self, cfg) -> list[int]:
         k, n = cfg.shared_attn_every, cfg.num_layers

@@ -1,6 +1,7 @@
-"""Serving step construction: the static engine's dense prefill and decode
-steps, the continuous engine's dense (ragged) admission step, and its steps
-over the shared paged KV pool.
+"""Step construction: the training step (microbatched gradient accumulation
+in f32, AdamW), and the serving steps: the static engine's dense prefill
+and decode steps, the continuous engine's dense (ragged) admission step,
+and its steps over the shared paged KV pool.
 
 Each builder returns a plain function that runs one model pass and, for
 the decode-like steps, takes the greedy argmax over the compute-dtype
@@ -14,10 +15,66 @@ from typing import Callable
 import torch
 
 from ..models import get_family
+from . import adamw
 
 
 def _argmax(logits):
     return torch.argmax(logits, dim=-1).to(torch.int32)
+
+
+def _split(batch, n: int):
+    """The batch's leading dim cut into n microbatches: [{k: (B/n, ...)}]."""
+    for k, x in batch.items():
+        if x.shape[0] % n:
+            raise ValueError(f"batch {x.shape[0]} ({k}) % microbatches {n} "
+                             f"!= 0")
+    return [{k: x.reshape(n, x.shape[0] // n, *x.shape[1:])[i]
+             for k, x in batch.items()} for i in range(n)]
+
+
+def build_train_step(cfg, opt_cfg: adamw.AdamWConfig,
+                     microbatches: int = 1) -> Callable:
+    """``train_step(params, opt_state, batch) -> (params, opt_state,
+    metrics)``: the loss and gradients of ``family.train_loss`` over
+    ``microbatches`` slices of the batch (f32 gradient sums divided by
+    their count, the losses and metrics averaged), then ``adamw.update``,
+    which writes the parameters in place. ``params``' leaves must require
+    grad. Metrics: ``total_loss``, the family's metrics, ``grad_norm`` and
+    ``lr``, as 0-d tensors."""
+    family = get_family(cfg)
+
+    def grads_of(params, leaves, mb):
+        loss, metrics = family.train_loss(cfg, params, mb)
+        grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+        grads = [torch.zeros_like(p) if g is None else g
+                 for p, g in zip(leaves, grads)]
+        return loss.detach(), {k: torch.as_tensor(v).detach()
+                               for k, v in metrics.items()}, grads
+
+    def train_step(params, opt_state, batch):
+        leaves = adamw.tree_leaves(params)
+        if microbatches == 1:
+            loss, metrics, grads = grads_of(params, leaves, batch)
+        else:
+            g_acc, l_acc, mets = None, 0.0, []
+            for mb in _split(batch, microbatches):
+                loss, metrics, g = grads_of(params, leaves, mb)
+                g_acc = ([x.float() for x in g] if g_acc is None
+                         else [a + x.float() for a, x in zip(g_acc, g)])
+                l_acc = l_acc + loss
+                mets.append(metrics)
+            grads = [g / microbatches for g in g_acc]
+            loss = l_acc / microbatches
+            metrics = {k: torch.stack([m[k] for m in mets]).float().mean()
+                       for k in mets[0]}
+        it = iter(grads)
+        grad_tree = adamw.tree_map(lambda _: next(it), params)
+        params, opt_state, opt_metrics = adamw.update(opt_cfg, grad_tree,
+                                                      opt_state, params)
+        return params, opt_state, {"total_loss": loss, **metrics,
+                                   **opt_metrics}
+
+    return train_step
 
 
 def build_prefill_step(cfg) -> Callable:
