@@ -8,10 +8,11 @@ Phases, each of which must pass (a failure exits nonzero):
 1. device: the card's name and power limit (``nvidia-smi``);
 2. build: compile the CUDA kernels from ``src/repro_torch/csrc`` with nvcc,
    one process a source, all started together; print the registers and
-   spills of the tensor-core (wgmma + TMA) instantiations the serve paths
-   launch (the SSD scan's among them), and fail if one spills; list the
-   training path's backward kernels (CUDA cores) with their registers and
-   spills, which are reported and not fatal;
+   spills of the tensor-core (wgmma + TMA) instantiations the serve and
+   training paths launch (the SSD scan's and the bf16 flash backward's
+   among them), and fail if one spills; list the other backward kernels
+   (the flash delta pass, the f32 CUDA-core flash backward, RMSNorm's) with
+   their registers and spills, which are reported and not fatal;
 3. kernels: each paged attention kernel with bf16 q on bf16 and int8 pools
    (the tensor-core route) at the yi-6b serve path's shapes and off them
    (G 4, page sizes 32 and 64; the prefill at C 13; decode and verify at
@@ -38,9 +39,11 @@ Phases, each of which must pass (a failure exits nonzero):
    own) against autograd of their plain versions in bf16 and f32, each
    twice for bit equality: flash at internlm2-1.8b's training shape (B 8,
    S 1024, H 16, KV 8, hd 128, causal), at hd 64 G 1, G 7, a ragged S 1000
-   and non-causal; RMSNorm at 8192 x 2048 and D 5120 and 7168; the
-   training shapes timed beside the plain version, the library's backward
-   (SDPA, ``F.rms_norm``) and the bound;
+   and non-causal (bf16 on the tensor-core route, f32 on the CUDA-core
+   one; a bf16 hd 192 call must raise); RMSNorm at 8192 x 2048, D 5120,
+   7168 and a ragged 1002 (each on the kernel its D picks); the training
+   shapes timed beside the plain version, the library's backward (SDPA,
+   ``F.rms_norm``) and the bound, with each launch's device time;
 4. parity: yi-6b widths at depth 2 in float32 -- prefill, decode and verify
    steps on the card (kernels) against the same weights on the CPU (plain
    versions); then Zamba2 widths at depth 6 (one Mamba group and one shared
@@ -101,8 +104,9 @@ Phases, each of which must pass (a failure exits nonzero):
    moments, 6 steps with checkpoints every 3, once uninterrupted and once
    revoked at step 4, under ``torch.use_deterministic_algorithms``: the
    two final states bit for bit equal, the loss falling, every step's
-   launches exact (flash forward 2L on sm90, backward L; RMSNorm forward
-   4L + 1, backward 2L + 1) and no plain version called; prints step ms,
+   launches exact (flash forward 2L and backward L, all on sm90; RMSNorm
+   forward 4L + 1, backward 2L + 1 on its register kernel) and no plain
+   version called; prints step ms,
    tokens/s, peak device memory and the checkpoints' save and restore
    seconds and GB/s.
 
@@ -177,7 +181,7 @@ SOURCES = {
     "flash_attention_fwd": "src/repro_torch/csrc/flash_attention.cu",
     "ssd_scan": "src/repro_torch/csrc/ssd_scan.cu",
     "rmsnorm_bwd": "src/repro_torch/csrc/rmsnorm.cu",
-    "flash_attention_bwd": "src/repro_torch/csrc/flash_attention_bwd.cu",
+    "flash_attention_bwd": "src/repro_torch/csrc/flash_attention_bwd_sm90.cu",
 }
 PAGED = ("flash_decode_fwd", "flash_prefill_fwd", "flash_verify_fwd")
 # The continuous engine's three serve runs: plain decode, speculative decode
@@ -262,13 +266,14 @@ def phase_device():
 # phase 2: build
 # ---------------------------------------------------------------------------
 
-# The tensor-core instantiations the serve paths launch (mangled-name
-# fragments): flash attention at hd 64 (Zamba2) and hd 128 (the dense and
-# MoE transformers' static prefill and dense admission); the paged kernel
-# at hd 128
+# The tensor-core instantiations the serve and training paths launch
+# (mangled-name fragments): flash attention at hd 64 (Zamba2) and hd 128
+# (the dense and MoE transformers' static prefill and dense admission);
+# the paged kernel at hd 128
 # over bf16 and int8 pools (yi-6b), whole (prefill, and decode and verify
 # at one split) and with split-KV partials (decode and verify at the serve
-# shape's 4 splits); the SSD scan (Zamba2). None may spill.
+# shape's 4 splits); the SSD scan (Zamba2); the flash backward's dK/dV and
+# dQ kernels at hd 128 (internlm2-1.8b training). None may spill.
 ON_PATH_SM90 = {
     "flash_sm90_kernelILi64E": "flash bf16 hd 64",
     "flash_sm90_kernelILi128E": "flash bf16 hd 128",
@@ -276,18 +281,24 @@ ON_PATH_SM90 = {
     "paged_attn_sm90_kernelILi128ELb0ELb0E": "paged hd 128 bf16 pool",
     "paged_attn_sm90_kernelILi128ELb1ELb0E": "paged hd 128 int8 pool",
     "paged_attn_sm90_kernelILi128ELb0ELb1E": "paged split hd 128 bf16 pool",
-    "paged_attn_sm90_kernelILi128ELb1ELb1E": "paged split hd 128 int8 pool"}
+    "paged_attn_sm90_kernelILi128ELb1ELb1E": "paged split hd 128 int8 pool",
+    "flash_bwd_dkdv_sm90_kernelILi128E": "flash bwd dK/dV bf16 hd 128",
+    "flash_bwd_dq_sm90_kernelILi128E": "flash bwd dQ bf16 hd 128"}
 
 
-# The backward kernels the training path launches (hd 128, bf16 and f32).
+# The other backward kernels the training path and its f32 parity launch:
+# the bf16 flash backward's delta pass, the f32 CUDA-core flash backward at
+# hd 128, RMSNorm's register kernel (D up to 8192 bf16 / 4096 f32) and
+# shared-memory kernel (beyond) in both dtypes.
 BACKWARD_KERNELS = {
-    "flash_bwd_delta_kernelI13__nv_bfloat16": "flash bwd delta bf16",
-    "flash_bwd_dkdv_kernelI13__nv_bfloat16Li128": "flash bwd dK/dV bf16 hd 128",
-    "flash_bwd_dq_kernelI13__nv_bfloat16Li128": "flash bwd dQ bf16 hd 128",
-    "flash_bwd_dkdv_kernelIfLi128": "flash bwd dK/dV f32 hd 128",
-    "flash_bwd_dq_kernelIfLi128": "flash bwd dQ f32 hd 128",
-    "rmsnorm_bwd_kernelI13__nv_bfloat16": "rmsnorm bwd bf16",
-    "rmsnorm_bwd_kernelIf": "rmsnorm bwd f32"}
+    "flash_bwd_delta_sm90_kernelILi128E": "flash bwd delta bf16 hd 128",
+    "flash_bwd_delta_kernel": "flash bwd delta f32",
+    "flash_bwd_dkdv_kernelILi128E": "flash bwd dK/dV f32 hd 128",
+    "flash_bwd_dq_kernelILi128E": "flash bwd dQ f32 hd 128",
+    "rmsnorm_bwd_reg_kernelI13__nv_bfloat16Lb1E": "rmsnorm bwd registers bf16",
+    "rmsnorm_bwd_reg_kernelIfLb1E": "rmsnorm bwd registers f32",
+    "rmsnorm_bwd_kernelI13__nv_bfloat16": "rmsnorm bwd smem bf16",
+    "rmsnorm_bwd_kernelIf": "rmsnorm bwd smem f32"}
 
 
 def _ptxas_functions(text):
@@ -338,9 +349,10 @@ def phase_build():
             or any(st or ld for _, st, ld in seen.values()):
         raise AssertionError(f"on-path sm90 kernels missing or spilling: "
                              f"{seen}")
-    # The backward kernels (CUDA cores): listed, a spill reported, not fatal.
+    # The other backward kernels: listed, a spill reported, not fatal.
     bwd = {name: v for text in logs.values()
-           for name, v in _ptxas_functions(text).items() if "bwd" in name}
+           for name, v in _ptxas_functions(text).items()
+           if "bwd" in name and not any(f in name for f in ON_PATH_SM90)}
     for frag, label in BACKWARD_KERNELS.items():
         hits = [v for name, v in bwd.items() if frag in name]
         if not hits:
@@ -2500,17 +2512,46 @@ def _rms_bwd_bound(rows, d, dtype_bytes):
     return 3 * rows * d * dtype_bytes + 8 * d, 8.0 * rows * d
 
 
+def _device_split(fn, calls: int = 10) -> dict:
+    """{kernel name: device ms a call} of ``fn`` under ``torch.profiler``
+    (the kernels' self device time over ``calls`` calls): where a wrapper's
+    launches spend its time."""
+    import re
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    split = {}
+    for e in prof.key_averages():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        m = re.search(r"(\w+_kernel)", e.key)
+        name = m.group(1) if m else e.key[:60]
+        split[name] = split.get(name, 0.0) + e.self_device_time_total / 1e3 / calls
+    return split
+
+
 def phase_backward_kernels():
     """The port's backward kernels against autograd of their plain
     versions on the same inputs, in bf16 (within TOL_BF16 of each
     gradient's max |value|) and f32 (TOL_F32): flash attention at
     internlm2-1.8b's training shape (B 8, S 1024, H 16, KV 8, hd 128,
-    causal) and at hd 64, G 1 and 7, a ragged S of 1000 and non-causal;
-    RMSNorm at 8192 x 2048 and at D 5120 and 7168. Each twice, bit for bit
-    the same (no atomics). The training shapes in bf16 timed beside the
-    plain version, the library's backward and the bound."""
+    causal) and at hd 64, G 1 and 7, a ragged S of 1000 and non-causal,
+    each bf16 case on the tensor-core route and each f32 one on the
+    CUDA-core route, and a bf16 hd 192 call, which must raise; RMSNorm at
+    8192 x 2048 and at D 5120, 7168 and a ragged 1002 (scalar loads), each
+    on the kernel of its D. Each twice, bit for bit the same (no atomics).
+    The training shapes in bf16 timed beside the plain version, the
+    library's backward and the bound, with each launch's device time
+    (``torch.profiler``)."""
     import torch
     from repro_torch import kernels as K
+    from repro_torch.kernels.rmsnorm.kernel import rmsnorm_path
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev)
     gen.manual_seed(19)
@@ -2520,7 +2561,7 @@ def phase_backward_kernels():
                     ("ragged S 1000", (2, 1000, 4, 2, 128, True)),
                     ("non-causal", (2, 384, 4, 2, 64, False))]
     rms_shapes = [("train", (TB * TS, TD)), ("D 5120", (512, 5120)),
-                  ("D 7168", (512, 7168))]
+                  ("D 7168", (512, 7168)), ("ragged D 1002", (64, 1002))]
     results = {"flash_attention_bwd": {}, "rmsnorm_bwd": {}}
     for dtype, tol, kind in ((torch.bfloat16, TOL_BF16, "bf16"),
                              (torch.float32, TOL_F32, "f32")):
@@ -2531,16 +2572,25 @@ def phase_backward_kernels():
                                                          *shape), shape)
                     for label, shape in rms_shapes])
         for name, label, (kern, plain, inputs), shape in cases:
+            K.reset_launch_counts()
             got, again = kern(), kern()
             torch.cuda.synchronize()
+            routes = K.launch_counts_by_route()[name]
+            if name == "flash_attention_bwd":
+                want = "sm90" if kind == "bf16" else "cuda_core"
+            else:
+                want = rmsnorm_path(shape[1], dtype)
+            if routes[want] != 2 or sum(routes.values()) != 2:
+                raise AssertionError(f"{name} {kind} {label}: launches by "
+                                     f"route {routes}, want 2 on {want}")
             same = all(torch.equal(a, b) for a, b in zip(got, again))
             errs = [_rel_err(a, b) for a, b in zip(got, plain())]
             err = max(errs)
             ok = same and math.isfinite(err) and err <= tol
-            log(f"[kernels] {name} {kind} {label} {shape}: max|kernel-plain|"
-                f"/max|plain| by gradient {['%.2e' % e for e in errs]} "
-                f"(tol {tol}), repeat bitwise {same} "
-                f"{'ok' if ok else 'FAIL'}")
+            log(f"[kernels] {name} {kind} {label} {shape} on {want}: "
+                f"max|kernel-plain|/max|plain| by gradient "
+                f"{['%.2e' % e for e in errs]} (tol {tol}), repeat bitwise "
+                f"{same} {'ok' if ok else 'FAIL'}")
             if not ok:
                 raise AssertionError(f"{name} {kind} {label} disagrees: "
                                      f"{errs}, repeat equal {same}")
@@ -2560,12 +2610,26 @@ def phase_backward_kernels():
                        ms=time_ms(kern, iters=10),
                        plain_ms=time_ms(plain, iters=3, warmup=1),
                        library_ms=time_ms(lib, iters=10), shape=list(shape))
+            rec["split_ms"] = _device_split(kern)
             log(f"[kernels] {name} bf16 {shape}: kernel {rec['ms']:.4f} ms, "
                 f"plain {rec['plain_ms']:.4f} ms, library "
                 f"{rec['library_ms']:.4f} ms, bound {rec['bound_ms']:.4f} ms "
-                f"({rec['bound_by']})")
+                f"({rec['bound_by']}); device ms a call by launch (profiler) "
+                f"{ {k: round(v, 4) for k, v in rec['split_ms'].items()} }")
         del cases
         torch.cuda.empty_cache()
+    # Off the tensor-core contract: a bf16 hd 192 backward raises before
+    # any launch and is never rerouted to the CUDA-core kernel.
+    K.reset_launch_counts()
+    kern, _, _ = _flash_bwd_case(gen, dev, torch.bfloat16, 1, 128, 2, 1, 192)
+    try:
+        kern()
+    except ValueError as e:
+        log(f"[kernels] flash_attention_bwd bf16 hd 192 raises: {e}")
+    else:
+        raise AssertionError("flash_attention_bwd bf16 hd 192 did not raise")
+    if K.launch_counts()["flash_attention_bwd"]:
+        raise AssertionError("flash_attention_bwd bf16 hd 192 launched")
     return results
 
 
@@ -2617,7 +2681,8 @@ def _train_parity(cfg, label):
         if counts[name] < cfg.num_layers:
             raise AssertionError(f"train parity {label} missed {name}: "
                                  f"{counts}")
-    if routes["flash_attention_fwd"]["sm90"]:
+    if routes["flash_attention_fwd"]["sm90"] \
+            or routes["flash_attention_bwd"]["sm90"]:
         raise AssertionError(f"f32 flash left the CUDA-core route: {routes}")
     del gpu, cpu, gg, cg
     torch.cuda.empty_cache()
@@ -2759,11 +2824,20 @@ def phase_train(smi: str):
     L = cfg.num_layers
     want = {"flash_attention_fwd": 2 * L, "flash_attention_bwd": L,
             "rmsnorm_fused": 4 * L + 1, "rmsnorm_bwd": 2 * L + 1}
+    want_routes = {
+        "flash_attention_fwd": {"sm90": 2 * L, "cuda_core": 0},
+        "flash_attention_bwd": {"sm90": L, "cuda_core": 0},
+        "rmsnorm_bwd": {"registers": 2 * L + 1, "smem": 0}}
     plain_calls, undo = _plain_call_counter()
     torch.use_deterministic_algorithms(True)
     try:
+        # Earlier phases' tensors held only by reference cycles would count
+        # in the peak: collect them first, and report what is left.
+        gc.collect()
         torch.cuda.synchronize()
+        torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()
         t0 = time.perf_counter()
         ref, ref_rep, ref_probe, ref_ck = _train_run(cfg, opt, revoke=False)
         peak = torch.cuda.max_memory_allocated()
@@ -2796,19 +2870,23 @@ def phase_train(smi: str):
         "step_ms_median_after_first": steady * 1e3,
         "tokens_per_s": TB * TS / steady,
         "max_memory_allocated_bytes": peak,
+        "allocated_before_bytes": held,
         "uninterrupted_run_s": ref_wall,
         "checkpoint_gb": gb,
         "save_s": [e[2] for e in saves],
         "save_gb_per_s": [e[3] / 1e9 / e[2] for e in saves],
         "restore_s": [e[2] for e in restores],
         "restore_gb_per_s": [e[3] / 1e9 / e[2] for e in restores],
-        "launches_per_step": want, "bitwise_restart": bitwise}
+        "launches_per_step": want,
+        "launches_by_route_per_step": want_routes,
+        "bitwise_restart": bitwise}
     log(f"[train] internlm2-1.8b {L} layers ({rec['params'] / 1e9:.3f} B "
         f"params), bf16 over f32 masters, remat full, int8 moments, B {TB} "
         f"x S {TS}: losses {[round(x, 4) for x in ref_rep.losses.values()]}; "
         f"step ms {[round(x * 1e3, 1) for x in step_s]} (median after the "
         f"first {steady * 1e3:.1f} ms = {rec['tokens_per_s']:.0f} tokens/s);"
-        f" peak device memory {peak / 2**30:.2f} GiB; checkpoint "
+        f" peak device memory {peak / 2**30:.2f} GiB ({held / 2**30:.2f} GiB "
+        f"held before the run); checkpoint "
         f"{gb:.2f} GB: saves {[round(e[2], 2) for e in saves]} s "
         f"({[round(x, 2) for x in rec['save_gb_per_s']]} GB/s), restore "
         f"{[round(e[2], 2) for e in restores]} s "
@@ -2820,8 +2898,8 @@ def phase_train(smi: str):
                               ("revoked", rev_rep, rev_probe)):
         for i, (_, counts, routes) in enumerate(probe.steps):
             got = {k: v for k, v in counts.items() if v}
-            if got != want or routes["flash_attention_fwd"] != {
-                    "sm90": 2 * L, "cuda_core": 0}:
+            if got != want or any(routes[k] != v
+                                  for k, v in want_routes.items()):
                 raise AssertionError(f"train {label} step {i + 1}: launches "
                                      f"{got} routes {routes}, want {want}")
         if not rep.losses[TRAIN_STEPS] < rep.losses[1]:
@@ -2940,10 +3018,14 @@ def main() -> int:
                     "XLA); 'replaces' names the forward's TPU kernel",
             "launches": train["launches_per_step"][name] * train["steps"],
             "launches_per_step": train["launches_per_step"][name],
+            "launches_by_route": {
+                route: n * train["steps"] for route, n in
+                train["launches_by_route_per_step"][name].items()},
             "max_abs_err": max(r["max_abs_err"] for r in bwd[name].values()),
             "ms": rec["ms"], "plain_ms": rec["plain_ms"],
             "bound_ms": rec["bound_ms"], "bound_by": rec["bound_by"],
-            "library_ms": rec["library_ms"], "shape": rec["shape"]})
+            "library_ms": rec["library_ms"], "shape": rec["shape"],
+            "split_ms": rec["split_ms"]})
     log(f"[done] every phase passed in {time.perf_counter() - t0:.1f} s on "
         f"{smi}; seconds a phase: {seconds}")
     print(json.dumps({"kernels": record, "transformers": transformers,

@@ -43,8 +43,9 @@
 // Both: any B, Sq, Skv, H, KV with H % KV == 0 (any G); the ragged edges
 // of Sq and Skv are masked in the kernel. Both write each row's natural
 // log-sum-exp of the scaled scores, lse (B,H,Sq) f32, when given a non-null
-// `lse` (training: the backward kernels in flash_attention_bwd.cu recompute
-// P = exp(S / sqrt(hd) - lse) from it); the serve paths pass null. The C
+// `lse` (training: the backward kernels, flash_attention_bwd_sm90.cu for
+// bf16 and flash_attention_bwd.cu for f32, recompute P = exp(S / sqrt(hd) -
+// lse) from it); the serve paths pass null. The C
 // entry points return cudaGetLastError() after the launch; the Python
 // wrapper raises on it.
 
@@ -226,21 +227,6 @@ __host__ __device__ constexpr uint32_t tile_bytes() { return uint32_t(HD / 64) *
 template <int HD>
 constexpr size_t sm90_smem_bytes() { return 5 * size_t(tile_bytes<HD>()) + 1024; }
 
-// One thread: K and V tiles of 64 keys from row `row` of batch b, columns
-// col0 .. col0+NC*64, into one ring stage, completing on `bar`.
-template <int NC>
-__device__ __forceinline__ void load_kv(uint8_t* kdst, uint8_t* vdst,
-                                        const CUtensorMap* tk,
-                                        const CUtensorMap* tv, uint64_t* bar,
-                                        int col0, int row, int b) {
-  sm90::mbar_expect_tx(bar, 2 * NC * sm90::kSub);
-#pragma unroll
-  for (int c = 0; c < NC; ++c) {
-    sm90::tma_load_3d(kdst + c * sm90::kSub, tk, bar, col0 + c * 64, row, b);
-    sm90::tma_load_3d(vdst + c * sm90::kSub, tv, bar, col0 + c * 64, row, b);
-  }
-}
-
 // hd 64 (the Zamba2 path) is held to 102 registers so that five blocks
 // share an SM instead of four: 0.0170 against 0.0176 ms at the serve shape.
 template <int HD>
@@ -276,7 +262,7 @@ __global__ void __launch_bounds__(128, HD == 64 ? 5 : 1) flash_sm90_kernel(
 #pragma unroll
     for (int c = 0; c < NC; ++c)
       tma_load_3d(qS + c * kSub, &tq, &bars[0], h * HD + c * 64, q0, b);
-    load_kv<NC>(kS, vS, &tk, &tv, &bars[1], kvh * HD, 0, b);
+    load_tile_pair<NC>(kS, vS, &tk, &tv, &bars[1], kvh * HD, 0, b);
   }
 
   float o[NC][32];
@@ -294,8 +280,9 @@ __global__ void __launch_bounds__(128, HD == 64 ? 5 : 1) flash_sm90_kernel(
     if (t + 1 < ntiles) {
       __syncthreads();                        // tile t-1 (same stage) used
       if (tid == 0)
-        load_kv<NC>(kS + ((t + 1) & 1) * TB, vS + ((t + 1) & 1) * TB, &tk, &tv,
-                    &bars[1 + ((t + 1) & 1)], kvh * HD, (t + 1) * kTile, b);
+        load_tile_pair<NC>(kS + ((t + 1) & 1) * TB, vS + ((t + 1) & 1) * TB,
+                           &tk, &tv, &bars[1 + ((t + 1) & 1)], kvh * HD,
+                           (t + 1) * kTile, b);
     }
     mbar_wait(&bars[1 + (t & 1)], (t >> 1) & 1);
     const uint32_t ks = smem_u32(kS + (t & 1) * TB);

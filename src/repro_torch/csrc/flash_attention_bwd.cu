@@ -1,4 +1,5 @@
-// Dense causal GQA flash-attention backward for Hopper (sm_90a).
+// Dense causal GQA flash-attention backward for Hopper (sm_90a), f32, on
+// CUDA cores.
 //
 // The port's own kernel: the JAX package has no backward kernel (its
 // training differentiates the jnp chunked_attention with XLA), so this
@@ -12,9 +13,12 @@
 //   dV = P^T dO, dK = dS^T Q / sqrt(hd)          flash_bwd_dkdv_kernel
 //   dQ = dS K / sqrt(hd)                         flash_bwd_dq_kernel
 //
-// q (B,Sq,H,hd), k/v (B,Skv,KV,hd), f32 or bf16; key j is visible to query
-// i when j <= i (causal; positions aligned at 0) or always. Any B, Sq,
-// Skv, H, KV with H % KV == 0 (any G); hd % 32 == 0, 32 <= hd <= 256.
+// q (B,Sq,H,hd), k/v (B,Skv,KV,hd), f32; key j is visible to query i when
+// j <= i (causal; positions aligned at 0) or always. Any B, Sq, Skv, H, KV
+// with H % KV == 0 (any G); hd % 32 == 0, 32 <= hd <= 256. bf16 takes the
+// tensor-core kernels of flash_attention_bwd_sm90.cu; f32 stays here
+// because wgmma has no full-f32 mode (TF32 keeps ~3 decimal digits and
+// could not meet the f32 checks at 1e-4).
 //
 // Deterministic, with no atomics: the dK/dV kernel's block owns one tile of
 // M keys of one KV head and loops over the G query heads of its group and
@@ -25,40 +29,24 @@
 // revocation check (a restart bit for bit equal to an uninterrupted run)
 // relies on.
 //
-// What bounds it: at internlm2-1.8b's training shape (B 8, S 1024, H 16,
-// KV 8, hd 128, causal) the work is ~2.7e11 flops a layer (seven S-sized
-// products over the visible pairs: S and dP twice, dV, dK and dQ) against
-// ~50 MB of q, k, v, O, dO and gradients, so operations bound it. This
-// first version runs them on CUDA cores in f32 (tensor cores come in a
-// later version): a block of 256 threads stages its tiles as f32 in shared
+// What bounds it: seven S-sized products a visible (query, key) pair (S and
+// dP twice, dV, dK and dQ) against a few bytes a pair, so operations. They
+// run as f32 FMAs: a block of 256 threads stages its tiles in shared
 // memory, rows padded by one float so that every loop's reads are free of
 // bank conflicts, and each thread keeps a 4 x 4 (hd <= 128; M = 64) or
 // 2 x 2 (hd > 128; M = 32) micro-tile of S and dP and its slice of the
-// dK/dV or dQ accumulators in registers. All sums are f32; gradients are
-// written in the inputs' dtype.
+// dK/dV or dQ accumulators in registers.
 //
 // The C entry point returns the first nonzero cudaGetLastError() of its
 // three launches; the Python wrapper raises on it.
 
 #include <cuda_runtime.h>
-#include <cuda_bf16.h>
 #include <stdint.h>
 
 namespace {
 
 constexpr int NT = 256;                 // threads a block: 16 x 16
 constexpr float kLog2e = 1.4426950408889634f;
-
-enum DType { kF32 = 0, kBF16 = 1 };
-
-__device__ __forceinline__ float ld(const float* p, long i) { return p[i]; }
-__device__ __forceinline__ float ld(const __nv_bfloat16* p, long i) {
-  return __bfloat162float(p[i]);
-}
-__device__ __forceinline__ void st(float* p, long i, float x) { p[i] = x; }
-__device__ __forceinline__ void st(__nv_bfloat16* p, long i, float x) {
-  p[i] = __float2bfloat16(x);
-}
 
 __device__ __forceinline__ float warp_sum(float x) {
 #pragma unroll
@@ -67,10 +55,10 @@ __device__ __forceinline__ float warp_sum(float x) {
 }
 
 struct Args {
-  const void *q, *k, *v, *o, *dout;
+  const float *q, *k, *v, *o, *dout;
   const float* lse;      // (B, H, Sq) natural log-sum-exp of the scaled scores
   float* delta;          // (B, H, Sq) scratch: rowsum(dO * O)
-  void *dq, *dk, *dv;
+  float *dq, *dk, *dv;
   int B, Sq, Skv, H, KV, hd, causal;
   float scale;           // 1 / sqrt(hd)
   float scale_log2;      // log2(e) / sqrt(hd)
@@ -100,16 +88,13 @@ constexpr size_t dq_smem() {
 }
 
 // One warp a (b, i, h) row: delta[b,h,i] = sum_d dO * O in f32.
-template <typename T>
 __global__ void __launch_bounds__(NT) flash_bwd_delta_kernel(Args a) {
   const long row = long(blockIdx.x) * (NT / 32) + (threadIdx.x >> 5);
   const int lane = threadIdx.x & 31;
   if (row >= long(a.B) * a.Sq * a.H) return;     // the whole warp
-  const T* o = static_cast<const T*>(a.o);
-  const T* g = static_cast<const T*>(a.dout);
   float s = 0.f;
   for (int d = lane; d < a.hd; d += 32)
-    s = fmaf(ld(o, row * a.hd + d), ld(g, row * a.hd + d), s);
+    s = fmaf(a.o[row * a.hd + d], a.dout[row * a.hd + d], s);
   s = warp_sum(s);
   if (lane == 0) {
     const int h = int(row % a.H);
@@ -119,15 +104,15 @@ __global__ void __launch_bounds__(NT) flash_bwd_delta_kernel(Args a) {
   }
 }
 
-// Stage rows r0 .. r0+M of head `head` of x (B, S, heads, HD) as f32, rows
-// past S zero.
-template <typename T, int HD, int M>
-__device__ __forceinline__ void load_tile(float* dst, const T* x, int b, int r0,
+// Stage rows r0 .. r0+M of head `head` of x (B, S, heads, HD), rows past S
+// zero.
+template <int HD, int M>
+__device__ __forceinline__ void load_tile(float* dst, const float* x, int b, int r0,
                                           int S, int heads, int head) {
   for (int i = threadIdx.x; i < M * HD; i += NT) {
     const int r = i / HD, d = i % HD, row = r0 + r;
     dst[r * (HD + 1) + d] =
-        row < S ? ld(x, ((long(b) * S + row) * heads + head) * HD + d) : 0.f;
+        row < S ? x[((long(b) * S + row) * heads + head) * HD + d] : 0.f;
   }
 }
 
@@ -195,7 +180,7 @@ __device__ __forceinline__ void load_row_stats(float* lseS, float* dlS,
 
 // Grid (key tiles, KV, B). The block's thread owns keys ty + 16 i and dims
 // tx + 16 j of dK and dV.
-template <typename T, int HD>
+template <int HD>
 __global__ void __launch_bounds__(NT) flash_bwd_dkdv_kernel(Args a) {
   using TL = Tile<HD>;
   constexpr int M = TL::M, LD = TL::LD, LP = TL::LP, MI = TL::MI, DJ = TL::DJ;
@@ -213,10 +198,8 @@ __global__ void __launch_bounds__(NT) flash_bwd_dkdv_kernel(Args a) {
   const int G = a.H / a.KV;
   const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
   const int k0 = kt * M;
-  const T* q = static_cast<const T*>(a.q);
-  const T* g = static_cast<const T*>(a.dout);
-  load_tile<T, HD, M>(kS, static_cast<const T*>(a.k), b, k0, a.Skv, a.KV, kvh);
-  load_tile<T, HD, M>(vS, static_cast<const T*>(a.v), b, k0, a.Skv, a.KV, kvh);
+  load_tile<HD, M>(kS, a.k, b, k0, a.Skv, a.KV, kvh);
+  load_tile<HD, M>(vS, a.v, b, k0, a.Skv, a.KV, kvh);
 
   float dk[MI][DJ], dv[MI][DJ];
 #pragma unroll
@@ -232,8 +215,8 @@ __global__ void __launch_bounds__(NT) flash_bwd_dkdv_kernel(Args a) {
     for (int qt = qt0; qt < nqt; ++qt) {
       const int q0 = qt * M;
       __syncthreads();                   // the last tile's reads are done
-      load_tile<T, HD, M>(qS, q, b, q0, a.Sq, a.H, h);
-      load_tile<T, HD, M>(doS, g, b, q0, a.Sq, a.H, h);
+      load_tile<HD, M>(qS, a.q, b, q0, a.Sq, a.H, h);
+      load_tile<HD, M>(doS, a.dout, b, q0, a.Sq, a.H, h);
       load_row_stats<M>(lseS, dlS, a, b, h, q0);
       __syncthreads();
       p_and_ds<HD>(qS, doS, kS, vS, lseS, dlS, pS, dsS, q0, k0, a);
@@ -262,8 +245,6 @@ __global__ void __launch_bounds__(NT) flash_bwd_dkdv_kernel(Args a) {
       }
     }
   }
-  T* dkp = static_cast<T*>(a.dk);
-  T* dvp = static_cast<T*>(a.dv);
 #pragma unroll
   for (int i = 0; i < MI; ++i) {
     const int key = k0 + ty + 16 * i;
@@ -271,15 +252,15 @@ __global__ void __launch_bounds__(NT) flash_bwd_dkdv_kernel(Args a) {
     const long base = ((long(b) * a.Skv + key) * a.KV + kvh) * HD;
 #pragma unroll
     for (int j = 0; j < DJ; ++j) {
-      st(dkp, base + tx + 16 * j, dk[i][j] * a.scale);
-      st(dvp, base + tx + 16 * j, dv[i][j]);
+      a.dk[base + tx + 16 * j] = dk[i][j] * a.scale;
+      a.dv[base + tx + 16 * j] = dv[i][j];
     }
   }
 }
 
 // Grid (query tiles, H, B), longest causal rows first. The block's thread
 // owns rows ty + 16 i and dims tx + 16 j of dQ.
-template <typename T, int HD>
+template <int HD>
 __global__ void __launch_bounds__(NT) flash_bwd_dq_kernel(Args a) {
   using TL = Tile<HD>;
   constexpr int M = TL::M, LD = TL::LD, LP = TL::LP, MI = TL::MI, DJ = TL::DJ;
@@ -296,10 +277,8 @@ __global__ void __launch_bounds__(NT) flash_bwd_dq_kernel(Args a) {
   const int kvh = h / (a.H / a.KV);
   const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
   const int q0 = qt * M;
-  const T* k = static_cast<const T*>(a.k);
-  const T* v = static_cast<const T*>(a.v);
-  load_tile<T, HD, M>(qS, static_cast<const T*>(a.q), b, q0, a.Sq, a.H, h);
-  load_tile<T, HD, M>(doS, static_cast<const T*>(a.dout), b, q0, a.Sq, a.H, h);
+  load_tile<HD, M>(qS, a.q, b, q0, a.Sq, a.H, h);
+  load_tile<HD, M>(doS, a.dout, b, q0, a.Sq, a.H, h);
   load_row_stats<M>(lseS, dlS, a, b, h, q0);
 
   float dq[MI][DJ];
@@ -312,8 +291,8 @@ __global__ void __launch_bounds__(NT) flash_bwd_dq_kernel(Args a) {
   const int kv_end = a.causal ? min(a.Skv, q0 + M) : a.Skv;
   for (int k0 = 0; k0 < kv_end; k0 += M) {
     __syncthreads();                     // the last tile's reads are done
-    load_tile<T, HD, M>(kS, k, b, k0, a.Skv, a.KV, kvh);
-    load_tile<T, HD, M>(vS, v, b, k0, a.Skv, a.KV, kvh);
+    load_tile<HD, M>(kS, a.k, b, k0, a.Skv, a.KV, kvh);
+    load_tile<HD, M>(vS, a.v, b, k0, a.Skv, a.KV, kvh);
     __syncthreads();
     p_and_ds<HD>(qS, doS, kS, vS, lseS, dlS, nullptr, dsS, q0, k0, a);
     __syncthreads();
@@ -331,14 +310,13 @@ __global__ void __launch_bounds__(NT) flash_bwd_dq_kernel(Args a) {
         for (int j = 0; j < DJ; ++j) dq[i][j] = fmaf(dsv[i], kv[j], dq[i][j]);
     }
   }
-  T* dqp = static_cast<T*>(a.dq);
 #pragma unroll
   for (int i = 0; i < MI; ++i) {
     const int row = q0 + ty + 16 * i;
     if (row >= a.Sq) continue;
     const long base = ((long(b) * a.Sq + row) * a.H + h) * HD;
 #pragma unroll
-    for (int j = 0; j < DJ; ++j) st(dqp, base + tx + 16 * j, dq[i][j] * a.scale);
+    for (int j = 0; j < DJ; ++j) a.dq[base + tx + 16 * j] = dq[i][j] * a.scale;
   }
 }
 
@@ -349,35 +327,34 @@ int set_smem(K kern, size_t bytes) {
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, int(bytes)));
 }
 
-template <typename T, int HD>
+template <int HD>
 int launch_hd(const Args& a, cudaStream_t stream) {
   constexpr int M = Tile<HD>::M;
   const long rows = long(a.B) * a.Sq * a.H;
-  flash_bwd_delta_kernel<T><<<unsigned((rows + NT / 32 - 1) / (NT / 32)), NT,
-                               0, stream>>>(a);
+  flash_bwd_delta_kernel<<<unsigned((rows + NT / 32 - 1) / (NT / 32)), NT,
+                            0, stream>>>(a);
   int e = int(cudaGetLastError());
   if (e) return e;
-  auto dkdv = flash_bwd_dkdv_kernel<T, HD>;
+  auto dkdv = flash_bwd_dkdv_kernel<HD>;
   if ((e = set_smem(dkdv, dkdv_smem<HD>()))) return e;
   dkdv<<<dim3((a.Skv + M - 1) / M, a.KV, a.B), NT, dkdv_smem<HD>(), stream>>>(a);
   if ((e = int(cudaGetLastError()))) return e;
-  auto dq = flash_bwd_dq_kernel<T, HD>;
+  auto dq = flash_bwd_dq_kernel<HD>;
   if ((e = set_smem(dq, dq_smem<HD>()))) return e;
   dq<<<dim3((a.Sq + M - 1) / M, a.H, a.B), NT, dq_smem<HD>(), stream>>>(a);
   return int(cudaGetLastError());
 }
 
-template <typename T>
 int launch(const Args& a, cudaStream_t s) {
   switch (a.hd) {
-    case 32: return launch_hd<T, 32>(a, s);
-    case 64: return launch_hd<T, 64>(a, s);
-    case 96: return launch_hd<T, 96>(a, s);
-    case 128: return launch_hd<T, 128>(a, s);
-    case 160: return launch_hd<T, 160>(a, s);
-    case 192: return launch_hd<T, 192>(a, s);
-    case 224: return launch_hd<T, 224>(a, s);
-    case 256: return launch_hd<T, 256>(a, s);
+    case 32: return launch_hd<32>(a, s);
+    case 64: return launch_hd<64>(a, s);
+    case 96: return launch_hd<96>(a, s);
+    case 128: return launch_hd<128>(a, s);
+    case 160: return launch_hd<160>(a, s);
+    case 192: return launch_hd<192>(a, s);
+    case 224: return launch_hd<224>(a, s);
+    case 256: return launch_hd<256>(a, s);
   }
   return int(cudaErrorInvalidValue);
 }
@@ -386,26 +363,21 @@ int launch(const Args& a, cudaStream_t s) {
 
 extern "C" {
 
-// q (B,Sq,H,hd), k/v (B,Skv,KV,hd), o and dout like q, contiguous, one
-// dtype (0 f32, 1 bf16); lse (B,H,Sq) f32 from the forward; delta (B,H,Sq)
-// f32 scratch; dq like q and dk/dv like k, written whole.
-int flash_attention_bwd(const void* q, const void* k, const void* v,
-                        const void* o, const void* dout, const float* lse,
-                        int dtype, float* delta, void* dq, void* dk, void* dv,
-                        int B, int Sq, int Skv, int H, int KV, int hd,
-                        int causal, void* stream) {
+// q (B,Sq,H,hd), k/v (B,Skv,KV,hd), o and dout like q, contiguous f32; lse
+// (B,H,Sq) f32 from the forward; delta (B,H,Sq) f32 scratch; dq like q and
+// dk/dv like k, written whole.
+int flash_attention_f32_bwd(const float* q, const float* k, const float* v,
+                            const float* o, const float* dout, const float* lse,
+                            float* delta, float* dq, float* dk, float* dv,
+                            int B, int Sq, int Skv, int H, int KV, int hd,
+                            int causal, void* stream) {
   if (B < 1 || Sq < 1 || Skv < 1 || KV < 1 || H % KV != 0 || B > 65535 ||
       H > 65535)
     return int(cudaErrorInvalidValue);
   const float scale = 1.0f / sqrtf(float(hd));
   Args a{q, k, v, o, dout, lse, delta, dq, dk, dv, B, Sq, Skv, H, KV, hd,
          causal ? 1 : 0, scale, scale * kLog2e};
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (dtype) {
-    case kF32: return launch<float>(a, s);
-    case kBF16: return launch<__nv_bfloat16>(a, s);
-  }
-  return int(cudaErrorInvalidValue);
+  return launch(a, static_cast<cudaStream_t>(stream));
 }
 
 }  // extern "C"

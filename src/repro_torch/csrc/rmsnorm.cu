@@ -37,15 +37,31 @@
 //
 //   dx = r (g w) - x r^3 mean((g w) x),    dw = sum over rows of g x r.
 //
-// rmsnorm_bwd_kernel: 256 threads a block, a row at a time (rows
-// blockIdx.x, blockIdx.x + gridDim.x, ...): one pass over x and g for the
-// two row sums (r recomputed from x, so the forward kernels stay as they
-// are), a second for dx, which also adds g x r into the block's f32 dw
-// partial in shared memory (a column a thread: no atomics). Each block
-// writes its partial row; rmsnorm_dw_reduce_kernel sums the partials of a
-// column in block order. Both sums run in a fixed order, so the gradients
-// are the same bits on every run. Like the forward it moves a few bytes an
-// operation, so bytes bound it: x and g read, dx written, and the partials.
+// Like the forward it moves a few bytes an operation, so bytes bound it: x
+// and g read once, dx written once, and the dw partials. r is recomputed
+// from x, so the forward kernels stay as they are. Two kernels, chosen by D
+// as the forward's are (the wrapper's rmsnorm_path), then a second launch
+// that sums the blocks' dw partials:
+//
+// - rmsnorm_bwd_reg_kernel, D up to 1024 16-byte vectors (8192 bf16, 4096
+//   f32): the block is sized to D (a small fixed group of warps a row, one
+//   16-byte vector of x, g and w a thread) and walks rows blockIdx.x,
+//   blockIdx.x + gridDim.x, ...; the row's x and g stay in registers from
+//   the two row sums through the dx write, the next row's loads are issued
+//   before this row's reduction (so a row waits out no memory latency of
+//   its own), w is loaded once, and each thread keeps its columns' dw
+//   partial in registers across its rows. The two sums cross the warps in
+//   one shared-memory exchange, double-buffered by row parity: one barrier
+//   a row. A ragged D (not a multiple of the vector, or a misaligned row)
+//   takes the same kernel with scalar loads and stores.
+// - rmsnorm_bwd_kernel, larger D: 256 threads a row, one pass over x and g
+//   for the two row sums, a second for dx, which also adds g x r into the
+//   block's f32 dw partial in shared memory.
+//
+// rmsnorm_dw_reduce_kernel sums the blocks' partials of a column: 32
+// slices of the partials a 32-column block, each in block order, then the
+// slices in order. Every sum runs in a fixed order, so the gradients are
+// the same bits on every run.
 //
 // The C entry points return cudaGetLastError() after the launch; the
 // Python wrapper raises on it.
@@ -74,9 +90,12 @@ __device__ __forceinline__ void store_f(__nv_bfloat16* p, long i, float x) {
 template <typename T> struct Vec;
 template <> struct Vec<float> {
   static constexpr int E = 4;
+  __device__ static void unpack(const uint4& q, float (&v)[4]) {
+    v[0] = __uint_as_float(q.x); v[1] = __uint_as_float(q.y);
+    v[2] = __uint_as_float(q.z); v[3] = __uint_as_float(q.w);
+  }
   __device__ static void load(const float* p, float (&v)[4]) {
-    const float4 q = *reinterpret_cast<const float4*>(p);
-    v[0] = q.x; v[1] = q.y; v[2] = q.z; v[3] = q.w;
+    unpack(*reinterpret_cast<const uint4*>(p), v);
   }
   __device__ static void store(float* p, const float (&v)[4]) {
     *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
@@ -84,8 +103,7 @@ template <> struct Vec<float> {
 };
 template <> struct Vec<__nv_bfloat16> {
   static constexpr int E = 8;
-  __device__ static void load(const __nv_bfloat16* p, float (&v)[8]) {
-    const uint4 q = *reinterpret_cast<const uint4*>(p);
+  __device__ static void unpack(const uint4& q, float (&v)[8]) {
     const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&q);
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
@@ -93,6 +111,9 @@ template <> struct Vec<__nv_bfloat16> {
       v[2 * i] = f.x;
       v[2 * i + 1] = f.y;
     }
+  }
+  __device__ static void load(const __nv_bfloat16* p, float (&v)[8]) {
+    unpack(*reinterpret_cast<const uint4*>(p), v);
   }
   __device__ static void store(__nv_bfloat16* p, const float (&v)[8]) {
     uint4 q;
@@ -259,14 +280,144 @@ rmsnorm_bwd_kernel(const T* __restrict__ x, const float* __restrict__ w,
   for (int i = tid; i < d; i += kThreads) part[long(blockIdx.x) * d + i] = acc[i];
 }
 
-__global__ void rmsnorm_dw_reduce_kernel(const float* __restrict__ part,
-                                         int nparts, int d,
-                                         float* __restrict__ dw) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= d) return;
-  float s = 0.f;
-  for (int p = 0; p < nparts; ++p) s += part[long(p) * d + i];
-  dw[i] = s;
+// A thread's E elements of a row as their 16 raw bytes: one 16-byte load
+// (VEC) or E scalar loads (a ragged or misaligned row); zeros past d.
+// Held raw while in flight, they take half the registers of floats (bf16).
+__device__ __forceinline__ uint32_t raw_bits(float v) { return __float_as_uint(v); }
+__device__ __forceinline__ uint32_t raw_bits(__nv_bfloat16 v) {
+  return __bfloat16_as_ushort(v);
+}
+
+template <typename T, bool VEC>
+__device__ __forceinline__ uint4 load_raw(const T* __restrict__ p, long base,
+                                          int e0, int d) {
+  if (VEC)
+    return e0 < d ? *reinterpret_cast<const uint4*>(p + base + e0)
+                  : make_uint4(0u, 0u, 0u, 0u);
+  constexpr int PER = 4 / sizeof(T);        // elements a 32-bit word
+  uint32_t w[4] = {0u, 0u, 0u, 0u};
+#pragma unroll
+  for (int e = 0; e < Vec<T>::E; ++e)
+    if (e0 + e < d) w[e / PER] |= raw_bits(p[base + e0 + e]) << (32 / PER * (e % PER));
+  return make_uint4(w[0], w[1], w[2], w[3]);
+}
+
+template <typename T, bool VEC>
+__global__ void __launch_bounds__(kMaxThreads)
+rmsnorm_bwd_reg_kernel(const T* __restrict__ x, const float* __restrict__ w,
+                       const T* __restrict__ g, T* __restrict__ dx,
+                       float* __restrict__ part, int rows, int d, float eps) {
+  constexpr int E = Vec<T>::E;
+  __shared__ float2 red[2][kMaxThreads / 32];
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int nwarps = blockDim.x >> 5;
+  const int e0 = tid * E;
+  float wv[E], acc[E];
+#pragma unroll
+  for (int e = 0; e < E; ++e) {
+    wv[e] = e0 + e < d ? w[e0 + e] : 0.f;
+    acc[e] = 0.f;
+  }
+  int row = blockIdx.x;
+  uint4 xr = load_raw<T, VEC>(x, long(row) * d, e0, d);
+  uint4 gr = load_raw<T, VEC>(g, long(row) * d, e0, d);
+  for (int n = 0; row < rows; ++n, row += gridDim.x) {
+    float xv[E], gv[E];
+    Vec<T>::unpack(xr, xv);
+    Vec<T>::unpack(gr, gv);
+    const int next = row + gridDim.x;         // the next row, in flight
+    if (next < rows) {
+      xr = load_raw<T, VEC>(x, long(next) * d, e0, d);
+      gr = load_raw<T, VEC>(g, long(next) * d, e0, d);
+    }
+    float ss = 0.f, sgx = 0.f;
+#pragma unroll
+    for (int e = 0; e < E; ++e) {
+      ss = fmaf(xv[e], xv[e], ss);
+      sgx = fmaf(gv[e] * wv[e], xv[e], sgx);
+    }
+    ss = warp_sum(ss);
+    sgx = warp_sum(sgx);
+    if (lane == 0) red[n & 1][warp] = make_float2(ss, sgx);
+    __syncthreads();
+    const float2 pr = lane < nwarps ? red[n & 1][lane] : make_float2(0.f, 0.f);
+    const float tss = warp_sum(pr.x), tsg = warp_sum(pr.y);
+    const float r = 1.0f / sqrtf(tss / float(d) + eps);
+    const float c = r * r * r * (tsg / float(d));
+#pragma unroll
+    for (int e = 0; e < E; ++e) {
+      acc[e] = fmaf(gv[e] * xv[e], r, acc[e]);
+      xv[e] = r * (gv[e] * wv[e]) - xv[e] * c;   // dx
+    }
+    const long base = long(row) * d;
+    if (VEC) {
+      if (e0 < d) Vec<T>::store(dx + base + e0, xv);
+    } else {
+#pragma unroll
+      for (int e = 0; e < E; ++e)
+        if (e0 + e < d) store_f(dx, base + e0 + e, xv[e]);
+    }
+  }
+#pragma unroll
+  for (int e = 0; e < E; ++e)
+    if (e0 + e < d) part[long(blockIdx.x) * d + e0 + e] = acc[e];
+}
+
+// dw[i] = the sum of the partials' column i: a block of 32 columns x 32
+// slices, slice s summing partials s, s + 32, ... in order, then the
+// slices summed in order.
+__global__ void __launch_bounds__(1024)
+rmsnorm_dw_reduce_kernel(const float* __restrict__ part, int nparts, int d,
+                         float* __restrict__ dw) {
+  __shared__ float sl[32][33];
+  const int col = blockIdx.x * 32 + (threadIdx.x & 31), s = threadIdx.x >> 5;
+  float acc = 0.f;
+  if (col < d)
+    for (int p = s; p < nparts; p += 32) acc += part[long(p) * d + col];
+  sl[s][threadIdx.x & 31] = acc;
+  __syncthreads();
+  if (s == 0 && col < d) {
+    float t = 0.f;
+#pragma unroll 8
+    for (int i = 0; i < 32; ++i) t += sl[i][threadIdx.x];
+    dw[col] = t;
+  }
+}
+
+int launch_reduce(const float* part, int nparts, int d, float* dw,
+                  cudaStream_t stream) {
+  rmsnorm_dw_reduce_kernel<<<(d + 31) / 32, 1024, 0, stream>>>(part, nparts, d, dw);
+  return int(cudaGetLastError());
+}
+
+template <typename T>
+int launch_bwd_reg(const void* x, const float* w, const void* g, void* dx,
+                   float* part, int nparts, float* dw, int rows, int d,
+                   float eps, cudaStream_t stream) {
+  constexpr int E = Vec<T>::E;
+  const int nvec = (d + E - 1) / E;
+  if (nvec > kMaxThreads) return int(cudaErrorInvalidValue);
+  const int threads = (nvec + 31) / 32 * 32;
+  const bool vec = d % E == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0 &&
+                   reinterpret_cast<uintptr_t>(g) % 16 == 0 &&
+                   reinterpret_cast<uintptr_t>(w) % 16 == 0 &&
+                   reinterpret_cast<uintptr_t>(dx) % 16 == 0;
+  auto kern = vec ? rmsnorm_bwd_reg_kernel<T, true> : rmsnorm_bwd_reg_kernel<T, false>;
+  // Persistent blocks, no more than are resident at once: a block waiting
+  // for a slot would start its rows only after a resident one ends.
+  int occ = 0, dev = 0, sms = 0;
+  cudaError_t ce = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&occ, kern, threads, 0);
+  if (ce == cudaSuccess) ce = cudaGetDevice(&dev);
+  if (ce == cudaSuccess)
+    ce = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (ce != cudaSuccess) return int(ce);
+  nparts = min(nparts, max(occ, 1) * sms);
+  kern<<<nparts, threads, 0, stream>>>(
+      static_cast<const T*>(x), w, static_cast<const T*>(g), static_cast<T*>(dx),
+      part, rows, d, eps);
+  int e = int(cudaGetLastError());
+  if (e) return e;
+  return launch_reduce(part, nparts, d, dw, stream);
 }
 
 template <typename T>
@@ -285,9 +436,7 @@ int launch_bwd(const void* x, const float* w, const void* g, void* dx,
       part, rows, d, eps);
   int e = int(cudaGetLastError());
   if (e) return e;
-  rmsnorm_dw_reduce_kernel<<<(d + kThreads - 1) / kThreads, kThreads, 0,
-                             stream>>>(part, nparts, d, dw);
-  return int(cudaGetLastError());
+  return launch_reduce(part, nparts, d, dw, stream);
 }
 
 }  // namespace
@@ -321,21 +470,30 @@ int rmsnorm_smem_fwd(const void* x, int dtype, const float* w, void* out,
 }
 
 // Backward. x and g (rows, d) f32/bf16 contiguous, w (d,) f32; dx like x;
-// part (nparts, d) f32 scratch, 1 <= nparts <= rows blocks; dw (d,) f32.
-int rmsnorm_bwd(const void* x, int dtype, const float* w, const void* g,
-                void* dx, float* part, int nparts, float* dw, int rows, int d,
-                float eps, void* stream) {
-  if (rows < 1 || d < 1 || nparts < 1 || nparts > rows)
-    return int(cudaErrorInvalidValue);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (dtype) {
-    case kF32:
-      return launch_bwd<float>(x, w, g, dx, part, nparts, dw, rows, d, eps, s);
-    case kBF16:
-      return launch_bwd<__nv_bfloat16>(x, w, g, dx, part, nparts, dw, rows, d,
-                                       eps, s);
+// part (nparts, d) f32 scratch, 1 <= nparts <= rows blocks (the register
+// kernel may use fewer: no more than are resident); dw (d,) f32.
+// rmsnorm_bwd_reg: d <= 1024 vectors of 16 bytes, as rmsnorm_reg_fwd;
+// rmsnorm_bwd_smem: any d whose f32 row fits in shared memory.
+#define RMSNORM_BWD_ENTRY(NAME, LAUNCH)                                          \
+  int NAME(const void* x, int dtype, const float* w, const void* g, void* dx,   \
+           float* part, int nparts, float* dw, int rows, int d, float eps,      \
+           void* stream) {                                                      \
+    if (rows < 1 || d < 1 || nparts < 1 || nparts > rows)                       \
+      return int(cudaErrorInvalidValue);                                        \
+    cudaStream_t s = static_cast<cudaStream_t>(stream);                         \
+    switch (dtype) {                                                            \
+      case kF32:                                                                \
+        return LAUNCH<float>(x, w, g, dx, part, nparts, dw, rows, d, eps, s);   \
+      case kBF16:                                                               \
+        return LAUNCH<__nv_bfloat16>(x, w, g, dx, part, nparts, dw, rows, d,    \
+                                     eps, s);                                   \
+    }                                                                           \
+    return int(cudaErrorInvalidValue);                                          \
   }
-  return int(cudaErrorInvalidValue);
-}
+
+RMSNORM_BWD_ENTRY(rmsnorm_bwd_reg, launch_bwd_reg)
+RMSNORM_BWD_ENTRY(rmsnorm_bwd_smem, launch_bwd)
+
+#undef RMSNORM_BWD_ENTRY
 
 }  // extern "C"

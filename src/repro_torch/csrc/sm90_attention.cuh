@@ -1,6 +1,6 @@
 // Hopper (sm_90a) building blocks shared by the tensor-core kernels
-// (flash_attention.cu, paged_attention_sm90.cu, ssd_scan.cu), as inline
-// PTX:
+// (flash_attention.cu, flash_attention_bwd_sm90.cu, paged_attention_sm90.cu,
+// ssd_scan.cu), as inline PTX:
 //
 // - the wgmma shared-memory descriptor of a 128-byte-swizzled tile, and
 //   wgmma.fence / commit_group / wait_group;
@@ -13,7 +13,8 @@
 // - quad (4-lane) row max and row sum over the accumulator layout, and a
 //   named barrier for one warpgroup;
 // - mbarrier init / arrive-expect-tx / bounded try-wait;
-// - TMA loads (2-D, 3-D, 5-D) completing on an mbarrier, TMA stores, and
+// - TMA loads (2-D, 3-D, 5-D, and a pair of 64-row tiles such as K and V)
+//   completing on an mbarrier, TMA stores, and
 //   the host-side tensor-map encoding, looked up with
 //   cudaGetDriverEntryPoint (no -lcuda).
 //
@@ -255,6 +256,23 @@ __device__ __forceinline__ void tma_load_5d(void* dst, const CUtensorMap* map,
       "r"(c2), "r"(c3), "r"(c4)
       : "memory");
 }
+// One thread: the 64-row tiles at row `row` of batch `batch` of two 3-D
+// maps (e.g. K and V), columns col0 .. col0 + NC*64 as NC sub-tiles, into
+// `a` and `b`, completing on `bar`.
+template <int NC>
+__device__ __forceinline__ void load_tile_pair(uint8_t* a, uint8_t* b,
+                                               const CUtensorMap* ta,
+                                               const CUtensorMap* tb,
+                                               uint64_t* bar, int col0, int row,
+                                               int batch) {
+  mbar_expect_tx(bar, 2 * NC * kSub);
+#pragma unroll
+  for (int c = 0; c < NC; ++c) {
+    tma_load_3d(a + c * kSub, ta, bar, col0 + c * 64, row, batch);
+    tma_load_3d(b + c * kSub, tb, bar, col0 + c * 64, row, batch);
+  }
+}
+
 // Stores clip at the tensor's bounds: rows past a ragged edge are not
 // written.
 __device__ __forceinline__ void tma_store_3d(const CUtensorMap* map,

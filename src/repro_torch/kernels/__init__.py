@@ -6,9 +6,10 @@ attention and the Mamba2 SSD scan of the Zamba2 static path. Flash
 attention and the three paged kernels (``attention_route``) and the SSD
 scan (``ssd_route``) pick their kernel by dtype and count launches per
 route. RMSNorm and flash attention also have backward kernels of the port's
-own (``rmsnorm_bwd``, ``flash_attention_bwd``), which their ``ops`` entries
-call through ``torch.autograd.Function``s when a gradient is wanted."""
-from ._cuda import attention_route, ssd_route
+own (``rmsnorm_bwd``, by D; ``flash_attention_bwd``, by dtype through
+``attention_bwd_route``), which their ``ops`` entries call through
+``torch.autograd.Function``s when a gradient is wanted."""
+from ._cuda import attention_bwd_route, attention_route, ssd_route
 from .decode_attention import (default_num_splits, flash_decode_fwd,
                                paged_decode_attention, paged_decode_reference)
 from .flash_attention import (attention_bwd_reference,
@@ -48,8 +49,8 @@ def launch_counts() -> dict[str, int]:
 
 def launch_counts_by_route() -> dict[str, dict[str, int]]:
     """{kernel: {route: launches}} for the wrappers that pick a kernel by
-    dtype (flash attention; paged decode, prefill and verify; the SSD
-    scan)."""
+    dtype (flash attention forward and backward; paged decode, prefill and
+    verify; the SSD scan) or by D (RMSNorm's backward)."""
     return {name: dict(fn.launches_by_route)
             for name, fn in KERNEL_WRAPPERS.items()
             if hasattr(fn, "launches_by_route")}
@@ -67,4 +68,4 @@ __all__ = ["default_num_splits", "flash_decode_fwd", "flash_prefill_fwd",
            "mamba_chunk_scan", "ssd_scan", "ssd_chunked_reference",
            "KERNEL_WRAPPERS", "reset_launch_counts",
            "launch_counts", "launch_counts_by_route", "attention_route",
-           "ssd_route"]
+           "attention_bwd_route", "ssd_route"]

@@ -23,7 +23,8 @@ import torch
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = CSRC / "build"
 SOURCES = ("paged_attention.cu", "rmsnorm.cu", "flash_attention.cu",
-           "ssd_scan.cu", "paged_attention_sm90.cu", "flash_attention_bwd.cu")
+           "ssd_scan.cu", "paged_attention_sm90.cu", "flash_attention_bwd.cu",
+           "flash_attention_bwd_sm90.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -43,13 +44,17 @@ SIGNATURES = {
     },
     "rmsnorm.cu": {"rmsnorm_reg_fwd": [_P, _I, _P, _P, _I, _I, _F, _P],
                    "rmsnorm_smem_fwd": [_P, _I, _P, _P, _I, _I, _F, _P],
-                   "rmsnorm_bwd": [_P, _I, _P, _P, _P, _P, _I, _P, _I, _I,
-                                   _F, _P]},
+                   "rmsnorm_bwd_reg": [_P, _I, _P, _P, _P, _P, _I, _P, _I,
+                                       _I, _F, _P],
+                   "rmsnorm_bwd_smem": [_P, _I, _P, _P, _P, _P, _I, _P, _I,
+                                        _I, _F, _P]},
     "flash_attention.cu": {
         "flash_attention_f32_fwd": [_P] * 4 + [_I] * 7 + [_P, _P],
         "flash_attention_sm90_fwd": [_P] * 4 + [_I] * 7 + [_P, _P]},
     "flash_attention_bwd.cu": {
-        "flash_attention_bwd": [_P] * 6 + [_I] + [_P] * 4 + [_I] * 7 + [_P]},
+        "flash_attention_f32_bwd": [_P] * 10 + [_I] * 7 + [_P]},
+    "flash_attention_bwd_sm90.cu": {
+        "flash_attention_bwd_sm90": [_P] * 10 + [_I] * 7 + [_P]},
     "paged_attention_sm90.cu": {
         "paged_attention_sm90_fwd": [_P, _P, _P, _I, _P, _P, _P, _P]
                                     + [_I] * 10 + [_P] * 5},
@@ -143,6 +148,25 @@ def attention_route(q_dtype, kv_dtype, hd: int) -> str:
             raise ValueError(f"bf16 attention runs on the wgmma kernels, "
                              f"whose contract is hd in {SM90_HEAD_DIMS}; "
                              f"got hd={hd}")
+        return "sm90"
+    return "cuda_core"
+
+
+# Head dims of the tensor-core (wgmma + TMA) flash-attention backward.
+SM90_BWD_HEAD_DIMS = (64, 128)
+
+
+def attention_bwd_route(dtype, hd: int) -> str:
+    """The kernels a flash-attention backward takes, by dtype: ``"sm90"``
+    (``flash_attention_bwd_sm90.cu``'s wgmma + TMA dK/dV and dQ kernels)
+    for bf16, ``"cuda_core"`` (``flash_attention_bwd.cu``) for f32, since
+    wgmma has no full-f32 mode. Raises for a bf16 call whose hd the
+    tensor-core kernels do not take; it is never rerouted."""
+    if dtype == torch.bfloat16:
+        if hd not in SM90_BWD_HEAD_DIMS:
+            raise ValueError(f"bf16 flash-attention backward runs on the "
+                             f"wgmma kernels, whose contract is hd in "
+                             f"{SM90_BWD_HEAD_DIMS}; got hd={hd}")
         return "sm90"
     return "cuda_core"
 

@@ -14,10 +14,16 @@ dtype (``_cuda.attention_route``), never by trying one and then the other:
 
 Both mask the ragged edges themselves: no ``S % block`` contract. With
 ``return_lse`` both also write each row's log-sum-exp (B,H,Sq) f32, which
-``flash_attention_bwd`` reads: the port's own backward kernel
-(``csrc/flash_attention_bwd.cu``, CUDA cores, f32 sums, no atomics), which
-has no TPU counterpart -- the reference differentiates its jnp attention
-with XLA.
+``flash_attention_bwd`` reads: the port's own backward (no TPU counterpart
+-- the reference differentiates its jnp attention with XLA), no atomics,
+chosen by dtype (``_cuda.attention_bwd_route``):
+
+- bf16 -> ``flash_attention_bwd_sm90`` (``csrc/flash_attention_bwd_sm90.cu``):
+  a dK/dV kernel (a warpgroup a 64-key tile, Q and dO streamed by TMA) and a
+  dQ kernel (a warpgroup a 64-row query tile, K and V streamed), every
+  product a wgmma; hd 64 or 128, any other hd raises.
+- f32 -> ``flash_attention_f32_bwd`` (``csrc/flash_attention_bwd.cu``): the
+  CUDA-core kernels; hd % 32 == 0, 32 <= hd <= 256.
 """
 from __future__ import annotations
 
@@ -82,8 +88,8 @@ def flash_attention_bwd(q, k, v, out, dout, lse, *, causal: bool = True):
     """Gradients of ``flash_attention_fwd`` (q, k, v, its ``out`` and
     ``lse``) for the output gradient ``dout`` -> (dq, dk, dv) in q's dtype.
     Three launches (the delta = rowsum(dout * out) pass, then the dK/dV and
-    dQ kernels), counted as one. The CUDA-core kernel for both dtypes:
-    hd % 32 == 0, 32 <= hd <= 256, any S and G; CUDA tensors only."""
+    dQ kernels), counted as one, on the route of q's dtype (module
+    docstring); any S and G; CUDA tensors only."""
     _check("flash_attention_bwd", q, k, v)
     _cuda.check_cuda("flash_attention_bwd", q, out, dout, lse)
     b, sq, h, hd = q.shape
@@ -95,17 +101,28 @@ def flash_attention_bwd(q, k, v, out, dout, lse, *, causal: bool = True):
                          f"{out.dtype}, dout{tuple(dout.shape)} {dout.dtype}, "
                          f"lse{tuple(lse.shape)} {lse.dtype} for "
                          f"q{tuple(q.shape)} {q.dtype}")
-    _check_cuda_core_hd("flash_attention_bwd", hd)
+    route = _cuda.attention_bwd_route(q.dtype, hd)
+    if route == "cuda_core":
+        _check_cuda_core_hd("flash_attention_bwd", hd)
+        fn = _cuda.library("flash_attention_bwd.cu").flash_attention_f32_bwd
+    else:
+        # TMA and the 16-byte loads of the delta pass need aligned rows.
+        if any(t.data_ptr() % 16 for t in (q, k, v, out, dout)):
+            raise ValueError("flash_attention_bwd: bf16 inputs must be "
+                             "16-byte aligned")
+        fn = _cuda.library(
+            "flash_attention_bwd_sm90.cu").flash_attention_bwd_sm90
     delta = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
-    rc = _cuda.library("flash_attention_bwd.cu").flash_attention_bwd(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        dout.data_ptr(), lse.data_ptr(), _cuda.DTYPE_CODES[q.dtype],
-        delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, sq,
-        skv, h, nkv, hd, int(causal), _cuda.stream_of(q))
+    rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            dout.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+            dk.data_ptr(), dv.data_ptr(), b, sq, skv, h, nkv, hd, int(causal),
+            _cuda.stream_of(q))
     _cuda.raise_on(rc, "flash_attention_bwd")
     flash_attention_bwd.launches += 1
+    flash_attention_bwd.launches_by_route[route] += 1
     return dq, dk, dv
 
 
 flash_attention_bwd.launches = 0
+flash_attention_bwd.launches_by_route = {"sm90": 0, "cuda_core": 0}

@@ -12,10 +12,14 @@ wrapper picks one by D (``rmsnorm_path``):
 - ``"smem"``: larger D, up to ``MAX_D``: 256 threads stage the row in
   shared memory as f32.
 
-``rmsnorm_bwd`` wraps the port's own backward kernel (no TPU counterpart:
-the reference differentiates its jnp rmsnorm with XLA): dx a row at a time
-with r recomputed from x, dw from per-block f32 partials reduced in a fixed
-order by a second launch, so the same inputs give the same bits.
+``rmsnorm_bwd`` wraps the port's own backward kernels (no TPU counterpart:
+the reference differentiates its jnp rmsnorm with XLA), picked by D as the
+forward's are and counted by that path (``launches_by_route``):
+``"registers"`` keeps a row's x and g and each thread's dw partial in
+registers (16-byte loads, the next row's in flight), ``"smem"`` walks the
+row twice from memory; both recompute r from x, and a second launch sums
+the blocks' f32 dw partials in a fixed order, so the same inputs give the
+same bits.
 """
 from __future__ import annotations
 
@@ -58,7 +62,8 @@ def rmsnorm_fused(x, weight, eps: float = 1e-6):
 
 rmsnorm_fused.launches = 0
 
-# Blocks of the backward's dx pass, each a dw partial row: four an SM.
+# Blocks of the backward's dx pass, each a dw partial row: at most four an
+# SM (the register kernel launches no more than are resident).
 BWD_BLOCKS = 4 * 132
 
 
@@ -66,7 +71,8 @@ def rmsnorm_bwd(x, weight, g, eps: float = 1e-6):
     """Gradients of ``rmsnorm_fused(x, weight, eps)`` for the output
     gradient ``g`` (x's shape and dtype) -> (dx like x, dw (D,) in the
     weight's dtype). Two launches (dx with the dw partials, then their
-    reduction), counted as one. CUDA tensors only."""
+    reduction), counted as one, on the kernel of ``rmsnorm_path``. CUDA
+    tensors only."""
     d = x.shape[-1]
     x2 = x.reshape(-1, d).contiguous()
     g2 = g.reshape(-1, d).contiguous()
@@ -85,13 +91,17 @@ def rmsnorm_bwd(x, weight, g, eps: float = 1e-6):
     dx = torch.empty_like(x2)
     part = torch.empty((nparts, d), dtype=torch.float32, device=x2.device)
     dw = torch.empty(d, dtype=torch.float32, device=x2.device)
-    rc = _cuda.library("rmsnorm.cu").rmsnorm_bwd(
-        x2.data_ptr(), _cuda.DTYPE_CODES[x.dtype], w.data_ptr(),
-        g2.data_ptr(), dx.data_ptr(), part.data_ptr(), nparts, dw.data_ptr(),
-        rows, d, float(eps), _cuda.stream_of(x2))
+    path = rmsnorm_path(d, x.dtype)
+    lib = _cuda.library("rmsnorm.cu")
+    fn = lib.rmsnorm_bwd_reg if path == "registers" else lib.rmsnorm_bwd_smem
+    rc = fn(x2.data_ptr(), _cuda.DTYPE_CODES[x.dtype], w.data_ptr(),
+            g2.data_ptr(), dx.data_ptr(), part.data_ptr(), nparts,
+            dw.data_ptr(), rows, d, float(eps), _cuda.stream_of(x2))
     _cuda.raise_on(rc, "rmsnorm_bwd")
     rmsnorm_bwd.launches += 1
+    rmsnorm_bwd.launches_by_route[path] += 1
     return dx.reshape(x.shape), dw.to(weight.dtype)
 
 
 rmsnorm_bwd.launches = 0
+rmsnorm_bwd.launches_by_route = {"registers": 0, "smem": 0}
