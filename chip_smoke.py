@@ -43,7 +43,9 @@ Phases, each of which must pass (a failure exits nonzero):
    one; a bf16 hd 192 call must raise); RMSNorm at 8192 x 2048, D 5120,
    7168 and a ragged 1002 (each on the kernel its D picks); the training
    shapes timed beside the plain version, the library's backward (SDPA,
-   ``F.rms_norm``) and the bound, with each launch's device time;
+   ``F.rms_norm``) and the bound, with each launch's device time; and
+   the flash forward at that training shape, with and without the row
+   log-sum-exp, beside causal SDPA and the bound;
 4. parity: yi-6b widths at depth 2 in float32 -- prefill, decode and verify
    steps on the card (kernels) against the same weights on the CPU (plain
    versions); then Zamba2 widths at depth 6 (one Mamba group and one shared
@@ -108,14 +110,25 @@ Phases, each of which must pass (a failure exits nonzero):
    forward 4L + 1, backward 2L + 1 on its register kernel) and no plain
    version called; prints step ms,
    tokens/s, peak device memory and the checkpoints' save and restore
-   seconds and GB/s.
+   seconds and GB/s, and the final state's SHA-256.
+9. job: the same training run as a job of the Kotta batch runtime
+   (``KottaService``): an outsider's submit refused and audited; alice's
+   job staged under her role by the executor's assume-role, run on a
+   preemptible worker, revoked through ``Worker.revoke()`` at step 4 and
+   resumed by a replacement worker from the step-3 checkpoint, its
+   outputs staged back as hers; held to the train phase's final-state
+   SHA-256, its launches a step, no plain version, no watcher re-run and a
+   clean shutdown; prints the job's wall, step ms, save and restore
+   seconds, the time from the revocation to the second worker's first
+   step, device memory at each attempt's start and the peak; then the
+   port's simulator's Table VII-C rows (a simulation at 2016 prices).
 
 The second-to-last line of output is a JSON ``kernels`` record (with the
 launches on the transformer runs, the residency phase's move times, the
-gateway phase's results and the train phase's numbers); the last is
-``{"ok": true, "device": {...}}``. Without CUDA, or without the port beside
-this script, it prints no result and exits nonzero. It takes no arguments:
-every run drives all eight phases.
+gateway phase's results and the train and job phases' numbers); the last
+is ``{"ok": true, "device": {...}}``. Without CUDA, or without the port
+beside this script, it prints no result and exits nonzero. It takes no
+arguments: every run drives all nine phases.
 """
 from __future__ import annotations
 
@@ -880,13 +893,17 @@ FLASH_TRANSFORMERS = (("olmoe-1b-7b", 16, 16), ("mistral-nemo-12b", 32, 8),
 def _flash_transformer_shapes(gen, dev):
     """bf16 flash attention at the dense and MoE transformers' shapes on
     the tensor-core route, held against the plain version and timed beside
-    causal SDPA and the bound: B 8, S 256 at G 1, 4 and 7 (hd 128), and
-    mistral-nemo-12b's dense-admission bucket of 2 prompts padded to 96."""
+    causal SDPA and the bound: B 8, S 256 at G 1, 4 and 7 (hd 128),
+    mistral-nemo-12b's dense-admission bucket of 2 prompts padded to 96,
+    and internlm2-1.8b's training shape (B 8, S 1024, H 16, KV 8), where
+    the training step's call also writes the rows' log-sum-exp (timed
+    both ways; the bound counts the lse write where it is made)."""
     import torch
     from repro_torch import kernels as K
     out = {}
     shapes = [(label, ZB, ZS, h, nkv) for label, h, nkv in FLASH_TRANSFORMERS]
     shapes.append(("mistral-nemo-12b bucket", 2, 96, 32, 8))
+    shapes.append(("internlm2-1.8b train", TB, TS, TH, TKV))
     for label, b, s, h, nkv in shapes:
         q = torch.randn(b, s, h, 128, generator=gen, device=dev).bfloat16()
         k, v = (torch.randn(b, s, nkv, 128, generator=gen,
@@ -896,17 +913,29 @@ def _flash_transformer_shapes(gen, dev):
         if not (math.isfinite(err) and err <= TOL_BF16):
             raise AssertionError(f"flash {label} disagrees: {err}")
         pairs = b * h * s * (s + 1) // 2
-        bound_s = max((2 * b * s * h + 2 * b * s * nkv) * 128 * 2
-                      / HBM_BYTES_PER_S, 4.0 * 128 * pairs / BF16_FLOPS_PER_S)
+        nbytes = (2 * b * s * h + 2 * b * s * nkv) * 128 * 2
+        ops_s = 4.0 * 128 * pairs / BF16_FLOPS_PER_S
+        bound_s = max(nbytes / HBM_BYTES_PER_S, ops_s)
         rec = {"shape": [b, s, h, nkv, 128], "max_abs_err": err,
                "bound_ms": bound_s * 1e3,
                "ms": time_ms(lambda: K.flash_attention_fwd(q, k, v)),
                "library_ms": time_ms(_sdpa_dense(q, k, v))}
+        lse = ""
+        if label.endswith("train"):
+            rec["lse_ms"] = time_ms(lambda: K.flash_attention_fwd(
+                q, k, v, return_lse=True))
+            rec["lse_bound_ms"] = max(
+                (nbytes + 4 * b * h * s) / HBM_BYTES_PER_S, ops_s) * 1e3
+            rec["bound_by"] = ("operations" if ops_s > nbytes / HBM_BYTES_PER_S
+                               else "bytes")
+            lse = (f", with lse (the training call) {rec['lse_ms']:.4f} ms "
+                   f"(bound {rec['lse_bound_ms']:.4f} ms), bound by "
+                   f"{rec['bound_by']}")
         out[label] = rec
         log(f"[kernels] flash_attention_fwd bf16 {label} (B {b}, S {s}, H "
             f"{h}, KV {nkv}, hd 128): max|kernel-plain| {err:.3e}, kernel "
             f"{rec['ms']:.4f} ms, sdpa {rec['library_ms']:.4f} ms, bound "
-            f"{rec['bound_ms']:.4f} ms")
+            f"{rec['bound_ms']:.4f} ms{lse}")
     return out
 
 
@@ -2420,6 +2449,10 @@ def _leaves(tree):
 # sequence 1024, 16 heads of 128 over 8 KV heads, d_model 2048.
 TB, TS, TH, TKV, THD, TD = 8, 1024, 16, 8, 128, 2048
 TRAIN_STEPS, TRAIN_EVERY, TRAIN_REVOKE = 6, 3, 4
+# The synthetic corpus both the train and the job phase read, under
+# dataset/<TRAIN_CORPUS>/: 2 shards of 65,536 tokens from seed 0.
+TRAIN_CORPUS, TRAIN_SHARDS = "train", dict(num_shards=2,
+                                           tokens_per_shard=65_536, seed=0)
 # Peak learning rate after 2 warm-up steps. Adam's first steps move every
 # weight by about the learning rate, all at once: in this phase on the card
 # the loss rose over the 6 steps at 1e-3 (11.83 -> 12.34, 15.24 at step 4)
@@ -2699,23 +2732,77 @@ def phase_train_parity():
 
 class _StepProbe:
     """Wraps the trainer's step: per step, the wall time (synchronized) and
-    the kernels' launch counts, reset just before it and read just after."""
+    the kernels' launches in it, counts read just before and just after
+    (their difference), so a caller may also count a whole run."""
 
     def __init__(self, fn):
         self.fn = fn
         self.steps = []
+        self.windows = []               # (start, end) on the host's clock
 
     def __call__(self, params, opt_state, batch):
         import torch
         from repro_torch import kernels as K
         torch.cuda.synchronize()
-        K.reset_launch_counts()
+        counts, routes = K.launch_counts(), K.launch_counts_by_route()
         t0 = time.perf_counter()
         out = self.fn(params, opt_state, batch)
         torch.cuda.synchronize()
-        self.steps.append((time.perf_counter() - t0, K.launch_counts(),
-                           K.launch_counts_by_route()))
+        dt = time.perf_counter() - t0
+        self.windows.append((t0, t0 + dt))
+        self.steps.append((
+            dt, {k: v - counts[k] for k, v in K.launch_counts().items()},
+            {k: {r: n - routes[k][r] for r, n in by.items()}
+             for k, by in K.launch_counts_by_route().items()}))
         return out
+
+
+class _GpuSampler:
+    """The card's SM clock (MHz), power draw (W) and temperature (C) from
+    ``nvidia-smi`` every 200 ms, each sample stamped with the host's clock
+    on arrival: a context manager that starts one ``nvidia-smi`` process
+    and a thread reading it, and stops both on exit."""
+
+    def __enter__(self):
+        import threading
+        self.samples = []
+        self.proc = subprocess.Popen(
+            ["nvidia-smi", "--query-gpu=clocks.sm,power.draw,temperature.gpu",
+             "--format=csv,noheader,nounits", "-lms", "200"],
+            stdout=subprocess.PIPE, stderr=subprocess.DEVNULL, text=True)
+        self.reader = threading.Thread(target=self._read, daemon=True)
+        self.reader.start()
+        return self
+
+    def _read(self):
+        for line in self.proc.stdout:
+            try:
+                sm, watts, temp = (float(x) for x in line.split(","))
+            except ValueError:
+                continue
+            self.samples.append((time.perf_counter(), sm, watts, temp))
+
+    def __exit__(self, *exc):
+        self.proc.terminate()
+        self.proc.wait(timeout=10)
+        self.reader.join(timeout=10)
+
+    def during(self, windows) -> dict:
+        """Each window's median SM clock (None where no sample fell in it),
+        and over all windows the median SM clock and power and the highest
+        temperature."""
+        import statistics as st
+        inside = [[x for x in self.samples if a <= x[0] <= b]
+                  for a, b in windows]
+        every = [x for w in inside for x in w]
+        if not every:
+            return {"samples": 0}
+        return {"samples": len(every),
+                "sm_mhz_per_step": [st.median(x[1] for x in w) if w else None
+                                    for w in inside],
+                "sm_mhz": st.median(x[1] for x in every),
+                "power_w": st.median(x[2] for x in every),
+                "temp_c_max": max(x[3] for x in every)}
 
 
 def _timed_checkpointer(store, run):
@@ -2778,9 +2865,8 @@ def _train_run(cfg, opt, revoke: bool):
     from repro_torch.data import SyntheticCorpus, TokenLoader
     from repro_torch.train import ElasticTrainer
     store = ObjectStore(clock=VirtualClock())
-    keys = SyntheticCorpus.build(store, "train", num_shards=2,
-                                 tokens_per_shard=65_536,
-                                 vocab_size=cfg.vocab_size, seed=0)
+    keys = SyntheticCorpus.build(store, TRAIN_CORPUS, **TRAIN_SHARDS,
+                                 vocab_size=cfg.vocab_size)
     loader = TokenLoader(store.get, keys, batch_size=TB, seq_len=TS, seed=0)
     ck = _timed_checkpointer(store, "revoked" if revoke else "plain")
     trainer = ElasticTrainer(cfg, opt, ck, seed=0, device="cuda")
@@ -2838,18 +2924,24 @@ def phase_train(smi: str):
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
         held = torch.cuda.memory_allocated()
-        t0 = time.perf_counter()
-        ref, ref_rep, ref_probe, ref_ck = _train_run(cfg, opt, revoke=False)
-        peak = torch.cuda.max_memory_allocated()
-        ref_wall = time.perf_counter() - t0
-        ref_final = [t.detach() for t in _state_leaves(ref.final_state)]
-        del ref
-        gc.collect()
-        torch.cuda.empty_cache()
-        rev, rev_rep, rev_probe, rev_ck = _train_run(cfg, opt, revoke=True)
-        rev_final = [t.detach() for t in _state_leaves(rev.final_state)]
-        del rev
-        gc.collect()
+        with _GpuSampler() as gpu:
+            t0 = time.perf_counter()
+            ref, ref_rep, ref_probe, ref_ck = _train_run(cfg, opt,
+                                                         revoke=False)
+            peak = torch.cuda.max_memory_allocated()
+            ref_wall = time.perf_counter() - t0
+            ref_final = [t.detach() for t in _state_leaves(ref.final_state)]
+            t1 = time.perf_counter()
+            digest = _state_digest(ref.final_state)
+            digest_s = time.perf_counter() - t1
+            del ref
+            gc.collect()
+            torch.cuda.empty_cache()
+            rev, rev_rep, rev_probe, rev_ck = _train_run(cfg, opt,
+                                                         revoke=True)
+            rev_final = [t.detach() for t in _state_leaves(rev.final_state)]
+            del rev
+            gc.collect()
     finally:
         torch.use_deterministic_algorithms(False)
         undo()
@@ -2857,7 +2949,10 @@ def phase_train(smi: str):
                and all(torch.equal(a, b) for a, b in zip(ref_final,
                                                           rev_final)))
     step_s = [dt for dt, _, _ in ref_probe.steps]
+    rev_step_s = [dt for dt, _, _ in rev_probe.steps]
     steady = st.median(step_s[1:])
+    clocks = {"uninterrupted": gpu.during(ref_probe.windows),
+              "revoked": gpu.during(rev_probe.windows)}
     saves = [e for e in ref_ck + rev_ck if e[0] == "save"]
     restores = [e for e in rev_ck if e[0] == "restore"]
     gb = saves[0][3] / 1e9
@@ -2868,6 +2963,8 @@ def phase_train(smi: str):
                                           ref_rep.losses.items()},
         "step_ms": [s * 1e3 for s in step_s],
         "step_ms_median_after_first": steady * 1e3,
+        "revoked_run_step_ms": [s * 1e3 for s in rev_step_s],
+        "gpu_during_steps": clocks,
         "tokens_per_s": TB * TS / steady,
         "max_memory_allocated_bytes": peak,
         "allocated_before_bytes": held,
@@ -2879,7 +2976,8 @@ def phase_train(smi: str):
         "restore_gb_per_s": [e[3] / 1e9 / e[2] for e in restores],
         "launches_per_step": want,
         "launches_by_route_per_step": want_routes,
-        "bitwise_restart": bitwise}
+        "bitwise_restart": bitwise,
+        "state_sha256": digest, "digest_s": digest_s}
     log(f"[train] internlm2-1.8b {L} layers ({rec['params'] / 1e9:.3f} B "
         f"params), bf16 over f32 masters, remat full, int8 moments, B {TB} "
         f"x S {TS}: losses {[round(x, 4) for x in ref_rep.losses.values()]}; "
@@ -2893,7 +2991,9 @@ def phase_train(smi: str):
         f"({[round(x, 2) for x in rec['restore_gb_per_s']]} GB/s); revoked "
         f"at step {TRAIN_REVOKE}, resumed from step {TRAIN_EVERY}: final "
         f"params and optimizer state bit for bit equal: {bitwise} "
-        f"({len(ref_final)} tensors); launches a step {want}; on {smi}")
+        f"({len(ref_final)} tensors); launches a step {want}; the revoked "
+        f"run's step ms {[round(x * 1e3, 1) for x in rev_step_s]}; "
+        f"{_clock_text(clocks)}; on {smi}")
     for label, rep, probe in (("uninterrupted", ref_rep, ref_probe),
                               ("revoked", rev_rep, rev_probe)):
         for i, (_, counts, routes) in enumerate(probe.steps):
@@ -2919,9 +3019,333 @@ def phase_train(smi: str):
     return rec
 
 
+# ---------------------------------------------------------------------------
+# phase 9: the Kotta batch runtime -- a revoked full-width training job
+# ---------------------------------------------------------------------------
+
+def _job_service(watcher_kwargs, vocab_size: int):
+    """A ``KottaService`` with the standard roles; the train phase's corpus
+    under dataset/<TRAIN_CORPUS>/; a ``researcher`` role over it, results/*
+    and queue/* that ``task-executor`` may assume, bound to alice; an
+    ``outsider`` role over queue/* alone, bound to mallory."""
+    from repro_torch.core import (ExecutableRegistry, KottaService,
+                                  ObjectStore, PolicyEngine, Principal, Role,
+                                  allow, install_standard_roles)
+    from repro_torch.data import SyntheticCorpus
+    engine = PolicyEngine()
+    install_standard_roles(engine)
+    store = ObjectStore(clock=engine.clock)
+    svc = KottaService(engine, store, ExecutableRegistry(),
+                       watcher_kwargs=watcher_kwargs)
+    shards = tuple(SyntheticCorpus.build(store, TRAIN_CORPUS, **TRAIN_SHARDS,
+                                         vocab_size=vocab_size))
+    engine.register_role(Role("researcher", policies=[
+        allow(["data:Get", "data:List"], [f"dataset/{TRAIN_CORPUS}/*"]),
+        allow(["data:*"], ["results/*"]),
+        allow(["jobs:*"], ["queue/*"])], trusted_assumers={"task-executor"}))
+    engine.register_role(Role("outsider", policies=[
+        allow(["jobs:*"], ["queue/*"])]))
+    for uid, role in (("alice", "researcher"), ("mallory", "outsider")):
+        engine.authenticator.register_identity(Principal(uid), "pw")
+        engine.bind(Principal(uid), role)
+    return svc, shards
+
+
+def _train_lm(svc, cfg, opt):
+    """The ``train_lm`` executable: ``ElasticTrainer`` on the card over the
+    staged shards (the train phase's batch, seed, config and optimizer),
+    checkpointing into the service's store under job-<id>, reporting a
+    heartbeat after every step. Its ``revoke_at`` hook is a cancellation
+    point; on the first attempt, at TRAIN_REVOKE, it first revokes the
+    worker running it (a spot reclaim) and adds a replacement prod worker,
+    so the JobCancelled that follows leaves the trainer mid-run. Stages out
+    the losses and the final state's SHA-256. Returns the executable and a
+    list of its attempts' records (worker, device memory at the start,
+    times, step probe, checkpoint events, heartbeat times)."""
+    import threading
+    import numpy as np
+    import torch
+    from repro_torch.data import TokenLoader
+    from repro_torch.train import ElasticTrainer
+    attempts = []
+
+    def train_lm(ctx):
+        worker = threading.current_thread()
+        torch.cuda.synchronize()
+        att = {"worker": worker, "allocated_at_start":
+               torch.cuda.memory_allocated(), "t_start": time.perf_counter()}
+        attempts.append(att)
+        loader = TokenLoader(lambda k: ctx.staged_inputs[k],
+                             sorted(ctx.staged_inputs), batch_size=TB,
+                             seq_len=TS, seed=0)
+        ck = _timed_checkpointer(svc.store, f"job-{ctx.job_id}")
+        trainer = ElasticTrainer(cfg, opt, ck, seed=0, device="cuda")
+        probe, at = _StepProbe(trainer._step_fn), [0]
+        att.update(probe=probe, events=ck.events, beats=[att["t_start"]])
+
+        def step(params, opt_state, batch):
+            att.setdefault("t_first_step", time.perf_counter())
+            out = probe(params, opt_state, batch)
+            ctx.report(step=at[0] + 1, loss=float(out[2]["total_loss"]))
+            att["beats"].append(time.perf_counter())
+            return out
+
+        def revoke_at(step):
+            at[0] = step
+            if step == TRAIN_REVOKE and len(attempts) == 1:
+                att["t_revoke"] = time.perf_counter()
+                worker.revoke()
+                att["replacement"] = svc.add_worker("prod")
+            ctx.checkpoint()
+            return False
+
+        trainer._step_fn = step
+        rep = trainer.train(loader, TRAIN_STEPS, checkpoint_every=TRAIN_EVERY,
+                            revoke_at=revoke_at)
+        digest = _state_digest(trainer.final_state)
+        att["beats"].append(time.perf_counter())
+        ctx.outputs[f"results/{ctx.job_id}/losses.npy"] = np.asarray(
+            [rep.losses[k] for k in sorted(rep.losses)]).tobytes()
+        ctx.outputs[f"results/{ctx.job_id}/state.sha256"] = digest.encode()
+        return {"first_step": min(rep.losses), "steps_run": rep.steps_run}
+
+    return train_lm, attempts
+
+
+def phase_job(smi: str, train: dict):
+    """The Kotta batch runtime on the card: the train phase's full-width
+    internlm2-1.8b run as a ``KottaService`` job. mallory's submit is
+    refused and audited; alice's job, on a preemptible prod worker, is
+    revoked through ``Worker.revoke()`` at step TRAIN_REVOKE and resumed
+    by a replacement worker from the step-TRAIN_EVERY checkpoint, under
+    ``torch.use_deterministic_algorithms``. Held to: COMPLETED with the
+    revocation's note, finished by the replacement, no watcher
+    resubmission or speculation (the heartbeat timeout is twice the train
+    phase's whole uninterrupted run and digest, and the longest measured
+    stretch without a heartbeat must stay under it), the executor's
+    assume-role and the staging reads in the audit log, the outputs
+    alice's, the final state's SHA-256 equal to the train phase's
+    uninterrupted run's, every step's launches exactly the train phase's,
+    the job's launches counted from 0 exactly 7 steps' worth, no plain
+    version called, the first attempt's tensors gone when the second
+    starts, and every thread joined at shutdown. Then the port's
+    simulator's Table VII-C rows (2016 EC2 prices; a simulation)."""
+    import statistics as st
+    import numpy as np
+    import torch
+    from repro_torch import kernels as K
+    from repro_torch.configs import get_config
+    from repro_torch.core import (AuthorizationError, JobSpec, JobStatus,
+                                  run_table7c)
+    from repro_torch.train import AdamWConfig
+    cfg = get_config("internlm2-1.8b")
+    opt = AdamWConfig(learning_rate=TRAIN_LR, warmup_steps=2,
+                      decay_steps=100, state_dtype="int8")
+    want = train["launches_per_step"]
+    want_routes = train["launches_by_route_per_step"]
+    timeout_s = 2.0 * (train["uninterrupted_run_s"] + train["digest_s"])
+    svc, shards = _job_service({"heartbeat_timeout_s": timeout_s,
+                                "interval_s": 0.05, "speculation": False},
+                               cfg.vocab_size)
+    train_lm, attempts = _train_lm(svc, cfg, opt)
+    svc.registry.register("train_lm", train_lm)
+    engine = svc.engine
+    plain_calls, undo = _plain_call_counter()
+    torch.use_deterministic_algorithms(True)
+    try:
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()
+        svc.start(dev_workers=1, prod_workers=1)
+        spot = svc.workers("prod")[0]
+        try:
+            svc.submit(engine.login("mallory", "pw"),
+                       JobSpec("train_lm", inputs=shards, queue="prod"))
+        except AuthorizationError as e:
+            refused = str(e)
+        else:
+            raise AssertionError("job: mallory's submit was accepted")
+        with _GpuSampler() as gpu:
+            K.reset_launch_counts()
+            t0 = time.perf_counter()
+            job = svc.submit(engine.login("alice", "pw"),
+                             JobSpec("train_lm", inputs=shards, queue="prod"))
+            rec = svc.wait(job, timeout_s=300, poll_s=0.05)
+            wall = time.perf_counter() - t0
+            torch.cuda.synchronize()
+            counts = K.launch_counts()
+            peak = torch.cuda.max_memory_allocated()
+    finally:
+        svc.shutdown()
+        torch.use_deterministic_algorithms(False)
+        undo()
+    alive = [t.name for t in svc._threads if t.is_alive()]
+    first, second = attempts if len(attempts) == 2 else (None, None)
+    if rec["status"] != JobStatus.COMPLETED or first is None:
+        raise AssertionError(f"job: {rec} after {len(attempts)} attempts")
+    steps = first["probe"].steps + second["probe"].steps
+    step_s = [dt for dt, _, _ in steps]
+    steady = st.median([dt for dt, _, _ in first["probe"].steps[1:]
+                        + second["probe"].steps[1:]])
+    clocks = {f"attempt {i + 1}": gpu.during(a["probe"].windows)
+              for i, a in enumerate(attempts)}
+    saves = [e for a in attempts for e in a["events"] if e[0] == "save"]
+    restores = [e for a in attempts for e in a["events"]
+                if e[0] == "restore"]
+    gaps = [b - a for att in attempts
+            for a, b in zip(att["beats"], att["beats"][1:])]
+    audit = engine.audit.records()
+    mallory = [r for r in audit if r.principal_id == "mallory"]
+    assumes = [(r.decision, r.principal_id, r.role_name, r.resource)
+               for r in audit if r.action == "sts:AssumeRole"]
+    reads = {k: [(r.principal_id, r.role_name) for r in audit
+                 if r.action == "data:Get" and r.resource == k
+                 and r.decision == "allow"] for k in shards}
+    outputs = {k: svc.store.head(k).owner
+               for k in svc.store.keys(f"results/{job}/")}
+    digest = bytes(svc.store.get(f"results/{job}/state.sha256")).decode()
+    losses = np.frombuffer(bytes(svc.store.get(f"results/{job}/losses.npy")))
+    total = {k: v for k, v in counts.items() if v}
+    job_steps = TRAIN_REVOKE + TRAIN_STEPS - TRAIN_EVERY      # 4 + 3
+    rows = run_table7c()
+    res = {
+        "config": "internlm2-1.8b", "layers": cfg.num_layers, "batch": TB,
+        "seq": TS, "steps": TRAIN_STEPS, "revoked_at": TRAIN_REVOKE,
+        "resumed_from": TRAIN_EVERY, "job_wall_s": wall,
+        "step_ms": [x * 1e3 for x in step_s],
+        "step_ms_median_after_first": steady * 1e3,
+        "gpu_during_steps": clocks,
+        "save_s": [e[2] for e in saves], "restore_s": [e[2] for e in restores],
+        "revocation_to_second_start_s": second["t_start"] - first["t_revoke"],
+        "revocation_to_second_first_step_s":
+            second["t_first_step"] - first["t_revoke"],
+        "max_memory_allocated_bytes": peak, "allocated_before_bytes": held,
+        "allocated_at_attempt_start_bytes": [a["allocated_at_start"]
+                                             for a in attempts],
+        "heartbeat_timeout_s": timeout_s, "longest_heartbeat_gap_s": max(gaps),
+        "workers": [first["worker"].name, second["worker"].name],
+        "finished_by": rec["worker"], "note": rec.get("note"),
+        "resubmissions": svc.watcher.resubmissions,
+        "speculations": svc.watcher.speculations,
+        "state_sha256": digest, "launches": total,
+        "threads_alive_after_shutdown": alive,
+        "table7c_simulation_2016_prices": [
+            {"policy": r.policy, "max_nodes": r.max_nodes,
+             "makespan_h": r.makespan_s / 3600, "on_demand_usd":
+             r.on_demand_cost, "spot_usd": r.spot_cost,
+             "max_wait_h": r.max_wait_s / 3600, "revocations": r.revocations}
+            for r in rows]}
+    mib = 2 ** 20
+    log(f"[job] internlm2-1.8b {cfg.num_layers} layers, B {TB} x S {TS} as "
+        f"a KottaService job: mallory refused ({refused}); alice's job on "
+        f"{first['worker'].name} revoked at step {TRAIN_REVOKE}, resumed by "
+        f"{second['worker'].name} from step {TRAIN_EVERY}, finished by "
+        f"{rec['worker']} ({rec.get('note')}); job wall {wall:.1f} s; step "
+        f"ms {[round(x * 1e3, 1) for x in step_s]} (median after each "
+        f"attempt's first {steady * 1e3:.1f}); saves "
+        f"{[round(e[2], 2) for e in saves]} s, restore "
+        f"{[round(e[2], 2) for e in restores]} s; revocation -> second "
+        f"attempt's start {res['revocation_to_second_start_s']:.2f} s, -> its"
+        f" first step {res['revocation_to_second_first_step_s']:.2f} s; "
+        f"device memory allocated at each attempt's start "
+        f"{[round(a['allocated_at_start'] / mib, 1) for a in attempts]} MiB "
+        f"({held / mib:.1f} MiB before the job), peak {peak / 2**30:.2f} "
+        f"GiB; longest stretch without a heartbeat {max(gaps):.2f} s "
+        f"(timeout {timeout_s:.1f} s); resubmissions "
+        f"{svc.watcher.resubmissions}, speculations "
+        f"{svc.watcher.speculations}; state SHA-256 {digest[:16]}... equal "
+        f"to the train phase's: {digest == train['state_sha256']}; launches "
+        f"{total}; {_clock_text(clocks)}; on {smi}")
+    log("[job] Table VII-C from the port's simulator (a simulation at the "
+        "paper's 2016 EC2 prices, not a card number): " + "; ".join(
+            f"{r.policy} {r.max_nodes}: makespan {r.makespan_s / 3600:.2f} h"
+            f", on-demand ${r.on_demand_cost:.2f}, spot ${r.spot_cost:.2f}"
+            for r in rows) + f"; static-40 on-demand over unlimited spot "
+        f"{rows[0].on_demand_cost / rows[2].spot_cost:.1f}x")
+    problems = []
+    if not (mallory and mallory[-1].decision == "deny"):
+        problems.append(f"mallory's refusal not audited: {mallory}")
+    if rec.get("note") != "revoked mid-run":
+        problems.append(f"note {rec.get('note')!r}")
+    if not (first["worker"] is spot and first["worker"]._revoked.is_set()
+            and second["worker"] is first.get("replacement")
+            and rec["worker"] == second["worker"].name != spot.name):
+        problems.append(f"workers {res['workers']}, finished by "
+                        f"{rec['worker']}")
+    if svc.watcher.resubmissions or svc.watcher.speculations:
+        problems.append("the watcher re-ran the job")
+    if max(gaps) >= timeout_s:
+        problems.append(f"a heartbeat gap of {max(gaps):.1f} s")
+    if assumes != [("allow", "service:task-executor", "task-executor",
+                    "role/researcher")] * 2:
+        problems.append(f"assume-role audit {assumes}")
+    for k, got in reads.items():
+        if got != [("alice", "researcher")] + [
+                ("service:task-executor", "researcher")] * 2:
+            problems.append(f"reads of {k}: {got}")
+    if set(outputs) != {f"results/{job}/losses.npy",
+                        f"results/{job}/state.sha256"} \
+            or set(outputs.values()) != {"alice"}:
+        problems.append(f"outputs {outputs}")
+    if digest != train["state_sha256"]:
+        problems.append("the final state differs from the train phase's")
+    if losses.tolist() != [train["losses"][str(k)] for k in
+                           range(TRAIN_EVERY + 1, TRAIN_STEPS + 1)]:
+        problems.append(f"losses {losses.tolist()} vs {train['losses']}")
+    if len(steps) != job_steps:
+        problems.append(f"{len(steps)} steps run, want {job_steps}")
+    for i, (_, got, by) in enumerate(steps):
+        got = {k: v for k, v in got.items() if v}
+        if got != want or any(by[k] != v for k, v in want_routes.items()):
+            problems.append(f"step {i + 1}: launches {got} routes {by}")
+    if total != {k: v * job_steps for k, v in want.items()}:
+        problems.append(f"job launches {total}")
+    if sum(plain_calls.values()):
+        problems.append(f"a plain version ran: {plain_calls}")
+    # The first attempt's state is ~11 GiB; 512 MiB of slack covers what a
+    # new thread's cuBLAS handle keeps (its 32 MiB workspace).
+    if second["allocated_at_start"] > first["allocated_at_start"] + 2 ** 29:
+        problems.append("the first attempt's tensors were still allocated")
+    if alive:
+        problems.append(f"threads alive after shutdown: {alive}")
+    if problems:
+        raise AssertionError("job: " + "; ".join(problems))
+    torch.cuda.empty_cache()
+    return res
+
+
+def _clock_text(clocks: dict) -> str:
+    """One run's nvidia-smi samples a step, for a log line."""
+    parts = []
+    for label, c in clocks.items():
+        if not c["samples"]:
+            parts.append(f"{label}: no nvidia-smi sample")
+            continue
+        per = [None if x is None else round(x) for x in c["sm_mhz_per_step"]]
+        parts.append(f"{label}: SM MHz a step {per} (median {c['sm_mhz']:.0f}"
+                     f"), power median {c['power_w']:.0f} W, temperature max "
+                     f"{c['temp_c_max']:.0f} C")
+    return "; ".join(parts)
+
+
 def _state_leaves(state):
     from repro_torch.checkpoint.checkpointer import _flatten
     return [t for _, t in _flatten(state)]
+
+
+def _state_digest(state) -> str:
+    """SHA-256 over every leaf of a (params, optimizer state) tree: its
+    name, dtype, shape and bytes, copied to the host a leaf at a time."""
+    import hashlib
+    import torch
+    from repro_torch.checkpoint.checkpointer import _flatten
+    h = hashlib.sha256()
+    for name, t in _flatten(state):
+        h.update(f"{name}:{t.dtype}:{tuple(t.shape)}".encode())
+        h.update(t.detach().reshape(-1).view(torch.uint8).cpu().numpy())
+    return h.hexdigest()
 
 
 # ---------------------------------------------------------------------------
@@ -2973,6 +3397,7 @@ def main() -> int:
     gateway_launches, gateway = timed("gateway", phase_gateway, smi)
     timed("train parity", phase_train_parity)
     train = timed("train", phase_train, smi)
+    job = timed("job", phase_job, smi, train)
     record = []
     for name, per_kind in kern.items():
         main_kind = "bf16"
@@ -3006,6 +3431,7 @@ def main() -> int:
         if name in train["launches_per_step"]:
             entry["launches_train"] = (train["launches_per_step"][name]
                                        * train["steps"])
+            entry["launches_job"] = job["launches"][name]
         record.append(entry)
     for name, fwd in (("rmsnorm_bwd", "rmsnorm_fused"),
                       ("flash_attention_bwd", "flash_attention_fwd")):
@@ -3018,6 +3444,7 @@ def main() -> int:
                     "XLA); 'replaces' names the forward's TPU kernel",
             "launches": train["launches_per_step"][name] * train["steps"],
             "launches_per_step": train["launches_per_step"][name],
+            "launches_job": job["launches"][name],
             "launches_by_route": {
                 route: n * train["steps"] for route, n in
                 train["launches_by_route_per_step"][name].items()},
@@ -3030,7 +3457,7 @@ def main() -> int:
         f"{smi}; seconds a phase: {seconds}")
     print(json.dumps({"kernels": record, "transformers": transformers,
                       "residency": moves, "gateway": gateway,
-                      "train": train}))
+                      "train": train, "job": job}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

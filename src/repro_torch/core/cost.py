@@ -1,10 +1,25 @@
-"""Storage and instance pricing (paper §V, §VII-B, §VII-E), the part of the
-reference's ``repro/core/cost.py`` the serve modules read: the tiered KV
-store prices HOST and OBJECT residency from :class:`StoragePricing`, the
-gateway prices replicas from :class:`ComputePricing`, and the object store
-(:mod:`repro_torch.core.lifecycle`) prices its tiers with the monthly
-storage functions below. The reference's lifecycle-cost and placement
-functions (paper Eqs 1-5, Table III) are not copied yet.
+"""Cost models (paper §V, §VII-B, §VII-E), a copy of the reference's
+``repro/core/cost.py``:
+
+- S3-Standard / S3-Infrequent-Access / Glacier storage pricing (the
+  monthly functions the tiered object store and KV store price their
+  tiers with) and the lifecycle-policy cost model, Eqs (1)-(3) / Table
+  III (:func:`lifecycle_annual_cost`);
+- Glacier retrieval (peak-rate) pricing, Eqs (1)-(2)
+  (:func:`glacier_retrieval_monthly`);
+- cost-aware placement with inter-region egress, Eqs (4)-(5) / Fig 7
+  (:func:`placement_cost`, used by :mod:`repro_torch.core.placement`);
+- EC2 on-demand/spot instance pricing (:class:`ComputePricing`), used by
+  the Table VII-C simulator, the gateway and the tiered KV store.
+
+The reference's reading of Eq (3) is kept: the **active** fraction
+``A_data`` cycles through STD→IA (amortised ``(C_std + 2·C_ia)/3`` a
+month over the 3-month window) while the **inactive** ``1 - A_data``
+fraction rests in Glacier, which matches every Table III row to the cent
+(the equation as printed cannot reproduce the paper's own table).
+
+The reference's TPU roofline constants are not copied: they describe no
+hardware the port runs on.
 
 Sizes are decimal GB, as in the paper.
 """
@@ -69,3 +84,102 @@ def s3_ia_monthly(gb: float, pricing: StoragePricing | None = None) -> float:
 def glacier_monthly(gb: float, pricing: StoragePricing | None = None) -> float:
     p = pricing or StoragePricing()
     return gb * p.glacier_per_gb_month
+
+
+def glacier_retrieval_monthly(
+    daily_peak_gb: float,
+    glacier_stored_gb: float,
+    pricing: StoragePricing | None = None,
+) -> float:
+    """Paper Eqs (1)-(2): peak-rate Glacier retrieval fee for one month.
+
+    ``daily_peak_gb`` is the largest single-day retrieval volume, assumed to be
+    pulled within ``glacier_retrieval_hours`` (4 h). The free quota is 5% of
+    stored data per month, pro-rated daily and spread over the same window.
+    """
+    p = pricing or StoragePricing()
+    tx_time = p.glacier_retrieval_hours
+    tx_peak = daily_peak_gb / tx_time                                   # Eq (1)
+    tx_quota = glacier_stored_gb * p.glacier_free_monthly_frac / (30 * tx_time)
+    if tx_peak <= tx_quota:
+        return 0.0                                                       # Eq (2)
+    return (tx_peak - tx_quota) * p.glacier_retrieval_per_gb_hour * 720.0
+
+
+@dataclass(frozen=True)
+class LifecycleCost:
+    storage_annual: float
+    access_annual: float
+    access_hours: float  # retrieval latency exposure (0 when no Glacier stage)
+
+
+def lifecycle_annual_cost(
+    policy: str,
+    total_gb: float,
+    active_frac: float = 0.0,
+    annual_recalls: int = 1,
+    pricing: StoragePricing | None = None,
+) -> LifecycleCost:
+    """Annual cost of a storage strategy over ``total_gb`` (paper Table III).
+
+    ``policy`` is one of the paper's strategies:
+      ``"STD"`` | ``"IA"`` | ``"GLACIER"`` | ``"STD30-IA"`` | ``"STD30-IA60-GLACIER"``
+    ``active_frac`` is A_data — the fraction of data touched within a 3-month
+    window (paper: 3-10%). ``annual_recalls`` is how many times per year the
+    active set is pulled back out of Glacier (for strategies that archive it).
+    """
+    p = pricing or StoragePricing()
+    policy = policy.upper()
+    std_mo = s3_std_monthly(total_gb, p)
+    ia_mo = s3_ia_monthly(total_gb, p)
+    gl_mo = glacier_monthly(total_gb, p)
+
+    if policy == "STD":
+        return LifecycleCost(12 * std_mo, 0.0, 0.0)
+    if policy == "IA":
+        return LifecycleCost(12 * ia_mo, 0.0, 0.0)
+    if policy == "GLACIER":
+        # Everything lives in Glacier; every month the working set (A_data
+        # spread over its 3-month window) must be recalled in a one-day burst.
+        burst = total_gb * active_frac / 3.0
+        fee = glacier_retrieval_monthly(burst, total_gb, p)
+        return LifecycleCost(12 * gl_mo, fee * 12, p.glacier_retrieval_hours)
+    if policy == "STD30-IA":
+        # Month 1 in STD, 11 months in IA (no access ⇒ everything ages out).
+        return LifecycleCost(std_mo + 11 * ia_mo, 0.0, 0.0)
+    if policy in ("STD30-IA60-GLACIER", "STD30-IA60-GL"):
+        # Active fraction cycles STD(1mo)→IA(2mo); inactive rests in Glacier.
+        cycle_mo = (std_mo + 2 * ia_mo) / 3.0
+        storage_mo = cycle_mo * active_frac + gl_mo * (1.0 - active_frac)
+        # Occasional recalls of archived objects: the paper reports a fixed
+        # $169.73/yr for both the 3% and 10% policies; a one-day burst of the
+        # monthly working set (total·A/3) priced by Eqs (1)-(2) yields $165.0
+        # (the small residual comes from the paper mixing binary/decimal GB;
+        # with 10 TiB the same formula gives $169.75). We use decimal GB
+        # throughout, matching the storage column exactly.
+        burst = total_gb * active_frac / 3.0
+        fee = glacier_retrieval_monthly(burst, total_gb, p) * annual_recalls
+        return LifecycleCost(12 * storage_mo, fee, p.glacier_retrieval_hours)
+    raise ValueError(f"unknown storage policy {policy!r}")
+
+
+# ---------------------------------------------------------------------------
+# Cost-aware placement (paper §VII-E, Eqs (4)-(5), Fig 7)
+# ---------------------------------------------------------------------------
+
+def placement_cost(
+    instance_price_per_hour: float,
+    hours: float,
+    data_down_gb: float,
+    data_up_gb: float,
+    same_region_as_data: bool,
+    pricing: StoragePricing | None = None,
+) -> float:
+    """Total cost of a placement choice: P_total = P_i + P_transfer."""
+    p = pricing or StoragePricing()
+    compute = instance_price_per_hour * hours
+    if same_region_as_data:
+        transfer = 0.0                                                   # Eq (5)
+    else:
+        transfer = (data_down_gb + data_up_gb) * p.inter_region_transfer_per_gb
+    return compute + transfer                                            # Eq (4)

@@ -233,4 +233,5 @@ def test_copies_import_nothing_of_the_reference():
         assert mod.__name__.startswith("repro_torch.")
     assert t_market.ComputePricing.__module__ == "repro_torch.core.cost"
     assert t_sec.Clock is t_clock.Clock and t_sched.Clock is t_clock.Clock
-    assert not hasattr(t_sched, "KottaService")
+    assert t_sched.PolicyEngine is t_sec.PolicyEngine
+    assert t_sched.KottaService.__module__ == "repro_torch.core.scheduler"
