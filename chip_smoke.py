@@ -122,13 +122,36 @@ Phases, each of which must pass (a failure exits nonzero):
    seconds, the time from the revocation to the second worker's first
    step, device memory at each attempt's start and the peak; then the
    port's simulator's Table VII-C rows (a simulation at 2016 prices).
+10. xlstm: xlstm-350m widths at depth 2 in f32, card against CPU: prefill
+   and four decode steps at prompts of 256 (four mLSTM chunks) and 200 (a
+   ragged last chunk), logits and states within 1e-3; ``train_loss`` and
+   every gradient at B 2, S 256 (the loss within 1e-5 of itself, each
+   gradient within 1e-4 of its leaf's max); bf16 RMSNorm at the path's
+   own shapes against its plain version (forward over 2048 and 8 rows,
+   backward over 4096, at D 1024 and 2048, on the register kernel); then
+   the full model (24 layers, 12 mLSTM/sLSTM pairs, bf16, random weights
+   from seed 0)
+   through the static ``ServeEngine``, the serve phase's 8 prompts of
+   160-256 tokens, 32 new, after a warm-up, RMSNorm's launches exact (37 a
+   pass, the register kernel's widths), and untimed at a longest prompt
+   of 200; ``torch.profiler`` over a 256-token prefill and a decode step
+   (launches, busy share, device time by kernel, the wall share inside
+   ``slstm_scan``'s time loop); and training through
+   ``ElasticTrainer`` at B 8 x 512 (remat full, int8 moments,
+   checkpoints every 2), 4 steps, once uninterrupted and once revoked
+   after step 3 (lost, and replayed from the step-2 checkpoint), under
+   ``torch.use_deterministic_algorithms``: the two final states'
+   SHA-256 equal, the loss falling, RMSNorm's 73 forward and 37 backward
+   launches a step exact, no plain version called.
 
 The second-to-last line of output is a JSON ``kernels`` record (with the
 launches on the transformer runs, the residency phase's move times, the
-gateway phase's results and the train and job phases' numbers); the last
-is ``{"ok": true, "device": {...}}``. Without CUDA, or without the port
+gateway phase's results, the train and job phases' numbers and the xlstm
+phase's, RMSNorm's xLSTM launches among the kernels' as
+``launches_xlstm_serve`` and ``launches_xlstm_train``); the last is
+``{"ok": true, "device": {...}}``. Without CUDA, or without the port
 beside this script, it prints no result and exits nonzero. It takes no
-arguments: every run drives all nine phases.
+arguments: every run drives all ten phases.
 """
 from __future__ import annotations
 
@@ -1174,11 +1197,13 @@ def _paged_parity(cfg, label):
     torch.cuda.empty_cache()
 
 
-def _static_parity(cfg, seqs, label):
+def _static_parity(cfg, seqs, label,
+                   kernels=("rmsnorm_fused", "flash_attention_fwd")):
     """The static engine's steps, f32, batch 2: a prefill of each length in
     ``seqs`` and four decode steps over the cache grown by 8 rows, on the
     card against the CPU; logits and every cache leaf within TOL_PARITY,
-    every flash launch on the CUDA-core route."""
+    each of ``kernels`` launched, every flash launch on the CUDA-core
+    route."""
     import numpy as np
     import torch
     from repro_torch.kernels import (launch_counts, launch_counts_by_route,
@@ -1222,7 +1247,7 @@ def _static_parity(cfg, seqs, label):
         for got, want in zip(_leaves(caches["cuda"]), _leaves(caches["cpu"])):
             check(f"S {seq} cache", got, want)
     counts = launch_counts()
-    if counts["rmsnorm_fused"] < 1 or counts["flash_attention_fwd"] < 1:
+    if min(counts[k] for k in kernels) < 1:
         raise AssertionError(f"{label} parity missed a kernel: {counts}")
     for name in ("flash_attention_fwd", "ssd_scan"):
         routes = launch_counts_by_route()[name]
@@ -2676,10 +2701,14 @@ def _train_grads(fam, cfg, params, batch):
     return loss.detach(), torch.autograd.grad(loss, leaves)
 
 
-def _train_parity(cfg, label):
+def _train_parity(cfg, label, kernels=("flash_attention_fwd",
+                                        "flash_attention_bwd",
+                                        "rmsnorm_fused", "rmsnorm_bwd")):
     """``train_loss`` and every gradient at ``cfg`` (f32, depth 2, B 2, S
     256) on the card (kernels, backward kernels) against the CPU (plain
-    versions, autograd) from the same weights."""
+    versions, autograd) from the same weights; each of ``kernels``
+    launched at least once a layer. The loss within 1e-5; of the CPU's
+    loss where that is above 128, whose f32 ulp exceeds 1e-5."""
     import numpy as np
     import torch
     from repro_torch.kernels import (launch_counts, launch_counts_by_route,
@@ -2699,18 +2728,20 @@ def _train_parity(cfg, label):
     counts, routes = launch_counts(), launch_counts_by_route()
     cl, cg = _train_grads(fam, cfg, cpu, {k: torch.from_numpy(v)
                                           for k, v in batch.items()})
-    loss_err = abs(gl.item() - cl.item())
+    relative = abs(cl.item()) > 128
+    loss_err = abs(gl.item() - cl.item()) / (abs(cl.item()) if relative
+                                             else 1.0)
     grad_err = max(_rel_err(a.cpu(), b) for a, b in zip(gg, cg))
     log(f"[train parity] {label} widths, {cfg.num_layers} layers, f32, B 2, "
         f"S {ZS}: loss card {gl.item():.6f} cpu {cl.item():.6f} "
-        f"(|diff| {loss_err:.2e}, tol 1e-5), max gradient error / leaf max "
+        f"(|diff|{' / |cpu|' if relative else ''} {loss_err:.2e}, "
+        f"tol 1e-5), max gradient error / leaf max "
         f"{grad_err:.2e} (tol 1e-4) over {len(cg)} leaves, launches "
         f"{counts}")
     if not (loss_err <= 1e-5 and grad_err <= 1e-4):
         raise AssertionError(f"train parity {label}: loss {loss_err}, "
                              f"grads {grad_err}")
-    for name in ("flash_attention_fwd", "flash_attention_bwd", "rmsnorm_fused",
-                 "rmsnorm_bwd"):
+    for name in kernels:
         if counts[name] < cfg.num_layers:
             raise AssertionError(f"train parity {label} missed {name}: "
                                  f"{counts}")
@@ -2755,6 +2786,15 @@ class _StepProbe:
             {k: {r: n - routes[k][r] for r, n in by.items()}
              for k, by in K.launch_counts_by_route().items()}))
         return out
+
+
+def _run_launches(probe) -> dict:
+    """Each kernel's launches summed over a probed run's steps."""
+    total = {}
+    for _, counts, _ in probe.steps:
+        for k, v in counts.items():
+            total[k] = total.get(k, 0) + v
+    return total
 
 
 class _GpuSampler:
@@ -2858,16 +2898,21 @@ def _plain_call_counter():
     return calls, lambda: [u() for u in undo]
 
 
-def _train_run(cfg, opt, revoke: bool):
-    """One ElasticTrainer run of TRAIN_STEPS steps on a fresh store; returns
-    (trainer, report, probe, checkpoint events)."""
+def _train_run(cfg, opt, revoke: bool, *, batch=TB, seq=TS,
+               steps=TRAIN_STEPS, every=TRAIN_EVERY,
+               revoke_step=TRAIN_REVOKE):
+    """One ElasticTrainer run of ``steps`` steps on a fresh store, batch x
+    seq, checkpoints every ``every`` steps, revoked once at
+    ``revoke_step`` if ``revoke``; returns (trainer, report, probe,
+    checkpoint events)."""
     from repro_torch.core import ObjectStore, VirtualClock
     from repro_torch.data import SyntheticCorpus, TokenLoader
     from repro_torch.train import ElasticTrainer
     store = ObjectStore(clock=VirtualClock())
     keys = SyntheticCorpus.build(store, TRAIN_CORPUS, **TRAIN_SHARDS,
                                  vocab_size=cfg.vocab_size)
-    loader = TokenLoader(store.get, keys, batch_size=TB, seq_len=TS, seed=0)
+    loader = TokenLoader(store.get, keys, batch_size=batch, seq_len=seq,
+                         seed=0)
     ck = _timed_checkpointer(store, "revoked" if revoke else "plain")
     trainer = ElasticTrainer(cfg, opt, ck, seed=0, device="cuda")
     probe = _StepProbe(trainer._step_fn)
@@ -2875,12 +2920,12 @@ def _train_run(cfg, opt, revoke: bool):
     fired = []
 
     def revoke_at(step):
-        if revoke and step == TRAIN_REVOKE and not fired:
+        if revoke and step == revoke_step and not fired:
             fired.append(step)
             return True
         return False
 
-    rep = trainer.train(loader, TRAIN_STEPS, checkpoint_every=TRAIN_EVERY,
+    rep = trainer.train(loader, steps, checkpoint_every=every,
                         revoke_at=revoke_at)
     return trainer, rep, probe, ck.events
 
@@ -2976,6 +3021,10 @@ def phase_train(smi: str):
         "restore_gb_per_s": [e[3] / 1e9 / e[2] for e in restores],
         "launches_per_step": want,
         "launches_by_route_per_step": want_routes,
+        "launches": _run_launches(ref_probe),
+        "launches_by_route": {
+            k: {r: sum(step[2][k][r] for step in ref_probe.steps)
+                for r in by} for k, by in want_routes.items()},
         "bitwise_restart": bitwise,
         "state_sha256": digest, "digest_s": digest_s}
     log(f"[train] internlm2-1.8b {L} layers ({rec['params'] / 1e9:.3f} B "
@@ -3316,6 +3365,380 @@ def phase_job(smi: str, train: dict):
     return res
 
 
+# ---------------------------------------------------------------------------
+# phase 10: xLSTM -- parity, serve, train and where the time goes
+# ---------------------------------------------------------------------------
+
+# xlstm-350m's training run: batch 8 x 512 (8 mLSTM chunks of 64), 4
+# steps, checkpoints every 2; the second run is revoked after step 3,
+# loses it and resumes from the step-2 checkpoint, so it runs 5 steps and
+# replays one. A step takes 15-19 s on an H100 (the sLSTM loop's
+# launches, forward, recompute and backward), so the run is no longer.
+XB, XS = 8, 512
+X_STEPS, X_EVERY, X_REVOKE = 4, 2, 3
+
+
+def _xlstm_norms(cfg) -> int:
+    """RMSNorm launches a pass: mLSTM ``norm`` and ``out_norm`` and sLSTM
+    ``norm`` a pair, and ``final_norm``."""
+    return 3 * (cfg.num_layers // 2) + 1
+
+
+def _left_padded(prompts, dev):
+    import numpy as np
+    import torch
+    plen = max(len(p) for p in prompts)
+    toks = np.zeros((len(prompts), plen), np.int64)
+    for i, p in enumerate(prompts):
+        toks[i, plen - len(p):] = p
+    return torch.from_numpy(toks).to(dev)
+
+
+def _xlstm_parity():
+    """xlstm-350m widths at depth 2 (one pair), f32, batch 2: prompts of
+    256 (four mLSTM chunks of 64) and of 200 (a ragged last chunk of 8),
+    prefill and four decode steps, card against CPU within TOL_PARITY;
+    then ``train_loss`` and every gradient at B 2, S 256: the loss within
+    1e-5 of itself (the tied embedding's unit-variance rows make it ~10^2)
+    and each gradient within 1e-4 of its leaf's max."""
+    from repro_torch.configs import get_config
+    cfg = get_config("xlstm-350m").replace(num_layers=2, dtype="float32")
+    counts = _static_parity(cfg, (ZS, 200), "xlstm-350m",
+                            kernels=("rmsnorm_fused",))
+    if any(counts[k] for k in PAGED + ("flash_attention_fwd", "ssd_scan")):
+        raise AssertionError(f"xlstm parity launched an attention or SSD "
+                             f"kernel: {counts}")
+    _train_parity(cfg, "xlstm-350m", kernels=("rmsnorm_fused",
+                                              "rmsnorm_bwd"))
+
+
+def _xlstm_norm_kernels(cfg):
+    """bf16 RMSNorm at the shapes the xLSTM path gives it, with f32 weights
+    as the blocks' norms have, against the plain versions on the same
+    inputs, each on the register kernel: the forward over the serve
+    prefill's 8 x 256 rows and decode's 8 at D ``d_model`` (each block's
+    ``norm``) and 2 ``d_model`` (mLSTM's ``out_norm``), within TOL_BF16;
+    the backward over a training step's XB x XS rows at both widths,
+    within TOL_BF16 of each gradient's max and twice bit for bit."""
+    import torch
+    from repro_torch import kernels as K
+    from repro_torch.kernels.rmsnorm.kernel import rmsnorm_path
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(22)
+    out = {"rmsnorm_fused": {}, "rmsnorm_bwd": {}}
+    for d in (cfg.d_model, 2 * cfg.d_model):
+        if rmsnorm_path(d, torch.bfloat16) != "registers":
+            raise AssertionError(f"xlstm: RMSNorm at D {d} leaves the "
+                                 f"register kernel")
+        for rows in (ZB * ZS, 8):
+            x = torch_randn(gen, dev, rows, d).bfloat16()
+            w = 0.25 + 0.05 * torch_randn(gen, dev, d)
+            K.reset_launch_counts()
+            got = K.rmsnorm_fused(x, w)
+            launched = K.launch_counts()["rmsnorm_fused"]
+            err = _max_err(got, K.rmsnorm_reference(x, w))
+            log(f"[xlstm] rmsnorm_fused bf16 {rows}x{d}: max|kernel-plain| "
+                f"{err:.3e} (tol {TOL_BF16}), launches {launched}")
+            if launched != 1 or not (math.isfinite(err) and err <= TOL_BF16):
+                raise AssertionError(f"xlstm rmsnorm_fused {rows}x{d}: "
+                                     f"error {err}, launches {launched}")
+            out["rmsnorm_fused"][f"{rows}x{d}"] = err
+        kern, plain, _ = _rms_bwd_case(gen, dev, torch.bfloat16, XB * XS, d)
+        K.reset_launch_counts()
+        got, again = kern(), kern()
+        torch.cuda.synchronize()
+        routes = K.launch_counts_by_route()["rmsnorm_bwd"]
+        same = all(torch.equal(a, b) for a, b in zip(got, again))
+        errs = [_rel_err(a, b) for a, b in zip(got, plain())]
+        log(f"[xlstm] rmsnorm_bwd bf16 {XB * XS}x{d}: max|kernel-plain|/"
+            f"max|plain| by gradient {['%.2e' % e for e in errs]} (tol "
+            f"{TOL_BF16}), repeat bitwise {same}, routes {routes}")
+        if routes != {"registers": 2, "smem": 0} or not same \
+                or not all(math.isfinite(e) and e <= TOL_BF16 for e in errs):
+            raise AssertionError(f"xlstm rmsnorm_bwd {XB * XS}x{d}: errors "
+                                 f"{errs}, repeat equal {same}, routes "
+                                 f"{routes}")
+        out["rmsnorm_bwd"][f"{XB * XS}x{d}"] = max(errs)
+    return out
+
+
+def _xlstm_serve(cfg, params, smi):
+    """Full-width xlstm-350m through the static ServeEngine: the Zamba2
+    phase's 8 prompts (160-256 tokens, padded to 256), 32 new tokens each,
+    after a warm-up; RMSNorm's launches exactly ``_xlstm_norms`` a pass
+    over 1 + 32 passes, nothing else, no plain version. Then untimed at a
+    longest prompt of 200 (mLSTM chunks 64 x 3 + 8), 8 new tokens."""
+    import torch
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.serve import ServeEngine
+    from repro_torch.serve.prompts import static_batch_prompts
+    prompts = static_batch_prompts(cfg.vocab_size)
+    max_new = 32
+    norms = _xlstm_norms(cfg)
+    eng = ServeEngine(cfg, params, max_len=SERVE_MAX_LEN, device="cuda")
+    plain_calls, undo = _plain_call_counter()
+    try:
+        eng.generate(prompts, max_new=2)                 # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        out = eng.generate(prompts, max_new=max_new)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        counts = launch_counts()
+        peak = torch.cuda.max_memory_allocated()
+        ragged = [p[:200] for p in prompts]
+        reset_launch_counts()
+        rtoks = eng.generate(ragged, max_new=8).tokens
+        torch.cuda.synchronize()
+        rcounts = launch_counts()
+    finally:
+        undo()
+    got = {k: v for k, v in counts.items() if v}
+    rgot = {k: v for k, v in rcounts.items() if v}
+    want = {"rmsnorm_fused": norms * (1 + max_new)}
+    if got != want or rgot != {"rmsnorm_fused": norms * (1 + 8)} \
+            or sum(plain_calls.values()):
+        raise AssertionError(f"xlstm serve launches {got} and at 200 {rgot},"
+                             f" want {want}; plain calls {plain_calls}")
+    for toks, n, what in ((out.tokens, max_new, "timed"),
+                          (rtoks, 8, "longest prompt 200")):
+        if toks.shape != (len(prompts), n) or toks.min() < 0 \
+                or toks.max() >= cfg.vocab_size:
+            raise AssertionError(f"xlstm serve {what}: bad tokens "
+                                 f"{toks.shape}")
+    rec = {"prompts": len(prompts), "padded_to": max(map(len, prompts)),
+           "max_new": max_new, "generate_s": dt,
+           "tokens_per_s": out.tokens.size / dt,
+           "max_memory_allocated_bytes": peak,
+           "launches": got, "launches_at_200": rgot}
+    log(f"[xlstm] serve: xlstm-350m {cfg.num_layers} layers bf16, static "
+        f"engine: {len(prompts)} prompts (padded to {rec['padded_to']}) x "
+        f"{max_new} new in {dt:.3f} s = {rec['tokens_per_s']:.1f} tok/s "
+        f"(prefill+decode), peak device memory {peak / 2**30:.2f} GiB, "
+        f"launches {got} ({norms} a pass, all on the register kernel); "
+        f"longest prompt 200, 8 new: launches {rgot}; on {smi}")
+    del eng
+    return rec
+
+
+def _xlstm_profile(cfg, params, smi):
+    """Where a full-width prefill of 8 x 256 and one decode step spend
+    their time: ``launch/profile_serve.py``'s ``profile`` of each (the
+    unprofiled wall, the device kernels' time and launches under
+    ``torch.profiler``, their share of that wall, the kernels by device
+    time), and the wall share inside ``slstm_scan`` (its calls bracketed
+    by synchronises, in a run of its own)."""
+    import torch
+    from repro_torch.launch.profile_serve import profile
+    from repro_torch.models import get_family
+    from repro_torch.models import xlstm as X
+    from repro_torch.serve.prompts import static_batch_prompts
+    fam = get_family(cfg)
+    toks = _left_padded(static_batch_prompts(cfg.vocab_size), "cuda")
+    logits, cache = fam.prefill(cfg, params, {"tokens": toks})
+    step = {"tokens": logits.argmax(-1)[:, None],
+            "pos": torch.full((toks.shape[0],), toks.shape[1],
+                              dtype=torch.int32, device="cuda")}
+    calls = {f"prefill {toks.shape[0]} x {toks.shape[1]}":
+             lambda: fam.prefill(cfg, params, {"tokens": toks}),
+             "decode step": lambda: fam.decode(cfg, params, step, cache)}
+    scan = X.slstm_scan
+    inside = []
+
+    def timed_scan(*a, **kw):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = scan(*a, **kw)
+        torch.cuda.synchronize()
+        inside.append(time.perf_counter() - t)
+        return out
+
+    rec = {}
+    for name, fn in calls.items():
+        with torch.no_grad():
+            prof = profile(fn)
+            X.slstm_scan = timed_scan
+            try:
+                inside.clear()
+                t0 = time.perf_counter()
+                fn()
+                torch.cuda.synchronize()
+                wall_scan = time.perf_counter() - t0
+            finally:
+                X.slstm_scan = scan
+        if not prof["kernels"] or prof["device_ms"] <= 0:
+            raise AssertionError(f"xlstm profile {name}: the profiler saw no "
+                                 f"device kernel")
+        rec[name] = r = {
+            **{k: prof[k] for k in ("wall_ms", "device_ms", "busy_share",
+                                    "launches")},
+            "launches_per_layer_pair": prof["launches"]
+            / (cfg.num_layers // 2),
+            "slstm_scan_wall_share": sum(inside) / wall_scan,
+            "slstm_scan_ms": sum(inside) * 1e3,
+            "top_kernels": [dict(k, name=k["name"][:90])
+                            for k in prof["kernels"][:8]]}
+        log(f"[xlstm] profile {name}: wall {r['wall_ms']:.2f} ms "
+            f"unprofiled, device kernels {r['device_ms']:.2f} ms (busy "
+            f"share {r['busy_share']:.3f}), {r['launches']} kernel launches; "
+            f"inside slstm_scan's time loop {r['slstm_scan_ms']:.2f} ms = "
+            f"{r['slstm_scan_wall_share']:.3f} of the wall (a run with its "
+            f"calls bracketed by synchronises, {wall_scan * 1e3:.2f} ms); "
+            f"top kernels: " + "; ".join(
+                f"{k['device_ms']:.3f} ms {k['count']}x {k['name'][:60]}"
+                for k in r["top_kernels"]) + f"; on {smi}")
+    del cache
+    return rec
+
+
+def _xlstm_train(cfg, smi):
+    """Full-width, full-depth xlstm-350m (bf16 compute over f32 masters,
+    remat "full", seed 0) trained by ElasticTrainer on the train phase's
+    synthetic corpus, batch XB x XS, int8 AdamW moments, X_STEPS steps
+    with checkpoints every X_EVERY: once uninterrupted, once revoked after
+    step X_REVOKE, whose work is lost, and resumed from the last checkpoint
+    before it, under ``torch.use_deterministic_algorithms``.
+    The two final states' SHA-256 equal, the loss falling, every step's
+    launches exact -- RMSNorm forward 2 (3P) + 1 (each pair's three norms
+    run again in its recompute, ``final_norm`` once) and backward 3P + 1,
+    every backward on its register kernel, P pairs -- and no plain version
+    called."""
+    import statistics as st
+    import torch
+    from repro_torch.models import count_params
+    from repro_torch.train import AdamWConfig
+    assert cfg.remat == "full" and cfg.param_dtype == "float32"
+    opt = AdamWConfig(learning_rate=TRAIN_LR, warmup_steps=2,
+                      decay_steps=100, state_dtype="int8")
+    norms = _xlstm_norms(cfg)
+    want = {"rmsnorm_fused": 2 * (norms - 1) + 1, "rmsnorm_bwd": norms}
+    run_kw = dict(batch=XB, seq=XS, steps=X_STEPS, every=X_EVERY,
+                  revoke_step=X_REVOKE)
+    plain_calls, undo = _plain_call_counter()
+    torch.use_deterministic_algorithms(True)
+    try:
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        ref, ref_rep, ref_probe, ref_ck = _train_run(cfg, opt, False,
+                                                     **run_kw)
+        peak = torch.cuda.max_memory_allocated()
+        ref_wall = time.perf_counter() - t0
+        digest = _state_digest(ref.final_state)
+        del ref
+        gc.collect()
+        torch.cuda.empty_cache()
+        rev, rev_rep, rev_probe, rev_ck = _train_run(cfg, opt, True,
+                                                     **run_kw)
+        rev_digest = _state_digest(rev.final_state)
+        del rev
+        gc.collect()
+    finally:
+        torch.use_deterministic_algorithms(False)
+        undo()
+    step_s = [dt for dt, _, _ in ref_probe.steps]
+    steady = st.median(step_s[1:])
+    saves = [e for e in ref_ck + rev_ck if e[0] == "save"]
+    restores = [e for e in rev_ck if e[0] == "restore"]
+    rec = {"config": "xlstm-350m", "layers": cfg.num_layers,
+           "params": count_params(cfg), "batch": XB, "seq": XS,
+           "steps": X_STEPS, "revoked_at": X_REVOKE,
+           "resumed_from": X_EVERY, "state_dtype": "int8",
+           "losses": {str(k): v for k, v in ref_rep.losses.items()},
+           "step_ms": [x * 1e3 for x in step_s],
+           "step_ms_median_after_first": steady * 1e3,
+           "revoked_run_step_ms": [dt * 1e3 for dt, _, _ in rev_probe.steps],
+           "tokens_per_s": XB * XS / steady,
+           "max_memory_allocated_bytes": peak, "uninterrupted_run_s": ref_wall,
+           "checkpoint_gb": saves[0][3] / 1e9,
+           "save_s": [e[2] for e in saves],
+           "restore_s": [e[2] for e in restores],
+           "launches_per_step": want,
+           "launches": _run_launches(ref_probe),
+           "revoked_run_launches": _run_launches(rev_probe),
+           "steps_run_revoked": rev_rep.steps_run, "state_sha256": digest,
+           "bitwise_restart": digest == rev_digest}
+    log(f"[xlstm] train: xlstm-350m {cfg.num_layers} layers "
+        f"({rec['params'] / 1e6:.1f} M params), bf16 over f32 masters, remat"
+        f" full, int8 moments, B {XB} x S {XS}: losses "
+        f"{[round(x, 4) for x in ref_rep.losses.values()]}; step ms "
+        f"{[round(x * 1e3, 1) for x in step_s]} (median after the first "
+        f"{steady * 1e3:.1f} ms = {rec['tokens_per_s']:.0f} tokens/s); peak "
+        f"device memory {peak / 2**30:.2f} GiB; checkpoint "
+        f"{rec['checkpoint_gb']:.2f} GB: saves "
+        f"{[round(e[2], 2) for e in saves]} s, restore "
+        f"{[round(e[2], 2) for e in restores]} s; revoked after step "
+        f"{X_REVOKE}, resumed from step {X_EVERY}, {rev_rep.steps_run} "
+        f"steps run: state SHA-256 "
+        f"{digest[:16]}... equal: {rec['bitwise_restart']}; launches a step "
+        f"{want}; the revoked run's step ms "
+        f"{[round(x, 1) for x in rec['revoked_run_step_ms']]}; on {smi}")
+    for label, rep, probe in (("uninterrupted", ref_rep, ref_probe),
+                              ("revoked", rev_rep, rev_probe)):
+        for i, (_, counts, routes) in enumerate(probe.steps):
+            got = {k: v for k, v in counts.items() if v}
+            if got != want or routes["rmsnorm_bwd"] != {
+                    "registers": norms, "smem": 0}:
+                raise AssertionError(f"xlstm train {label} step {i + 1}: "
+                                     f"launches {got} routes {routes}, want "
+                                     f"{want}")
+        if not rep.losses[X_STEPS] < rep.losses[1]:
+            raise AssertionError(f"xlstm train {label}: loss did not fall "
+                                 f"{rep.losses}")
+    if sum(plain_calls.values()):
+        raise AssertionError(f"xlstm train: a plain version ran on the "
+                             f"card: {plain_calls}")
+    if rev_rep.restarts != 1 or X_REVOKE % X_EVERY == 0 \
+            or rev_rep.steps_run != X_STEPS + X_REVOKE - X_EVERY \
+            or digest != rev_digest:
+        raise AssertionError("xlstm train: the revoked run's final state is "
+                             "not bit for bit the uninterrupted run's")
+    torch.cuda.empty_cache()
+    return rec
+
+
+def phase_xlstm(smi: str):
+    """xlstm-350m on the card: f32 parity against the CPU (serve and
+    train) at depth 2; bf16 RMSNorm against its plain version at the
+    path's shapes; then the full model (24 layers, 12 pairs, bf16,
+    random weights from seed 0) served through the static ServeEngine
+    with exact RMSNorm launches, profiled (a prefill of 8 x 256 and one
+    decode step), and trained with a revocation, bit for bit."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import get_family, init_params
+    seconds = {}
+    t = time.perf_counter()
+    _xlstm_parity()
+    seconds["parity"] = time.perf_counter() - t
+    cfg = get_config("xlstm-350m")
+    t = time.perf_counter()
+    norm_errs = _xlstm_norm_kernels(cfg)
+    seconds["norm kernels"] = time.perf_counter() - t
+    t = time.perf_counter()
+    params = init_params(cfg, get_family(cfg).layout(cfg), seed=0,
+                         device="cuda")
+    serve = _xlstm_serve(cfg, params, smi)
+    seconds["serve"] = time.perf_counter() - t
+    t = time.perf_counter()
+    profile = _xlstm_profile(cfg, params, smi)
+    seconds["profile"] = time.perf_counter() - t
+    del params
+    torch.cuda.empty_cache()
+    t = time.perf_counter()
+    train = _xlstm_train(cfg, smi)
+    seconds["train"] = time.perf_counter() - t
+    log(f"[xlstm] seconds a part: "
+        f"{ {k: round(v, 1) for k, v in seconds.items()} }")
+    return {"norm_kernels": norm_errs, "serve": serve, "profile": profile,
+            "train": train, "seconds": seconds}
+
+
 def _clock_text(clocks: dict) -> str:
     """One run's nvidia-smi samples a step, for a log line."""
     parts = []
@@ -3398,6 +3821,7 @@ def main() -> int:
     timed("train parity", phase_train_parity)
     train = timed("train", phase_train, smi)
     job = timed("job", phase_job, smi, train)
+    xl = timed("xlstm", phase_xlstm, smi)
     record = []
     for name, per_kind in kern.items():
         main_kind = "bf16"
@@ -3421,6 +3845,10 @@ def main() -> int:
         if name == "rmsnorm_fused":
             entry["launches_yi6b"] = launches[name]
             entry["rows"] = rec["rows"]
+            entry["launches_xlstm_serve"] = \
+                xl["serve"]["launches"]["rmsnorm_fused"]
+            entry["launches_xlstm_train"] = xl["train"]["launches"][name]
+            entry["xlstm_shapes_max_abs_err"] = xl["norm_kernels"][name]
         if name in routes:
             entry["launches_by_route"] = routes[name]
         if "transformers" in rec:
@@ -3429,8 +3857,7 @@ def main() -> int:
         entry["launches_transformers"] = {
             run: counts[name] for run, counts in transformer_runs.items()}
         if name in train["launches_per_step"]:
-            entry["launches_train"] = (train["launches_per_step"][name]
-                                       * train["steps"])
+            entry["launches_train"] = train["launches"][name]
             entry["launches_job"] = job["launches"][name]
         record.append(entry)
     for name, fwd in (("rmsnorm_bwd", "rmsnorm_fused"),
@@ -3442,22 +3869,25 @@ def main() -> int:
             "kind": "backward: the port's own kernel, no TPU counterpart "
                     "(the reference differentiates its jnp version with "
                     "XLA); 'replaces' names the forward's TPU kernel",
-            "launches": train["launches_per_step"][name] * train["steps"],
+            "launches": train["launches"][name],
             "launches_per_step": train["launches_per_step"][name],
             "launches_job": job["launches"][name],
-            "launches_by_route": {
-                route: n * train["steps"] for route, n in
-                train["launches_by_route_per_step"][name].items()},
+            "launches_by_route": train["launches_by_route"][name],
             "max_abs_err": max(r["max_abs_err"] for r in bwd[name].values()),
             "ms": rec["ms"], "plain_ms": rec["plain_ms"],
             "bound_ms": rec["bound_ms"], "bound_by": rec["bound_by"],
             "library_ms": rec["library_ms"], "shape": rec["shape"],
             "split_ms": rec["split_ms"]})
+        if name == "rmsnorm_bwd":
+            record[-1]["launches_xlstm_train"] = \
+                xl["train"]["launches"][name]
+            record[-1]["xlstm_shapes_max_rel_err"] = \
+                xl["norm_kernels"][name]
     log(f"[done] every phase passed in {time.perf_counter() - t0:.1f} s on "
         f"{smi}; seconds a phase: {seconds}")
     print(json.dumps({"kernels": record, "transformers": transformers,
                       "residency": moves, "gateway": gateway,
-                      "train": train, "job": job}))
+                      "train": train, "job": job, "xlstm": xl}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

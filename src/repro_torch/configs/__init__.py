@@ -1,5 +1,5 @@
 from . import (arctic_480b, internlm2_1_8b, mistral_nemo_12b, olmoe_1b_7b,
-               starcoder2_7b, yi_6b, zamba2_1_2b)
+               starcoder2_7b, xlstm_350m, yi_6b, zamba2_1_2b)
 from .base import ModelConfig, torch_dtype
 
 _MODULES = {
@@ -10,6 +10,7 @@ _MODULES = {
     "yi-6b": yi_6b,
     "internlm2-1.8b": internlm2_1_8b,
     "zamba2-1.2b": zamba2_1_2b,
+    "xlstm-350m": xlstm_350m,
 }
 ARCH_NAMES = tuple(_MODULES)
 

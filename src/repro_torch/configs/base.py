@@ -1,11 +1,11 @@
 """Model configuration for the PyTorch port.
 
 The port keeps its own copy of the reference ``ModelConfig``: the fields the
-dense transformer's (with or without experts) and the Zamba2 hybrid's
-serving and training paths read, with the ``dtype`` strings mapped to torch
-dtypes.
-Families that the port does not run yet (xLSTM, audio, VLM) add their
-fields, the modality frontend's among them, when they are ported.
+dense transformer's (with or without experts), xLSTM's and the Zamba2
+hybrid's serving and training paths read, with the ``dtype`` strings mapped
+to torch dtypes.
+Families that the port does not run yet (audio, VLM) add their fields, the
+modality frontend's among them, when they are ported.
 """
 from __future__ import annotations
 
@@ -28,7 +28,7 @@ def torch_dtype(name: str) -> torch.dtype:
 @dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str                      # "dense" | "moe" | "hybrid" run in the port
+    family: str                      # "dense" | "moe" | "ssm" | "hybrid"
     num_layers: int
     d_model: int
     num_heads: int
@@ -47,8 +47,8 @@ class ModelConfig:
     router_z_loss: float = 1e-3
     load_balance_loss: float = 1e-2
 
-    # --- SSM (Mamba2) ----------------------------------------------------------
-    ssm_variant: str = ""            # "mamba2"
+    # --- SSM (Mamba2; xLSTM reads ssm_conv) ----------------------------------
+    ssm_variant: str = ""            # "mamba2" | "xlstm"
     ssm_state: int = 0               # N (d_state)
     ssm_expand: int = 2
     ssm_headdim: int = 64

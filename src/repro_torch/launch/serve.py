@@ -6,14 +6,16 @@ the Kotta serving gateway.
         [--prefill-mode dense] [--device cpu]
     PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-1.2b \\
         --engine static --batch 4 --max-new 8 [--device cpu]
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch xlstm-350m \\
+        --batch 4 --max-new 8 [--device cpu]
 
 ``--arch`` takes every config of the port: the dense transformers yi-6b,
 internlm2-1.8b, mistral-nemo-12b and starcoder2-7b, the MoE transformers
-olmoe-1b-7b and arctic-480b, and the Zamba2 hybrid. ``--engine auto`` (the
-default) picks the continuous-batching engine for a family with a paged
-decode path (every transformer, with or without experts) and the static
-``ServeEngine`` otherwise (Zamba2). ``--prefill-mode dense`` admits
-prompts to the continuous engine by ragged dense prefill instead of paged
+olmoe-1b-7b and arctic-480b, the Zamba2 hybrid and xLSTM. ``--engine auto``
+(the default) picks the continuous-batching engine for a family with a
+paged decode path (every transformer, with or without experts) and the
+static ``ServeEngine`` otherwise (Zamba2, xLSTM). ``--prefill-mode dense``
+admits prompts to the continuous engine by ragged dense prefill instead of paged
 chunks (no prefix cache, no int8 pool). Weights are random, drawn on the device from seed 0;
 prompts from seed 1. Prints ``engine: <kind> (<device>)`` and then
 ``prompt -> tokens`` lines. The default device is ``cuda``, which fails

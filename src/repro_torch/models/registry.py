@@ -1,22 +1,25 @@
 """Model-family registry and parameter accounting: the dense transformer
-(with or without experts) and the Zamba2 hybrid."""
+(with or without experts), xLSTM and the Zamba2 hybrid."""
 from __future__ import annotations
 
 from .params import count_params_in_layout
-from .transformer import TransformerFamily, ZambaFamily
+from .transformer import TransformerFamily, XLSTMFamily, ZambaFamily
 
 _TRANSFORMER = TransformerFamily()
+_XLSTM = XLSTMFamily()
 _ZAMBA = ZambaFamily()
 
 
 def get_family(cfg):
     if cfg.family in ("dense", "moe"):
         return _TRANSFORMER
+    if cfg.family == "ssm" and cfg.ssm_variant == "xlstm":
+        return _XLSTM
     if cfg.family == "hybrid" or cfg.ssm_variant == "mamba2":
         return _ZAMBA
     raise NotImplementedError(
         f"{cfg.name}: family {cfg.family!r} is not ported yet; the audio and "
-        "VLM frontends and xLSTM come in later slices (ROADMAP.md, Queue 1)")
+        "VLM frontends come in a later slice (ROADMAP.md, Queue 1, item 2b)")
 
 
 def count_params(cfg, active_only: bool = False) -> int:

@@ -1,12 +1,12 @@
-"""Model families: the dense transformer (with or without experts) and the
-Zamba2 hybrid.
+"""Model families: the dense transformer (with or without experts), the
+xLSTM stack of (mLSTM, sLSTM) pairs and the Zamba2 hybrid.
 
 All families expose the surface the static ``ServeEngine`` calls:
 ``layout``, ``prefill``, ``decode``, ``cache_layout`` and
 ``grown_cache_leaves`` (the decode-cache leaves whose axis 2 is the
 sequence, which the engine grows to ``max_len``), and ``train_loss``
-(dense and MoE transformers; the Zamba2 hybrid's raises until the SSD scan
-has a backward kernel). ``TransformerFamily``
+(dense and MoE transformers and xLSTM; the Zamba2 hybrid's raises until
+the SSD scan has a backward kernel). ``TransformerFamily``
 adds the continuous-batching engine's surface: ``prefill_ragged`` (dense
 admission), ``prefill_paged``, ``decode_paged``, ``decode_verify``,
 ``paged_pool_shape`` and ``paged_pool``. Every dense path runs the MoE FFN
@@ -25,6 +25,8 @@ from . import layers as L
 from .moe import moe_block, moe_param_specs
 from .params import stack_specs
 from .ssm import mamba_block, mamba_cache_shapes, mamba_param_specs
+from .xlstm import (mlstm_block, mlstm_cache_shapes, mlstm_param_specs,
+                    slstm_block, slstm_cache_shapes, slstm_param_specs)
 
 
 def _layer(tree, i: int):
@@ -279,6 +281,100 @@ class TransformerFamily:
             return {"k": torch.zeros(shape, dtype=cfg.cdtype, device=dev),
                     "v": torch.zeros(shape, dtype=cfg.cdtype, device=dev)}
         raise ValueError(f"unknown kv_cache_dtype {dtype!r}")
+
+
+# ===========================================================================
+# xLSTM (alternating mLSTM / sLSTM pairs)
+# ===========================================================================
+
+class XLSTMFamily:
+    """``num_layers // 2`` (mLSTM, sLSTM) pairs, stacked under ``pairs``.
+    Its decode cache holds recurrent state and a conv tail, none of it along
+    the sequence, so the static engine grows no leaf; the reference's engine
+    grows every leaf whose axis 2 equals the prompt length (ROADMAP.md,
+    Queue 3)."""
+    name = "xlstm"
+    grown_cache_leaves = ()
+
+    def n_pairs(self, cfg) -> int:
+        return cfg.num_layers // 2
+
+    def layout(self, cfg) -> dict:
+        n = self.n_pairs(cfg)
+        return {
+            **L.embed_param_specs(cfg),
+            "pairs": {
+                "m": stack_specs(mlstm_param_specs(cfg), n),
+                "s": stack_specs(slstm_param_specs(cfg), n),
+            },
+            "final_norm": L.norm_spec(cfg.d_model),
+        }
+
+    def train_loss(self, cfg, params, batch):
+        """batch: tokens and labels (B,S). Returns (mean token
+        cross-entropy, {"loss": it}); each pair runs under ``_remat``, as
+        the reference's scan body does."""
+        x = L.embed_tokens(cfg, params, batch["tokens"])
+
+        def pair(h, pm, ps):
+            h, _ = mlstm_block(cfg, pm, h)
+            return slstm_block(cfg, ps, h)[0]
+
+        body = _remat(cfg, pair)
+        for pm, ps in zip(_unbind_layers(params["pairs"]["m"]),
+                          _unbind_layers(params["pairs"]["s"])):
+            x = body(x, pm, ps)
+        x = L.rmsnorm(x, params["final_norm"], cfg.norm_eps)
+        loss = L.softmax_xent(L.logits_fn(cfg, params, x),
+                              batch["labels"].long())
+        return loss, {"loss": loss}
+
+    def _forward(self, cfg, params, x, caches=None):
+        """Every pair. Prefill (``caches is None``) returns a new stacked
+        cache; decode writes every leaf of ``caches`` in place and returns
+        it."""
+        new = {"m": [], "s": []}
+        for i in range(self.n_pairs(cfg)):
+            for kind, block in (("m", mlstm_block), ("s", slstm_block)):
+                c_in = None if caches is None else _layer(caches[kind], i)
+                x, c = block(cfg, _layer(params["pairs"][kind], i), x,
+                             cache=c_in)
+                if caches is None:
+                    new[kind].append(c)
+                else:
+                    for name, leaf in c.items():
+                        c_in[name].copy_(leaf)
+        x = L.rmsnorm(x, params["final_norm"], cfg.norm_eps)
+        if caches is not None:
+            return x, caches
+        return x, {kind: {name: torch.stack([c[name] for c in cs])
+                          for name in cs[0]} for kind, cs in new.items()}
+
+    def prefill(self, cfg, params, batch):
+        """batch: tokens (B,S). Returns (logits (B,V) at the last position,
+        cache): ``m`` conv (P,B,K-1,2d) and C (P,B,H,hd,hd), n (P,B,H,hd),
+        m (P,B,H) in f32; ``s`` c, n, m, h (P,B,H,hd) in f32, P pairs."""
+        x = L.embed_tokens(cfg, params, batch["tokens"])
+        x, cache = self._forward(cfg, params, x)
+        return L.logits_fn(cfg, params, x[:, -1:])[:, 0], cache
+
+    def decode(self, cfg, params, batch, cache):
+        """batch: tokens (B,1) (``pos`` is not read: the state carries the
+        position). Returns (logits (B,V), cache updated in place)."""
+        x = L.embed_tokens(cfg, params, batch["tokens"])
+        x, cache = self._forward(cfg, params, x, caches=cache)
+        return L.logits_fn(cfg, params, x)[:, 0], cache
+
+    def cache_layout(self, cfg, batch: int, cache_len: int) -> dict:
+        """Decode-cache leaves as (shape, dtype), keyed as the cache is;
+        ``cache_len`` is not read."""
+        n = self.n_pairs(cfg)
+
+        def stk(entries):
+            return {k: ((n,) + shape, dt) for k, (shape, dt) in entries.items()}
+
+        return {"m": stk(mlstm_cache_shapes(cfg, batch)),
+                "s": stk(slstm_cache_shapes(cfg, batch))}
 
 
 # ===========================================================================

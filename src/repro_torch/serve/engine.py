@@ -51,8 +51,8 @@ sits the residency surface the control plane moves requests with:
 
 ``ServeEngine`` is the reference's static-batch engine: one left-padded
 batch, a dense per-request cache, greedy decode. It serves every family:
-the dense transformer (with or without experts) and the Zamba2 hybrid,
-which has no paged path.
+the dense transformer (with or without experts), and the Zamba2 hybrid
+and xLSTM, which have no paged path.
 """
 from __future__ import annotations
 
@@ -95,9 +95,10 @@ class ServeEngine:
 
     Only the leaves the family names in ``grown_cache_leaves`` grow, along
     axis 2: ``k``/``v`` for the dense transformer, ``attn_k``/``attn_v``
-    for Zamba2. The reference grows every cache leaf whose axis 2 equals the
-    prompt length, which also catches a Mamba2 state or conv tail whose
-    head count or window happens to equal it (ROADMAP.md, Queue 3).
+    for Zamba2, none for xLSTM. The reference grows every cache leaf whose
+    axis 2 equals the prompt length, which also catches a Mamba2 or xLSTM
+    state or conv tail whose head count or window happens to equal it
+    (ROADMAP.md, Queue 3).
     """
 
     def __init__(self, cfg, params, *, max_len: int = 512, device="cuda"):

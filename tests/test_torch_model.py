@@ -195,7 +195,7 @@ def test_config_fields_match_reference(arch):
 
 @pytest.mark.parametrize("arch", ["internlm2-1.8b", "mistral-nemo-12b",
                                   "starcoder2-7b", "olmoe-1b-7b",
-                                  "arctic-480b"])
+                                  "arctic-480b", "xlstm-350m"])
 def test_count_params_matches_reference(arch):
     """Total and per-token active parameters of the full configs, from the
     layouts alone (nothing is allocated)."""

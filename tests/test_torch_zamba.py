@@ -120,8 +120,10 @@ def test_layout_and_groups_match_reference():
     specs = ssm.mamba_param_specs(tcfg)
     assert {k for k, s in specs.items() if s.dtype == "float32"} \
         == {"norm", "gate_norm", "dt_bias", "A_log", "D"}
+    assert get_family(tcfg.replace(family="ssm", ssm_variant="xlstm")).name \
+        == "xlstm"
     with pytest.raises(NotImplementedError, match="not ported yet"):
-        get_family(tcfg.replace(family="ssm", ssm_variant="xlstm"))
+        get_family(tcfg.replace(family="audio", ssm_variant=""))
 
 
 # ---------------------------------------------------------------------------
