@@ -143,15 +143,40 @@ Phases, each of which must pass (a failure exits nonzero):
    ``torch.use_deterministic_algorithms``: the two final states'
    SHA-256 equal, the loss falling, RMSNorm's 73 forward and 37 backward
    launches a step exact, no plain version called.
+11. frontends: hubert-xlarge and paligemma-3b widths at depth 2 in f32,
+   card against CPU: hubert's encode logits (B 2 x 200 frames) and
+   paligemma's prefill of 256 patches + 16 tokens, three decode steps
+   from pos 272 and the cache, within 1e-3 (flash at hd 80 and 256 on the
+   CUDA-core route); full hubert-xlarge (48 layers, bf16) encoding 8 x
+   1000 frames through ``build_encode_step`` (frames/s, peak memory,
+   finite logits, flash 48 launches on sm90 at hd 80, RMSNorm 97) and
+   profiled; full paligemma-3b (18 layers, bf16): a patch prefill of 8 x
+   (256 + 32) and 32 decode steps from pos 288 (launches exact), then
+   ``ServeEngine.generate`` (exact, profiled) and
+   ``ContinuousBatchingEngine.generate`` (paged decode launches exact,
+   every paged launch on sm90 at hd 256, G 8) over the serve phase's 8
+   text prompts x 32 new. The kernels phase also holds flash at
+   hubert's shape (B 8, S 1000, H 16, hd 80, full) in bf16 and f32, at
+   paligemma's prefill (B 8, S 288, H 8 over KV 1, hd 256, causal) and
+   the paged decode and prefill at hd 256, G 8, each timed beside SDPA
+   and its bound.
+12. examples: the four ``repro_torch.examples`` on the card, each short:
+   secure_analytics (alice's topics equal to a numpy count of the same
+   shards, bob denied WOS with the deny audited, the Glacier path parked
+   then COMPLETED, a clean shutdown), quickstart (the loss falls over 10
+   steps), elastic_training (22 steps through the revocation at step 20)
+   and serve_demo (4 prompts from weights restored bit for bit).
 
 The second-to-last line of output is a JSON ``kernels`` record (with the
 launches on the transformer runs, the residency phase's move times, the
 gateway phase's results, the train and job phases' numbers and the xlstm
 phase's, RMSNorm's xLSTM launches among the kernels' as
-``launches_xlstm_serve`` and ``launches_xlstm_train``); the last is
+``launches_xlstm_serve`` and ``launches_xlstm_train``, each kernel's
+launches in the frontends phase as ``launches_frontends``, and the
+frontends and examples phases' numbers); the last is
 ``{"ok": true, "device": {...}}``. Without CUDA, or without the port
 beside this script, it prints no result and exits nonzero. It takes no
-arguments: every run drives all ten phases.
+arguments: every run drives all twelve phases.
 """
 from __future__ import annotations
 
@@ -177,6 +202,8 @@ SRC = ROOT / "src"
 # FLOP/s. The bound of a kernel is max(bytes / HBM, flops / bf16 peak).
 HBM_BYTES_PER_S = 3.35e12
 BF16_FLOPS_PER_S = 989e12
+# float32 outside the tensor cores (the CUDA-core kernels' route)
+F32_FLOPS_PER_S = 67e12
 
 # yi-6b serving shapes (configs/yi_6b.py): heads, kv heads, head dim, page
 # size; the serve phase's engine has 8 slots and max_len 512 = 32 pages.
@@ -200,6 +227,14 @@ Z_SSM_H, Z_P, Z_N, Z_CHUNK, Z_D, Z_DIN = 64, 64, 64, 128, 2048, 4096
 # order 1 (the inputs are scaled for it): bf16 within TOL_BF16 as above,
 # f32 within TOL_F32 (the same f32 arithmetic, summed in another order).
 TOL_F32 = 1e-4
+
+# HuBERT's encode batch: 8 clips of 1000 frames (20 s of 16 kHz audio at
+# 20 ms a frame) of the stubbed 512-d conv features. PaliGemma's: 8 images
+# of 256 SigLIP patches (1152-d) before 32 text tokens, then 32 decode
+# steps; its engines serve 8 text prompts x 32 new tokens, and a profile
+# of the static engine's generate takes PG_PROFILE_NEW of them.
+HB_B, HB_S = 8, 1000
+PG_B, PG_TEXT, PG_NEW, PG_PROFILE_NEW = 8, 32, 32, 8
 
 REPLACES = {
     "flash_decode_fwd": "src/repro/kernels/decode_attention/kernel.py:96",
@@ -309,10 +344,16 @@ def phase_device():
 # over bf16 and int8 pools (yi-6b), whole (prefill, and decode and verify
 # at one split) and with split-KV partials (decode and verify at the serve
 # shape's 4 splits); the SSD scan (Zamba2); the flash backward's dK/dV and
-# dQ kernels at hd 128 (internlm2-1.8b training). None may spill.
+# dQ kernels at hd 128 (internlm2-1.8b training); the frontends' (PR 23):
+# flash at hd 128 also takes HuBERT's hd 80, and PaliGemma's MQA at hd 256
+# runs flash and the paged kernel over a bf16 pool, whole and split. None
+# may spill.
 ON_PATH_SM90 = {
     "flash_sm90_kernelILi64E": "flash bf16 hd 64",
-    "flash_sm90_kernelILi128E": "flash bf16 hd 128",
+    "flash_sm90_kernelILi128E": "flash bf16 hd 128 (and hd 80)",
+    "flash_sm90_kernelILi256E": "flash bf16 hd 256",
+    "paged_attn_sm90_kernelILi256ELb0ELb0E": "paged hd 256 bf16 pool",
+    "paged_attn_sm90_kernelILi256ELb0ELb1E": "paged split hd 256 bf16 pool",
     "ssd_sm90_kernel": "ssd bf16 N = P = 64",
     "paged_attn_sm90_kernelILi128ELb0ELb0E": "paged hd 128 bf16 pool",
     "paged_attn_sm90_kernelILi128ELb1ELb0E": "paged hd 128 int8 pool",
@@ -405,11 +446,11 @@ def phase_build():
 # phase 3: kernels against their plain versions
 # ---------------------------------------------------------------------------
 
-def _pool(gen, kind, num_pages, dev, nkv=KV, ps=PS):
+def _pool(gen, kind, num_pages, dev, nkv=KV, ps=PS, hd=HD):
     """A random pool of ``kind``: bf16, int8 with row scales, or f32."""
     import torch
     from repro_torch.kernels import quantize_pool
-    shape = (nkv, num_pages, ps, HD)
+    shape = (nkv, num_pages, ps, hd)
     k = torch.randn(shape, generator=gen, device=dev)
     v = torch.randn(shape, generator=gen, device=dev)
     if kind == "int8":
@@ -432,19 +473,20 @@ def _page_table(gen, num_pages, dev):
 def _bytes_needed(pool, pt, last_pos, q, out):
     """Bytes the function must move: q and page table read, the pages each
     request's visible positions need, and the output written."""
-    pages = ((last_pos.clamp_min(0) // PS) + 1).clamp(max=NPAGES)
+    nkv, _, ps, hd = pool["k"].shape
+    pages = ((last_pos.clamp_min(0) // ps) + 1).clamp(max=pt.shape[1])
     n_pages = int(pages.sum())
-    row = HD * pool["k"].element_size() + (4 if "k_scale" in pool else 0)
-    kv_bytes = 2 * n_pages * KV * PS * row
+    row = hd * pool["k"].element_size() + (4 if "k_scale" in pool else 0)
+    kv_bytes = 2 * n_pages * nkv * ps * row
     return (kv_bytes + q.numel() * q.element_size()
             + pt.numel() * 4 + out.numel() * out.element_size()
             + last_pos.numel() * 4)
 
 
-def _flops_needed(q_pos):
+def _flops_needed(q_pos, h=H, hd=HD):
     """QK^T and PV multiply-adds over the keys each query row sees."""
     visible = (q_pos.clamp_min(-1) + 1).sum().item()    # over (B, C)
-    return 4.0 * visible * H * HD
+    return 4.0 * visible * h * hd
 
 
 def _sdpa_case(q, pool, pt, q_pos):
@@ -500,20 +542,30 @@ def _prefill_edge_cases(gen, kind, dev):
     return variants
 
 
-def _olmoe_paged_cases(gen, kind, dev):
-    """The paged kernels at olmoe-1b-7b's serve shapes on the tensor-core
-    route: B 8, H 16 over KV 16 (G 1), hd 128, page size 16, 32 pages a
-    row; decode at the split count the ops layer picks, prefill C 32 at
-    q_start 0 and past it, verify T 5. Returns {name: [(kernel, plain)]}."""
+# The paged kernels at other models' serve shapes on the tensor-core route,
+# with the serve phase's 8 slots, page size 16 and 32 pages a row: (label,
+# pool kinds, H, KV, hd, verify, timed). olmoe-1b-7b: H 16 over KV 16 (G
+# 1), hd 128, speculative decode on its path; paligemma-3b
+# (configs/paligemma_3b.py): H 8 over one KV head (G 8), hd 256, no
+# speculative decode on its path, timed.
+PAGED_SHAPES = (("olmoe-1b-7b", ("bf16", "int8"), 16, 16, 128, True, False),
+                ("paligemma-3b", ("bf16",), 8, 1, 256, False, True))
+
+
+def _paged_shape_cases(gen, kind, dev, h, nkv, hd, verify):
+    """The paged kernels at a model's serve shape (``PAGED_SHAPES``):
+    decode at one split (whole) and at the split count the ops layer picks
+    (split-KV partials), prefill C 32 at q_start 0 and past it, and verify
+    T 5 where ``verify``. Returns (pool, page table, {name: [(kernel,
+    plain, q, q_pos)]}), the last variant of each the serve shape."""
     import torch
     from repro_torch.kernels import (default_num_splits, flash_decode_fwd,
                                      flash_prefill_fwd, flash_verify_fwd,
                                      paged_decode_reference,
                                      paged_prefill_reference,
                                      paged_verify_reference)
-    h = nkv = 16
     num_pages = B * NPAGES + 1
-    pool = _pool(gen, kind, num_pages, dev, nkv=nkv)
+    pool = _pool(gen, kind, num_pages, dev, nkv=nkv, hd=hd)
     scales = dict(k_scale=pool.get("k_scale"), v_scale=pool.get("v_scale"))
     pt = _page_table(gen, num_pages, dev)
     span = NPAGES * PS
@@ -526,24 +578,44 @@ def _olmoe_paged_cases(gen, kind, dev):
         return torch.randint(lo, hi, (B,), generator=gen, device=dev,
                              dtype=torch.int32)
 
-    q1, qv, qp = rn(B, h, HD), rn(B, T_VERIFY, h, HD), rn(B, C_PREFILL, h, HD)
+    q1, qv, qp = rn(B, h, hd), rn(B, T_VERIFY, h, hd), rn(B, C_PREFILL, h, hd)
     lengths, pos, q_start = (ri(1, span + 1), ri(0, span - T_VERIFY + 1),
                              ri(1, span - C_PREFILL + 1))
+    lengths[0] = span                    # reaches the clamped entry
     args = (pool["k"], pool["v"], pt)
-    return {
+    ar_t = torch.arange(T_VERIFY, device=dev)
+    ar_c = torch.arange(C_PREFILL, device=dev)
+    cases = {
         "flash_decode_fwd": [(
-            lambda: flash_decode_fwd(q1, *args, lengths, num_splits=splits,
-                                     **scales),
-            lambda: paged_decode_reference(q1, *args, lengths, **scales))],
-        "flash_verify_fwd": [(
-            lambda: flash_verify_fwd(qv, *args, pos, num_splits=splits,
-                                     **scales),
-            lambda: paged_verify_reference(qv, *args, pos, **scales))],
+            lambda n=n: flash_decode_fwd(q1, *args, lengths, num_splits=n,
+                                         **scales),
+            lambda: paged_decode_reference(q1, *args, lengths, **scales),
+            q1[:, None], (lengths.long() - 1)[:, None]) for n in (1, splits)],
         "flash_prefill_fwd": [(
             lambda qs=qs: flash_prefill_fwd(qp, *args, qs, **scales),
-            lambda qs=qs: paged_prefill_reference(qp, *args, qs, **scales))
+            lambda qs=qs: paged_prefill_reference(qp, *args, qs, **scales),
+            qp, qs.long()[:, None] + ar_c[None])
             for qs in (torch.zeros_like(q_start), q_start)],
     }
+    if verify:
+        cases["flash_verify_fwd"] = [(
+            lambda: flash_verify_fwd(qv, *args, pos, num_splits=splits,
+                                     **scales),
+            lambda: paged_verify_reference(qv, *args, pos, **scales),
+            qv, pos.long()[:, None] + ar_t[None])]
+    return pool, pt, cases
+
+
+def _paged_timing(kern, plain, pool, pt, q, q_pos, got, h=H):
+    """A paged call's device time beside its plain version's, SDPA over the
+    gathered KV, and the bound."""
+    hd = q.shape[-1]
+    bytes_s = _bytes_needed(pool, pt, q_pos[:, -1], q, got) / HBM_BYTES_PER_S
+    ops_s = _flops_needed(q_pos, h, hd) / BF16_FLOPS_PER_S
+    return {"bound_ms": max(bytes_s, ops_s) * 1e3,
+            "bound_by": "bytes" if bytes_s >= ops_s else "operations",
+            "ms": time_ms(kern), "plain_ms": time_ms(plain, iters=5),
+            "library_ms": time_ms(_sdpa_case(q, pool, pt, q_pos))}
 
 
 def _decode_verify_edge_cases(gen, kind, dev):
@@ -602,6 +674,52 @@ def _decode_verify_edge_cases(gen, kind, dev):
                                  device=dev).bfloat16()
                 add(qv, pool, pt, i32(span - t, 0, mid), splits)
     return out
+
+
+def _paged_shapes(gen, dev, results, splits):
+    """``PAGED_SHAPES``' cases into ``results[name][kind]``: each against
+    its plain version and on the sm90 route, the timed models' serve
+    shapes timed under ``transformers``."""
+    import torch
+    from repro_torch.kernels import (flash_decode_fwd, flash_prefill_fwd,
+                                     flash_verify_fwd)
+    for label, kinds, h, nkv, hd, verify, timed in PAGED_SHAPES:
+        for kind in kinds:
+            pool, pt, cases = _paged_shape_cases(gen, kind, dev, h, nkv, hd,
+                                                 verify)
+            for name, variants in cases.items():
+                fn = {"flash_decode_fwd": flash_decode_fwd,
+                      "flash_prefill_fwd": flash_prefill_fwd,
+                      "flash_verify_fwd": flash_verify_fwd}[name]
+                rec, worst = results[name][kind], 0.0
+                for vi, (kern, plain, q, q_pos) in enumerate(variants):
+                    before = fn.launches_by_route["sm90"]
+                    got = kern()
+                    torch.cuda.synchronize()
+                    err = _max_err(got, plain())
+                    ok = (math.isfinite(err) and err <= TOL_BF16
+                          and fn.launches_by_route["sm90"] == before + 1)
+                    log(f"[kernels] {name} {kind} {label} shape (H {h}, KV "
+                        f"{nkv}, hd {hd}) case{vi}: max|kernel-plain| "
+                        f"{err:.3e} (tol {TOL_BF16}) {'ok' if ok else 'FAIL'}")
+                    if not ok:
+                        raise AssertionError(f"{name} {kind} at the {label} "
+                                             f"shape: error {err}, or it "
+                                             f"left the sm90 route")
+                    worst = max(err, worst)
+                rec["max_abs_err"] = max(worst, rec["max_abs_err"])
+                if not timed:
+                    continue
+                shape = {"B": B, "H": h, "KV": nkv, "hd": hd, "ps": PS,
+                         "pages": NPAGES, "C": q.shape[1],
+                         "splits": splits if name != "flash_prefill_fwd"
+                         else 1, "max_abs_err": worst}
+                t = _paged_timing(kern, plain, pool, pt, q, q_pos, got, h)
+                rec.setdefault("transformers", {})[label] = {**shape, **t}
+                log(f"[kernels] {name} {kind} {label} (G {h // nkv}, hd "
+                    f"{hd}): kernel {t['ms']:.4f} ms, plain "
+                    f"{t['plain_ms']:.4f} ms, sdpa {t['library_ms']:.4f} ms,"
+                    f" bound {t['bound_ms']:.4f} ms ({t['bound_by']})")
 
 
 def phase_kernels():
@@ -696,31 +814,13 @@ def phase_kernels():
                 serve_calls.setdefault(name, {})[kind] = kern
                 if kind == "f32":
                     continue
-                bytes_s = _bytes_needed(pool, pt, q_pos[:, -1], q, got) \
-                    / HBM_BYTES_PER_S
-                ops_s = _flops_needed(q_pos) / BF16_FLOPS_PER_S
-                rec["bound_ms"] = max(bytes_s, ops_s) * 1e3
-                rec["bound_by"] = "bytes" if bytes_s >= ops_s else "operations"
-                rec["ms"] = time_ms(kern)
-                rec["plain_ms"] = time_ms(plain, iters=5)
-                rec["library_ms"] = time_ms(_sdpa_case(q, pool, pt, q_pos))
+                rec.update(_paged_timing(kern, plain, pool, pt, q, q_pos,
+                                         got))
                 log(f"[kernels] {name} {kind}: kernel {rec['ms']:.4f} ms, "
                     f"plain {rec['plain_ms']:.4f} ms, sdpa "
                     f"{rec['library_ms']:.4f} ms, bound {rec['bound_ms']:.4f}"
                     f" ms ({rec['bound_by']})")
-    for kind in ("bf16", "int8"):
-        for name, variants in _olmoe_paged_cases(gen, kind, dev).items():
-            rec = results[name][kind]
-            for vi, (kern, plain) in enumerate(variants):
-                err = _max_err(kern(), plain())
-                ok = math.isfinite(err) and err <= TOL_BF16
-                log(f"[kernels] {name} {kind} olmoe-1b-7b shape case{vi}: "
-                    f"max|kernel-plain| {err:.3e} (tol {TOL_BF16}) "
-                    f"{'ok' if ok else 'FAIL'}")
-                if not ok:
-                    raise AssertionError(f"{name} {kind} disagrees at the "
-                                         f"olmoe shape: {err}")
-                rec["max_abs_err"] = max(err, rec["max_abs_err"])
+    _paged_shapes(gen, dev, results, splits)
     # The host's enqueue of each kind's serve-shape call (bf16 and int8
     # pools: the sm90 route; f32: cuda_core), the kinds in turns so that
     # drift on the host falls on all of them; the median of 10 each.
@@ -964,28 +1064,152 @@ def _flash_transformer_shapes(gen, dev):
 
 def _rmsnorm_transformer_widths(gen, dev):
     """bf16 RMSNorm at the new widths (mistral-nemo-12b's 5120, Arctic's
-    7168) over the static prefill's 2048 rows and decode's 8, held against
-    the plain version and timed beside ``F.rms_norm`` and the byte
-    bound."""
+    7168) over the static prefill's 2048 rows and decode's 8, and at the
+    frontends' (hubert-xlarge's encode, HB_B x HB_S rows at 1280;
+    paligemma-3b's patch prefill, PG_B x (256 + PG_TEXT) rows at 2048),
+    with f32 weights as the models have; each one launch on the register
+    kernel, held against the plain version and timed beside
+    ``F.rms_norm`` and the byte bound."""
     import torch
     import torch.nn.functional as F
     from repro_torch import kernels as K
+    from repro_torch.kernels.rmsnorm.kernel import rmsnorm_path
     out = {}
-    for rows, d in ((ZB * ZS, 5120), (ZB * ZS, 7168), (8, 5120), (8, 7168)):
+    for rows, d in ((ZB * ZS, 5120), (ZB * ZS, 7168), (8, 5120), (8, 7168),
+                    (HB_B * HB_S, 1280), (PG_B * (256 + PG_TEXT), 2048)):
+        if rmsnorm_path(d, torch.bfloat16) != "registers":
+            raise AssertionError(f"rmsnorm at D {d} leaves the register "
+                                 f"kernel")
         x = torch.randn(rows, d, generator=gen, device=dev).bfloat16()
         w = 0.25 + 0.05 * torch.randn(d, generator=gen, device=dev)
         wb = w.bfloat16()
-        err = _max_err(K.rmsnorm_fused(x, w), K.rmsnorm_reference(x, w))
-        if not (math.isfinite(err) and err <= TOL_BF16):
-            raise AssertionError(f"rmsnorm {rows}x{d} disagrees: {err}")
+        before = K.rmsnorm_fused.launches
+        got = K.rmsnorm_fused(x, w)
+        launched = K.rmsnorm_fused.launches - before
+        err = _max_err(got, K.rmsnorm_reference(x, w))
+        if launched != 1 or not (math.isfinite(err) and err <= TOL_BF16):
+            raise AssertionError(f"rmsnorm {rows}x{d}: error {err}, "
+                                 f"launches {launched}")
         rec = {"max_abs_err": err,
                "bound_ms": (2 * rows * d * 2 + 4 * d) / HBM_BYTES_PER_S * 1e3,
                "ms": time_ms(lambda: K.rmsnorm_fused(x, w)),
                "library_ms": time_ms(lambda: F.rms_norm(x, (d,), wb, 1e-6))}
         out[f"{rows}x{d}"] = rec
-        log(f"[kernels] rmsnorm_fused bf16 {rows}x{d}: max|kernel-plain| "
-            f"{err:.3e}, kernel {rec['ms']:.4f} ms, F.rms_norm "
-            f"{rec['library_ms']:.4f} ms, bound {rec['bound_ms']:.5f} ms")
+        log(f"[kernels] rmsnorm_fused bf16 {rows}x{d} (register kernel): "
+            f"max|kernel-plain| {err:.3e} (tol {TOL_BF16}), kernel "
+            f"{rec['ms']:.4f} ms, F.rms_norm {rec['library_ms']:.4f} ms, "
+            f"bound {rec['bound_ms']:.5f} ms")
+    return out
+
+
+# The frontends' dense attention (configs/hubert_xlarge.py,
+# configs/paligemma_3b.py): (label, B, S, H, KV, hd, causal). HuBERT's
+# encoder over 8 clips of 1000 frames (20 s of 16 kHz audio at 20 ms a
+# frame), hd 80, not causal; PaliGemma's prefill of 256 image patches and
+# 32 text tokens, H 8 over one KV head, hd 256, causal.
+FRONTEND_FLASH = (("hubert-xlarge", 8, 1000, 16, 16, 80, False),
+                  ("paligemma-3b prefill", 8, 288, 8, 1, 256, True))
+
+
+def _flash_hd80_edge_cases(gen, dev):
+    """Flash at hd 80 off hubert's shape, bf16 (the hd-128 kernel over
+    zero-filled columns) and f32: S 77 (a ragged 64-row tile), H 8 over KV
+    2, causal and full; the output against the plain version (TOL_BF16,
+    TOL_F32) and the row log-sum-exp (``return_lse``, what training reads)
+    against ``attention_lse_reference`` within TOL_F32 in both dtypes: the
+    scores are f32 sums of the same products, and the padded columns must
+    not move them. A bf16 call at hd 96, outside the contract, must raise
+    before any launch. Returns the largest output error."""
+    import torch
+    from repro_torch import kernels as K
+    from repro_torch.kernels.flash_attention.ref import attention_lse_reference
+    worst = 0.0
+    for dtype, tol in ((torch.bfloat16, TOL_BF16), (torch.float32, TOL_F32)):
+        q = torch.randn(2, 77, 8, 80, generator=gen, device=dev).to(dtype)
+        k, v = (torch.randn(2, 77, 2, 80, generator=gen, device=dev).to(dtype)
+                for _ in range(2))
+        for causal in (True, False):
+            got, lse = K.flash_attention_fwd(q, k, v, causal=causal,
+                                             return_lse=True)
+            err = _max_err(got, K.attention_reference(q, k, v, causal=causal))
+            lerr = _max_err(lse, attention_lse_reference(q, k, v,
+                                                         causal=causal))
+            log(f"[kernels] flash_attention_fwd {dtype} hd 80 S 77 G 4 "
+                f"{'causal' if causal else 'full'}: max|kernel-plain| "
+                f"{err:.3e} (tol {tol}), lse {lerr:.3e} (tol {TOL_F32})")
+            if not (err <= tol and lerr <= TOL_F32):
+                raise AssertionError(f"flash hd 80 {dtype} causal={causal}: "
+                                     f"out {err}, lse {lerr}")
+            worst = max(worst, err)
+    before = K.flash_attention_fwd.launches
+    q96 = torch.zeros(1, 8, 2, 96, device=dev, dtype=torch.bfloat16)
+    try:
+        K.flash_attention_fwd(q96, q96, q96)
+    except ValueError as e:
+        if "80" not in str(e) or K.flash_attention_fwd.launches != before:
+            raise AssertionError(f"bf16 flash at hd 96: {e}") from None
+    else:
+        raise AssertionError("bf16 flash at hd 96 did not raise")
+    return {"max_abs_err": worst}
+
+
+def _flash_frontend_shapes(gen, dev):
+    """Flash attention at ``FRONTEND_FLASH``: bf16 on the tensor-core route
+    (hd 80 through the hd-128 kernel over zero-filled columns) and, at hd
+    80, f32 on the CUDA-core route, each held against the plain version
+    (TOL_BF16, TOL_F32) and timed beside it, SDPA at the true hd and the
+    bound. The bound counts the true hd: the padded columns are the
+    kernel's cost, not the function's."""
+    import torch
+    from repro_torch import kernels as K
+    out = {"hd 80 edge cases": _flash_hd80_edge_cases(gen, dev)}
+    for label, b, s, h, nkv, hd, causal in FRONTEND_FLASH:
+        kinds = ((torch.bfloat16, TOL_BF16, "sm90", BF16_FLOPS_PER_S),)
+        if hd == 80:
+            kinds += ((torch.float32, TOL_F32, "cuda_core", F32_FLOPS_PER_S),)
+        for dtype, tol, route, peak in kinds:
+            q = torch.randn(b, s, h, hd, generator=gen, device=dev).to(dtype)
+            k, v = (torch.randn(b, s, nkv, hd, generator=gen,
+                                device=dev).to(dtype) for _ in range(2))
+            before = dict(K.flash_attention_fwd.launches_by_route)
+
+            def kern():
+                return K.flash_attention_fwd(q, k, v, causal=causal)
+
+            def plain():
+                return K.attention_reference(q, k, v, causal=causal)
+
+            got = kern()
+            torch.cuda.synchronize()
+            took = {r: n - before[r] for r, n in
+                    K.flash_attention_fwd.launches_by_route.items()}
+            if took[route] != 1 or sum(took.values()) != 1:
+                raise AssertionError(f"flash {label} {dtype} launched on "
+                                     f"{took}, expected {route}")
+            err = _max_err(got, plain())
+            tag = f"{label} {'bf16' if route == 'sm90' else 'f32'}"
+            if not (math.isfinite(err) and err <= tol):
+                raise AssertionError(f"flash {tag} disagrees: {err}")
+            pairs = b * h * (s * (s + 1) // 2 if causal else s * s)
+            nbytes = (2 * b * s * h + 2 * b * s * nkv) * hd * q.element_size()
+            bytes_s, ops_s = nbytes / HBM_BYTES_PER_S, 4.0 * hd * pairs / peak
+            qq, kk, vv = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+            gqa = {"enable_gqa": True} if h != nkv else {}
+            rec = {"shape": [b, s, h, nkv, hd], "causal": causal,
+                   "route": route, "max_abs_err": err,
+                   "bound_ms": max(bytes_s, ops_s) * 1e3,
+                   "bound_by": "bytes" if bytes_s >= ops_s else "operations",
+                   "ms": time_ms(kern), "plain_ms": time_ms(plain, iters=3),
+                   "library_ms": time_ms(
+                       lambda: torch.nn.functional.scaled_dot_product_attention(
+                           qq, kk, vv, is_causal=causal, **gqa))}
+            out[tag] = rec
+            log(f"[kernels] flash_attention_fwd {tag} (B {b}, S {s}, H {h}, "
+                f"KV {nkv}, hd {hd}, {'causal' if causal else 'full'}): "
+                f"max|kernel-plain| {err:.3e} (tol {tol}), kernel "
+                f"{rec['ms']:.4f} ms, plain {rec['plain_ms']:.4f} ms, sdpa "
+                f"{rec['library_ms']:.4f} ms, bound {rec['bound_ms']:.4f} ms "
+                f"({rec['bound_by']})")
     return out
 
 
@@ -1096,6 +1320,8 @@ def phase_dense_kernels():
                          ("rmsnorm_fused", _rmsnorm_transformer_widths)):
             rec = results[name][kind]
             rec["transformers"] = fn(gen, dev)
+            if name == "flash_attention_fwd":
+                rec["transformers"].update(_flash_frontend_shapes(gen, dev))
             rec["max_abs_err"] = max([rec["max_abs_err"]] + [
                 r["max_abs_err"] for r in rec["transformers"].values()])
         results["rmsnorm_fused"][kind]["rows"] = _rmsnorm_decode_rows(gen,
@@ -3739,6 +3965,409 @@ def phase_xlstm(smi: str):
             "train": train, "seconds": seconds}
 
 
+# ---------------------------------------------------------------------------
+# phase 11: the audio and VLM frontends
+# ---------------------------------------------------------------------------
+
+def _frontend_parity():
+    """hubert-xlarge and paligemma-3b at full width and depth 2 in f32, card
+    (kernels) against CPU (plain versions) on the same weights: hubert's
+    encode logits over B 2 x 200 frames; paligemma's prefill of B 2 x (256
+    patches + 16 tokens), then three decode steps from pos 272 over the
+    cache grown by 8 rows, logits and every cache row within TOL_PARITY.
+    Every flash launch on the CUDA-core route (hd 80 and 256); RMSNorm
+    launched."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import (launch_counts, launch_counts_by_route,
+                                     reset_launch_counts)
+    from repro_torch.models import get_family, init_params
+    from repro_torch.train import (build_decode_step, build_encode_step,
+                                   build_prefill_step)
+    rng = np.random.RandomState(0)
+    worst = {}
+
+    def check(kind, got, want):
+        err = (got.float().cpu() - want.float()).abs().max().item()
+        worst[kind] = max(err, worst.get(kind, 0.0))
+        if not math.isfinite(err) or err > TOL_PARITY:
+            raise AssertionError(f"frontend parity {kind}: max|diff| {err}")
+
+    reset_launch_counts()
+    cfg = get_config("hubert-xlarge").replace(num_layers=2, dtype="float32")
+    gpu = init_params(cfg, get_family(cfg).layout(cfg), seed=0,
+                      device="cuda")
+    params = {"cuda": gpu, "cpu": _to(gpu, "cpu")}
+    frames = torch.from_numpy(rng.randn(2, 200, cfg.frontend_dim).astype(
+        np.float32))
+    encode = build_encode_step(cfg)
+    got = {d: encode(params[d], {"frames": frames.to(d)})
+           for d in ("cuda", "cpu")}
+    check("hubert-xlarge encode logits", got["cuda"], got["cpu"])
+    del gpu, params
+
+    cfg = get_config("paligemma-3b").replace(num_layers=2, dtype="float32")
+    fam = get_family(cfg)
+    gpu = init_params(cfg, fam.layout(cfg), seed=0, device="cuda")
+    params = {"cuda": gpu, "cpu": _to(gpu, "cpu")}
+    batch = {"patches": torch.from_numpy(rng.randn(
+                 2, cfg.frontend_len, cfg.frontend_dim).astype(np.float32)),
+             "tokens": torch.from_numpy(rng.randint(
+                 0, cfg.vocab_size, (2, 16)))}
+    prefill, decode = build_prefill_step(cfg), build_decode_step(cfg)
+    rows = cfg.frontend_len + 16
+    logits, caches = {}, {}
+    for d in ("cuda", "cpu"):
+        logits[d], cache = prefill(params[d],
+                                   {k: v.to(d) for k, v in batch.items()})
+        caches[d] = {k: torch.nn.functional.pad(v, (0, 0, 0, 0, 0, 8))
+                     for k, v in cache.items()}
+    check("paligemma-3b patch prefill logits", logits["cuda"], logits["cpu"])
+    cur = logits["cpu"].argmax(-1)
+    for step in range(3):
+        pos = torch.full((2,), rows + step, dtype=torch.int32)
+        for d in ("cuda", "cpu"):
+            _, logits[d], caches[d] = decode(
+                params[d], {"tokens": cur[:, None].to(d), "pos": pos.to(d)},
+                caches[d])
+        check("paligemma-3b decode logits", logits["cuda"], logits["cpu"])
+        cur = logits["cpu"].argmax(-1)
+    for got, want in zip(_leaves(caches["cuda"]), _leaves(caches["cpu"])):
+        check("paligemma-3b cache", got, want)
+    counts = launch_counts()
+    flash = launch_counts_by_route()["flash_attention_fwd"]
+    # hubert: 2 layers; paligemma: 2 in its prefill (decode reads the dense
+    # cache in plain PyTorch, as the reference's jnp does)
+    if flash != {"sm90": 0, "cuda_core": 4} or counts["rmsnorm_fused"] < 1:
+        raise AssertionError(f"frontend parity launches {counts}, flash by "
+                             f"route {flash}: expected 4 on cuda_core")
+    for kind, err in worst.items():
+        log(f"[frontends] parity, 2 layers, f32: {kind} max|card-cpu| "
+            f"{err:.3e} (tol {TOL_PARITY})")
+    del gpu, params, caches
+    torch.cuda.empty_cache()
+    return worst
+
+
+def _profile_breakdown(label, fn, smi):
+    """``launch/profile_serve.py``'s ``profile`` of ``fn`` (warm-up, an
+    unprofiled wall, a run under ``torch.profiler``), with the port's
+    kernels' device time beside the rest and the top kernels."""
+    import torch
+    from repro_torch.launch.profile_serve import PORT_KERNELS, profile
+    with torch.no_grad():
+        prof = profile(fn)
+    if not prof["kernels"] or prof["device_ms"] <= 0:
+        raise AssertionError(f"{label} profile: the profiler saw no device "
+                             f"kernel")
+    port = {}
+    for k in prof["kernels"]:
+        frag = next((w for w in PORT_KERNELS if w in k["name"]), None)
+        if frag is not None:
+            port[k["name"][:60]] = k["device_ms"]
+    rec = {**{k: prof[k] for k in ("wall_ms", "device_ms", "busy_share",
+                                   "launches")},
+           "port_kernels_ms": port,
+           "top_kernels": [dict(k, name=k["name"][:90])
+                           for k in prof["kernels"][:6]]}
+    log(f"[frontends] profile {label}: wall {rec['wall_ms']:.2f} ms "
+        f"unprofiled, device kernels {rec['device_ms']:.2f} ms (busy share "
+        f"{rec['busy_share']:.3f}), {rec['launches']} launches; the port's "
+        f"kernels {sum(port.values()):.2f} ms ({port}); top: " + "; ".join(
+            f"{k['device_ms']:.2f} ms {k['count']}x {k['name'][:60]}"
+            for k in rec["top_kernels"]) + f"; on {smi}")
+    return rec
+
+
+def _exact_launches(label, want, flash_routes=None):
+    """Hold the launches since the last reset to ``want`` (every other
+    kernel at 0) and, where given, flash's by route; return the counts."""
+    from repro_torch.kernels import launch_counts, launch_counts_by_route
+    counts = launch_counts()
+    full = dict.fromkeys(counts, 0)
+    full.update(want)
+    flash = launch_counts_by_route()["flash_attention_fwd"]
+    if counts != full or (flash_routes is not None and flash != flash_routes):
+        raise AssertionError(f"{label}: launches {counts}, flash by route "
+                             f"{flash}; expected {full}, flash "
+                             f"{flash_routes}")
+    return counts
+
+
+def _hubert_encode(smi):
+    """Full hubert-xlarge (48 layers, bf16, random weights from seed 0):
+    ``build_encode_step`` over HB_B x HB_S frames after a warm-up, timed
+    on the host clock around work that ends in a synchronise; its launches
+    exact (flash 48 on sm90 at hd 80, RMSNorm 2L + 1), logits finite."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import reset_launch_counts
+    from repro_torch.models import get_family, init_params
+    from repro_torch.train import build_encode_step
+    cfg = get_config("hubert-xlarge")
+    params = init_params(cfg, get_family(cfg).layout(cfg), seed=0,
+                         device="cuda")
+    n_params = _param_count(params)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    frames = torch.randn(HB_B, HB_S, cfg.frontend_dim, generator=gen,
+                         device="cuda")
+    encode = build_encode_step(cfg)
+    encode(params, {"frames": frames})                 # warm-up
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    logits = encode(params, {"frames": frames})
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    n = cfg.num_layers
+    counts = _exact_launches(
+        "hubert encode", {"flash_attention_fwd": n,
+                          "rmsnorm_fused": 2 * n + 1},
+        {"sm90": n, "cuda_core": 0})
+    if logits.shape != (HB_B, HB_S, cfg.vocab_size) \
+            or not torch.isfinite(logits.float()).all():
+        raise AssertionError(f"hubert encode: logits {tuple(logits.shape)} "
+                             f"not finite or misshapen")
+    peak = torch.cuda.max_memory_allocated()
+    rec = {"params": n_params, "batch": [HB_B, HB_S], "seconds": dt,
+           "frames_per_s": HB_B * HB_S / dt, "launches": counts,
+           "max_memory_allocated_bytes": peak,
+           "profile": _profile_breakdown(
+               f"hubert-xlarge encode {HB_B} x {HB_S}",
+               lambda: encode(params, {"frames": frames}), smi)}
+    log(f"[frontends] hubert-xlarge {n} layers bf16 ({n_params / 1e9:.3f} B "
+        f"params): encode {HB_B} x {HB_S} frames in {dt * 1e3:.1f} ms = "
+        f"{rec['frames_per_s']:.0f} frames/s, peak {peak / 2**30:.2f} GiB, "
+        f"launches {counts} on {smi}")
+    del params, logits
+    torch.cuda.empty_cache()
+    return rec
+
+
+def _paligemma_serve(smi):
+    """Full paligemma-3b (18 layers, bf16, random weights from seed 0): the
+    family's prefill of PG_B x (256 patches + PG_TEXT tokens), then PG_NEW
+    greedy decode steps from pos 288 over the dense cache, after a
+    warm-up, launches exact (flash 18 on sm90 at hd 256, RMSNorm 2L + 1 a
+    pass); then ``ServeEngine.generate`` (exact) and
+    ``ContinuousBatchingEngine.generate`` (every paged launch on sm90 at
+    hd 256, G 8) over the serve phase's 8 text prompts x PG_NEW."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import reset_launch_counts
+    from repro_torch.models import get_family, init_params
+    from repro_torch.serve import ServeEngine
+    from repro_torch.serve.prompts import shared_prefix_prompts
+    from repro_torch.train import build_decode_step, build_prefill_step
+    t_phase = time.perf_counter()
+    cfg = get_config("paligemma-3b")
+    params = init_params(cfg, get_family(cfg).layout(cfg), seed=0,
+                         device="cuda")
+    n_params = _param_count(params)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(1)
+    batch = {"patches": torch.randn(PG_B, cfg.frontend_len, cfg.frontend_dim,
+                                    generator=gen, device="cuda"),
+             "tokens": torch.randint(0, cfg.vocab_size, (PG_B, PG_TEXT),
+                                     generator=gen, device="cuda")}
+    prefill, decode = build_prefill_step(cfg), build_decode_step(cfg)
+    rows = cfg.frontend_len + PG_TEXT
+
+    def run(new):
+        logits, cache = prefill(params, batch)
+        cache = {k: torch.nn.functional.pad(v, (0, 0, 0, 0, 0, new))
+                 for k, v in cache.items()}
+        cur, out = logits.argmax(-1), []
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        for step in range(new):
+            out.append(cur)
+            pos = torch.full((PG_B,), rows + step, dtype=torch.int32,
+                             device="cuda")
+            cur, _, cache = decode(params, {"tokens": cur[:, None],
+                                            "pos": pos}, cache)
+        torch.cuda.synchronize()
+        return torch.stack(out, 1), time.perf_counter() - t1
+
+    run(2)                                             # warm-up
+    reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    toks, decode_s = run(PG_NEW)
+    dt = time.perf_counter() - t0
+    n = cfg.num_layers
+    counts = _exact_launches(
+        "paligemma patch prefill + decode",
+        {"flash_attention_fwd": n, "rmsnorm_fused": (2 * n + 1) * (1 + PG_NEW)},
+        {"sm90": n, "cuda_core": 0})
+    if toks.shape != (PG_B, PG_NEW) or int(toks.min()) < 0 \
+            or int(toks.max()) >= cfg.vocab_size:
+        raise AssertionError(f"paligemma decode: bad tokens {toks.shape}")
+    rec = {"params": n_params, "patch_prefill": {
+        "batch": [PG_B, cfg.frontend_len, PG_TEXT], "new": PG_NEW,
+        "seconds": dt, "prefill_s": dt - decode_s, "decode_s": decode_s,
+        "tokens_per_s": PG_B * PG_NEW / dt,
+        "decode_tokens_per_s": PG_B * PG_NEW / decode_s,
+        "launches": counts,
+        "max_memory_allocated_bytes": torch.cuda.max_memory_allocated()}}
+    log(f"[frontends] paligemma-3b {n} layers bf16 ({n_params / 1e9:.3f} B "
+        f"params): prefill {PG_B} x ({cfg.frontend_len} patches + {PG_TEXT} "
+        f"tokens) {(dt - decode_s) * 1e3:.1f} ms, {PG_NEW} decode steps "
+        f"{decode_s * 1e3:.1f} ms: {rec['patch_prefill']['tokens_per_s']:.1f}"
+        f" tok/s, peak "
+        f"{rec['patch_prefill']['max_memory_allocated_bytes'] / 2**30:.2f} "
+        f"GiB, launches {counts} on {smi}")
+    prompts = shared_prefix_prompts(cfg.vocab_size)
+    toks, counts, st = _static_run(cfg, params, "paligemma-3b", prompts,
+                                   PG_NEW, smi)
+    eng = ServeEngine(cfg, params, max_len=SERVE_MAX_LEN, device="cuda")
+    rec["static"] = {"seconds": st, "tokens_per_s": toks.size / st,
+                     "launches": counts, "profile": _profile_breakdown(
+                         f"paligemma-3b static generate 8 x {PG_PROFILE_NEW}",
+                         lambda: eng.generate(prompts,
+                                              max_new=PG_PROFILE_NEW), smi)}
+    del eng
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    toks, counts, by_route, steps, eng = _continuous_run(
+        cfg, params, "paligemma-3b", {}, prompts, PG_NEW, smi)
+    ct = time.perf_counter() - t0
+    paged = {k: by_route[k] for k in PAGED}
+    if counts["flash_decode_fwd"] != n * steps \
+            or counts["flash_prefill_fwd"] < n or counts["flash_verify_fwd"] \
+            or counts["flash_attention_fwd"] or counts["ssd_scan"]:
+        raise AssertionError(f"paligemma continuous: launches {counts} for "
+                             f"{steps} decode steps")
+    rec["continuous"] = {"seconds": ct, "tokens_per_s": toks.size / ct,
+                         "decode_steps": steps, "launches": counts,
+                         "launches_by_route": paged}
+    del eng, params
+    rec.update(_end_model_phase("paligemma-3b", t_phase, smi))
+    return rec
+
+
+def phase_frontends(smi: str):
+    """The audio and VLM frontends on the card: depth-2 f32 parity against
+    the CPU, hubert-xlarge's encode and paligemma-3b's patch prefill,
+    decode and both engines at full width and depth."""
+    seconds, out = {}, {}
+    for name, fn, args in (("parity", _frontend_parity, ()),
+                           ("hubert-xlarge", _hubert_encode, (smi,)),
+                           ("paligemma-3b", _paligemma_serve, (smi,))):
+        t = time.perf_counter()
+        out[name] = fn(*args)
+        seconds[name] = time.perf_counter() - t
+    out["seconds"] = seconds
+    log(f"[frontends] seconds a part: "
+        f"{ {k: round(v, 1) for k, v in seconds.items()} }")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 12: the examples
+# ---------------------------------------------------------------------------
+
+def phase_examples(smi: str):
+    """The four examples (``repro_torch.examples``) on the card, each short,
+    each held to what it must show: secure_analytics (alice's WOS job
+    COMPLETED with topics equal to a numpy count of the same shards, bob
+    denied WOS with the deny in the audit, bob's wikipedia job COMPLETED,
+    the cold-shard job parked and then COMPLETED, every thread joined);
+    quickstart (the loss falls over 10 steps); elastic_training (22
+    steps, surviving the revocation at step 20); serve_demo (4 prompts
+    answered from weights restored bit for bit from the object store).
+    Each launches its kernels on the sm90 route."""
+    import numpy as np
+    import torch
+    from repro_torch.core import JobStatus
+    from repro_torch.examples import (elastic_training, quickstart,
+                                      secure_analytics, serve_demo)
+    from repro_torch.kernels import (launch_counts, launch_counts_by_route,
+                                     reset_launch_counts)
+    out, seconds = {}, {}
+
+    def started(name):
+        reset_launch_counts()
+        seconds[name] = time.perf_counter()
+
+    def finished(name, kernels):
+        torch.cuda.synchronize()
+        seconds[name] = time.perf_counter() - seconds[name]
+        counts, routes = launch_counts(), launch_counts_by_route()
+        for k in kernels:
+            if counts[k] < 1 or ("sm90" in routes.get(k, {})
+                                 and routes[k]["sm90"] != counts[k]):
+                raise AssertionError(f"example {name}: {k} launches "
+                                     f"{counts[k]}, by route "
+                                     f"{routes.get(k)}: not all on sm90")
+        return {k: v for k, v in counts.items() if v}
+
+    started("secure_analytics")
+    sa = secure_analytics.main(device="cuda")
+    status, wos, topics = sa["alice"]
+    ids = np.concatenate([np.frombuffer(sa["store"].get(k), dtype=np.int32)
+                          for k in wos])
+    counts = np.bincount(ids % 97, minlength=97)
+    want = [(int(t), int(counts[t]))
+            for t in np.lexsort((np.arange(97), -counts))[:5]]
+    denied = [(d.principal_id, d.resource) for d in sa["denials"]]
+    if status != JobStatus.COMPLETED or topics != repr(want) \
+            or denied != [("bob", "dataset/wos/shard-0")] \
+            or sa["bob"] != JobStatus.COMPLETED \
+            or sa["cold"] != (JobStatus.WAITING_DATA, JobStatus.COMPLETED) \
+            or sa["threads_alive"]:
+        raise AssertionError(f"secure_analytics: alice {status} {topics} "
+                             f"(numpy {want}), denials {denied}, bob "
+                             f"{sa['bob']}, cold {sa['cold']}, threads "
+                             f"{sa['threads_alive']}")
+    finished("secure_analytics", ())
+    out["secure_analytics"] = {"topics": want, "denials": denied}
+
+    started("quickstart")
+    qs = quickstart.main(device="cuda", steps=10)
+    if not qs["losses"][10] < qs["losses"][1]:
+        raise AssertionError(f"quickstart: loss did not fall {qs['losses']}")
+    out["quickstart"] = {"loss_first": qs["losses"][1],
+                         "loss_last": qs["losses"][10],
+                         "launches": finished("quickstart", (
+                             "flash_attention_fwd", "flash_attention_bwd",
+                             "rmsnorm_fused", "rmsnorm_bwd"))}
+
+    started("elastic_training")
+    et = elastic_training.main(device="cuda", steps=22)
+    rep = et["report"]
+    if rep.restarts < 1 or rep.final_step != 22 \
+            or not rep.losses[22] < rep.losses[1]:
+        raise AssertionError(f"elastic_training: {rep.restarts} revocations, "
+                             f"final step {rep.final_step}, losses "
+                             f"{rep.losses}")
+    out["elastic_training"] = {
+        "revoked_steps": et["revoked_steps"], "steps_run": rep.steps_run,
+        "loss_first": rep.losses[1], "loss_last": rep.losses[22],
+        "launches": finished("elastic_training", (
+            "flash_attention_fwd", "flash_attention_bwd", "rmsnorm_fused"))}
+
+    started("serve_demo")
+    sd = serve_demo.main(device="cuda")
+    same = all(torch.equal(a, b) for a, b in zip(_leaves(sd["params"]),
+                                                 _leaves(sd["restored"])))
+    if not same or [len(t) for t in sd["tokens"]] != [12] * 4:
+        raise AssertionError(f"serve_demo: restored equal {same}, tokens "
+                             f"{sd['tokens']}")
+    out["serve_demo"] = {"tokens": sd["tokens"],
+                         "launches": finished("serve_demo", (
+                             "flash_decode_fwd", "flash_prefill_fwd",
+                             "rmsnorm_fused"))}
+    out["seconds"] = seconds
+    log(f"[examples] all four passed on {smi}; seconds "
+        f"{ {k: round(v, 1) for k, v in seconds.items()} }")
+    torch.cuda.empty_cache()
+    return out
+
+
 def _clock_text(clocks: dict) -> str:
     """One run's nvidia-smi samples a step, for a log line."""
     parts = []
@@ -3822,6 +4451,15 @@ def main() -> int:
     train = timed("train", phase_train, smi)
     job = timed("job", phase_job, smi, train)
     xl = timed("xlstm", phase_xlstm, smi)
+    fr = timed("frontends", phase_frontends, smi)
+    ex = timed("examples", phase_examples, smi)
+    frontend_launches = {
+        "hubert-xlarge encode": fr["hubert-xlarge"]["launches"],
+        "paligemma-3b patch prefill + decode":
+            fr["paligemma-3b"]["patch_prefill"]["launches"],
+        "paligemma-3b static": fr["paligemma-3b"]["static"]["launches"],
+        "paligemma-3b continuous":
+            fr["paligemma-3b"]["continuous"]["launches"]}
     record = []
     for name, per_kind in kern.items():
         main_kind = "bf16"
@@ -3854,6 +4492,8 @@ def main() -> int:
         if "transformers" in rec:
             entry["transformer_shapes"] = rec["transformers"]
         entry["launches_gateway"] = gateway_launches[name]
+        entry["launches_frontends"] = {
+            run: counts[name] for run, counts in frontend_launches.items()}
         entry["launches_transformers"] = {
             run: counts[name] for run, counts in transformer_runs.items()}
         if name in train["launches_per_step"]:
@@ -3887,7 +4527,8 @@ def main() -> int:
         f"{smi}; seconds a phase: {seconds}")
     print(json.dumps({"kernels": record, "transformers": transformers,
                       "residency": moves, "gateway": gateway,
-                      "train": train, "job": job, "xlstm": xl}))
+                      "train": train, "job": job, "xlstm": xl,
+                      "frontends": fr, "examples": ex}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -1,5 +1,6 @@
-from . import (arctic_480b, internlm2_1_8b, mistral_nemo_12b, olmoe_1b_7b,
-               starcoder2_7b, xlstm_350m, yi_6b, zamba2_1_2b)
+from . import (arctic_480b, hubert_xlarge, internlm2_1_8b, mistral_nemo_12b,
+               olmoe_1b_7b, paligemma_3b, starcoder2_7b, xlstm_350m, yi_6b,
+               zamba2_1_2b)
 from .base import ModelConfig, torch_dtype
 
 _MODULES = {
@@ -11,6 +12,8 @@ _MODULES = {
     "internlm2-1.8b": internlm2_1_8b,
     "zamba2-1.2b": zamba2_1_2b,
     "xlstm-350m": xlstm_350m,
+    "hubert-xlarge": hubert_xlarge,
+    "paligemma-3b": paligemma_3b,
 }
 ARCH_NAMES = tuple(_MODULES)
 

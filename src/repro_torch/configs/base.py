@@ -1,11 +1,9 @@
 """Model configuration for the PyTorch port.
 
 The port keeps its own copy of the reference ``ModelConfig``: the fields the
-dense transformer's (with or without experts), xLSTM's and the Zamba2
-hybrid's serving and training paths read, with the ``dtype`` strings mapped
-to torch dtypes.
-Families that the port does not run yet (audio, VLM) add their fields, the
-modality frontend's among them, when they are ported.
+transformer's (dense, with experts, and with the audio and VLM frontends),
+xLSTM's and the Zamba2 hybrid's serving and training paths read, with the
+``dtype`` strings mapped to torch dtypes.
 """
 from __future__ import annotations
 
@@ -28,7 +26,7 @@ def torch_dtype(name: str) -> torch.dtype:
 @dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str                      # "dense" | "moe" | "ssm" | "hybrid"
+    family: str                      # dense | moe | audio | ssm | vlm | hybrid
     num_layers: int
     d_model: int
     num_heads: int
@@ -90,6 +88,11 @@ class ModelConfig:
     # int8 with f32 scale pages (kernels/kv_quant.py).
     kv_cache_dtype: str = "f32"
     spec_adaptive_k: bool = False
+
+    # --- modality frontend stub (audio / vlm) ---------------------------------
+    frontend: str = ""               # "" | "frame" | "patch"
+    frontend_dim: int = 0            # 512 (HuBERT features) / 1152 (SigLIP)
+    frontend_len: int = 0            # image patches per example (PaliGemma: 256)
 
     # --- numerics / execution ---------------------------------------------------
     norm_eps: float = 1e-6

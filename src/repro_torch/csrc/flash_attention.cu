@@ -21,7 +21,7 @@
 // swizzled, from 3-D tensor maps over (B, S, heads*hd) that zero-fill rows
 // past S; the next tile's load is in flight while this one computes, and
 // tiles above the diagonal are never loaded. S = Q K^T is wgmma
-// m64n64k16 from shared memory (hd/16 k-steps), scaled by 1/sqrt(hd) in f32
+// m64n64k16 from shared memory (HD/16 k-steps), scaled by 1/sqrt(hd) in f32
 // after the product; the causal and ragged masks run on edge tiles only.
 // The online softmax stays in registers (a row's max and sum over the 4
 // lanes of a quad; exp2 with log2(e) folded into the scale). P is rounded
@@ -30,7 +30,15 @@
 // with V MN-major (transpose bit) from the same stage; O stays f32 in
 // registers (hd/2 values a thread). The epilogue normalises once (l
 // floored at 1e-20), writes bf16 into the swizzled Q tile and stores it by
-// TMA, which clips rows past Sq. hd a multiple of 64 up to 256.
+// TMA, which clips rows past Sq. The tensor maps are 4-D, (hd, heads, S,
+// B), so a head's columns are their own dimension: the kernel computes at
+// HD, the next multiple of 64 at or above the tensor's hd, and TMA
+// zero-fills the columns hd .. HD-1 of every Q, K and V tile and clips
+// them from the stored output. Zero columns add nothing to a score and
+// give zero output columns, so hd 80 (HuBERT: 1280 / 16) runs the HD-128
+// instantiation with no padded copy in memory, at 128/80 = 1.6x the
+// tensor-core work of its true width; the scale is 1/sqrt(hd), passed in.
+// hd in {64, 80, 128, 192, 256}.
 //
 // f32 -> flash_f32_kernel (CUDA cores). wgmma has no full-f32 mode: TF32
 // keeps ~3 decimal digits and could not meet the f32 checks at 1e-4, so
@@ -38,7 +46,7 @@
 // head, batch) looping over 32-key KV tiles to the diagonal, scores a warp
 // 8 rows (lane = key), (m, l) in registers, the f32 accumulator spread over
 // the block (hd/4 values a thread), q pre-scaled by 1/sqrt(hd) in f32. hd a
-// multiple of 32 up to 256.
+// multiple of 32 up to 256, or 80 (instantiated at its own width).
 //
 // Both: any B, Sq, Skv, H, KV with H % KV == 0 (any G); the ragged edges
 // of Sq and Skv are masked in the kernel. Both write each row's natural
@@ -261,8 +269,8 @@ __global__ void __launch_bounds__(128, HD == 64 ? 5 : 1) flash_sm90_kernel(
     mbar_expect_tx(&bars[0], TB);
 #pragma unroll
     for (int c = 0; c < NC; ++c)
-      tma_load_3d(qS + c * kSub, &tq, &bars[0], h * HD + c * 64, q0, b);
-    load_tile_pair<NC>(kS, vS, &tk, &tv, &bars[1], kvh * HD, 0, b);
+      tma_load_4d(qS + c * kSub, &tq, &bars[0], c * 64, h, q0, b);
+    load_tile_pair_4d<NC>(kS, vS, &tk, &tv, &bars[1], kvh, 0, b);
   }
 
   float o[NC][32];
@@ -280,9 +288,10 @@ __global__ void __launch_bounds__(128, HD == 64 ? 5 : 1) flash_sm90_kernel(
     if (t + 1 < ntiles) {
       __syncthreads();                        // tile t-1 (same stage) used
       if (tid == 0)
-        load_tile_pair<NC>(kS + ((t + 1) & 1) * TB, vS + ((t + 1) & 1) * TB,
-                           &tk, &tv, &bars[1 + ((t + 1) & 1)], kvh * HD,
-                           (t + 1) * kTile, b);
+        load_tile_pair_4d<NC>(kS + ((t + 1) & 1) * TB,
+                              vS + ((t + 1) & 1) * TB, &tk, &tv,
+                              &bars[1 + ((t + 1) & 1)], kvh, (t + 1) * kTile,
+                              b);
     }
     mbar_wait(&bars[1 + (t & 1)], (t >> 1) & 1);
     const uint32_t ks = smem_u32(kS + (t & 1) * TB);
@@ -382,35 +391,40 @@ __global__ void __launch_bounds__(128, HD == 64 ? 5 : 1) flash_sm90_kernel(
   __syncthreads();
   if (tid == 0) {
 #pragma unroll
-    for (int c = 0; c < NC; ++c) tma_store_3d(&to, qS + c * kSub, h * HD + c * 64, q0, b);
+    for (int c = 0; c < NC; ++c) tma_store_4d(&to, qS + c * kSub, c * 64, h, q0, b);
     tma_store_wait();
   }
 }
 
+// HD is the compute width, hd (<= HD) the tensors' own.
 template <int HD>
 int launch_sm90_hd(const void* q, const void* k, const void* v, void* out,
-                   float* lse, int B, int Sq, int Skv, int H, int KV,
+                   float* lse, int B, int Sq, int Skv, int H, int KV, int hd,
                    int causal, cudaStream_t stream) {
-  // (B, S, heads*hd) bf16 as 3-D maps, innermost first; 64 x 64 boxes.
+  // (B, S, heads, hd) bf16 as 4-D maps, innermost first; boxes of 64
+  // columns x 1 head x 64 rows, zero-filled past hd and past S.
   CUtensorMap tq, tk, tv, to;
-  const cuuint64_t qdim[3] = {cuuint64_t(H) * HD, cuuint64_t(Sq), cuuint64_t(B)};
-  const cuuint64_t qstr[2] = {cuuint64_t(H) * HD * 2, cuuint64_t(Sq) * H * HD * 2};
-  const cuuint64_t kdim[3] = {cuuint64_t(KV) * HD, cuuint64_t(Skv), cuuint64_t(B)};
-  const cuuint64_t kstr[2] = {cuuint64_t(KV) * HD * 2, cuuint64_t(Skv) * KV * HD * 2};
-  const cuuint32_t box[3] = {64, 64, 1};
+  const cuuint64_t row = cuuint64_t(hd) * 2;
+  const cuuint64_t qdim[4] = {cuuint64_t(hd), cuuint64_t(H), cuuint64_t(Sq),
+                              cuuint64_t(B)};
+  const cuuint64_t qstr[3] = {row, row * H, row * H * Sq};
+  const cuuint64_t kdim[4] = {cuuint64_t(hd), cuuint64_t(KV), cuuint64_t(Skv),
+                              cuuint64_t(B)};
+  const cuuint64_t kstr[3] = {row, row * KV, row * KV * Skv};
+  const cuuint32_t box[4] = {64, 1, 64, 1};
   const auto bf = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
   const auto sw = CU_TENSOR_MAP_SWIZZLE_128B;
-  if (!sm90::encode_map(&tq, bf, 3, q, qdim, qstr, box, sw) ||
-      !sm90::encode_map(&tk, bf, 3, k, kdim, kstr, box, sw) ||
-      !sm90::encode_map(&tv, bf, 3, v, kdim, kstr, box, sw) ||
-      !sm90::encode_map(&to, bf, 3, out, qdim, qstr, box, sw))
+  if (!sm90::encode_map(&tq, bf, 4, q, qdim, qstr, box, sw) ||
+      !sm90::encode_map(&tk, bf, 4, k, kdim, kstr, box, sw) ||
+      !sm90::encode_map(&tv, bf, 4, v, kdim, kstr, box, sw) ||
+      !sm90::encode_map(&to, bf, 4, out, qdim, qstr, box, sw))
     return int(cudaErrorInvalidValue);
   constexpr size_t smem = sm90_smem_bytes<HD>();
   auto kern = flash_sm90_kernel<HD>;
   cudaError_t e = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
   if (e != cudaSuccess) return int(e);
-  const float scale_log2 = sm90::kLog2e / sqrtf(float(HD));
+  const float scale_log2 = sm90::kLog2e / sqrtf(float(hd));
   Sm90Args a{Sq, Skv, H, KV, causal, scale_log2, lse};
   dim3 grid((Sq + sm90::kTile - 1) / sm90::kTile, H, B);
   kern<<<grid, 128, smem, stream>>>(tq, tk, tv, to, a);
@@ -427,7 +441,8 @@ bool bad_shape(int B, int Sq, int Skv, int H, int KV) {
 extern "C" {
 
 // f32 on CUDA cores. q (B,Sq,H,hd), k/v (B,Skv,KV,hd), out (B,Sq,H,hd),
-// contiguous f32; hd % 32 == 0, 32 <= hd <= 256. lse (B,H,Sq) f32 or null.
+// contiguous f32; hd % 32 == 0, 32 <= hd <= 256, or hd 80. lse (B,H,Sq) f32
+// or null.
 int flash_attention_f32_fwd(const void* q, const void* k, const void* v,
                             void* out, int B, int Sq, int Skv, int H, int KV,
                             int hd, int causal, float* lse, void* stream) {
@@ -438,6 +453,7 @@ int flash_attention_f32_fwd(const void* q, const void* k, const void* v,
   switch (hd) {
     case 32: return launch_f32_hd<32>(a, s);
     case 64: return launch_f32_hd<64>(a, s);
+    case 80: return launch_f32_hd<80>(a, s);
     case 96: return launch_f32_hd<96>(a, s);
     case 128: return launch_f32_hd<128>(a, s);
     case 160: return launch_f32_hd<160>(a, s);
@@ -448,7 +464,8 @@ int flash_attention_f32_fwd(const void* q, const void* k, const void* v,
   return int(cudaErrorInvalidValue);
 }
 
-// bf16 on tensor cores, the same layout; hd in {64, 128, 192, 256}.
+// bf16 on tensor cores, the same layout, 16-byte aligned; hd in {64, 80,
+// 128, 192, 256} (hd 80 computed at 128 over zero-filled columns).
 int flash_attention_sm90_fwd(const void* q, const void* k, const void* v,
                              void* out, int B, int Sq, int Skv, int H, int KV,
                              int hd, int causal, float* lse, void* stream) {
@@ -456,10 +473,11 @@ int flash_attention_sm90_fwd(const void* q, const void* k, const void* v,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int c = causal ? 1 : 0;
   switch (hd) {
-    case 64: return launch_sm90_hd<64>(q, k, v, out, lse, B, Sq, Skv, H, KV, c, s);
-    case 128: return launch_sm90_hd<128>(q, k, v, out, lse, B, Sq, Skv, H, KV, c, s);
-    case 192: return launch_sm90_hd<192>(q, k, v, out, lse, B, Sq, Skv, H, KV, c, s);
-    case 256: return launch_sm90_hd<256>(q, k, v, out, lse, B, Sq, Skv, H, KV, c, s);
+    case 64: return launch_sm90_hd<64>(q, k, v, out, lse, B, Sq, Skv, H, KV, hd, c, s);
+    case 80:
+    case 128: return launch_sm90_hd<128>(q, k, v, out, lse, B, Sq, Skv, H, KV, hd, c, s);
+    case 192: return launch_sm90_hd<192>(q, k, v, out, lse, B, Sq, Skv, H, KV, hd, c, s);
+    case 256: return launch_sm90_hd<256>(q, k, v, out, lse, B, Sq, Skv, H, KV, hd, c, s);
   }
   return int(cudaErrorInvalidValue);
 }

@@ -13,8 +13,8 @@
 // - quad (4-lane) row max and row sum over the accumulator layout, and a
 //   named barrier for one warpgroup;
 // - mbarrier init / arrive-expect-tx / bounded try-wait;
-// - TMA loads (2-D, 3-D, 5-D, and a pair of 64-row tiles such as K and V)
-//   completing on an mbarrier, TMA stores, and
+// - TMA loads (2-D, 3-D, 4-D, 5-D, and a pair of 64-row tiles such as K
+//   and V from 3-D or 4-D maps) completing on an mbarrier, TMA stores, and
 //   the host-side tensor-map encoding, looked up with
 //   cudaGetDriverEntryPoint (no -lcuda).
 //
@@ -246,6 +246,16 @@ __device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map,
       "r"(c2)
       : "memory");
 }
+__device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map,
+                                            uint64_t* bar, int c0, int c1,
+                                            int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1),
+      "r"(c2), "r"(c3)
+      : "memory");
+}
 __device__ __forceinline__ void tma_load_5d(void* dst, const CUtensorMap* map,
                                             uint64_t* bar, int c0, int c1,
                                             int c2, int c3, int c4) {
@@ -272,6 +282,22 @@ __device__ __forceinline__ void load_tile_pair(uint8_t* a, uint8_t* b,
     tma_load_3d(b + c * kSub, tb, bar, col0 + c * 64, row, batch);
   }
 }
+// The same over two 4-D maps (hd, heads, rows, batch): the 64-row tiles at
+// row `row` of head `head` of batch `batch`, columns 0 .. NC*64 (those past
+// the tensor's hd zero-filled by the TMA unit).
+template <int NC>
+__device__ __forceinline__ void load_tile_pair_4d(uint8_t* a, uint8_t* b,
+                                                  const CUtensorMap* ta,
+                                                  const CUtensorMap* tb,
+                                                  uint64_t* bar, int head,
+                                                  int row, int batch) {
+  mbar_expect_tx(bar, 2 * NC * kSub);
+#pragma unroll
+  for (int c = 0; c < NC; ++c) {
+    tma_load_4d(a + c * kSub, ta, bar, c * 64, head, row, batch);
+    tma_load_4d(b + c * kSub, tb, bar, c * 64, head, row, batch);
+  }
+}
 
 // Stores clip at the tensor's bounds: rows past a ragged edge are not
 // written.
@@ -282,6 +308,15 @@ __device__ __forceinline__ void tma_store_3d(const CUtensorMap* map,
       "cp.async.bulk.tensor.3d.global.shared::cta.bulk_group"
       " [%0, {%2, %3, %4}], [%1];\n" ::"l"(reinterpret_cast<uint64_t>(map)),
       "r"(smem_u32(src)), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+__device__ __forceinline__ void tma_store_4d(const CUtensorMap* map,
+                                             const void* src, int c0, int c1,
+                                             int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.global.shared::cta.bulk_group"
+      " [%0, {%2, %3, %4, %5}], [%1];\n" ::"l"(reinterpret_cast<uint64_t>(map)),
+      "r"(smem_u32(src)), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
       : "memory");
 }
 __device__ __forceinline__ void tma_store_5d(const CUtensorMap* map,

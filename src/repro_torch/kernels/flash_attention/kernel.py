@@ -4,13 +4,16 @@ Replaces ``repro/kernels/flash_attention/kernel.py::flash_attention_fwd``.
 The TPU kernel carries the online softmax across the sequential KV grid
 axis in VMEM scratch; here one block loops over the KV tiles up to the
 diagonal itself (``csrc/flash_attention.cu``). The kernel is chosen by
-dtype (``_cuda.attention_route``), never by trying one and then the other:
+dtype (``_fwd_route``, then ``_cuda.attention_route``), never by trying
+one and then the other:
 
 - bf16 -> ``flash_attention_sm90_fwd``: a warpgroup a 64-row q tile, wgmma
   for QK^T and PV, K/V tiles by TMA through a two-stage mbarrier ring; hd
-  in (64, 128, 192, 256), any other hd raises.
+  in (64, 80, 128, 192, 256), any other hd raises. hd 80 (HuBERT) runs the
+  hd-128 kernel: its 4-D tensor maps zero-fill columns 80-127 of every
+  tile and clip them from the store, and the scale stays 80^-0.5.
 - f32 -> ``flash_attention_f32_fwd``: the CUDA-core kernel (wgmma has no
-  full-f32 mode), 32-row q tiles; hd % 32 == 0, 32 <= hd <= 256.
+  full-f32 mode), 32-row q tiles; hd % 32 == 0, 32 <= hd <= 256, or hd 80.
 
 Both mask the ragged edges themselves: no ``S % block`` contract. With
 ``return_lse`` both also write each row's log-sum-exp (B,H,Sq) f32, which
@@ -54,6 +57,28 @@ def _check_cuda_core_hd(name, hd):
                          f"hd % 32 == 0, 32 <= hd <= 256; got hd={hd}")
 
 
+# The forward's head dims on the tensor-core route: the wgmma kernels' and
+# hd 80, which runs the hd-128 instantiation (module docstring).
+SM90_FWD_HEAD_DIMS = (64, 80, 128, 192, 256)
+
+
+def _fwd_route(dtype, hd: int) -> str:
+    """The forward's own contract, checked before ``_cuda.attention_route``
+    (which routes hd 80 as the hd-128 kernel it runs): bf16 hd in
+    ``SM90_FWD_HEAD_DIMS``, f32 hd % 32 == 0 up to 256 or hd 80. Raises
+    outside it; a call is never rerouted."""
+    if dtype == torch.bfloat16:
+        ok, contract = hd in SM90_FWD_HEAD_DIMS, f"hd in {SM90_FWD_HEAD_DIMS}"
+    else:
+        ok = hd == 80 or (hd % 32 == 0 and 32 <= hd <= 256)
+        contract = "hd % 32 == 0, 32 <= hd <= 256, or hd 80"
+    if not ok:
+        kind = "wgmma" if dtype == torch.bfloat16 else "CUDA-core"
+        raise ValueError(f"flash_attention_fwd: the {kind} kernel's contract "
+                         f"is {contract}; got hd={hd}")
+    return _cuda.attention_route(dtype, dtype, 128 if hd == 80 else hd)
+
+
 def flash_attention_fwd(q, k, v, *, causal: bool = True,
                         return_lse: bool = False):
     """q: (B,Sq,H,hd); k/v: (B,Skv,KV,hd), one dtype (f32/bf16) ->
@@ -63,9 +88,7 @@ def flash_attention_fwd(q, k, v, *, causal: bool = True,
     _check("flash_attention_fwd", q, k, v)
     b, sq, h, hd = q.shape
     _, skv, nkv, _ = k.shape
-    route = _cuda.attention_route(q.dtype, k.dtype, hd)
-    if route == "cuda_core":
-        _check_cuda_core_hd("flash_attention_fwd", hd)
+    route = _fwd_route(q.dtype, hd)
     lib = _cuda.library("flash_attention.cu")
     fn = (lib.flash_attention_sm90_fwd if route == "sm90"
           else lib.flash_attention_f32_fwd)

@@ -442,6 +442,8 @@ def main(argv=None) -> None:
     if (args.routing or args.disaggregate) and not args.gateway:
         args.gateway = True      # routing flags only make sense fleet-wide
     cfg = get_reduced_config(args.arch)
+    if cfg.encoder_only:
+        raise SystemExit(f"{args.arch} is encoder-only (no decode step)")
     fam = get_family(cfg)
     gateway_mode = (args.gateway or args.interactive_burst or args.saturation
                     or args.chaos_seed is not None)

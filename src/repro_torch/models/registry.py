@@ -1,5 +1,6 @@
-"""Model-family registry and parameter accounting: the dense transformer
-(with or without experts), xLSTM and the Zamba2 hybrid."""
+"""Model-family registry and parameter accounting: the transformer (dense,
+with experts, and with the audio and VLM frontends), xLSTM and the Zamba2
+hybrid."""
 from __future__ import annotations
 
 from .params import count_params_in_layout
@@ -11,15 +12,14 @@ _ZAMBA = ZambaFamily()
 
 
 def get_family(cfg):
-    if cfg.family in ("dense", "moe"):
+    if cfg.family in ("dense", "moe", "vlm", "audio"):
         return _TRANSFORMER
     if cfg.family == "ssm" and cfg.ssm_variant == "xlstm":
         return _XLSTM
     if cfg.family == "hybrid" or cfg.ssm_variant == "mamba2":
         return _ZAMBA
-    raise NotImplementedError(
-        f"{cfg.name}: family {cfg.family!r} is not ported yet; the audio and "
-        "VLM frontends come in a later slice (ROADMAP.md, Queue 1, item 2b)")
+    raise ValueError(f"no family for {cfg.name} "
+                     f"({cfg.family}/{cfg.ssm_variant})")
 
 
 def count_params(cfg, active_only: bool = False) -> int:

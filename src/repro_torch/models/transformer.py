@@ -1,12 +1,20 @@
-"""Model families: the dense transformer (with or without experts), the
-xLSTM stack of (mLSTM, sLSTM) pairs and the Zamba2 hybrid.
+"""Model families: the transformer (dense, with experts, and with the audio
+and VLM frontends), the xLSTM stack of (mLSTM, sLSTM) pairs and the Zamba2
+hybrid.
 
 All families expose the surface the static ``ServeEngine`` calls:
 ``layout``, ``prefill``, ``decode``, ``cache_layout`` and
 ``grown_cache_leaves`` (the decode-cache leaves whose axis 2 is the
 sequence, which the engine grows to ``max_len``), and ``train_loss``
 (dense and MoE transformers and xLSTM; the Zamba2 hybrid's raises until
-the SSD scan has a backward kernel). ``TransformerFamily``
+the SSD scan has a backward kernel). The transformer's frontends are the
+reference's stubs: an audio config (HuBERT, ``frontend="frame"``) takes
+precomputed frame features (B,S,frontend_dim) in ``batch["frames"]`` in
+place of tokens and is encoder-only (``prefill`` returns every position's
+logits and no cache); a VLM config (PaliGemma, ``frontend="patch"``) may
+take patch embeddings (B,P,frontend_dim) in ``batch["patches"]``, which
+are projected and put in front of the text, so the cache's rows and
+``decode``'s ``pos`` count from the first patch. ``TransformerFamily``
 adds the continuous-batching engine's surface: ``prefill_ragged`` (dense
 admission), ``prefill_paged``, ``decode_paged``, ``decode_verify``,
 ``paged_pool_shape`` and ``paged_pool``. Every dense path runs the MoE FFN
@@ -23,7 +31,7 @@ from torch.utils.checkpoint import checkpoint
 from ..device import resolve_device
 from . import layers as L
 from .moe import moe_block, moe_param_specs
-from .params import stack_specs
+from .params import ParamSpec, stack_specs
 from .ssm import mamba_block, mamba_cache_shapes, mamba_param_specs
 from .xlstm import (mlstm_block, mlstm_cache_shapes, mlstm_param_specs,
                     slstm_block, slstm_cache_shapes, slstm_param_specs)
@@ -82,31 +90,43 @@ class TransformerFamily:
                         else L.mlp_param_specs(cfg))}
 
     def layout(self, cfg) -> dict:
-        return {
+        layout = {
             **L.embed_param_specs(cfg),
             "layers": stack_specs(self.layer_specs(cfg), cfg.num_layers),
             "final_norm": L.norm_spec(cfg.d_model),
         }
+        if cfg.frontend:
+            layout["frontend_proj"] = ParamSpec((cfg.frontend_dim,
+                                                 cfg.d_model))
+        return layout
 
-    # -- token embedding ------------------------------------------------------
+    # -- embedding / frontend -------------------------------------------------
     def _embed(self, cfg, params, batch):
-        """Returns (x, positions): tokens only. The reference's audio and
-        VLM frontends (``frames``, ``patches``) are not ported yet."""
-        if cfg.family in ("audio", "vlm") or "tokens" not in batch:
-            raise NotImplementedError(
-                f"{cfg.name}: the {cfg.family} frontend is not ported yet "
-                "(ROADMAP.md, Queue 1, item 2b)")
-        x = L.embed_tokens(cfg, params, batch["tokens"])
-        return x, torch.arange(x.shape[1], device=x.device)
+        """Returns (x, positions, text_offset): ``frames`` (B,S,F) @
+        ``frontend_proj`` for a frame frontend (no token embedding); else the
+        token embeddings, after the projected ``patches`` (B,P,F) when a
+        patch frontend is given them (text_offset P)."""
+        dt = cfg.cdtype
+        offset = 0
+        if cfg.frontend == "frame":
+            x = batch["frames"].to(dt) @ params["frontend_proj"].to(dt)
+        else:
+            x = L.embed_tokens(cfg, params, batch["tokens"])
+            if cfg.frontend == "patch" and "patches" in batch:
+                px = batch["patches"].to(dt) @ params["frontend_proj"].to(dt)
+                x = torch.cat([px, x], dim=1)
+                offset = px.shape[1]
+        return x, torch.arange(x.shape[1], device=x.device), offset
 
     # -- training loss ----------------------------------------------------------
     def train_loss(self, cfg, params, batch):
-        """batch: tokens and labels (B,S), optionally loss_mask (B,S).
+        """batch: tokens and labels (B,S), optionally loss_mask (B,S) (and a
+        frontend's ``frames`` or ``patches``; labels cover the text only).
         Returns (total loss, metrics): the mean token cross-entropy plus, with
         experts, ``load_balance_loss * moe_lb_loss + router_z_loss *
         moe_z_loss``, each aux the mean over layers (zeros without
         experts)."""
-        x, positions = self._embed(cfg, params, batch)
+        x, positions, _ = self._embed(cfg, params, batch)
         moe = bool(cfg.num_experts)
 
         def layer(h, lp):
@@ -124,6 +144,10 @@ class TransformerFamily:
             x, *aux = body(x, lp)
             auxes.append(aux)
         x = L.rmsnorm(x, params["final_norm"], cfg.norm_eps)
+        if cfg.frontend == "patch":
+            # the loss is over the text: drop the patch rows (the reference
+            # drops frontend_len rows whether or not patches were given)
+            x = x[:, cfg.frontend_len:]
         aux = ({k: torch.stack(v).mean() for k, v in zip(AUX_KEYS,
                                                           zip(*auxes))}
                if moe else {k: torch.zeros((), device=x.device)
@@ -145,30 +169,39 @@ class TransformerFamily:
         return total, {"loss": loss, **aux}
 
     # -- full forward over a dense cache --------------------------------------
-    def _stack_forward(self, cfg, params, x, positions):
+    def _stack_forward(self, cfg, params, x, positions, want_cache=True):
         """Every layer at ``positions``; returns (final-normed x, (k, v)
-        stacked (L,B,S,KV,hd))."""
+        stacked (L,B,S,KV,hd), or None without ``want_cache``)."""
         ks, vs = [], []
         for i in range(cfg.num_layers):
             lp = _layer(params["layers"], i)
             x, (k, v) = L.attention_block(cfg, lp["attn"], x, positions)
             x = _ffn(cfg, lp["ffn"], x)
-            ks.append(k)
-            vs.append(v)
+            if want_cache:
+                ks.append(k)
+                vs.append(v)
         x = L.rmsnorm(x, params["final_norm"], cfg.norm_eps)
-        return x, (torch.stack(ks), torch.stack(vs))
+        return x, ((torch.stack(ks), torch.stack(vs)) if want_cache
+                   else None)
 
     def prefill(self, cfg, params, batch):
-        """batch: tokens (B,S) at positions 0..S-1. Returns (logits (B,V) at
-        the last position, cache {"k","v"} (L,B,S,KV,hd))."""
-        x, positions = self._embed(cfg, params, batch)
-        x, (k, v) = self._stack_forward(cfg, params, x, positions)
+        """batch: tokens (B,S) at positions 0..S-1 (a frame frontend's
+        ``frames``, or patches before the tokens). Returns (logits (B,V) at
+        the last position, cache {"k","v"} (L,B,S,KV,hd)); encoder-only:
+        (logits (B,S,V) at every position, {})."""
+        x, positions, _ = self._embed(cfg, params, batch)
+        x, kv = self._stack_forward(cfg, params, x, positions,
+                                    want_cache=not cfg.encoder_only)
+        if cfg.encoder_only:
+            return L.logits_fn(cfg, params, x), {}
+        k, v = kv
         return L.logits_fn(cfg, params, x[:, -1:])[:, 0], {"k": k, "v": v}
 
     def decode(self, cfg, params, batch, cache):
-        """batch: tokens (B,1), pos (B,) the token's position. Writes its
-        K/V row into ``cache`` (L,B,Smax,KV,hd) in place; returns (logits
-        (B,V), cache)."""
+        """batch: tokens (B,1), pos (B,) the token's position (counted from
+        the first patch after a prefill with patches). Writes its K/V row
+        into ``cache`` (L,B,Smax,KV,hd) in place; returns (logits (B,V),
+        cache)."""
         x = L.embed_tokens(cfg, params, batch["tokens"])
         pos = batch["pos"]
         for i in range(cfg.num_layers):
@@ -185,7 +218,7 @@ class TransformerFamily:
         at ``length - 1`` and the whole (L,B,S,KV,hd) cache. Causal masking
         keeps rows below a prompt's length independent of its pad (the
         experts' capacity aside: pad tokens take part in routing)."""
-        x, positions = self._embed(cfg, params, batch)
+        x, positions, _ = self._embed(cfg, params, batch)
         x, (k, v) = self._stack_forward(cfg, params, x, positions)
         idx = batch["length"].long() - 1
         last = x[torch.arange(x.shape[0], device=x.device), idx]     # (B,d)

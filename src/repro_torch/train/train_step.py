@@ -1,7 +1,8 @@
 """Step construction: the training step (microbatched gradient accumulation
 in f32, AdamW), and the serving steps: the static engine's dense prefill
 and decode steps, the continuous engine's dense (ragged) admission step,
-and its steps over the shared paged KV pool.
+its steps over the shared paged KV pool, and the encoder-only encode
+step.
 
 Each builder returns a plain function that runs one model pass and, for
 the decode-like steps, takes the greedy argmax over the compute-dtype
@@ -169,3 +170,15 @@ def build_fused_spec_step(cfg, draft_fn) -> Callable:
         return window, drafts, _argmax(logits), pool
 
     return fused_spec_step
+
+
+def build_encode_step(cfg) -> Callable:
+    """Encoder-only serve step (HuBERT): batch frames (B,S,frontend_dim) ->
+    per-frame logits (B,S,V)."""
+    family = get_family(cfg)
+
+    def encode_step(params, batch):
+        logits, _ = family.prefill(cfg, params, batch)
+        return logits
+
+    return encode_step

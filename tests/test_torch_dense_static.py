@@ -284,15 +284,21 @@ def test_moe_dense_admission_serves(models):
 
 
 def test_frontend_configs_are_refused(models):
+    """The frontend families run on the transformer; an encoder-only
+    (audio) config is refused by both engines, as the reference's are, and
+    a frame frontend reads ``frames``, not tokens."""
     _, tcfg, _, tparams, _ = models("internlm2-1.8b")
-    fam = TransformerFamily()
     tokens = torch.zeros((1, 4), dtype=torch.long)
     for family in ("audio", "vlm"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            fam._embed(tcfg.replace(family=family), tparams,
-                       {"tokens": tokens})
-        with pytest.raises(NotImplementedError, match="not ported"):
-            get_family(tcfg.replace(family=family))
+        assert isinstance(get_family(tcfg.replace(family=family)),
+                          TransformerFamily)
+    enc = tcfg.replace(family="audio", encoder_only=True, causal=False)
+    for engine in (ServeEngine, ContinuousBatchingEngine):
+        with pytest.raises(ValueError, match="encoder-only"):
+            engine(enc, tparams, device="cpu")
+    with pytest.raises(KeyError, match="frames"):
+        TransformerFamily()._embed(enc.replace(frontend="frame"), tparams,
+                                   {"tokens": tokens})
 
 
 def test_launcher_new_archs_and_prefill_mode(capsys):

@@ -26,6 +26,7 @@ from repro_torch.configs import (ARCH_NAMES, ModelConfig,  # noqa: E402
                                  get_config, get_reduced_config)
 from repro_torch.models import (get_family, init_params,  # noqa: E402
                                 params_from_reference)
+from repro_torch.models.transformer import TransformerFamily  # noqa: E402
 from repro_torch.train import train_step as tts  # noqa: E402
 
 PS, C, NPAGES = 8, 8, 4
@@ -174,15 +175,20 @@ def test_init_params_on_device_and_unported_family():
     assert a["layers"]["attn"]["norm"].dtype == torch.float32
     assert float(a["layers"]["attn"]["wq"].float().abs().max()) <= 2.0 * (
         tcfg.num_layers * tcfg.d_model) ** -0.5 + 1e-2
-    with pytest.raises(NotImplementedError, match="not ported"):
-        get_family(tcfg.replace(family="vlm"))
+    # the frontend families map to the transformer; an unknown one raises
+    for family in ("vlm", "audio"):
+        assert isinstance(get_family(tcfg.replace(family=family)),
+                          TransformerFamily)
+    with pytest.raises(ValueError, match="no family"):
+        get_family(tcfg.replace(family="retrieval"))
 
 
 @pytest.mark.parametrize("arch", ARCH_NAMES)
 def test_config_fields_match_reference(arch):
     """Every field of the port's config, full and reduced, equals the
-    reference's (the port has no ``remat``, ``param_dtype`` or frontend
-    fields, and none the reference lacks)."""
+    reference's, the frontend fields of hubert-xlarge and paligemma-3b
+    among them (the port lacks the reference's attention-chunk, scan and
+    sharding fields, and has none the reference lacks)."""
     import dataclasses
     from repro.configs.base import ModelConfig as JaxModelConfig
     names = [f.name for f in dataclasses.fields(ModelConfig)]
@@ -195,7 +201,8 @@ def test_config_fields_match_reference(arch):
 
 @pytest.mark.parametrize("arch", ["internlm2-1.8b", "mistral-nemo-12b",
                                   "starcoder2-7b", "olmoe-1b-7b",
-                                  "arctic-480b", "xlstm-350m"])
+                                  "arctic-480b", "xlstm-350m",
+                                  "hubert-xlarge", "paligemma-3b"])
 def test_count_params_matches_reference(arch):
     """Total and per-token active parameters of the full configs, from the
     layouts alone (nothing is allocated)."""

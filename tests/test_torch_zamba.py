@@ -122,8 +122,10 @@ def test_layout_and_groups_match_reference():
         == {"norm", "gate_norm", "dt_bias", "A_log", "D"}
     assert get_family(tcfg.replace(family="ssm", ssm_variant="xlstm")).name \
         == "xlstm"
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        get_family(tcfg.replace(family="audio", ssm_variant=""))
+    assert get_family(tcfg.replace(family="audio", ssm_variant="")).name \
+        == "transformer"
+    with pytest.raises(ValueError, match="no family"):
+        get_family(tcfg.replace(family="ssm", ssm_variant=""))
 
 
 # ---------------------------------------------------------------------------
