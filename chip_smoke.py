@@ -122,7 +122,26 @@ Phases, each of which must pass (a failure exits nonzero):
    seconds, the time from the revocation to the second worker's first
    step, device memory at each attempt's start and the peak; then the
    port's simulator's Table VII-C rows (a simulation at 2016 prices).
-10. xlstm: xlstm-350m widths at depth 2 in f32, card against CPU: prefill
+10. zamba train: the SSD scan's backward kernel (the port's own, CUDA
+   cores) against its plain backward in bf16 and f32, each twice, bit for
+   bit, on the ``cuda_core`` route: at Zamba2's training shape (B 8, S
+   1024, H 64, N = P = 64, chunk 128), at S 1000 and 200 (ragged last
+   chunks) and at chunk 16, B 1, under strong decay with a nonzero
+   dh_final (bf16 outputs within TOL_BF16, f32 ones within TOL_F32 of each
+   gradient's max); the training shape timed beside the plain version and
+   the bound (no library call). Then, under
+   ``torch.use_deterministic_algorithms``, Zamba2 widths at depth 6 in
+   f32, B 2, S 256, at SSD chunk 128 and 96 (ragged): ``train_loss`` and
+   every gradient card against CPU (1e-5 / 1e-4 of each leaf's max),
+   launches exact; and full-width zamba2-1.2b (38 Mamba2 layers, 6 shared
+   applications, bf16 over f32 masters, remat full, int8 moments) trained
+   by ``ElasticTrainer`` at B 8 x 1024, 4 steps with checkpoints every 2,
+   once uninterrupted and once revoked after step 3: the final states'
+   SHA-256 equal, the loss falling, every step's launches exact (SSD scan
+   2L on sm90, its backward L on cuda_core, flash 6 and 6 on sm90, RMSNorm
+   4L + 13 and 2L + 13) and no plain version called; step ms, tokens/s,
+   peak memory, checkpoint GB and save/restore seconds.
+11. xlstm: xlstm-350m widths at depth 2 in f32, card against CPU: prefill
    and four decode steps at prompts of 256 (four mLSTM chunks) and 200 (a
    ragged last chunk), logits and states within 1e-3; ``train_loss`` and
    every gradient at B 2, S 256 (the loss within 1e-5 of itself, each
@@ -138,12 +157,12 @@ Phases, each of which must pass (a failure exits nonzero):
    (launches, busy share, device time by kernel, the wall share inside
    ``slstm_scan``'s time loop); and training through
    ``ElasticTrainer`` at B 8 x 512 (remat full, int8 moments,
-   checkpoints every 2), 4 steps, once uninterrupted and once revoked
-   after step 3 (lost, and replayed from the step-2 checkpoint), under
+   checkpoints every 2) at depth 12, 4 steps, once uninterrupted and once
+   revoked after step 3 (lost, and replayed from the step-2 checkpoint), under
    ``torch.use_deterministic_algorithms``: the two final states'
-   SHA-256 equal, the loss falling, RMSNorm's 73 forward and 37 backward
-   launches a step exact, no plain version called.
-11. frontends: hubert-xlarge and paligemma-3b widths at depth 2 in f32,
+   SHA-256 equal, the loss falling, RMSNorm's 37 forward and 19 backward
+   launches a step exact (6 pairs), no plain version called.
+12. frontends: hubert-xlarge and paligemma-3b widths at depth 2 in f32,
    card against CPU: hubert's encode logits (B 2 x 200 frames) and
    paligemma's prefill of 256 patches + 16 tokens, three decode steps
    from pos 272 and the cache, within 1e-3 (flash at hd 80 and 256 on the
@@ -160,7 +179,7 @@ Phases, each of which must pass (a failure exits nonzero):
    paligemma's prefill (B 8, S 288, H 8 over KV 1, hd 256, causal) and
    the paged decode and prefill at hd 256, G 8, each timed beside SDPA
    and its bound.
-12. examples: the four ``repro_torch.examples`` on the card, each short:
+13. examples: the four ``repro_torch.examples`` on the card, each short:
    secure_analytics (alice's topics equal to a numpy count of the same
    shards, bob denied WOS with the deny audited, the Glacier path parked
    then COMPLETED, a clean shutdown), quickstart (the loss falls over 10
@@ -169,14 +188,15 @@ Phases, each of which must pass (a failure exits nonzero):
 
 The second-to-last line of output is a JSON ``kernels`` record (with the
 launches on the transformer runs, the residency phase's move times, the
-gateway phase's results, the train and job phases' numbers and the xlstm
-phase's, RMSNorm's xLSTM launches among the kernels' as
+gateway phase's results, the train, job, zamba train and xlstm phases'
+numbers, ``ssd_scan_bwd`` among the kernels, each kernel's Zamba2
+training launches as ``launches_zamba_train``, RMSNorm's xLSTM launches as
 ``launches_xlstm_serve`` and ``launches_xlstm_train``, each kernel's
 launches in the frontends phase as ``launches_frontends``, and the
 frontends and examples phases' numbers); the last is
 ``{"ok": true, "device": {...}}``. Without CUDA, or without the port
 beside this script, it prints no result and exits nonzero. It takes no
-arguments: every run drives all twelve phases.
+arguments: every run drives all thirteen phases.
 """
 from __future__ import annotations
 
@@ -253,6 +273,7 @@ SOURCES = {
     "ssd_scan": "src/repro_torch/csrc/ssd_scan.cu",
     "rmsnorm_bwd": "src/repro_torch/csrc/rmsnorm.cu",
     "flash_attention_bwd": "src/repro_torch/csrc/flash_attention_bwd_sm90.cu",
+    "ssd_scan_bwd": "src/repro_torch/csrc/ssd_scan_bwd.cu",
 }
 PAGED = ("flash_decode_fwd", "flash_prefill_fwd", "flash_verify_fwd")
 # The continuous engine's three serve runs: plain decode, speculative decode
@@ -366,7 +387,8 @@ ON_PATH_SM90 = {
 # The other backward kernels the training path and its f32 parity launch:
 # the bf16 flash backward's delta pass, the f32 CUDA-core flash backward at
 # hd 128, RMSNorm's register kernel (D up to 8192 bf16 / 4096 f32) and
-# shared-memory kernel (beyond) in both dtypes.
+# shared-memory kernel (beyond) in both dtypes, and the SSD backward's
+# three CUDA-core kernels in both.
 BACKWARD_KERNELS = {
     "flash_bwd_delta_sm90_kernelILi128E": "flash bwd delta bf16 hd 128",
     "flash_bwd_delta_kernel": "flash bwd delta f32",
@@ -375,7 +397,13 @@ BACKWARD_KERNELS = {
     "rmsnorm_bwd_reg_kernelI13__nv_bfloat16Lb1E": "rmsnorm bwd registers bf16",
     "rmsnorm_bwd_reg_kernelIfLb1E": "rmsnorm bwd registers f32",
     "rmsnorm_bwd_kernelI13__nv_bfloat16": "rmsnorm bwd smem bf16",
-    "rmsnorm_bwd_kernelIf": "rmsnorm bwd smem f32"}
+    "rmsnorm_bwd_kernelIf": "rmsnorm bwd smem f32",
+    "ssd_bwd_states_kernelI13__nv_bfloat16": "ssd bwd states bf16",
+    "ssd_bwd_states_kernelIf": "ssd bwd states f32",
+    "ssd_bwd_kernelI13__nv_bfloat16": "ssd bwd reverse walk bf16",
+    "ssd_bwd_kernelIf": "ssd bwd reverse walk f32",
+    "ssd_bwd_reduce_kernelI13__nv_bfloat16": "ssd bwd head sums bf16",
+    "ssd_bwd_reduce_kernelIf": "ssd bwd head sums f32"}
 
 
 def _ptxas_functions(text):
@@ -2740,11 +2768,11 @@ def torch_randn(gen, dev, *shape):
     return torch.randn(*shape, generator=gen, device=dev)
 
 
-def _rms_bwd_case(gen, dev, dtype, rows, d):
+def _rms_bwd_case(gen, dev, dtype, rows, d, w_mean=1.0, w_std=0.1):
     from repro_torch import kernels as K
     x = torch_randn(gen, dev, rows, d).to(dtype)
     g = torch_randn(gen, dev, rows, d).to(dtype)
-    w = 1.0 + 0.1 * torch_randn(gen, dev, d)
+    w = w_mean + w_std * torch_randn(gen, dev, d)
     return (lambda: K.rmsnorm_bwd(x, w, g),
             lambda: K.rmsnorm_bwd_reference(x, w, g), (x, w, g))
 
@@ -2769,6 +2797,30 @@ def _sdpa_bwd(q, k, v, dout):
     gg = dout.transpose(1, 2).contiguous()
     return lambda: torch.autograd.grad(out, (qq, kk, vv), gg,
                                        retain_graph=True)
+
+
+def _bwd_twice(tag, name, label, route, kern, plain, tol=TOL_BF16):
+    """A backward wrapper called twice against its plain version on the
+    same inputs: both launches on ``route`` and no other launch, equal
+    bits, each gradient within ``tol`` of its max |plain| -> the largest
+    of those errors."""
+    import torch
+    from repro_torch import kernels as K
+    K.reset_launch_counts()
+    got, again = kern(), kern()
+    torch.cuda.synchronize()
+    routes = K.launch_counts_by_route()[name]
+    same = all(torch.equal(a, b) for a, b in zip(got, again))
+    errs = [_rel_err(a, b) for a, b in zip(got, plain())]
+    ok = (routes.get(route) == 2 and sum(K.launch_counts().values()) == 2
+          and same and all(math.isfinite(e) and e <= tol for e in errs))
+    log(f"[{tag}] {name} {label}: max|kernel-plain|/max|plain| by gradient "
+        f"{['%.2e' % e for e in errs]} (tol {tol}), repeat bitwise {same}, "
+        f"routes {routes} (want 2 on {route}) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"{tag} {name} {label}: errors {errs}, repeat "
+                             f"equal {same}, routes {routes}")
+    return max(errs)
 
 
 def _rms_bwd_lib(x, w, g):
@@ -2796,27 +2848,35 @@ def _rms_bwd_bound(rows, d, dtype_bytes):
     return 3 * rows * d * dtype_bytes + 8 * d, 8.0 * rows * d
 
 
-def _device_split(fn, calls: int = 10) -> dict:
+def _device_split(fn, calls: int = 10, tries: int = 3) -> dict:
     """{kernel name: device ms a call} of ``fn`` under ``torch.profiler``
     (the kernels' self device time over ``calls`` calls): where a wrapper's
-    launches spend its time."""
+    launches spend its time. A session that records no device activity
+    (seen once late in a long run) is retried, up to ``tries`` sessions;
+    after that the split is empty and the log says so."""
     import re
     import torch
     fn()
     torch.cuda.synchronize()
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
     split = {}
-    for e in prof.key_averages():
-        if e.device_type != torch.autograd.DeviceType.CUDA:
-            continue
-        m = re.search(r"(\w+_kernel)", e.key)
-        name = m.group(1) if m else e.key[:60]
-        split[name] = split.get(name, 0.0) + e.self_device_time_total / 1e3 / calls
+    for attempt in range(tries):
+        with torch.profiler.profile(activities=acts) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        for e in prof.key_averages():
+            if e.device_type != torch.autograd.DeviceType.CUDA:
+                continue
+            m = re.search(r"(\w+_kernel)", e.key)
+            name = m.group(1) if m else e.key[:60]
+            split[name] = (split.get(name, 0.0)
+                           + e.self_device_time_total / 1e3 / calls)
+        if split:
+            return split
+        log(f"[profiler] session {attempt + 1} of {tries} recorded no device "
+            f"activity")
     return split
 
 
@@ -2929,12 +2989,15 @@ def _train_grads(fam, cfg, params, batch):
 
 def _train_parity(cfg, label, kernels=("flash_attention_fwd",
                                         "flash_attention_bwd",
-                                        "rmsnorm_fused", "rmsnorm_bwd")):
+                                        "rmsnorm_fused", "rmsnorm_bwd"),
+                  want=None):
     """``train_loss`` and every gradient at ``cfg`` (f32, depth 2, B 2, S
     256) on the card (kernels, backward kernels) against the CPU (plain
     versions, autograd) from the same weights; each of ``kernels``
-    launched at least once a layer. The loss within 1e-5; of the CPU's
-    loss where that is above 128, whose f32 ulp exceeds 1e-5."""
+    launched at least once a layer, or, given ``want``, every kernel's
+    launches exactly those (the others none). The loss within 1e-5; of the
+    CPU's loss where that is above 128, whose f32 ulp exceeds 1e-5. Every
+    f32 launch on its CUDA-core route."""
     import numpy as np
     import torch
     from repro_torch.kernels import (launch_counts, launch_counts_by_route,
@@ -2967,13 +3030,16 @@ def _train_parity(cfg, label, kernels=("flash_attention_fwd",
     if not (loss_err <= 1e-5 and grad_err <= 1e-4):
         raise AssertionError(f"train parity {label}: loss {loss_err}, "
                              f"grads {grad_err}")
-    for name in kernels:
-        if counts[name] < cfg.num_layers:
-            raise AssertionError(f"train parity {label} missed {name}: "
-                                 f"{counts}")
-    if routes["flash_attention_fwd"]["sm90"] \
-            or routes["flash_attention_bwd"]["sm90"]:
-        raise AssertionError(f"f32 flash left the CUDA-core route: {routes}")
+    if want is not None:
+        if {k: v for k, v in counts.items() if v} != want:
+            raise AssertionError(f"train parity {label}: launches {counts}, "
+                                 f"want {want}")
+    elif any(counts[name] < cfg.num_layers for name in kernels):
+        raise AssertionError(f"train parity {label} missed one of {kernels}:"
+                             f" {counts}")
+    if any(routes[k]["sm90"] for k in ("flash_attention_fwd",
+                                       "flash_attention_bwd", "ssd_scan")):
+        raise AssertionError(f"f32 left the CUDA-core route: {routes}")
     del gpu, cpu, gg, cg
     torch.cuda.empty_cache()
 
@@ -3108,8 +3174,10 @@ def _plain_call_counter():
     """Count calls of the plain versions behind the ops entries, so a run
     can show that no backward on the card went through one."""
     from repro_torch.kernels.flash_attention import ops as fops
+    from repro_torch.kernels.mamba_scan import ops as sops
     from repro_torch.kernels.rmsnorm import ops as rops
-    calls = {"attention_reference": 0, "rmsnorm_reference": 0}
+    calls = {"attention_reference": 0, "rmsnorm_reference": 0,
+             "ssd_chunked_reference": 0}
 
     def wrap(mod, name):
         fn = getattr(mod, name)
@@ -3120,7 +3188,8 @@ def _plain_call_counter():
         setattr(mod, name, counted)
         return lambda: setattr(mod, name, fn)
 
-    undo = [wrap(fops, "attention_reference"), wrap(rops, "rmsnorm_reference")]
+    undo = [wrap(fops, "attention_reference"), wrap(rops, "rmsnorm_reference"),
+            wrap(sops, "ssd_chunked_reference")]
     return calls, lambda: [u() for u in undo]
 
 
@@ -3592,15 +3661,375 @@ def phase_job(smi: str, train: dict):
 
 
 # ---------------------------------------------------------------------------
-# phase 10: xLSTM -- parity, serve, train and where the time goes
+# phase 10: Zamba2 training -- the SSD backward, f32 parity, full width
 # ---------------------------------------------------------------------------
 
-# xlstm-350m's training run: batch 8 x 512 (8 mLSTM chunks of 64), 4
+# The SSD backward against its plain version: Zamba2's training shape (B 8,
+# S 1024, H 64, N = P = 64, chunk 128), ragged last chunks (S 1000: 104
+# rows; S 200: 72), and chunk 16 at B 1 under strong decay with a nonzero
+# dh_final: (label, (B, S, chunk, dt_scale, dh_final given)).
+SSD_BWD_CASES = (("train", (8, 1024, Z_CHUNK, 1.0, False)),
+                 ("ragged S 1000", (8, 1000, Z_CHUNK, 1.0, False)),
+                 ("ragged S 200", (8, 200, Z_CHUNK, 1.0, False)),
+                 ("chunk 16, B 1, strong decay, dh_final",
+                  (1, 512, 16, 20.0, True)))
+# zamba2-1.2b's training run: batch 8 x 1024 (8 SSD chunks of 128), 4
 # steps, checkpoints every 2; the second run is revoked after step 3,
-# loses it and resumes from the step-2 checkpoint, so it runs 5 steps and
-# replays one. A step takes 15-19 s on an H100 (the sLSTM loop's
-# launches, forward, recompute and backward), so the run is no longer.
-XB, XS = 8, 512
+# loses it and resumes from the step-2 checkpoint (5 steps run).
+ZT_B, ZT_S = 8, 1024
+ZT_STEPS, ZT_EVERY, ZT_REVOKE = 4, 2, 3
+
+
+def _ssd_bwd_case(gen, dev, dtype, b, s, chunk, dt_scale=1.0, with_dh=False):
+    """(kernel, plain, inputs) of one SSD backward at the Zamba2 widths:
+    ``_ssd_case``'s inputs, a cotangent dy of order 1 and, if ``with_dh``,
+    one for h_final."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch import kernels as K
+
+    def rn(*shape):
+        return torch.randn(*shape, generator=gen, device=dev)
+
+    args = ((rn(b, s, Z_SSM_H, Z_P) / dt_scale).to(dtype),
+            F.softplus(rn(b, s, Z_SSM_H)) * dt_scale, 0.5 * rn(Z_SSM_H),
+            (rn(b, s, Z_N) * Z_N ** -0.5).to(dtype),
+            (rn(b, s, Z_N) * Z_N ** -0.5).to(dtype),
+            rn(b, s, Z_SSM_H, Z_P).to(dtype),
+            rn(b, Z_SSM_H, Z_N, Z_P) if with_dh else None)
+    return (lambda: K.ssd_scan_bwd(*args, chunk=chunk),
+            lambda: K.ssd_chunked_backward_reference(*args, chunk=chunk),
+            args)
+
+
+def _ssd_bwd_bound(b, s, h, p, n, chunk, dtype_bytes):
+    """(bytes, flops) of an SSD backward: x and dy read and dx written, B
+    and C read and dB, dC written, in the dtype; dt read, ddt written, a_log
+    and da_log (f32). Flops a (batch, head, chunk of L): five L x N x P
+    products (the recomputed state, dy h^T for dC's state term, B dh for
+    dx's, x dh^T for dB's, the dh update) and four causal L x L products
+    (W^T dy, dy x^T, Q B, Q^T C), 2 flops a multiply-add; C B^T once a
+    (batch, chunk)."""
+    nbytes = 3 * b * s * h * p * dtype_bytes + 4 * b * s * n * dtype_bytes \
+        + 2 * b * s * h * 4 + 2 * h * 4
+    flops = 0.0
+    for c0 in range(0, s, chunk):
+        ln = min(chunk, s - c0)
+        tri = ln * (ln + 1) // 2
+        flops += b * h * (10.0 * ln * n * p + 4.0 * tri * (p + n)) \
+            + b * 2.0 * tri * n
+    return nbytes, flops
+
+
+def _ssd_bwd_kernels():
+    """``ssd_scan_bwd`` against ``ssd_chunked_backward_reference`` on the
+    same inputs at ``SSD_BWD_CASES`` in bf16 and f32, each call twice, bit
+    for bit the same, on the ``cuda_core`` route (bf16 too); bf16 outputs
+    (dx, dB, dC) within TOL_BF16 and f32 ones within TOL_F32 of each
+    gradient's max |value|. The training shape timed in bf16 (and f32)
+    beside the plain version and the bound; no library call computes it.
+    Outside deterministic mode: the plain version takes CUDA's cumsum."""
+    import torch
+    from repro_torch import kernels as K
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(24)
+    rec = {"max_abs_err": {}}
+    for dtype, kind in ((torch.bfloat16, "bf16"), (torch.float32, "f32")):
+        for label, (b, s, chunk, dt_scale, with_dh) in SSD_BWD_CASES:
+            kern, plain, args = _ssd_bwd_case(gen, dev, dtype, b, s, chunk,
+                                              dt_scale, with_dh)
+            K.reset_launch_counts()
+            got, again = kern(), kern()
+            torch.cuda.synchronize()
+            routes = K.launch_counts_by_route()["ssd_scan_bwd"]
+            if routes != {"cuda_core": 2} \
+                    or sum(K.launch_counts().values()) != 2:
+                raise AssertionError(f"ssd_scan_bwd {kind} {label}: "
+                                     f"launches {K.launch_counts()}")
+            same = all(torch.equal(x, y) for x, y in zip(got, again))
+            errs = [_rel_err(x, y) for x, y in zip(got, plain())]
+            tols = [TOL_BF16 if x.dtype == torch.bfloat16 else TOL_F32
+                    for x in got]
+            ok = same and all(math.isfinite(e) and e <= t
+                              for e, t in zip(errs, tols))
+            log(f"[zamba train] ssd_scan_bwd {kind} {label} (B {b}, S {s}, "
+                f"chunk {chunk}) on cuda_core: max|kernel-plain|/max|plain| "
+                f"dx, ddt, da_log, dB, dC {['%.2e' % e for e in errs]} "
+                f"(tol {tols}), repeat bitwise {same} "
+                f"{'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise AssertionError(f"ssd_scan_bwd {kind} {label} "
+                                     f"disagrees: {errs}, repeat {same}")
+            rec["max_abs_err"][kind] = max(rec["max_abs_err"].get(kind, 0.0),
+                                           max(errs))
+            if label != "train":
+                continue
+            nbytes, flops = _ssd_bwd_bound(b, s, Z_SSM_H, Z_P, Z_N, chunk,
+                                           args[0].element_size())
+            peak = BF16_FLOPS_PER_S if kind == "bf16" else F32_FLOPS_PER_S
+            bytes_s, ops_s = nbytes / HBM_BYTES_PER_S, flops / peak
+            # one plain call a timing: its ~500 launches a call fill the
+            # launch queue behind the spin at three
+            rec[kind] = {"ms": time_ms(kern, iters=10),
+                         "plain_ms": time_ms(plain, iters=1, warmup=1),
+                         "bound_ms": max(bytes_s, ops_s) * 1e3,
+                         "bound_by": ("bytes" if bytes_s >= ops_s
+                                      else "operations"),
+                         "bytes": nbytes, "flops": flops,
+                         "split_ms": _device_split(kern),
+                         "shape": [b, s, Z_SSM_H, Z_P, Z_N, chunk]}
+            r = rec[kind]
+            log(f"[zamba train] ssd_scan_bwd {kind} (B {b}, S {s}, H "
+                f"{Z_SSM_H}, N = P = {Z_P}, chunk {chunk}): kernel "
+                f"{r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, bound "
+                f"{r['bound_ms']:.4f} ms ({r['bound_by']}: {nbytes / 1e6:.1f}"
+                f" MB, {flops / 1e9:.1f} GFLOP), no library call; device ms "
+                f"a call by kernel (profiler) "
+                f"{ {k: round(v, 4) for k, v in r['split_ms'].items()} }")
+            del got, again
+        torch.cuda.empty_cache()
+    return rec
+
+
+def _zamba_bwd_shapes(cfg):
+    """The other backward kernels of a Zamba2 training step at its own
+    shapes, bf16, through ``_bwd_twice``: RMSNorm's over ZT_B x ZT_S rows
+    at D 2 ``d_model`` (each Mamba layer's ``gate_norm``) and ``d_model``
+    (its ``norm``, the shared block's two and ``final_norm``), f32 weights
+    away from one, on the register kernel; flash attention at B ZT_B, S
+    ZT_S, H = KV = ``num_heads``, hd ``head_dim``, causal (the shared
+    block) on sm90. -> {kernel: {shape: max error}}."""
+    import torch
+    from repro_torch.kernels.rmsnorm.kernel import rmsnorm_path
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(25)
+    rows = ZT_B * ZT_S
+    out = {"rmsnorm_bwd": {}, "flash_attention_bwd": {}}
+    for d in (cfg.ssm_expand * cfg.d_model, cfg.d_model):
+        if rmsnorm_path(d, torch.bfloat16) != "registers":
+            raise AssertionError(f"zamba train: RMSNorm at D {d} leaves the "
+                                 f"register kernel")
+        kern, plain, _ = _rms_bwd_case(gen, dev, torch.bfloat16, rows, d,
+                                       w_mean=0.25, w_std=0.05)
+        out["rmsnorm_bwd"][f"{rows}x{d}"] = _bwd_twice(
+            "zamba train", "rmsnorm_bwd", f"bf16 {rows}x{d}", "registers",
+            kern, plain)
+    shape = (ZT_B, ZT_S, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim)
+    kern, plain, _ = _flash_bwd_case(gen, dev, torch.bfloat16, *shape)
+    out["flash_attention_bwd"][str(shape)] = _bwd_twice(
+        "zamba train", "flash_attention_bwd", f"bf16 {shape} causal", "sm90",
+        kern, plain)
+    del kern, plain
+    torch.cuda.empty_cache()
+    return out
+
+
+def _zamba_step_launches(cfg) -> dict:
+    """A training step's launches with remat "full": each Mamba layer's SSD
+    scan and its two norms run again in its recompute; the shared block
+    (its two norms and flash) runs once an application, outside the remat,
+    and ``final_norm`` once."""
+    from repro_torch.models import get_family
+    L, apps = cfg.num_layers, get_family(cfg).n_shared_applications(cfg)
+    return {"ssd_scan": 2 * L, "ssd_scan_bwd": L,
+            "flash_attention_fwd": apps, "flash_attention_bwd": apps,
+            "rmsnorm_fused": 4 * L + 2 * apps + 1,
+            "rmsnorm_bwd": 2 * L + 2 * apps + 1}
+
+
+def _revoked_train(cfg, label, want, want_routes, smi, *, batch, seq,
+                   steps, every, revoke_step):
+    """Full-width, full-depth ``cfg`` (bf16 compute over f32 masters, remat
+    "full", seed 0) trained by ElasticTrainer on the train phase's
+    synthetic corpus, batch x seq, int8 AdamW moments, ``steps`` steps
+    with checkpoints every ``every``: once uninterrupted, once revoked
+    after step ``revoke_step``, whose work is lost, and resumed from the
+    last checkpoint before it, under ``torch.use_deterministic_algorithms``.
+    The two final states' SHA-256 equal, the loss falling, every step's
+    launches exactly ``want`` (every other kernel none) and, for each
+    kernel of ``want_routes``, by route, and no plain version called."""
+    import statistics as st
+    import torch
+    from repro_torch.models import count_params
+    from repro_torch.train import AdamWConfig
+    assert cfg.remat == "full" and cfg.param_dtype == "float32"
+    assert revoke_step % every != 0
+    opt = AdamWConfig(learning_rate=TRAIN_LR, warmup_steps=2,
+                      decay_steps=100, state_dtype="int8")
+    run_kw = dict(batch=batch, seq=seq, steps=steps, every=every,
+                  revoke_step=revoke_step)
+    plain_calls, undo = _plain_call_counter()
+    torch.use_deterministic_algorithms(True)
+    try:
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        with _GpuSampler() as gpu:
+            t0 = time.perf_counter()
+            ref, ref_rep, ref_probe, ref_ck = _train_run(cfg, opt, False,
+                                                         **run_kw)
+            peak = torch.cuda.max_memory_allocated()
+            ref_wall = time.perf_counter() - t0
+            t1 = time.perf_counter()
+            digest = _state_digest(ref.final_state)
+            digest_s = time.perf_counter() - t1
+            del ref
+            gc.collect()
+            torch.cuda.empty_cache()
+            rev, rev_rep, rev_probe, rev_ck = _train_run(cfg, opt, True,
+                                                         **run_kw)
+            rev_digest = _state_digest(rev.final_state)
+            del rev
+            gc.collect()
+    finally:
+        torch.use_deterministic_algorithms(False)
+        undo()
+    step_s = [dt for dt, _, _ in ref_probe.steps]
+    steady = st.median(step_s[1:])
+    clocks = {"uninterrupted": gpu.during(ref_probe.windows),
+              "revoked": gpu.during(rev_probe.windows)}
+    saves = [e for e in ref_ck + rev_ck if e[0] == "save"]
+    restores = [e for e in rev_ck if e[0] == "restore"]
+    rec = {"config": cfg.name, "layers": cfg.num_layers,
+           "params": count_params(cfg), "batch": batch, "seq": seq,
+           "steps": steps, "revoked_at": revoke_step,
+           "resumed_from": revoke_step - revoke_step % every,
+           "state_dtype": "int8",
+           "losses": {str(k): v for k, v in ref_rep.losses.items()},
+           "step_ms": [x * 1e3 for x in step_s],
+           "step_ms_median_after_first": steady * 1e3,
+           "revoked_run_step_ms": [dt * 1e3 for dt, _, _ in rev_probe.steps],
+           "gpu_during_steps": clocks,
+           "tokens_per_s": batch * seq / steady,
+           "max_memory_allocated_bytes": peak, "uninterrupted_run_s": ref_wall,
+           "checkpoint_gb": saves[0][3] / 1e9,
+           "save_s": [e[2] for e in saves],
+           "restore_s": [e[2] for e in restores],
+           "launches_per_step": want,
+           "launches_by_route_per_step": want_routes,
+           "launches": _run_launches(ref_probe),
+           "launches_by_route": {
+               k: {r: sum(step[2][k][r] for step in ref_probe.steps)
+                   for r in by} for k, by in want_routes.items()},
+           "revoked_run_launches": _run_launches(rev_probe),
+           "steps_run_revoked": rev_rep.steps_run, "state_sha256": digest,
+           "digest_s": digest_s, "bitwise_restart": digest == rev_digest}
+    log(f"[{label}] {cfg.name} {cfg.num_layers} layers "
+        f"({rec['params'] / 1e6:.1f} M params), bf16 over f32 masters, remat"
+        f" full, int8 moments, B {batch} x S {seq}: losses "
+        f"{[round(x, 4) for x in ref_rep.losses.values()]}; step ms "
+        f"{[round(x * 1e3, 1) for x in step_s]} (median after the first "
+        f"{steady * 1e3:.1f} ms = {rec['tokens_per_s']:.0f} tokens/s); peak "
+        f"device memory {peak / 2**30:.2f} GiB; checkpoint "
+        f"{rec['checkpoint_gb']:.2f} GB: saves "
+        f"{[round(e[2], 2) for e in saves]} s, restore "
+        f"{[round(e[2], 2) for e in restores]} s; digest {digest_s:.1f} s; "
+        f"revoked after step {revoke_step}, resumed from step "
+        f"{rec['resumed_from']}, {rev_rep.steps_run} steps run: state "
+        f"SHA-256 {digest[:16]}... equal: {rec['bitwise_restart']}; launches "
+        f"a step {want}; the revoked run's step ms "
+        f"{[round(x, 1) for x in rec['revoked_run_step_ms']]}; "
+        f"{_clock_text(clocks)}; on {smi}")
+    for run, rep, probe in (("uninterrupted", ref_rep, ref_probe),
+                            ("revoked", rev_rep, rev_probe)):
+        for i, (_, counts, routes) in enumerate(probe.steps):
+            got = {k: v for k, v in counts.items() if v}
+            if got != want or any(routes[k] != v
+                                  for k, v in want_routes.items()):
+                raise AssertionError(f"{label} {run} step {i + 1}: launches "
+                                     f"{got} routes {routes}, want {want} "
+                                     f"{want_routes}")
+        if not rep.losses[steps] < rep.losses[1]:
+            raise AssertionError(f"{label} {run}: loss did not fall "
+                                 f"{rep.losses}")
+    if sum(plain_calls.values()):
+        raise AssertionError(f"{label}: a plain version ran on the card: "
+                             f"{plain_calls}")
+    if rev_rep.restarts != 1 \
+            or rev_rep.steps_run != steps + revoke_step % every \
+            or digest != rev_digest:
+        raise AssertionError(f"{label}: the revoked run's final state is not "
+                             "bit for bit the uninterrupted run's")
+    torch.cuda.empty_cache()
+    return rec
+
+
+def _zamba_train_run(cfg, smi):
+    """Full-width zamba2-1.2b (38 Mamba2 layers, 6 shared applications)
+    through ``_revoked_train`` at ZT_B x ZT_S: every step's launches
+    exactly ``_zamba_step_launches``, bf16 SSD scans, flash forward and
+    backward on sm90, the SSD backward on cuda_core and RMSNorm's backward
+    on its register kernel."""
+    want = _zamba_step_launches(cfg)
+    want_routes = {
+        "ssd_scan": {"sm90": want["ssd_scan"], "cuda_core": 0},
+        "ssd_scan_bwd": {"cuda_core": want["ssd_scan_bwd"]},
+        "flash_attention_fwd": {"sm90": want["flash_attention_fwd"],
+                                "cuda_core": 0},
+        "flash_attention_bwd": {"sm90": want["flash_attention_bwd"],
+                                "cuda_core": 0},
+        "rmsnorm_bwd": {"registers": want["rmsnorm_bwd"], "smem": 0}}
+    return _revoked_train(cfg, "zamba train", want, want_routes, smi,
+                          batch=ZT_B, seq=ZT_S, steps=ZT_STEPS,
+                          every=ZT_EVERY, revoke_step=ZT_REVOKE)
+
+
+def phase_zamba_train(smi: str):
+    """Zamba2 training on the card: the SSD backward kernel against its
+    plain version (``_ssd_bwd_kernels``) and RMSNorm's and flash
+    attention's backward at the step's shapes (``_zamba_bwd_shapes``);
+    then, under ``torch.use_deterministic_algorithms``, Zamba2 widths at
+    depth 6 (one Mamba group and one shared application) in f32, B 2, S
+    256 at SSD chunk 128 and 96 (a ragged last chunk), ``train_loss`` and every
+    gradient card against CPU (the loss within 1e-5, each gradient within
+    1e-4 of its leaf's max, launches exact, f32 on the CUDA-core routes);
+    and full-width zamba2-1.2b trained with a revocation
+    (``_zamba_train_run``)."""
+    import torch
+    from repro_torch.configs import get_config
+    seconds = {}
+    t = time.perf_counter()
+    kernels = _ssd_bwd_kernels()
+    seconds["ssd backward kernel"] = time.perf_counter() - t
+    t = time.perf_counter()
+    cfg = get_config("zamba2-1.2b")
+    shapes = _zamba_bwd_shapes(cfg)
+    seconds["other backward kernels"] = time.perf_counter() - t
+    t = time.perf_counter()
+    torch.use_deterministic_algorithms(True)
+    try:
+        for chunk in (Z_CHUNK, 96):
+            small = cfg.replace(num_layers=6, dtype="float32", ssm_chunk=chunk)
+            _train_parity(small, f"zamba2-1.2b chunk {chunk}",
+                          want=_zamba_step_launches(small))
+    finally:
+        torch.use_deterministic_algorithms(False)
+    seconds["parity"] = time.perf_counter() - t
+    t = time.perf_counter()
+    train = _zamba_train_run(cfg, smi)
+    seconds["train"] = time.perf_counter() - t
+    log(f"[zamba train] seconds a part: "
+        f"{ {k: round(v, 1) for k, v in seconds.items()} }")
+    return {"ssd_scan_bwd": kernels, "bwd_shapes": shapes, "train": train,
+            "seconds": seconds}
+
+
+# ---------------------------------------------------------------------------
+# phase 11: xLSTM -- parity, serve, train and where the time goes
+# ---------------------------------------------------------------------------
+
+# xlstm-350m's training run: full width at depth 12 (6 of its 12
+# mLSTM/sLSTM pairs), batch 8 x 512 (8 mLSTM chunks of 64), 4 steps, checkpoints
+# every 2; the second run is revoked after step 3, loses it and resumes
+# from the step-2 checkpoint, so it runs 5 steps and replays one. A step
+# at full depth took 15-21 s on an H100 (the sLSTM loop's launches,
+# forward, recompute and backward, a pair at a time): the depth is cut
+# to 12 to leave the Zamba2 training phase its time and keep the script
+# near 800 s.
+XB, XS, X_TRAIN_LAYERS = 8, 512, 12
 X_STEPS, X_EVERY, X_REVOKE = 4, 2, 3
 
 
@@ -3671,21 +4100,9 @@ def _xlstm_norm_kernels(cfg):
                                      f"error {err}, launches {launched}")
             out["rmsnorm_fused"][f"{rows}x{d}"] = err
         kern, plain, _ = _rms_bwd_case(gen, dev, torch.bfloat16, XB * XS, d)
-        K.reset_launch_counts()
-        got, again = kern(), kern()
-        torch.cuda.synchronize()
-        routes = K.launch_counts_by_route()["rmsnorm_bwd"]
-        same = all(torch.equal(a, b) for a, b in zip(got, again))
-        errs = [_rel_err(a, b) for a, b in zip(got, plain())]
-        log(f"[xlstm] rmsnorm_bwd bf16 {XB * XS}x{d}: max|kernel-plain|/"
-            f"max|plain| by gradient {['%.2e' % e for e in errs]} (tol "
-            f"{TOL_BF16}), repeat bitwise {same}, routes {routes}")
-        if routes != {"registers": 2, "smem": 0} or not same \
-                or not all(math.isfinite(e) and e <= TOL_BF16 for e in errs):
-            raise AssertionError(f"xlstm rmsnorm_bwd {XB * XS}x{d}: errors "
-                                 f"{errs}, repeat equal {same}, routes "
-                                 f"{routes}")
-        out["rmsnorm_bwd"][f"{XB * XS}x{d}"] = max(errs)
+        out["rmsnorm_bwd"][f"{XB * XS}x{d}"] = _bwd_twice(
+            "xlstm", "rmsnorm_bwd", f"bf16 {XB * XS}x{d}", "registers", kern,
+            plain)
     return out
 
 
@@ -3821,111 +4238,18 @@ def _xlstm_profile(cfg, params, smi):
 
 
 def _xlstm_train(cfg, smi):
-    """Full-width, full-depth xlstm-350m (bf16 compute over f32 masters,
-    remat "full", seed 0) trained by ElasticTrainer on the train phase's
-    synthetic corpus, batch XB x XS, int8 AdamW moments, X_STEPS steps
-    with checkpoints every X_EVERY: once uninterrupted, once revoked after
-    step X_REVOKE, whose work is lost, and resumed from the last checkpoint
-    before it, under ``torch.use_deterministic_algorithms``.
-    The two final states' SHA-256 equal, the loss falling, every step's
-    launches exact -- RMSNorm forward 2 (3P) + 1 (each pair's three norms
-    run again in its recompute, ``final_norm`` once) and backward 3P + 1,
-    every backward on its register kernel, P pairs -- and no plain version
-    called."""
-    import statistics as st
-    import torch
-    from repro_torch.models import count_params
-    from repro_torch.train import AdamWConfig
-    assert cfg.remat == "full" and cfg.param_dtype == "float32"
-    opt = AdamWConfig(learning_rate=TRAIN_LR, warmup_steps=2,
-                      decay_steps=100, state_dtype="int8")
+    """xlstm-350m at full width through ``_revoked_train`` at XB x XS,
+    X_STEPS steps with checkpoints every X_EVERY, revoked after X_REVOKE
+    (and replayed from the checkpoint before it): every
+    step's launches exact -- RMSNorm forward 2 (3P) + 1 (each pair's three
+    norms run again in its recompute, ``final_norm`` once) and backward 3P
+    + 1, every backward on its register kernel, P pairs."""
     norms = _xlstm_norms(cfg)
     want = {"rmsnorm_fused": 2 * (norms - 1) + 1, "rmsnorm_bwd": norms}
-    run_kw = dict(batch=XB, seq=XS, steps=X_STEPS, every=X_EVERY,
-                  revoke_step=X_REVOKE)
-    plain_calls, undo = _plain_call_counter()
-    torch.use_deterministic_algorithms(True)
-    try:
-        gc.collect()
-        torch.cuda.synchronize()
-        torch.cuda.empty_cache()
-        torch.cuda.reset_peak_memory_stats()
-        t0 = time.perf_counter()
-        ref, ref_rep, ref_probe, ref_ck = _train_run(cfg, opt, False,
-                                                     **run_kw)
-        peak = torch.cuda.max_memory_allocated()
-        ref_wall = time.perf_counter() - t0
-        digest = _state_digest(ref.final_state)
-        del ref
-        gc.collect()
-        torch.cuda.empty_cache()
-        rev, rev_rep, rev_probe, rev_ck = _train_run(cfg, opt, True,
-                                                     **run_kw)
-        rev_digest = _state_digest(rev.final_state)
-        del rev
-        gc.collect()
-    finally:
-        torch.use_deterministic_algorithms(False)
-        undo()
-    step_s = [dt for dt, _, _ in ref_probe.steps]
-    steady = st.median(step_s[1:])
-    saves = [e for e in ref_ck + rev_ck if e[0] == "save"]
-    restores = [e for e in rev_ck if e[0] == "restore"]
-    rec = {"config": "xlstm-350m", "layers": cfg.num_layers,
-           "params": count_params(cfg), "batch": XB, "seq": XS,
-           "steps": X_STEPS, "revoked_at": X_REVOKE,
-           "resumed_from": X_EVERY, "state_dtype": "int8",
-           "losses": {str(k): v for k, v in ref_rep.losses.items()},
-           "step_ms": [x * 1e3 for x in step_s],
-           "step_ms_median_after_first": steady * 1e3,
-           "revoked_run_step_ms": [dt * 1e3 for dt, _, _ in rev_probe.steps],
-           "tokens_per_s": XB * XS / steady,
-           "max_memory_allocated_bytes": peak, "uninterrupted_run_s": ref_wall,
-           "checkpoint_gb": saves[0][3] / 1e9,
-           "save_s": [e[2] for e in saves],
-           "restore_s": [e[2] for e in restores],
-           "launches_per_step": want,
-           "launches": _run_launches(ref_probe),
-           "revoked_run_launches": _run_launches(rev_probe),
-           "steps_run_revoked": rev_rep.steps_run, "state_sha256": digest,
-           "bitwise_restart": digest == rev_digest}
-    log(f"[xlstm] train: xlstm-350m {cfg.num_layers} layers "
-        f"({rec['params'] / 1e6:.1f} M params), bf16 over f32 masters, remat"
-        f" full, int8 moments, B {XB} x S {XS}: losses "
-        f"{[round(x, 4) for x in ref_rep.losses.values()]}; step ms "
-        f"{[round(x * 1e3, 1) for x in step_s]} (median after the first "
-        f"{steady * 1e3:.1f} ms = {rec['tokens_per_s']:.0f} tokens/s); peak "
-        f"device memory {peak / 2**30:.2f} GiB; checkpoint "
-        f"{rec['checkpoint_gb']:.2f} GB: saves "
-        f"{[round(e[2], 2) for e in saves]} s, restore "
-        f"{[round(e[2], 2) for e in restores]} s; revoked after step "
-        f"{X_REVOKE}, resumed from step {X_EVERY}, {rev_rep.steps_run} "
-        f"steps run: state SHA-256 "
-        f"{digest[:16]}... equal: {rec['bitwise_restart']}; launches a step "
-        f"{want}; the revoked run's step ms "
-        f"{[round(x, 1) for x in rec['revoked_run_step_ms']]}; on {smi}")
-    for label, rep, probe in (("uninterrupted", ref_rep, ref_probe),
-                              ("revoked", rev_rep, rev_probe)):
-        for i, (_, counts, routes) in enumerate(probe.steps):
-            got = {k: v for k, v in counts.items() if v}
-            if got != want or routes["rmsnorm_bwd"] != {
-                    "registers": norms, "smem": 0}:
-                raise AssertionError(f"xlstm train {label} step {i + 1}: "
-                                     f"launches {got} routes {routes}, want "
-                                     f"{want}")
-        if not rep.losses[X_STEPS] < rep.losses[1]:
-            raise AssertionError(f"xlstm train {label}: loss did not fall "
-                                 f"{rep.losses}")
-    if sum(plain_calls.values()):
-        raise AssertionError(f"xlstm train: a plain version ran on the "
-                             f"card: {plain_calls}")
-    if rev_rep.restarts != 1 or X_REVOKE % X_EVERY == 0 \
-            or rev_rep.steps_run != X_STEPS + X_REVOKE - X_EVERY \
-            or digest != rev_digest:
-        raise AssertionError("xlstm train: the revoked run's final state is "
-                             "not bit for bit the uninterrupted run's")
-    torch.cuda.empty_cache()
-    return rec
+    return _revoked_train(cfg, "xlstm train", want,
+                          {"rmsnorm_bwd": {"registers": norms, "smem": 0}},
+                          smi, batch=XB, seq=XS, steps=X_STEPS,
+                          every=X_EVERY, revoke_step=X_REVOKE)
 
 
 def phase_xlstm(smi: str):
@@ -3957,7 +4281,7 @@ def phase_xlstm(smi: str):
     del params
     torch.cuda.empty_cache()
     t = time.perf_counter()
-    train = _xlstm_train(cfg, smi)
+    train = _xlstm_train(cfg.replace(num_layers=X_TRAIN_LAYERS), smi)
     seconds["train"] = time.perf_counter() - t
     log(f"[xlstm] seconds a part: "
         f"{ {k: round(v, 1) for k, v in seconds.items()} }")
@@ -3966,7 +4290,7 @@ def phase_xlstm(smi: str):
 
 
 # ---------------------------------------------------------------------------
-# phase 11: the audio and VLM frontends
+# phase 12: the audio and VLM frontends
 # ---------------------------------------------------------------------------
 
 def _frontend_parity():
@@ -4267,7 +4591,7 @@ def phase_frontends(smi: str):
 
 
 # ---------------------------------------------------------------------------
-# phase 12: the examples
+# phase 13: the examples
 # ---------------------------------------------------------------------------
 
 def phase_examples(smi: str):
@@ -4450,6 +4774,7 @@ def main() -> int:
     timed("train parity", phase_train_parity)
     train = timed("train", phase_train, smi)
     job = timed("job", phase_job, smi, train)
+    zt = timed("zamba train", phase_zamba_train, smi)
     xl = timed("xlstm", phase_xlstm, smi)
     fr = timed("frontends", phase_frontends, smi)
     ex = timed("examples", phase_examples, smi)
@@ -4499,6 +4824,8 @@ def main() -> int:
         if name in train["launches_per_step"]:
             entry["launches_train"] = train["launches"][name]
             entry["launches_job"] = job["launches"][name]
+        if name in zt["train"]["launches_per_step"]:
+            entry["launches_zamba_train"] = zt["train"]["launches"][name]
         record.append(entry)
     for name, fwd in (("rmsnorm_bwd", "rmsnorm_fused"),
                       ("flash_attention_bwd", "flash_attention_fwd")):
@@ -4518,16 +4845,36 @@ def main() -> int:
             "bound_ms": rec["bound_ms"], "bound_by": rec["bound_by"],
             "library_ms": rec["library_ms"], "shape": rec["shape"],
             "split_ms": rec["split_ms"]})
+        record[-1]["launches_zamba_train"] = zt["train"]["launches"][name]
+        record[-1]["zamba_shapes_max_rel_err"] = zt["bwd_shapes"][name]
         if name == "rmsnorm_bwd":
             record[-1]["launches_xlstm_train"] = \
                 xl["train"]["launches"][name]
             record[-1]["xlstm_shapes_max_rel_err"] = \
                 xl["norm_kernels"][name]
+    ssd = zt["ssd_scan_bwd"]
+    record.append({
+        "name": "ssd_scan_bwd", "route": "cuda", "source":
+        SOURCES["ssd_scan_bwd"], "replaces": REPLACES["ssd_scan"],
+        "kind": "backward: the port's own kernel, no TPU counterpart (the "
+                "reference differentiates its jnp scan with XLA); 'replaces' "
+                "names the forward's TPU kernel; CUDA cores in both dtypes",
+        "launches": zt["train"]["launches"]["ssd_scan_bwd"],
+        "launches_per_step": zt["train"]["launches_per_step"]["ssd_scan_bwd"],
+        "launches_by_route": zt["train"]["launches_by_route"]["ssd_scan_bwd"],
+        "max_abs_err": max(ssd["max_abs_err"].values()),
+        "ms": ssd["bf16"]["ms"], "plain_ms": ssd["bf16"]["plain_ms"],
+        "bound_ms": ssd["bf16"]["bound_ms"],
+        "bound_by": ssd["bf16"]["bound_by"], "library_ms": None,
+        "shape": ssd["bf16"]["shape"], "split_ms": ssd["bf16"]["split_ms"],
+        "f32": {k: ssd["f32"][k] for k in ("ms", "plain_ms", "bound_ms",
+                                           "bound_by")}})
     log(f"[done] every phase passed in {time.perf_counter() - t0:.1f} s on "
         f"{smi}; seconds a phase: {seconds}")
     print(json.dumps({"kernels": record, "transformers": transformers,
                       "residency": moves, "gateway": gateway,
-                      "train": train, "job": job, "xlstm": xl,
+                      "train": train, "job": job, "zamba_train": zt,
+                      "xlstm": xl,
                       "frontends": fr, "examples": ex}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -5,9 +5,10 @@ attention kernels of the continuous-batching path, and RMSNorm, dense flash
 attention and the Mamba2 SSD scan of the Zamba2 static path. Flash
 attention and the three paged kernels (``attention_route``) and the SSD
 scan (``ssd_route``) pick their kernel by dtype and count launches per
-route. RMSNorm and flash attention also have backward kernels of the port's
-own (``rmsnorm_bwd``, by D; ``flash_attention_bwd``, by dtype through
-``attention_bwd_route``), which their ``ops`` entries call through
+route. RMSNorm, flash attention and the SSD scan also have backward kernels
+of the port's own (``rmsnorm_bwd``, by D; ``flash_attention_bwd``, by dtype
+through ``attention_bwd_route``; ``ssd_scan_bwd``, CUDA cores in both
+dtypes), which their ``ops`` entries call through
 ``torch.autograd.Function``s when a gradient is wanted."""
 from ._cuda import attention_bwd_route, attention_route, ssd_route
 from .decode_attention import (default_num_splits, flash_decode_fwd,
@@ -17,7 +18,8 @@ from .flash_attention import (attention_bwd_reference,
                               flash_attention, flash_attention_bwd,
                               flash_attention_fwd)
 from .kv_quant import dequantize_rows, quantize_pool, quantize_rows
-from .mamba_scan import mamba_chunk_scan, ssd_chunked_reference, ssd_scan
+from .mamba_scan import (mamba_chunk_scan, ssd_chunked_backward_reference,
+                         ssd_chunked_reference, ssd_scan, ssd_scan_bwd)
 from .prefill_attention import (flash_prefill_fwd, paged_prefill_attention,
                                 paged_prefill_reference)
 from .rmsnorm import (rmsnorm, rmsnorm_bwd, rmsnorm_bwd_reference,
@@ -33,7 +35,8 @@ KERNEL_WRAPPERS = {"flash_decode_fwd": flash_decode_fwd,
                    "flash_attention_fwd": flash_attention_fwd,
                    "ssd_scan": ssd_scan,
                    "rmsnorm_bwd": rmsnorm_bwd,
-                   "flash_attention_bwd": flash_attention_bwd}
+                   "flash_attention_bwd": flash_attention_bwd,
+                   "ssd_scan_bwd": ssd_scan_bwd}
 
 
 def reset_launch_counts() -> None:
@@ -50,7 +53,8 @@ def launch_counts() -> dict[str, int]:
 def launch_counts_by_route() -> dict[str, dict[str, int]]:
     """{kernel: {route: launches}} for the wrappers that pick a kernel by
     dtype (flash attention forward and backward; paged decode, prefill and
-    verify; the SSD scan) or by D (RMSNorm's backward)."""
+    verify; the SSD scan), by D (RMSNorm's backward), or count their one
+    route (the SSD backward)."""
     return {name: dict(fn.launches_by_route)
             for name, fn in KERNEL_WRAPPERS.items()
             if hasattr(fn, "launches_by_route")}
@@ -66,6 +70,7 @@ __all__ = ["default_num_splits", "flash_decode_fwd", "flash_prefill_fwd",
            "flash_attention_bwd", "attention_bwd_reference",
            "attention_lse_reference", "rmsnorm_bwd", "rmsnorm_bwd_reference",
            "mamba_chunk_scan", "ssd_scan", "ssd_chunked_reference",
+           "ssd_scan_bwd", "ssd_chunked_backward_reference",
            "KERNEL_WRAPPERS", "reset_launch_counts",
            "launch_counts", "launch_counts_by_route", "attention_route",
            "attention_bwd_route", "ssd_route"]

@@ -24,7 +24,7 @@ CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = CSRC / "build"
 SOURCES = ("paged_attention.cu", "rmsnorm.cu", "flash_attention.cu",
            "ssd_scan.cu", "paged_attention_sm90.cu", "flash_attention_bwd.cu",
-           "flash_attention_bwd_sm90.cu")
+           "flash_attention_bwd_sm90.cu", "ssd_scan_bwd.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -61,6 +61,7 @@ SIGNATURES = {
     "ssd_scan.cu": {
         "ssd_scan_f32_fwd": [_P] * 7 + [_I] * 6 + [_P],
         "ssd_scan_sm90_fwd": [_P] * 7 + [_I] * 7 + [_P]},
+    "ssd_scan_bwd.cu": {"ssd_scan_bwd": [_P] * 13 + [_I] * 7 + [_P]},
 }
 
 _LIBS: dict[str, ctypes.CDLL] = {}

@@ -17,6 +17,15 @@ dtype (``_cuda.ssd_route``), never by trying one and then the other:
 
 Both take any chunk from 1 to 128 and any S: when S is not a multiple of
 the chunk, the last chunk has ``S - c0`` rows.
+
+``ssd_scan_bwd`` wraps the port's own backward (``csrc/ssd_scan_bwd.cu``;
+the TPU package differentiates its jnp scan with XLA): CUDA cores for both
+dtypes, counted on the ``cuda_core`` route, bf16 included. It recomputes
+the chunk-start states, walks the chunks in reverse with dh in shared
+memory, and sums dB, dC and da_log over heads and batch in a fixed order,
+so two calls give equal bits. Contract: N = P = 64 (compile-time widths,
+the tensor-core forward's), chunk 1 to 128, any S; an optional f32
+``dh_final``.
 """
 from __future__ import annotations
 
@@ -98,3 +107,62 @@ def ssd_scan(x, dt, a_log, bmat, cmat, *, chunk: int = 128):
 
 ssd_scan.launches = 0
 ssd_scan.launches_by_route = {"sm90": 0, "cuda_core": 0}
+
+
+def ssd_scan_bwd(x, dt, a_log, bmat, cmat, dy, dh_final=None, *,
+                 chunk: int = 128):
+    """The gradient of ``ssd_scan``'s (y, h_final) for the cotangents dy (x's
+    shape and dtype) and ``dh_final`` ((B,H,N,P) f32, zero if None) ->
+    (dx, ddt (B,S,H) f32, da_log (H,) f32, dB, dC), dx, dB and dC in x's
+    dtype. Contract in the module docstring; CUDA tensors only. One launch
+    counted (three kernels: the states, the reverse walk, the sums)."""
+    b, s, h, p = x.shape
+    n = bmat.shape[-1]
+    chunk = check_chunk(s, chunk)
+    dt = dt.float().contiguous()
+    a_log = a_log.float().contiguous()
+    given = (x, bmat, cmat, dy, dt, a_log)
+    _cuda.check_cuda("ssd_scan_bwd", *given,
+                     *(() if dh_final is None else (dh_final,)))
+    if x.dtype not in (torch.float32, torch.bfloat16) \
+            or any(t.dtype != x.dtype for t in (bmat, cmat, dy)):
+        raise ValueError(f"ssd_scan_bwd: x {x.dtype}, B {bmat.dtype}, C "
+                         f"{cmat.dtype}, dy {dy.dtype}; need one of f32/bf16")
+    if bmat.shape != (b, s, n) or cmat.shape != (b, s, n) \
+            or dy.shape != x.shape or dt.shape != (b, s, h) \
+            or a_log.shape != (h,) or (dh_final is not None and (
+                dh_final.shape != (b, h, n, p)
+                or dh_final.dtype != torch.float32)):
+        raise ValueError(f"ssd_scan_bwd: shapes x{tuple(x.shape)} "
+                         f"B{tuple(bmat.shape)} C{tuple(cmat.shape)} "
+                         f"dy{tuple(dy.shape)} dt{tuple(dt.shape)} "
+                         f"a_log{tuple(a_log.shape)} dh_final "
+                         f"{None if dh_final is None else tuple(dh_final.shape)}"
+                         " disagree (dh_final f32)")
+    width = _cuda.SM90_SSD_WIDTH
+    if chunk > MAX_CHUNK or n != width or p != width:
+        raise ValueError(f"ssd_scan_bwd: chunk {chunk}, N {n}, P {p} are "
+                         f"outside the kernel's contract (chunk <= "
+                         f"{MAX_CHUNK}, N = P = {width})")
+    nc = -(-s // chunk)
+    work = torch.empty(b * h * nc * n * p + 2 * b * s * h * n + b * h,
+                       dtype=torch.float32, device=x.device)
+    dx = torch.empty_like(x)
+    ddt = torch.empty((b, s, h), dtype=torch.float32, device=x.device)
+    da_log = torch.empty((h,), dtype=torch.float32, device=x.device)
+    db, dc = torch.empty_like(bmat), torch.empty_like(cmat)
+    rc = _cuda.library("ssd_scan_bwd.cu").ssd_scan_bwd(
+        x.data_ptr(), bmat.data_ptr(), cmat.data_ptr(), dt.data_ptr(),
+        a_log.data_ptr(), dy.data_ptr(), _cuda.ptr(dh_final),
+        work.data_ptr(), dx.data_ptr(), ddt.data_ptr(), da_log.data_ptr(),
+        db.data_ptr(), dc.data_ptr(), _cuda.DTYPE_CODES[x.dtype], b, s, h, p,
+        n, chunk, _cuda.stream_of(x))
+    _cuda.raise_on(rc, "ssd_scan_bwd")
+    ssd_scan_bwd.launches += 1
+    # CUDA cores for bf16 too: no wgmma backward yet (ROADMAP.md, Queue 2)
+    ssd_scan_bwd.launches_by_route["cuda_core"] += 1
+    return dx, ddt, da_log, db, dc
+
+
+ssd_scan_bwd.launches = 0
+ssd_scan_bwd.launches_by_route = {"cuda_core": 0}

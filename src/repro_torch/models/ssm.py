@@ -1,9 +1,12 @@
 """Mamba2 (state-space duality / SSD) blocks.
 
-Prefill runs the chunked SSD algorithm (Dao & Gu, arXiv:2405.21060) through
-the scan op: on a CUDA tensor the hand-written SSD kernel, on the CPU its
-plain chunked version. Decode keeps the recurrent state h (B,H,N,P) plus a
-short-conv tail and steps it in plain PyTorch, as the reference does in jnp.
+Training and prefill run the chunked SSD algorithm (Dao & Gu,
+arXiv:2405.21060) through the scan op: on a CUDA tensor the hand-written
+SSD kernel, differentiated by the port's backward kernel where a gradient
+is wanted, on the CPU its plain chunked version under autograd. The
+D-skip, conv, softplus and gate stay plain torch under autograd, as in the
+reference. Decode keeps the recurrent state h (B,H,N,P) plus a short-conv
+tail and steps it in plain PyTorch, as the reference does in jnp.
 
 Single SSM parameter group (n_groups=1): B/C projections are shared across
 heads, as in the released Mamba2 models.
@@ -91,8 +94,8 @@ def ssd_step(xh, dt, a_log, bmat, cmat, d_skip, h_prev):
 def mamba_block(cfg, p, x, *, cache=None):
     """Pre-norm Mamba2 residual block.
 
-    cache: None (prefill from scratch) or dict(conv=(B,K-1,C), ssm=(B,H,N,P))
-    for decode; returns (y, new_cache)."""
+    cache: None (train/prefill from scratch) or dict(conv=(B,K-1,C),
+    ssm=(B,H,N,P)) for decode; returns (y, new_cache)."""
     dt_ = cfg.cdtype
     din, n, h = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads
     xn = rmsnorm(x, p["norm"], cfg.norm_eps)

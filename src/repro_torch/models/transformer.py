@@ -6,8 +6,8 @@ All families expose the surface the static ``ServeEngine`` calls:
 ``layout``, ``prefill``, ``decode``, ``cache_layout`` and
 ``grown_cache_leaves`` (the decode-cache leaves whose axis 2 is the
 sequence, which the engine grows to ``max_len``), and ``train_loss``
-(dense and MoE transformers and xLSTM; the Zamba2 hybrid's raises until
-the SSD scan has a backward kernel). The transformer's frontends are the
+(every family; the Zamba2 hybrid's differentiates the SSD scan through
+its backward kernel on the card). The transformer's frontends are the
 reference's stubs: an audio config (HuBERT, ``frontend="frame"``) takes
 precomputed frame features (B,S,frontend_dim) in ``batch["frames"]`` in
 place of tokens and is encoder-only (``prefill`` returns every position's
@@ -418,12 +418,6 @@ class ZambaFamily:
     name = "zamba"
     grown_cache_leaves = ("attn_k", "attn_v")
 
-    def train_loss(self, cfg, params, batch):
-        raise NotImplementedError(
-            f"{cfg.name}: training the Zamba2 hybrid needs a backward kernel "
-            "for the SSD scan (csrc/ssd_scan.cu), which is not written yet "
-            "(ROADMAP.md, Queue 1, item 5)")
-
     def group_sizes(self, cfg) -> list[int]:
         k, n = cfg.shared_attn_every, cfg.num_layers
         sizes = [k] * (n // k)
@@ -433,6 +427,39 @@ class ZambaFamily:
 
     def n_shared_applications(self, cfg) -> int:
         return cfg.num_layers // cfg.shared_attn_every
+
+    def _schedule(self, cfg):
+        """The blocks in order: ("mamba", layer) for each Mamba layer, and
+        ("shared", application) after each full group of
+        ``shared_attn_every`` layers (none after a shorter last group)."""
+        layer = 0
+        for app, size in enumerate(self.group_sizes(cfg)):
+            for _ in range(size):
+                yield "mamba", layer
+                layer += 1
+            if size == cfg.shared_attn_every:
+                yield "shared", app
+
+    def train_loss(self, cfg, params, batch):
+        """batch: tokens and labels (B,S). Returns (mean token
+        cross-entropy, {"loss": it}); each Mamba layer runs under
+        ``_remat``, the shared attention + FFN block outside it, as the
+        reference's scan body does."""
+        x = L.embed_tokens(cfg, params, batch["tokens"])
+        positions = torch.arange(x.shape[1], device=x.device)
+        body = _remat(cfg, lambda h, lp: mamba_block(cfg, lp, h)[0])
+        layers = _unbind_layers(params["mamba"])
+        shared = params["shared"]
+        for kind, i in self._schedule(cfg):
+            if kind == "mamba":
+                x = body(x, layers[i])
+            else:
+                x, _ = L.attention_block(cfg, shared["attn"], x, positions)
+                x = L.mlp_block(cfg, shared["ffn"], x)
+        x = L.rmsnorm(x, params["final_norm"], cfg.norm_eps)
+        loss = L.softmax_xent(L.logits_fn(cfg, params, x),
+                              batch["labels"].long())
+        return loss, {"loss": loss}
 
     def layout(self, cfg) -> dict:
         return {
@@ -450,30 +477,25 @@ class ZambaFamily:
         shorter last group). Prefill (``caches is None``) returns a new
         stacked cache; decode writes every leaf of ``caches`` in place and
         returns it."""
-        layer = app = 0
         mamba, kv = [], []
-        for gi, size in enumerate(self.group_sizes(cfg)):
-            for _ in range(size):
-                c_in = None if caches is None else _layer(caches["mamba"],
-                                                          layer)
-                x, c = mamba_block(cfg, _layer(params["mamba"], layer), x,
+        for kind, i in self._schedule(cfg):
+            if kind == "mamba":
+                c_in = None if caches is None else _layer(caches["mamba"], i)
+                x, c = mamba_block(cfg, _layer(params["mamba"], i), x,
                                    cache=c_in)
                 if caches is None:
                     mamba.append(c)
                 else:
                     for name, leaf in c.items():
                         c_in[name].copy_(leaf)
-                layer += 1
-            if (gi + 1) * cfg.shared_attn_every <= cfg.num_layers \
-                    and app < self.n_shared_applications(cfg):
-                kv_in = None if caches is None else (caches["attn_k"][app],
-                                                     caches["attn_v"][app])
-                x, new_kv = L.attention_block(
-                    cfg, params["shared"]["attn"], x, positions,
-                    cache=kv_in, decode_pos=decode_pos)
-                x = L.mlp_block(cfg, params["shared"]["ffn"], x)
-                kv.append(new_kv)
-                app += 1
+                continue
+            kv_in = None if caches is None else (caches["attn_k"][i],
+                                                 caches["attn_v"][i])
+            x, new_kv = L.attention_block(
+                cfg, params["shared"]["attn"], x, positions, cache=kv_in,
+                decode_pos=decode_pos)
+            x = L.mlp_block(cfg, params["shared"]["ffn"], x)
+            kv.append(new_kv)
         x = L.rmsnorm(x, params["final_norm"], cfg.norm_eps)
         if caches is not None:
             return x, caches

@@ -9,9 +9,10 @@ layer against the reference's jax.checkpoint), yi-6b, olmoe-1b-7b under
 both ``moe_impl``s (the aux losses), ``logit_chunk`` dividing the sequence
 and not (the reference's fallback), and ``loss_mask``. The loss within
 1e-5 and every gradient leaf within 1e-4 of its max |value| (the same f32
-arithmetic summed in another order). Also: the Zamba2 hybrid's
-``train_loss`` and ``remat="dots"`` raise, naming what they wait on. The
-microbatched step is checked in tests/test_torch_train_job.py."""
+arithmetic summed in another order). Also: ``remat="dots"`` raises,
+naming what it waits on. The microbatched step is checked in
+tests/test_torch_train_job.py, the Zamba2 hybrid's ``train_loss`` in
+tests/test_torch_zamba_train.py."""
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -110,12 +111,6 @@ def test_train_loss_and_grads_match_reference(case):
         scale = max(float(np.abs(want).max()), 1e-30)
         err = float(np.abs(got - want).max()) / scale
         assert err <= GRAD_TOL, (name, err)
-
-
-def test_zamba_train_loss_raises():
-    cfg = get_reduced_config("zamba2-1.2b").replace(dtype="float32")
-    with pytest.raises(NotImplementedError, match="SSD scan"):
-        get_family(cfg).train_loss(cfg, {}, _batch(cfg.vocab_size))
 
 
 def test_remat_dots_raises():
