@@ -122,14 +122,16 @@ Phases, each of which must pass (a failure exits nonzero):
    seconds, the time from the revocation to the second worker's first
    step, device memory at each attempt's start and the peak; then the
    port's simulator's Table VII-C rows (a simulation at 2016 prices).
-10. zamba train: the SSD scan's backward kernel (the port's own, CUDA
-   cores) against its plain backward in bf16 and f32, each twice, bit for
-   bit, on the ``cuda_core`` route: at Zamba2's training shape (B 8, S
-   1024, H 64, N = P = 64, chunk 128), at S 1000 and 200 (ragged last
-   chunks) and at chunk 16, B 1, under strong decay with a nonzero
-   dh_final (bf16 outputs within TOL_BF16, f32 ones within TOL_F32 of each
+10. zamba train: the SSD scan's backward kernels (the port's own)
+   against the plain backward in bf16 (the wgmma + TMA kernels,
+   ``csrc/ssd_scan_bwd_sm90.cu``, on the ``sm90`` route) and f32 (the
+   CUDA-core walk on ``cuda_core``), each twice, bit for bit: at Zamba2's
+   training shape (B 8, S 1024, H 64, N = P = 64, chunk 128), at S 1000
+   and 200 (ragged last chunks) and at chunk 16, B 1, under strong decay
+   with a nonzero dh_final (bf16 outputs within TOL_BF16, f32 ones --
+   the bf16 route's ddt and da_log too -- within TOL_F32 of each
    gradient's max); the training shape timed beside the plain version and
-   the bound (no library call). Then, under
+   the bound (no library call), with each launch's device time. Then, under
    ``torch.use_deterministic_algorithms``, Zamba2 widths at depth 6 in
    f32, B 2, S 256, at SSD chunk 128 and 96 (ragged): ``train_loss`` and
    every gradient card against CPU (1e-5 / 1e-4 of each leaf's max),
@@ -138,9 +140,11 @@ Phases, each of which must pass (a failure exits nonzero):
    by ``ElasticTrainer`` at B 8 x 1024, 4 steps with checkpoints every 2,
    once uninterrupted and once revoked after step 3: the final states'
    SHA-256 equal, the loss falling, every step's launches exact (SSD scan
-   2L on sm90, its backward L on cuda_core, flash 6 and 6 on sm90, RMSNorm
+   2L on sm90, its backward L on sm90, flash 6 and 6 on sm90, RMSNorm
    4L + 13 and 2L + 13) and no plain version called; step ms, tokens/s,
-   peak memory, checkpoint GB and save/restore seconds.
+   peak memory, checkpoint GB and save/restore seconds; last, one such
+   step under ``torch.profiler``: the device busy share of its wall and
+   the ten kernels with the most device time.
 11. xlstm: xlstm-350m widths at depth 2 in f32, card against CPU: prefill
    and four decode steps at prompts of 256 (four mLSTM chunks) and 200 (a
    ragged last chunk), logits and states within 1e-3; ``train_loss`` and
@@ -157,11 +161,11 @@ Phases, each of which must pass (a failure exits nonzero):
    (launches, busy share, device time by kernel, the wall share inside
    ``slstm_scan``'s time loop); and training through
    ``ElasticTrainer`` at B 8 x 512 (remat full, int8 moments,
-   checkpoints every 2) at depth 12, 4 steps, once uninterrupted and once
+   checkpoints every 2) at depth 6, 4 steps, once uninterrupted and once
    revoked after step 3 (lost, and replayed from the step-2 checkpoint), under
    ``torch.use_deterministic_algorithms``: the two final states'
-   SHA-256 equal, the loss falling, RMSNorm's 37 forward and 19 backward
-   launches a step exact (6 pairs), no plain version called.
+   SHA-256 equal, the loss falling, RMSNorm's 19 forward and 10 backward
+   launches a step exact (3 pairs), no plain version called.
 12. frontends: hubert-xlarge and paligemma-3b widths at depth 2 in f32,
    card against CPU: hubert's encode logits (B 2 x 200 frames) and
    paligemma's prefill of 256 patches + 16 tokens, three decode steps
@@ -273,7 +277,7 @@ SOURCES = {
     "ssd_scan": "src/repro_torch/csrc/ssd_scan.cu",
     "rmsnorm_bwd": "src/repro_torch/csrc/rmsnorm.cu",
     "flash_attention_bwd": "src/repro_torch/csrc/flash_attention_bwd_sm90.cu",
-    "ssd_scan_bwd": "src/repro_torch/csrc/ssd_scan_bwd.cu",
+    "ssd_scan_bwd": "src/repro_torch/csrc/ssd_scan_bwd_sm90.cu",
 }
 PAGED = ("flash_decode_fwd", "flash_prefill_fwd", "flash_verify_fwd")
 # The continuous engine's three serve runs: plain decode, speculative decode
@@ -365,7 +369,8 @@ def phase_device():
 # over bf16 and int8 pools (yi-6b), whole (prefill, and decode and verify
 # at one split) and with split-KV partials (decode and verify at the serve
 # shape's 4 splits); the SSD scan (Zamba2); the flash backward's dK/dV and
-# dQ kernels at hd 128 (internlm2-1.8b training); the frontends' (PR 23):
+# dQ kernels at hd 128 (internlm2-1.8b training) and the SSD backward's
+# state walks (Zamba2 training); the frontends':
 # flash at hd 128 also takes HuBERT's hd 80, and PaliGemma's MQA at hd 256
 # runs flash and the paged kernel over a bf16 pool, whole and split. None
 # may spill.
@@ -376,6 +381,7 @@ ON_PATH_SM90 = {
     "paged_attn_sm90_kernelILi256ELb0ELb0E": "paged hd 256 bf16 pool",
     "paged_attn_sm90_kernelILi256ELb0ELb1E": "paged split hd 256 bf16 pool",
     "ssd_sm90_kernel": "ssd bf16 N = P = 64",
+    "ssd_bwd_walk_sm90_kernel": "ssd bwd state walks bf16",
     "paged_attn_sm90_kernelILi128ELb0ELb0E": "paged hd 128 bf16 pool",
     "paged_attn_sm90_kernelILi128ELb1ELb0E": "paged hd 128 int8 pool",
     "paged_attn_sm90_kernelILi128ELb0ELb1E": "paged split hd 128 bf16 pool",
@@ -387,8 +393,10 @@ ON_PATH_SM90 = {
 # The other backward kernels the training path and its f32 parity launch:
 # the bf16 flash backward's delta pass, the f32 CUDA-core flash backward at
 # hd 128, RMSNorm's register kernel (D up to 8192 bf16 / 4096 f32) and
-# shared-memory kernel (beyond) in both dtypes, and the SSD backward's
-# three CUDA-core kernels in both.
+# shared-memory kernel (beyond) in both dtypes, the bf16 SSD backward's
+# chunk body (wgmma + TMA at 255 registers a thread, whose 12-byte spill is
+# reported here rather than failing the build) and sums, and the f32 SSD
+# backward's three CUDA-core kernels.
 BACKWARD_KERNELS = {
     "flash_bwd_delta_sm90_kernelILi128E": "flash bwd delta bf16 hd 128",
     "flash_bwd_delta_kernel": "flash bwd delta f32",
@@ -398,12 +406,11 @@ BACKWARD_KERNELS = {
     "rmsnorm_bwd_reg_kernelIfLb1E": "rmsnorm bwd registers f32",
     "rmsnorm_bwd_kernelI13__nv_bfloat16": "rmsnorm bwd smem bf16",
     "rmsnorm_bwd_kernelIf": "rmsnorm bwd smem f32",
-    "ssd_bwd_states_kernelI13__nv_bfloat16": "ssd bwd states bf16",
-    "ssd_bwd_states_kernelIf": "ssd bwd states f32",
-    "ssd_bwd_kernelI13__nv_bfloat16": "ssd bwd reverse walk bf16",
-    "ssd_bwd_kernelIf": "ssd bwd reverse walk f32",
-    "ssd_bwd_reduce_kernelI13__nv_bfloat16": "ssd bwd head sums bf16",
-    "ssd_bwd_reduce_kernelIf": "ssd bwd head sums f32"}
+    "ssd_bwd_body_sm90_kernel": "ssd bwd chunk body bf16",
+    "ssd_bwd_sums_kernel": "ssd bwd group sums bf16",
+    "ssd_bwd_states_kernel": "ssd bwd states f32",
+    "ssd_bwd_kernel": "ssd bwd reverse walk f32",
+    "ssd_bwd_reduce_kernel": "ssd bwd head sums f32"}
 
 
 def _ptxas_functions(text):
@@ -3724,9 +3731,10 @@ def _ssd_bwd_bound(b, s, h, p, n, chunk, dtype_bytes):
 def _ssd_bwd_kernels():
     """``ssd_scan_bwd`` against ``ssd_chunked_backward_reference`` on the
     same inputs at ``SSD_BWD_CASES`` in bf16 and f32, each call twice, bit
-    for bit the same, on the ``cuda_core`` route (bf16 too); bf16 outputs
-    (dx, dB, dC) within TOL_BF16 and f32 ones within TOL_F32 of each
-    gradient's max |value|. The training shape timed in bf16 (and f32)
+    for bit the same, on its dtype's route (bf16 ``sm90``, f32
+    ``cuda_core``); bf16 outputs (dx, dB, dC) within TOL_BF16 and f32 ones
+    (ddt and da_log in both dtypes) within TOL_F32 of each gradient's max
+    |value|. The training shape timed in bf16 (and f32)
     beside the plain version and the bound; no library call computes it.
     Outside deterministic mode: the plain version takes CUDA's cumsum."""
     import torch
@@ -3739,14 +3747,17 @@ def _ssd_bwd_kernels():
         for label, (b, s, chunk, dt_scale, with_dh) in SSD_BWD_CASES:
             kern, plain, args = _ssd_bwd_case(gen, dev, dtype, b, s, chunk,
                                               dt_scale, with_dh)
+            route = "sm90" if kind == "bf16" else "cuda_core"
             K.reset_launch_counts()
             got, again = kern(), kern()
             torch.cuda.synchronize()
             routes = K.launch_counts_by_route()["ssd_scan_bwd"]
-            if routes != {"cuda_core": 2} \
+            if routes != {"sm90": 2 * (route == "sm90"),
+                          "cuda_core": 2 * (route == "cuda_core")} \
                     or sum(K.launch_counts().values()) != 2:
                 raise AssertionError(f"ssd_scan_bwd {kind} {label}: "
-                                     f"launches {K.launch_counts()}")
+                                     f"launches {K.launch_counts()}, routes "
+                                     f"{routes}")
             same = all(torch.equal(x, y) for x, y in zip(got, again))
             errs = [_rel_err(x, y) for x, y in zip(got, plain())]
             tols = [TOL_BF16 if x.dtype == torch.bfloat16 else TOL_F32
@@ -3754,7 +3765,7 @@ def _ssd_bwd_kernels():
             ok = same and all(math.isfinite(e) and e <= t
                               for e, t in zip(errs, tols))
             log(f"[zamba train] ssd_scan_bwd {kind} {label} (B {b}, S {s}, "
-                f"chunk {chunk}) on cuda_core: max|kernel-plain|/max|plain| "
+                f"chunk {chunk}) on {route}: max|kernel-plain|/max|plain| "
                 f"dx, ddt, da_log, dB, dC {['%.2e' % e for e in errs]} "
                 f"(tol {tols}), repeat bitwise {same} "
                 f"{'ok' if ok else 'FAIL'}")
@@ -3960,13 +3971,13 @@ def _revoked_train(cfg, label, want, want_routes, smi, *, batch, seq,
 def _zamba_train_run(cfg, smi):
     """Full-width zamba2-1.2b (38 Mamba2 layers, 6 shared applications)
     through ``_revoked_train`` at ZT_B x ZT_S: every step's launches
-    exactly ``_zamba_step_launches``, bf16 SSD scans, flash forward and
-    backward on sm90, the SSD backward on cuda_core and RMSNorm's backward
-    on its register kernel."""
+    exactly ``_zamba_step_launches``, bf16 SSD scans and their backward,
+    flash forward and backward on sm90 and RMSNorm's backward on its
+    register kernel."""
     want = _zamba_step_launches(cfg)
     want_routes = {
         "ssd_scan": {"sm90": want["ssd_scan"], "cuda_core": 0},
-        "ssd_scan_bwd": {"cuda_core": want["ssd_scan_bwd"]},
+        "ssd_scan_bwd": {"sm90": want["ssd_scan_bwd"], "cuda_core": 0},
         "flash_attention_fwd": {"sm90": want["flash_attention_fwd"],
                                 "cuda_core": 0},
         "flash_attention_bwd": {"sm90": want["flash_attention_bwd"],
@@ -3975,6 +3986,56 @@ def _zamba_train_run(cfg, smi):
     return _revoked_train(cfg, "zamba train", want, want_routes, smi,
                           batch=ZT_B, seq=ZT_S, steps=ZT_STEPS,
                           every=ZT_EVERY, revoke_step=ZT_REVOKE)
+
+
+def _zamba_step_profile(cfg, smi):
+    """One full-width zamba2-1.2b training step as ``_zamba_train_run``
+    takes it (B ZT_B x ZT_S, int8 moments, seed 0) through
+    ``launch/profile_serve.py``'s ``profile`` (a warm-up step, one timed
+    without the profiler, one under ``torch.profiler``): the device busy
+    share of the step's wall and the ten kernels with the most device
+    time, and the SSD backward's share."""
+    import torch
+    from repro_torch.launch.profile_serve import profile
+    from repro_torch.train import AdamWConfig, ElasticTrainer
+    opt = AdamWConfig(learning_rate=TRAIN_LR, warmup_steps=2,
+                      decay_steps=100, state_dtype="int8")
+    trainer = ElasticTrainer(cfg, opt, None, seed=0, device="cuda")
+    params, opt_state = trainer.init_state()
+    for leaf in _leaves(params):
+        leaf.requires_grad_(True)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    tokens = torch.randint(0, cfg.vocab_size, (ZT_B, ZT_S + 1),
+                           generator=gen, device="cuda", dtype=torch.int32)
+    batch = {"tokens": tokens[:, :-1].contiguous(),
+             "labels": tokens[:, 1:].contiguous()}
+    state = [params, opt_state]
+
+    def step():
+        state[0], state[1], _ = trainer._step_fn(state[0], state[1], batch)
+
+    prof = profile(step)
+    if not prof["kernels"] or prof["device_ms"] <= 0:
+        raise AssertionError("zamba train profile: the profiler saw no "
+                             "device kernel")
+    top = [dict(k, name=k["name"][:90]) for k in prof["kernels"][:10]]
+    ssd = sum(k["device_ms"] for k in prof["kernels"]
+              if "ssd_bwd" in k["name"])
+    rec = {**{k: prof[k] for k in ("wall_ms", "wall_profiled_ms",
+                                   "device_ms", "busy_share", "launches")},
+           "ssd_bwd_ms": ssd, "top_kernels": top}
+    log(f"[zamba train] profiled step (B {ZT_B} x S {ZT_S}): wall "
+        f"{rec['wall_ms']:.1f} ms unprofiled, device kernels "
+        f"{rec['device_ms']:.1f} ms, busy share {rec['busy_share']:.3f}, "
+        f"{rec['launches']} launches; the SSD backward's kernels "
+        f"{ssd:.2f} ms; top ten by device time: " + "; ".join(
+            f"{k['device_ms']:.2f} ms {k['count']}x {k['name'][:70]}"
+            for k in top) + f"; on {smi}")
+    del state, params, opt_state, trainer
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rec
 
 
 def phase_zamba_train(smi: str):
@@ -3987,7 +4048,8 @@ def phase_zamba_train(smi: str):
     gradient card against CPU (the loss within 1e-5, each gradient within
     1e-4 of its leaf's max, launches exact, f32 on the CUDA-core routes);
     and full-width zamba2-1.2b trained with a revocation
-    (``_zamba_train_run``)."""
+    (``_zamba_train_run``), then one such step profiled
+    (``_zamba_step_profile``)."""
     import torch
     from repro_torch.configs import get_config
     seconds = {}
@@ -4011,25 +4073,29 @@ def phase_zamba_train(smi: str):
     t = time.perf_counter()
     train = _zamba_train_run(cfg, smi)
     seconds["train"] = time.perf_counter() - t
+    t = time.perf_counter()
+    prof = _zamba_step_profile(cfg, smi)
+    seconds["profiled step"] = time.perf_counter() - t
     log(f"[zamba train] seconds a part: "
         f"{ {k: round(v, 1) for k, v in seconds.items()} }")
     return {"ssd_scan_bwd": kernels, "bwd_shapes": shapes, "train": train,
-            "seconds": seconds}
+            "profile": prof, "seconds": seconds}
 
 
 # ---------------------------------------------------------------------------
 # phase 11: xLSTM -- parity, serve, train and where the time goes
 # ---------------------------------------------------------------------------
 
-# xlstm-350m's training run: full width at depth 12 (6 of its 12
+# xlstm-350m's training run: full width at depth 6 (3 of its 12
 # mLSTM/sLSTM pairs), batch 8 x 512 (8 mLSTM chunks of 64), 4 steps, checkpoints
 # every 2; the second run is revoked after step 3, loses it and resumes
 # from the step-2 checkpoint, so it runs 5 steps and replays one. A step
 # at full depth took 15-21 s on an H100 (the sLSTM loop's launches,
-# forward, recompute and backward, a pair at a time): the depth is cut
-# to 12 to leave the Zamba2 training phase its time and keep the script
-# near 800 s.
-XB, XS, X_TRAIN_LAYERS = 8, 512, 12
+# forward, recompute and backward, a pair at a time, bound by the host):
+# at depth 12 its 9 steps took 128.8 s of a 1,011 s whole run on an H100
+# whose host kept a training step's device busy 0.77 of its wall, so the
+# depth is 6, to keep the script well inside its 1,200 s limit.
+XB, XS, X_TRAIN_LAYERS = 8, 512, 6
 X_STEPS, X_EVERY, X_REVOKE = 4, 2, 3
 
 
@@ -4858,7 +4924,8 @@ def main() -> int:
         SOURCES["ssd_scan_bwd"], "replaces": REPLACES["ssd_scan"],
         "kind": "backward: the port's own kernel, no TPU counterpart (the "
                 "reference differentiates its jnp scan with XLA); 'replaces' "
-                "names the forward's TPU kernel; CUDA cores in both dtypes",
+                "names the forward's TPU kernel; bf16 on wgmma + TMA (sm90), "
+                "f32 on CUDA cores (ssd_scan_bwd.cu)",
         "launches": zt["train"]["launches"]["ssd_scan_bwd"],
         "launches_per_step": zt["train"]["launches_per_step"]["ssd_scan_bwd"],
         "launches_by_route": zt["train"]["launches_by_route"]["ssd_scan_bwd"],

@@ -1,10 +1,12 @@
-// Backward of the Mamba2 SSD chunked scan for Hopper (sm_90a), on CUDA cores.
+// Backward of the Mamba2 SSD chunked scan for Hopper (sm_90a), f32, on CUDA
+// cores.
 //
 // The port's own kernel: the TPU package has no backward Pallas kernel
 // (repro/models/ssm.py differentiates its jnp chunked scan with XLA, the
 // chunk body under jax.checkpoint). It is the backward of
-// csrc/ssd_scan.cu (which replaces repro/kernels/mamba_scan/kernel.py
-// ssd_scan) from a zero initial state, for both of its dtypes.
+// csrc/ssd_scan.cu's f32 route (which replaces
+// repro/kernels/mamba_scan/kernel.py ssd_scan) from a zero initial state;
+// bf16 takes the tensor-core backward, csrc/ssd_scan_bwd_sm90.cu.
 //
 // Forward, per (batch, head), with a = -exp(a_log[h]), la the inclusive
 // cumulative sum of dt * a within a chunk of L rows, h the state entering
@@ -57,15 +59,14 @@
 // multiply-adds: on an H100 at the training shape below, such a walk
 // took 11.8 ms against this one's 3.5.
 //
-// Inputs bf16 or f32 (x, B, C, dy, and dx, dB, dC in that dtype), every
-// product in f32: the bf16 route is CUDA cores too, until a later kernel
-// moves the L x L products onto wgmma.
+// Inputs and outputs f32, every product in f32 (wgmma has no full-f32
+// mode, so f32 stays here; TF32 keeps ~3 decimal digits, short of the f32
+// checks at 1e-4).
 // What bounds it: at Zamba2's training shape (B 8, S 1024, H 64, N = P =
-// 64, L 128) a call must move ~209 MB in bf16 (0.062 ms at 3.35 TB/s) and
-// do ~39 GFLOP (0.039 ms on bf16 tensor cores, 0.58 ms in f32 on CUDA
-// cores): ~185 flops a byte, so a CUDA-core kernel is held by issue, not
-// bytes. This one also moves its scratch (the states, 67 MB, and the dB/dC
-// partials, 268 MB at that shape).
+// 64, L 128) a call must move ~415 MB in f32 (0.124 ms at 3.35 TB/s) and
+// do ~39 GFLOP (0.58 ms in f32 on CUDA cores): a CUDA-core kernel is held
+// by issue, not bytes. This one also moves its scratch (the states, 67
+// MB, and the dB/dC partials, 268 MB at that shape).
 // Shared memory of kernel 2: dh and x (rows padded to P + 1), dy, B (rows
 // padded to N + 1), C, one LC x LC buffer (h first, then CBG, then Q), 9
 // vectors and the column partials: 218 KB, one block an SM (172
@@ -78,7 +79,6 @@
 
 #include <algorithm>
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace {
@@ -92,15 +92,6 @@ constexpr int RL = LC / NW;      // tile rows a warp over a chunk's rows
 constexpr int RN = N / NW;       // tile rows a warp over the state's rows
 static_assert(N == 64 && P == 64, "a tile's 64 columns are one width");
 
-__device__ __forceinline__ float load_f(const float* p, long i) { return p[i]; }
-__device__ __forceinline__ float load_f(const __nv_bfloat16* p, long i) {
-  return __bfloat162float(p[i]);
-}
-__device__ __forceinline__ void store_f(float* p, long i, float v) { p[i] = v; }
-__device__ __forceinline__ void store_f(__nv_bfloat16* p, long i, float v) {
-  p[i] = __float2bfloat16(v);
-}
-
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
@@ -108,22 +99,22 @@ __device__ __forceinline__ float warp_sum(float v) {
 }
 
 struct Args {
-  const void* x;         // (B, S, H, P)
-  const void* bm;        // (B, S, N)
-  const void* cm;        // (B, S, N)
+  const float* x;        // (B, S, H, P)
+  const float* bm;       // (B, S, N)
+  const float* cm;       // (B, S, N)
   const float* dt;       // (B, S, H)
   const float* a_log;    // (H,)
-  const void* dy;        // (B, S, H, P), x's dtype
+  const float* dy;       // (B, S, H, P)
   const float* dh_final; // (B, H, N, P) or null (zero)
   float* states;         // (B, H, NC, N, P) scratch
   float* db_part;        // (B, S, H, N) scratch
   float* dc_part;        // (B, S, H, N) scratch
   float* da_part;        // (B, H) scratch
-  void* dx;              // (B, S, H, P), x's dtype
+  float* dx;             // (B, S, H, P)
   float* ddt;            // (B, S, H)
   float* da_log;         // (H,)
-  void* db;              // (B, S, N), x's dtype
-  void* dc;              // (B, S, N), x's dtype
+  float* db;             // (B, S, N)
+  float* dc;             // (B, S, N)
   int B, S, H, L, NC;    // L: the chunk
 };
 
@@ -158,7 +149,6 @@ __device__ __forceinline__ void chunk_scan(const float* dtS, float* laS,
 constexpr size_t STATES_SMEM =
     sizeof(float) * (N * P + LC * (N + 1) + LC * P + 3 * LC);
 
-template <typename T>
 __global__ void __launch_bounds__(NT) ssd_bwd_states_kernel(Args a) {
   extern __shared__ float smem[];
   float* hS = smem;                    // N x P
@@ -170,8 +160,6 @@ __global__ void __launch_bounds__(NT) ssd_bwd_states_kernel(Args a) {
 
   const int h = blockIdx.x, b = blockIdx.y;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const T* x = static_cast<const T*>(a.x);
-  const T* bm = static_cast<const T*>(a.bm);
   const float A = -expf(a.a_log[h]);
   float* states = a.states + (long(b) * a.H + h) * a.NC * N * P;
 
@@ -183,11 +171,11 @@ __global__ void __launch_bounds__(NT) ssd_bwd_states_kernel(Args a) {
     if (c == a.NC - 1) break;          // the last chunk's update is not needed
     for (int i = tid; i < L * P; i += NT) {
       const int l = i / P, p = i % P;
-      xS[i] = load_f(x, ((long(b) * a.S + c0 + l) * a.H + h) * P + p);
+      xS[i] = a.x[((long(b) * a.S + c0 + l) * a.H + h) * P + p];
     }
     for (int i = tid; i < L * N; i += NT) {
       const int l = i / N, n = i % N;
-      bS[l * (N + 1) + n] = load_f(bm, (long(b) * a.S + c0 + l) * N + n);
+      bS[l * (N + 1) + n] = a.bm[(long(b) * a.S + c0 + l) * N + n];
     }
     for (int l = tid; l < L; l += NT) dtS[l] = a.dt[(long(b) * a.S + c0 + l) * a.H + h];
     __syncthreads();
@@ -235,7 +223,6 @@ constexpr size_t WALK_SMEM =
 static_assert(N * PP <= LC * LC, "h fits in the L x L buffer");
 static_assert(WALK_SMEM <= 232448, "one block's staging fits an SM");
 
-template <typename T>
 __global__ void __launch_bounds__(NT) ssd_bwd_kernel(Args a) {
   extern __shared__ float smem[];
   float* dhS = smem;                   // N x PP: dh' of the current chunk
@@ -258,11 +245,6 @@ __global__ void __launch_bounds__(NT) ssd_bwd_kernel(Args a) {
 
   const int h = blockIdx.x, b = blockIdx.y;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const T* x = static_cast<const T*>(a.x);
-  const T* bm = static_cast<const T*>(a.bm);
-  const T* cm = static_cast<const T*>(a.cm);
-  const T* dy = static_cast<const T*>(a.dy);
-  T* dx = static_cast<T*>(a.dx);
   const float A = -expf(a.a_log[h]);
   const long bh = long(b) * a.H + h;
 
@@ -279,8 +261,8 @@ __global__ void __launch_bounds__(NT) ssd_bwd_kernel(Args a) {
       float xv = 0.f, dv = 0.f;
       if (l < L) {
         const long off = ((long(b) * a.S + c0 + l) * a.H + h) * P + p;
-        xv = load_f(x, off);
-        dv = load_f(dy, off);
+        xv = a.x[off];
+        dv = a.dy[off];
       }
       xS[l * PP + p] = xv;
       dyS[i] = dv;
@@ -290,8 +272,8 @@ __global__ void __launch_bounds__(NT) ssd_bwd_kernel(Args a) {
       float bv = 0.f, cv = 0.f;
       if (l < L) {
         const long off = (long(b) * a.S + c0 + l) * N + n;
-        bv = load_f(bm, off);
-        cv = load_f(cm, off);
+        bv = a.bm[off];
+        cv = a.cm[off];
       }
       bS[l * (N + 1) + n] = bv;
       cS[i] = cv;
@@ -417,8 +399,8 @@ __global__ void __launch_bounds__(NT) ssd_bwd_kernel(Args a) {
         if (m < L) {
           const long row = ((long(b) * a.S + c0 + m) * a.H + h) * P;
           const float dtm = dtS[m], svm = svS[m];
-          store_f(dx, row + lane, dtm * w0[i] + svm * d0[i]);
-          store_f(dx, row + lane + 32, dtm * w1[i] + svm * d1[i]);
+          a.dx[row + lane] = dtm * w0[i] + svm * d0[i];
+          a.dx[row + lane + 32] = dtm * w1[i] + svm * d1[i];
           u = fmaf(xS[m * PP + lane + 32], d1[i], xS[m * PP + lane] * d0[i]);
         }
         u = warp_sum(u);
@@ -598,7 +580,6 @@ __global__ void __launch_bounds__(NT) ssd_bwd_kernel(Args a) {
 // 3. the head and batch sums
 // ---------------------------------------------------------------------------
 
-template <typename T>
 __global__ void __launch_bounds__(NT) ssd_bwd_reduce_kernel(Args a) {
   const long i = long(blockIdx.x) * NT + threadIdx.x;
   if (i < long(a.B) * a.S * N) {
@@ -611,8 +592,8 @@ __global__ void __launch_bounds__(NT) ssd_bwd_reduce_kernel(Args a) {
       sb += pb[long(h) * N];
       sc += pc[long(h) * N];
     }
-    store_f(static_cast<T*>(a.db), i, sb);
-    store_f(static_cast<T*>(a.dc), i, sc);
+    a.db[i] = sb;
+    a.dc[i] = sc;
   }
   if (i < a.H) {
     float s = 0.f;
@@ -628,19 +609,18 @@ cudaError_t allow_smem(K kern, size_t smem) {
                               int(smem));
 }
 
-template <typename T>
 int launch(const Args& a, cudaStream_t stream) {
-  cudaError_t e = allow_smem(ssd_bwd_states_kernel<T>, STATES_SMEM);
-  if (e == cudaSuccess) e = allow_smem(ssd_bwd_kernel<T>, WALK_SMEM);
+  cudaError_t e = allow_smem(ssd_bwd_states_kernel, STATES_SMEM);
+  if (e == cudaSuccess) e = allow_smem(ssd_bwd_kernel, WALK_SMEM);
   if (e != cudaSuccess) return int(e);
-  ssd_bwd_states_kernel<T><<<dim3(a.H, a.B), NT, STATES_SMEM, stream>>>(a);
+  ssd_bwd_states_kernel<<<dim3(a.H, a.B), NT, STATES_SMEM, stream>>>(a);
   e = cudaGetLastError();
   if (e != cudaSuccess) return int(e);
-  ssd_bwd_kernel<T><<<dim3(a.H, a.B), NT, WALK_SMEM, stream>>>(a);
+  ssd_bwd_kernel<<<dim3(a.H, a.B), NT, WALK_SMEM, stream>>>(a);
   e = cudaGetLastError();
   if (e != cudaSuccess) return int(e);
   const long outs = std::max(long(a.B) * a.S * N, long(a.H));
-  ssd_bwd_reduce_kernel<T><<<unsigned((outs + NT - 1) / NT), NT, 0, stream>>>(a);
+  ssd_bwd_reduce_kernel<<<unsigned((outs + NT - 1) / NT), NT, 0, stream>>>(a);
   return int(cudaGetLastError());
 }
 
@@ -648,18 +628,17 @@ int launch(const Args& a, cudaStream_t stream) {
 
 extern "C" {
 
-// x, bm, cm, dy, dx, db, dc in one dtype (dtype 0 f32, 1 bf16), layouts as
-// the forward's; dt, a_log, dh_final (null: zero), ddt, da_log f32; work
-// an f32 scratch of B*H*NC*N*P + 2*B*S*H*N + B*H floats (NC = ceil(S /
-// chunk)); all contiguous. N = P = 64; any S: the last chunk has S - c0
-// rows.
-int ssd_scan_bwd(const void* x, const void* bm, const void* cm, const float* dt,
-                 const float* a_log, const void* dy, const float* dh_final,
-                 float* work, void* dx, float* ddt, float* da_log, void* db,
-                 void* dc, int dtype, int B, int S, int H, int p, int n,
-                 int chunk, void* stream) {
+// x, bm, cm, dy, dx, db, dc, dt, a_log, dh_final (null: zero), ddt, da_log
+// f32 in the forward's layouts; work an f32 scratch of B*H*NC*N*P +
+// 2*B*S*H*N + B*H floats (NC = ceil(S / chunk)); all contiguous. N = P =
+// 64; any S: the last chunk has S - c0 rows.
+int ssd_scan_bwd_f32(const float* x, const float* bm, const float* cm,
+                     const float* dt, const float* a_log, const float* dy,
+                     const float* dh_final, float* work, float* dx, float* ddt,
+                     float* da_log, float* db, float* dc, int B, int S, int H,
+                     int p, int n, int chunk, void* stream) {
   if (B < 1 || S < 1 || H < 1 || p != P || n != N || chunk < 1 ||
-      chunk > LC || B > 65535 || H > 65535 || (dtype != 0 && dtype != 1))
+      chunk > LC || B > 65535 || H > 65535)
     return int(cudaErrorInvalidValue);
   const int NC = (S + chunk - 1) / chunk;
   float* states = work;
@@ -668,8 +647,7 @@ int ssd_scan_bwd(const void* x, const void* bm, const void* cm, const float* dt,
   float* da_part = dc_part + long(B) * S * H * N;
   Args a{x, bm, cm, dt, a_log, dy, dh_final, states, db_part, dc_part, da_part,
          dx, ddt, da_log, db, dc, B, S, H, chunk, NC};
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return dtype == 0 ? launch<float>(a, st) : launch<__nv_bfloat16>(a, st);
+  return launch(a, static_cast<cudaStream_t>(stream));
 }
 
 }  // extern "C"

@@ -7,8 +7,8 @@ attention and the three paged kernels (``attention_route``) and the SSD
 scan (``ssd_route``) pick their kernel by dtype and count launches per
 route. RMSNorm, flash attention and the SSD scan also have backward kernels
 of the port's own (``rmsnorm_bwd``, by D; ``flash_attention_bwd``, by dtype
-through ``attention_bwd_route``; ``ssd_scan_bwd``, CUDA cores in both
-dtypes), which their ``ops`` entries call through
+through ``attention_bwd_route``; ``ssd_scan_bwd``, by dtype through
+``ssd_route``), which their ``ops`` entries call through
 ``torch.autograd.Function``s when a gradient is wanted."""
 from ._cuda import attention_bwd_route, attention_route, ssd_route
 from .decode_attention import (default_num_splits, flash_decode_fwd,
@@ -53,8 +53,8 @@ def launch_counts() -> dict[str, int]:
 def launch_counts_by_route() -> dict[str, dict[str, int]]:
     """{kernel: {route: launches}} for the wrappers that pick a kernel by
     dtype (flash attention forward and backward; paged decode, prefill and
-    verify; the SSD scan), by D (RMSNorm's backward), or count their one
-    route (the SSD backward)."""
+    verify; the SSD scan forward and backward) or by D (RMSNorm's
+    backward)."""
     return {name: dict(fn.launches_by_route)
             for name, fn in KERNEL_WRAPPERS.items()
             if hasattr(fn, "launches_by_route")}

@@ -24,7 +24,8 @@ CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = CSRC / "build"
 SOURCES = ("paged_attention.cu", "rmsnorm.cu", "flash_attention.cu",
            "ssd_scan.cu", "paged_attention_sm90.cu", "flash_attention_bwd.cu",
-           "flash_attention_bwd_sm90.cu", "ssd_scan_bwd.cu")
+           "flash_attention_bwd_sm90.cu", "ssd_scan_bwd.cu",
+           "ssd_scan_bwd_sm90.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -61,7 +62,8 @@ SIGNATURES = {
     "ssd_scan.cu": {
         "ssd_scan_f32_fwd": [_P] * 7 + [_I] * 6 + [_P],
         "ssd_scan_sm90_fwd": [_P] * 7 + [_I] * 7 + [_P]},
-    "ssd_scan_bwd.cu": {"ssd_scan_bwd": [_P] * 13 + [_I] * 7 + [_P]},
+    "ssd_scan_bwd.cu": {"ssd_scan_bwd_f32": [_P] * 13 + [_I] * 6 + [_P]},
+    "ssd_scan_bwd_sm90.cu": {"ssd_scan_bwd_sm90": [_P] * 13 + [_I] * 7 + [_P]},
 }
 
 _LIBS: dict[str, ctypes.CDLL] = {}
@@ -177,16 +179,17 @@ SM90_SSD_WIDTH = 64
 
 
 def ssd_route(dtype, n: int, p: int) -> str:
-    """The kernel an SSD scan takes, by dtype: ``"sm90"`` (``ssd_scan.cu``'s
-    wgmma + TMA kernel) for bf16, ``"cuda_core"`` (the f32 CUDA-core
-    kernel) for f32, since wgmma has no full-f32 mode. Raises for a bf16
-    call whose N or P the tensor-core kernel does not take; it is never
+    """The kernels an SSD scan and its backward take, by dtype: ``"sm90"``
+    (the wgmma + TMA kernels: ``ssd_scan.cu``'s ``ssd_sm90_kernel``,
+    ``ssd_scan_bwd_sm90.cu``) for bf16, ``"cuda_core"`` (the f32 CUDA-core
+    kernels) for f32, since wgmma has no full-f32 mode. Raises for a bf16
+    call whose N or P the tensor-core kernels do not take; it is never
     rerouted."""
     if dtype == torch.bfloat16:
         if n != SM90_SSD_WIDTH or p != SM90_SSD_WIDTH:
-            raise ValueError(f"bf16 ssd_scan runs on the wgmma kernel, whose "
-                             f"contract is N = P = {SM90_SSD_WIDTH}; got "
-                             f"N={n}, P={p}")
+            raise ValueError(f"the bf16 SSD scan and its backward run on the "
+                             f"wgmma kernels, whose contract is N = P = "
+                             f"{SM90_SSD_WIDTH}; got N={n}, P={p}")
         return "sm90"
     return "cuda_core"
 

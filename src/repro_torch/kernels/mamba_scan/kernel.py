@@ -18,14 +18,24 @@ dtype (``_cuda.ssd_route``), never by trying one and then the other:
 Both take any chunk from 1 to 128 and any S: when S is not a multiple of
 the chunk, the last chunk has ``S - c0`` rows.
 
-``ssd_scan_bwd`` wraps the port's own backward (``csrc/ssd_scan_bwd.cu``;
-the TPU package differentiates its jnp scan with XLA): CUDA cores for both
-dtypes, counted on the ``cuda_core`` route, bf16 included. It recomputes
-the chunk-start states, walks the chunks in reverse with dh in shared
-memory, and sums dB, dC and da_log over heads and batch in a fixed order,
-so two calls give equal bits. Contract: N = P = 64 (compile-time widths,
-the tensor-core forward's), chunk 1 to 128, any S; an optional f32
-``dh_final``.
+``ssd_scan_bwd`` wraps the port's own backward (the TPU package
+differentiates its jnp scan with XLA), chosen by dtype
+(``_cuda.ssd_route``) as the forward's is:
+
+- bf16 -> ``ssd_scan_bwd_sm90`` (``csrc/ssd_scan_bwd_sm90.cu``): a walk
+  over the chunks that writes the state entering each chunk and the
+  state gradient leaving it (wgmma), then a block a (batch, chunk, group
+  of ``bwd_head_block`` heads) that runs every L x L and L x N x P product
+  on wgmma with x, dy, B, C and the states by TMA and sums dB and dC over
+  the group's heads, then the sums over head groups;
+- f32 -> ``ssd_scan_bwd_f32`` (``csrc/ssd_scan_bwd.cu``): CUDA cores, a
+  block a (batch, head) walking the chunks in reverse with dh in shared
+  memory.
+
+Both sum dB, dC and da_log over heads and batch in a fixed order, so two
+calls give equal bits. Contract: N = P = 64 (compile-time widths, the
+tensor-core forward's; a bf16 call off it raises before any launch), chunk
+1 to 128, any S; an optional f32 ``dh_final``.
 """
 from __future__ import annotations
 
@@ -53,6 +63,19 @@ def head_block(b: int, h: int) -> int:
     heads' states."""
     for hb in (4, 2):
         if h % hb == 0 and b * h // hb >= MIN_BLOCKS:
+            return hb
+    return 1
+
+
+def bwd_head_block(h: int) -> int:
+    """Heads a chunk-body block of the tensor-core backward takes (8, 4, 2
+    or 1): the largest that divides H. The block sums dB and dC over them,
+    so the f32 partials are (B, S, H / HB, N); at B 8, S 1024, H 64, chunk
+    128 the grid is 8 x 8 x 8 = 512 blocks (on an H100 there, HB 8 took
+    0.28-0.29 ms of body time against HB 4's 0.30-0.32: fewer partial
+    bytes, B and C loaded once for 8 heads)."""
+    for hb in (8, 4, 2):
+        if h % hb == 0:
             return hb
     return 1
 
@@ -115,7 +138,9 @@ def ssd_scan_bwd(x, dt, a_log, bmat, cmat, dy, dh_final=None, *,
     shape and dtype) and ``dh_final`` ((B,H,N,P) f32, zero if None) ->
     (dx, ddt (B,S,H) f32, da_log (H,) f32, dB, dC), dx, dB and dC in x's
     dtype. Contract in the module docstring; CUDA tensors only. One launch
-    counted (three kernels: the states, the reverse walk, the sums)."""
+    counted on its route (three kernels each: on sm90 the state walks, the
+    chunk body, the sums; on cuda_core the states, the reverse walk, the
+    sums)."""
     b, s, h, p = x.shape
     n = bmat.shape[-1]
     chunk = check_chunk(s, chunk)
@@ -139,30 +164,39 @@ def ssd_scan_bwd(x, dt, a_log, bmat, cmat, dy, dh_final=None, *,
                          f"a_log{tuple(a_log.shape)} dh_final "
                          f"{None if dh_final is None else tuple(dh_final.shape)}"
                          " disagree (dh_final f32)")
+    route = _cuda.ssd_route(x.dtype, n, p)
     width = _cuda.SM90_SSD_WIDTH
     if chunk > MAX_CHUNK or n != width or p != width:
         raise ValueError(f"ssd_scan_bwd: chunk {chunk}, N {n}, P {p} are "
                          f"outside the kernel's contract (chunk <= "
                          f"{MAX_CHUNK}, N = P = {width})")
     nc = -(-s // chunk)
-    work = torch.empty(b * h * nc * n * p + 2 * b * s * h * n + b * h,
-                       dtype=torch.float32, device=x.device)
+    if route == "sm90":
+        hb = bwd_head_block(h)
+        bhnc = b * h * nc
+        size = bhnc * 8193 + 128 * b * s * (h // hb)
+    else:
+        size = b * h * nc * n * p + 2 * b * s * h * n + b * h
+    work = torch.empty(size, dtype=torch.float32, device=x.device)
     dx = torch.empty_like(x)
     ddt = torch.empty((b, s, h), dtype=torch.float32, device=x.device)
     da_log = torch.empty((h,), dtype=torch.float32, device=x.device)
     db, dc = torch.empty_like(bmat), torch.empty_like(cmat)
-    rc = _cuda.library("ssd_scan_bwd.cu").ssd_scan_bwd(
-        x.data_ptr(), bmat.data_ptr(), cmat.data_ptr(), dt.data_ptr(),
-        a_log.data_ptr(), dy.data_ptr(), _cuda.ptr(dh_final),
-        work.data_ptr(), dx.data_ptr(), ddt.data_ptr(), da_log.data_ptr(),
-        db.data_ptr(), dc.data_ptr(), _cuda.DTYPE_CODES[x.dtype], b, s, h, p,
-        n, chunk, _cuda.stream_of(x))
+    args = (x.data_ptr(), bmat.data_ptr(), cmat.data_ptr(), dt.data_ptr(),
+            a_log.data_ptr(), dy.data_ptr(), _cuda.ptr(dh_final),
+            work.data_ptr(), dx.data_ptr(), ddt.data_ptr(), da_log.data_ptr(),
+            db.data_ptr(), dc.data_ptr(), b, s, h, p, n, chunk)
+    if route == "sm90":
+        rc = _cuda.library("ssd_scan_bwd_sm90.cu").ssd_scan_bwd_sm90(
+            *args, hb, _cuda.stream_of(x))
+    else:
+        rc = _cuda.library("ssd_scan_bwd.cu").ssd_scan_bwd_f32(
+            *args, _cuda.stream_of(x))
     _cuda.raise_on(rc, "ssd_scan_bwd")
     ssd_scan_bwd.launches += 1
-    # CUDA cores for bf16 too: no wgmma backward yet (ROADMAP.md, Queue 2)
-    ssd_scan_bwd.launches_by_route["cuda_core"] += 1
+    ssd_scan_bwd.launches_by_route[route] += 1
     return dx, ddt, da_log, db, dc
 
 
 ssd_scan_bwd.launches = 0
-ssd_scan_bwd.launches_by_route = {"cuda_core": 0}
+ssd_scan_bwd.launches_by_route = {"sm90": 0, "cuda_core": 0}

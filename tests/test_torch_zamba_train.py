@@ -14,9 +14,11 @@
     1e-4 of its max |value|, as tests/test_torch_train.py holds them;
 (c) ``SSDScan``'s routing against a stand-in library (the CUDA path on
     CPU tensors): a gradient-wanting call launches the forward on its
-    dtype's route and, in backward, ``ssd_scan_bwd`` on ``cuda_core`` (a
-    bf16 call too), a call without a gradient the forward alone, and
-    off-contract backward calls raise before any launch;
+    dtype's route and, in backward, ``ssd_scan_bwd`` on its dtype's route
+    (bf16 ``ssd_scan_bwd_sm90`` on ``sm90``, f32 ``ssd_scan_bwd_f32`` on
+    ``cuda_core``), a call without a gradient the forward alone, and
+    off-contract backward calls (a bf16 one off N = P = 64 or chunk <= 128
+    too) raise before any launch;
 (d) a reduced Zamba2 ``ElasticTrainer`` run revoked after step 3 and
     resumed from the step-2 checkpoint, bit for bit the uninterrupted
     run's after 4 steps.
@@ -42,6 +44,7 @@ from repro_torch.data import SyntheticCorpus, TokenLoader  # noqa: E402
 from repro_torch.kernels import _cuda  # noqa: E402
 from repro_torch.kernels.mamba_scan import (  # noqa: E402
     mamba_chunk_scan, ssd_chunked_backward_reference, ssd_chunked_reference)
+from repro_torch.kernels.mamba_scan.kernel import bwd_head_block  # noqa: E402
 from repro_torch.models import get_family, params_from_reference  # noqa: E402
 from repro_torch.train import AdamWConfig, ElasticTrainer  # noqa: E402
 
@@ -211,11 +214,10 @@ def stand_in(monkeypatch):
     monkeypatch.setattr(_cuda, "check_cuda", lambda *a: None)
     monkeypatch.setattr(_cuda, "library", lib.load)
     monkeypatch.setattr(_cuda, "stream_of", lambda t: 0)
-    for fn, routes in ((tk.ssd_scan, ("sm90", "cuda_core")),
-                       (tk.ssd_scan_bwd, ("cuda_core",))):
+    for fn in (tk.ssd_scan, tk.ssd_scan_bwd):
         monkeypatch.setattr(fn, "launches", 0)
         monkeypatch.setattr(fn, "launches_by_route",
-                            dict.fromkeys(routes, 0))
+                            dict.fromkeys(("sm90", "cuda_core"), 0))
     return lib
 
 
@@ -241,14 +243,23 @@ def test_scan_with_grad_launches_forward_then_backward(stand_in, dtype, s,
     assert [e for _, e, _ in stand_in.calls] == [fwd_entry]
     (y.float().sum() + (hf.sum() if use_h else 0.0)).backward()
     [fwd, (source, entry, args)] = stand_in.calls
-    assert (source, entry) == ("ssd_scan_bwd.cu", "ssd_scan_bwd")
+    route = tk.ssd_route(dtype, 64, 64)
+    assert route == ("sm90" if dtype == torch.bfloat16 else "cuda_core")
+    if route == "sm90":
+        assert (source, entry) == ("ssd_scan_bwd_sm90.cu",
+                                   "ssd_scan_bwd_sm90")
+    else:
+        assert (source, entry) == ("ssd_scan_bwd.cu", "ssd_scan_bwd_f32")
     # (x, B, C, dt, a_log, dy, dh_final, work, dx, ddt, da_log, dB, dC,
-    #  dtype, B, S, H, P, N, chunk, stream)
-    assert args[13:20] == (_cuda.DTYPE_CODES[dtype], 2, s, 8, 64, 64, chunk)
+    #  B, S, H, P, N, chunk[, head_block], stream)
+    assert args[13:19] == (2, s, 8, 64, 64, chunk)
     assert (args[6] is not None) == use_h       # dh_final given or null
-    assert len(args) == 21
+    assert len(args) == (21 if route == "sm90" else 20)
+    if route == "sm90":
+        assert args[19] == bwd_head_block(8) == 8
     assert tk.launch_counts()["ssd_scan_bwd"] == 1
-    assert tk.launch_counts_by_route()["ssd_scan_bwd"] == {"cuda_core": 1}
+    assert tk.launch_counts_by_route()["ssd_scan_bwd"] == {
+        "sm90": int(route == "sm90"), "cuda_core": int(route == "cuda_core")}
     x, dt, a_log, bm, cm = leaves
     assert x.grad.dtype == dtype and x.grad.shape == x.shape
     assert dt.grad.shape == dt.shape and a_log.grad.shape == a_log.shape
@@ -271,12 +282,16 @@ def test_scan_without_grad_launches_forward_alone(stand_in):
     (dict(p=32), "P 32"),
     (dict(dy_dtype=torch.bfloat16), "dy"),
     (dict(dh_shape=(2, 8, 64, 32)), "dh_final"),
+    (dict(dtype=torch.bfloat16, n=32), "N = P = 64"),    # the wgmma route
+    (dict(dtype=torch.bfloat16, p=128), "N = P = 64"),
+    (dict(dtype=torch.bfloat16, chunk=256, s=256), "chunk 256"),
 ])
 def test_off_contract_backward_raises_before_launch(stand_in, kw, match):
     s, n, p = kw.get("s", 64), kw.get("n", 64), kw.get("p", 64)
+    dtype = kw.get("dtype", torch.float32)
     x, dt, a_log, bm, cm = (t.detach() for t in _scan_leaves(
-        torch.float32, s=s, n=n, p=p))
-    dy = torch.zeros_like(x, dtype=kw.get("dy_dtype", torch.float32))
+        dtype, s=s, n=n, p=p))
+    dy = torch.zeros_like(x, dtype=kw.get("dy_dtype", dtype))
     dh = torch.zeros(kw.get("dh_shape", (2, 8, n, p)))
     with pytest.raises(ValueError, match=match):
         tk.ssd_scan_bwd(x, dt, a_log, bm, cm, dy, dh, chunk=kw.get("chunk",
