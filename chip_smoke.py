@@ -40,10 +40,14 @@ Phases, each of which must pass (a failure exits nonzero):
    twice for bit equality: flash at internlm2-1.8b's training shape (B 8,
    S 1024, H 16, KV 8, hd 128, causal), at hd 64 G 1, G 7, a ragged S 1000
    and non-causal (bf16 on the tensor-core route, f32 on the CUDA-core
-   one; a bf16 hd 192 call must raise); RMSNorm at 8192 x 2048, D 5120,
-   7168 and a ragged 1002 (each on the kernel its D picks); the training
-   shapes timed beside the plain version, the library's backward (SDPA,
-   ``F.rms_norm``) and the bound, with each launch's device time; and
+   one; a bf16 hd 192 call must raise), and at the frontends' training
+   shapes (hubert-xlarge's B 8, S 1000, H = KV 16, hd 80, bidirectional,
+   in bf16 and f32; paligemma-3b's B 8, S 512, H 8 over KV 1, hd 256,
+   causal, in bf16; the forward's row log-sum-exp held there too); RMSNorm
+   at 8192 x 2048, D 5120, 7168 and a ragged 1002 (each on the kernel its
+   D picks); the training shapes timed beside the plain version, the
+   library's backward (SDPA, ``F.rms_norm``) and the bound, with each
+   launch's device time; and
    the flash forward at that training shape, with and without the row
    log-sum-exp, beside causal SDPA and the bound;
 4. parity: yi-6b widths at depth 2 in float32 -- prefill, decode and verify
@@ -71,7 +75,8 @@ Phases, each of which must pass (a failure exits nonzero):
    every bf16 flash-attention, SSD-scan and paged decode, prefill and
    verify launch required to take the tensor-core route (the f32 parity
    phases, the CUDA-core route);
-6. residency: full-width yi-6b again, bf16 and int8 pools, plain and
+6. residency: full-width yi-6b again at half depth (16 of 32 layers: token
+   identity does not depend on the depth), bf16 and int8 pools, plain and
    speculative (K=4), each held exactly to its uninterrupted ``generate``:
    two requests preempted for a chunk and resumed; a live and a paused
    request exported (reason EVACUATE) and imported into a second engine;
@@ -82,7 +87,8 @@ Phases, each of which must pass (a failure exits nonzero):
    the store held it (a fresh engine that recomputes the stream is
    compared and reported, not held); and the export and ``import_pages``
    of all 8 requests timed (plain engines);
-7. gateway: ``KottaServeGateway`` over full-width yi-6b engines (one
+7. gateway: ``KottaServeGateway`` over full-width yi-6b engines at half
+   depth, as residency (one
    parameter tree for every replica, 8 slots, max_len 512, decode chunks of
    4), the serve phase's 8 prompts over two tenants in two waves, 32 new
    tokens: an undisturbed two-replica fleet (bf16 and int8 pools, plain
@@ -98,8 +104,10 @@ Phases, each of which must pass (a failure exits nonzero):
    one on ``sm90``) and peak device memory.
 
 8. train: the training path's f32 parity, card against CPU, at
-   internlm2-1.8b and olmoe-1b-7b widths (depth 2, B 2, S 256: the loss
-   within 1e-5 and every gradient within 1e-4 of its leaf's max); then
+   internlm2-1.8b, olmoe-1b-7b, hubert-xlarge and paligemma-3b widths
+   (depth 2, B 2, S 256; hubert's 256 frames with a loss mask, paligemma's
+   256 patches before 64 tokens: the f32 flash backward at hd 80 and 256;
+   the loss within 1e-5 and every gradient within 1e-4 of its leaf's max); then
    full-width, full-depth internlm2-1.8b (24 layers, bf16 over f32 master
    weights, remat "full") trained by ``ElasticTrainer`` on a synthetic
    corpus in the port's ``ObjectStore``, batch 8 x 1024, int8 AdamW
@@ -183,7 +191,19 @@ Phases, each of which must pass (a failure exits nonzero):
    paligemma's prefill (B 8, S 288, H 8 over KV 1, hd 256, causal) and
    the paged decode and prefill at hd 256, G 8, each timed beside SDPA
    and its bound.
-13. examples: the four ``repro_torch.examples`` on the card, each short:
+13. frontend train: full-width, full-depth hubert-xlarge (48 layers, hd
+   80, bidirectional; 8 x 1000 frames labelled with the nearest of 504
+   fixed random centroids, a Bernoulli(0.3) loss mask) and paligemma-3b
+   (18 layers, MQA at hd 256; 8 x (256 patches + 256 tokens of the
+   synthetic corpus), the text one logit chunk) trained by
+   ``ElasticTrainer`` as the zamba train phase trains Zamba2: bf16 over
+   f32 masters, remat full, int8 moments, 4 steps, checkpoints every 2,
+   once uninterrupted and once revoked after step 3, under
+   ``torch.use_deterministic_algorithms``: the final states' SHA-256
+   equal, the loss falling, every step's launches exact (flash 2L and L,
+   all on sm90; RMSNorm 4L + 1 and 2L + 1 on its register kernel) and no
+   plain version called; step ms, positions/s, peak memory, checkpoint GB.
+14. examples: the four ``repro_torch.examples`` on the card, each short:
    secure_analytics (alice's topics equal to a numpy count of the same
    shards, bob denied WOS with the deny audited, the Glacier path parked
    then COMPLETED, a clean shutdown), quickstart (the loss falls over 10
@@ -196,11 +216,12 @@ gateway phase's results, the train, job, zamba train and xlstm phases'
 numbers, ``ssd_scan_bwd`` among the kernels, each kernel's Zamba2
 training launches as ``launches_zamba_train``, RMSNorm's xLSTM launches as
 ``launches_xlstm_serve`` and ``launches_xlstm_train``, each kernel's
-launches in the frontends phase as ``launches_frontends``, and the
-frontends and examples phases' numbers); the last is
+launches in the frontends phase as ``launches_frontends`` and in the
+frontends' training as ``launches_frontend_train``, and the frontends,
+frontend train and examples phases' numbers); the last is
 ``{"ok": true, "device": {...}}``. Without CUDA, or without the port
 beside this script, it prints no result and exits nonzero. It takes no
-arguments: every run drives all thirteen phases.
+arguments: every run drives all fourteen phases.
 """
 from __future__ import annotations
 
@@ -259,6 +280,16 @@ TOL_F32 = 1e-4
 # of the static engine's generate takes PG_PROFILE_NEW of them.
 HB_B, HB_S = 8, 1000
 PG_B, PG_TEXT, PG_NEW, PG_PROFILE_NEW = 8, 32, 32, 8
+# Their training batches: hubert's is the encode batch with HuBERT's
+# cluster targets; paligemma's 8 x (256 patches + PG_TRAIN_TEXT tokens) =
+# 512 positions, the text one chunk of its logit_chunk 640 (a text length
+# the chunk does not divide, e.g. 768, would make chunked_xent fall back to
+# full-sequence f32 logits, 8 x 768 x 257,216, ~6.3 GB, and their gradient).
+PG_TRAIN_TEXT = 256
+# The flash backward at their training shapes: (B, S, H, KV, hd, causal).
+FRONTEND_TRAIN_FLASH = (("hubert-xlarge", (HB_B, HB_S, 16, 16, 80, False)),
+                        ("paligemma-3b", (PG_B, 256 + PG_TRAIN_TEXT, 8, 1,
+                                          256, True)))
 
 REPLACES = {
     "flash_decode_fwd": "src/repro/kernels/decode_attention/kernel.py:96",
@@ -371,9 +402,10 @@ def phase_device():
 # shape's 4 splits); the SSD scan (Zamba2); the flash backward's dK/dV and
 # dQ kernels at hd 128 (internlm2-1.8b training) and the SSD backward's
 # state walks (Zamba2 training); the frontends':
-# flash at hd 128 also takes HuBERT's hd 80, and PaliGemma's MQA at hd 256
-# runs flash and the paged kernel over a bf16 pool, whole and split. None
-# may spill.
+# flash at hd 128 also takes HuBERT's hd 80, forward and backward, and
+# PaliGemma's MQA at hd 256 runs flash (forward and backward: its dQ kernel
+# at 244 registers a thread, its dK/dV at 239 with two warpgroups a block)
+# and the paged kernel over a bf16 pool, whole and split. None may spill.
 ON_PATH_SM90 = {
     "flash_sm90_kernelILi64E": "flash bf16 hd 64",
     "flash_sm90_kernelILi128E": "flash bf16 hd 128 (and hd 80)",
@@ -386,22 +418,30 @@ ON_PATH_SM90 = {
     "paged_attn_sm90_kernelILi128ELb1ELb0E": "paged hd 128 int8 pool",
     "paged_attn_sm90_kernelILi128ELb0ELb1E": "paged split hd 128 bf16 pool",
     "paged_attn_sm90_kernelILi128ELb1ELb1E": "paged split hd 128 int8 pool",
-    "flash_bwd_dkdv_sm90_kernelILi128E": "flash bwd dK/dV bf16 hd 128",
-    "flash_bwd_dq_sm90_kernelILi128E": "flash bwd dQ bf16 hd 128"}
+    "flash_bwd_dkdv_sm90_kernelILi128E": "flash bwd dK/dV bf16 hd 128 (and "
+                                         "hd 80)",
+    "flash_bwd_dq_sm90_kernelILi128E": "flash bwd dQ bf16 hd 128 (and hd 80)",
+    "flash_bwd_dkdv_sm90_kernelILi256E": "flash bwd dK/dV bf16 hd 256 (two "
+                                         "warpgroups)",
+    "flash_bwd_dq_sm90_kernelILi256E": "flash bwd dQ bf16 hd 256"}
 
 
 # The other backward kernels the training path and its f32 parity launch:
-# the bf16 flash backward's delta pass, the f32 CUDA-core flash backward at
-# hd 128, RMSNorm's register kernel (D up to 8192 bf16 / 4096 f32) and
+# the bf16 flash backward's delta pass (at the tensors' own hd), the f32
+# CUDA-core flash backward at hd 128 and 80, RMSNorm's register kernel (D up to 8192 bf16 / 4096 f32) and
 # shared-memory kernel (beyond) in both dtypes, the bf16 SSD backward's
 # chunk body (wgmma + TMA at 255 registers a thread, whose 12-byte spill is
 # reported here rather than failing the build) and sums, and the f32 SSD
 # backward's three CUDA-core kernels.
 BACKWARD_KERNELS = {
     "flash_bwd_delta_sm90_kernelILi128E": "flash bwd delta bf16 hd 128",
+    "flash_bwd_delta_sm90_kernelILi80E": "flash bwd delta bf16 hd 80",
+    "flash_bwd_delta_sm90_kernelILi256E": "flash bwd delta bf16 hd 256",
     "flash_bwd_delta_kernel": "flash bwd delta f32",
     "flash_bwd_dkdv_kernelILi128E": "flash bwd dK/dV f32 hd 128",
     "flash_bwd_dq_kernelILi128E": "flash bwd dQ f32 hd 128",
+    "flash_bwd_dkdv_kernelILi80E": "flash bwd dK/dV f32 hd 80",
+    "flash_bwd_dq_kernelILi80E": "flash bwd dQ f32 hd 80",
     "rmsnorm_bwd_reg_kernelI13__nv_bfloat16Lb1E": "rmsnorm bwd registers bf16",
     "rmsnorm_bwd_reg_kernelIfLb1E": "rmsnorm bwd registers f32",
     "rmsnorm_bwd_kernelI13__nv_bfloat16": "rmsnorm bwd smem bf16",
@@ -1943,6 +1983,12 @@ def phase_arctic_serve(smi: str):
 # phase 6: the residency surface at full width
 # ---------------------------------------------------------------------------
 
+# The residency and gateway phases hold tokens exactly across moves and
+# scheduling, which no layer count changes, so they run yi-6b at half depth
+# (16 of 32 layers; every width full): at full depth the two took 117.7 and
+# 178.9 s of a 874.9 s whole run on an H100, and the frontends' training
+# needs that room in the script's 1,200 s.
+YI_CUT_LAYERS = 16
 RESIDENCY_CHUNK = 4          # decode steps a chunk: 32 new tokens take 8+
 
 
@@ -2161,8 +2207,8 @@ def _against_fresh(mk, ext, ns, content, plen, slen, got):
 
 
 def phase_residency(smi: str):
-    """The residency surface on full-width yi-6b (32 layers, bf16 weights
-    from seed 0), the serve phase's 8 prompts, 32 new tokens, 8 slots,
+    """The residency surface on full-width yi-6b at YI_CUT_LAYERS layers
+    (bf16 weights from seed 0), the serve phase's 8 prompts, 32 new tokens, 8 slots,
     max_len 512, decode chunks of RESIDENCY_CHUNK steps: bf16 and int8
     pools, plain and speculative (K=4); the moves timed on the plain
     engines."""
@@ -2173,7 +2219,7 @@ def phase_residency(smi: str):
     from repro_torch.models import get_family, init_params
     from repro_torch.serve import ContinuousBatchingEngine
     from repro_torch.serve.prompts import shared_prefix_prompts
-    cfg = get_config("yi-6b")
+    cfg = get_config("yi-6b").replace(num_layers=YI_CUT_LAYERS)
     params = init_params(cfg, get_family(cfg).layout(cfg), seed=0,
                          device="cuda")
     prompts = shared_prefix_prompts(cfg.vocab_size)
@@ -2679,8 +2725,8 @@ def _gateway_scenarios(cfg, params, device, sync, log_line, direct):
 
 def phase_gateway(smi: str):
     """The Kotta serving gateway (``repro_torch.serve.gateway``) over
-    full-width yi-6b engines (32 layers, bf16 weights from seed 0, one tree
-    for every replica; 8 slots, max_len 512, decode chunks of
+    full-width yi-6b engines (YI_CUT_LAYERS layers, bf16 weights from seed
+    0, one tree for every replica; 8 slots, max_len 512, decode chunks of
     GATEWAY_CHUNK), the serve phase's 8 prompts over two tenants, 32 new
     tokens: an undisturbed two-replica fleet; a notice-window evacuation of
     the busier replica after its first chunk (bf16 and int8 pools, plain
@@ -2692,7 +2738,7 @@ def phase_gateway(smi: str):
     from repro_torch.kernels import (launch_counts, launch_counts_by_route,
                                      reset_launch_counts)
     from repro_torch.models import get_family, init_params
-    cfg = get_config("yi-6b")
+    cfg = get_config("yi-6b").replace(num_layers=YI_CUT_LAYERS)
     params = init_params(cfg, get_family(cfg).layout(cfg), seed=0,
                          device="cuda")
     torch.cuda.synchronize()
@@ -2784,9 +2830,9 @@ def _rms_bwd_case(gen, dev, dtype, rows, d, w_mean=1.0, w_std=0.1):
             lambda: K.rmsnorm_bwd_reference(x, w, g), (x, w, g))
 
 
-def _sdpa_bwd(q, k, v, dout):
-    """Library yardstick: the backward of causal SDPA (flash backend where
-    it takes the call) on (B,H,S,hd) copies, graph built outside the timed
+def _sdpa_bwd(q, k, v, dout, causal=True):
+    """Library yardstick: the backward of SDPA (flash backend where it
+    takes the call) on (B,H,S,hd) copies, graph built outside the timed
     call; KV repeated beforehand where ``enable_gqa`` is absent."""
     import torch
     import torch.nn.functional as F
@@ -2800,7 +2846,7 @@ def _sdpa_bwd(q, k, v, dout):
         else:
             kk, vv = (t.detach().repeat_interleave(g, dim=1).requires_grad_()
                       for t in (kk, vv))
-    out = F.scaled_dot_product_attention(qq, kk, vv, is_causal=True, **kw)
+    out = F.scaled_dot_product_attention(qq, kk, vv, is_causal=causal, **kw)
     gg = dout.transpose(1, 2).contiguous()
     return lambda: torch.autograd.grad(out, (qq, kk, vv), gg,
                                        retain_graph=True)
@@ -2887,19 +2933,49 @@ def _device_split(fn, calls: int = 10, tries: int = 3) -> dict:
     return split
 
 
+def _bwd_timing(kern, plain, inputs, shape, dtype_bytes, lse_err=None):
+    """A flash or RMSNorm backward timed beside its plain version, its
+    library call and its bound, with each launch's device time: shape is
+    (B, S, H, KV, hd, causal) for flash, (rows, D) for RMSNorm."""
+    if len(shape) == 6:
+        nbytes, flops = _flash_bwd_bound(*shape[:5], dtype_bytes,
+                                         causal=shape[5])
+        lib = _sdpa_bwd(*inputs, causal=shape[5])
+    else:
+        nbytes, flops = _rms_bwd_bound(*shape, dtype_bytes)
+        lib = _rms_bwd_lib(*inputs)
+    peak = BF16_FLOPS_PER_S if dtype_bytes == 2 else F32_FLOPS_PER_S
+    bytes_s, ops_s = nbytes / HBM_BYTES_PER_S, flops / peak
+    rec = dict(bound_ms=max(bytes_s, ops_s) * 1e3,
+               bound_by="bytes" if bytes_s >= ops_s else "operations",
+               ms=time_ms(kern, iters=10),
+               plain_ms=time_ms(plain, iters=3, warmup=1),
+               library_ms=time_ms(lib, iters=10), shape=list(shape))
+    rec["split_ms"] = _device_split(kern)
+    if lse_err is not None:
+        rec["lse_max_abs_err"] = lse_err
+    return rec
+
+
 def phase_backward_kernels():
     """The port's backward kernels against autograd of their plain
     versions on the same inputs, in bf16 (within TOL_BF16 of each
     gradient's max |value|) and f32 (TOL_F32): flash attention at
     internlm2-1.8b's training shape (B 8, S 1024, H 16, KV 8, hd 128,
     causal) and at hd 64, G 1 and 7, a ragged S of 1000 and non-causal,
-    each bf16 case on the tensor-core route and each f32 one on the
-    CUDA-core route, and a bf16 hd 192 call, which must raise; RMSNorm at
-    8192 x 2048 and at D 5120, 7168 and a ragged 1002 (scalar loads), each
-    on the kernel of its D. Each twice, bit for bit the same (no atomics).
-    The training shapes in bf16 timed beside the plain version, the
-    library's backward and the bound, with each launch's device time
-    (``torch.profiler``)."""
+    and at the frontends' training shapes (``FRONTEND_TRAIN_FLASH``:
+    hubert-xlarge's B 8, S 1000, H = KV 16, hd 80, bidirectional, in bf16
+    on the hd-128 kernels and in f32; paligemma-3b's B 8, S 512, H 8 over
+    KV 1, hd 256, causal, in bf16; each with the forward's row
+    log-sum-exp held to its plain version within 1e-3), each bf16 case on
+    the tensor-core route and each f32 one on the CUDA-core route, and a
+    bf16 hd 192 call, which must raise; RMSNorm at 8192 x 2048 and at D
+    5120, 7168 and a ragged 1002 (scalar loads), each on the kernel of its
+    D. Each twice, bit for bit the same (no atomics). The training shapes
+    timed beside the plain version, the library's backward (SDPA,
+    ``F.rms_norm``) and the bound (at the true hd), with each launch's
+    device time (``torch.profiler``): internlm2-1.8b's in bf16, the
+    frontends' in each dtype they run."""
     import torch
     from repro_torch import kernels as K
     from repro_torch.kernels.rmsnorm.kernel import rmsnorm_path
@@ -2911,14 +2987,20 @@ def phase_backward_kernels():
                     ("G7", (2, 256, 7, 1, 128, True)),
                     ("ragged S 1000", (2, 1000, 4, 2, 128, True)),
                     ("non-causal", (2, 384, 4, 2, 64, False))]
+    frontend = dict(FRONTEND_TRAIN_FLASH)
     rms_shapes = [("train", (TB * TS, TD)), ("D 5120", (512, 5120)),
                   ("D 7168", (512, 7168)), ("ragged D 1002", (64, 1002))]
     results = {"flash_attention_bwd": {}, "rmsnorm_bwd": {}}
     for dtype, tol, kind in ((torch.bfloat16, TOL_BF16, "bf16"),
                              (torch.float32, TOL_F32, "f32")):
+        # The frontends' f32 case is hubert's hd 80; f32 at hd 256 runs in
+        # paligemma-3b's train parity (phase_train_parity).
+        fshapes = flash_shapes + [
+            (label, shape) for label, shape in frontend.items()
+            if kind == "bf16" or label == "hubert-xlarge"]
         cases = ([("flash_attention_bwd", label,
                    _flash_bwd_case(gen, dev, dtype, *shape), shape)
-                  for label, shape in flash_shapes]
+                  for label, shape in fshapes]
                  + [("rmsnorm_bwd", label, _rms_bwd_case(gen, dev, dtype,
                                                          *shape), shape)
                     for label, shape in rms_shapes])
@@ -2947,26 +3029,34 @@ def phase_backward_kernels():
                                      f"{errs}, repeat equal {same}")
             rec = results[name].setdefault(kind, {"max_abs_err": 0.0})
             rec["max_abs_err"] = max(rec["max_abs_err"], err)
-            if kind != "bf16" or label != "train":
-                continue
-            if name == "flash_attention_bwd":
-                nbytes, flops = _flash_bwd_bound(*shape[:5], 2)
-                lib = _sdpa_bwd(*inputs)
+            nbytes = 2 if kind == "bf16" else 4
+            if name == "flash_attention_bwd" and label in frontend:
+                q, k, v, _ = inputs
+                _, lse = K.flash_attention_fwd(q, k, v, causal=shape[5],
+                                               return_lse=True)
+                lse_err = (lse - K.attention_lse_reference(
+                    q, k, v, causal=shape[5])).abs().max().item()
+                if not lse_err <= 1e-3:
+                    raise AssertionError(f"flash forward {kind} {label}: "
+                                         f"lse off by {lse_err}")
+                fr = rec.setdefault("frontend_shapes", {})
+                fr[label] = _bwd_timing(kern, plain, inputs, shape, nbytes,
+                                        lse_err)
+                fr[label]["max_rel_err"] = err
+                r = fr[label]
+            elif kind == "bf16" and label == "train":
+                rec.update(_bwd_timing(kern, plain, inputs, shape, nbytes))
+                r = rec
             else:
-                nbytes, flops = _rms_bwd_bound(*shape, 2)
-                lib = _rms_bwd_lib(*inputs)
-            bytes_s, ops_s = nbytes / HBM_BYTES_PER_S, flops / BF16_FLOPS_PER_S
-            rec.update(bound_ms=max(bytes_s, ops_s) * 1e3,
-                       bound_by="bytes" if bytes_s >= ops_s else "operations",
-                       ms=time_ms(kern, iters=10),
-                       plain_ms=time_ms(plain, iters=3, warmup=1),
-                       library_ms=time_ms(lib, iters=10), shape=list(shape))
-            rec["split_ms"] = _device_split(kern)
-            log(f"[kernels] {name} bf16 {shape}: kernel {rec['ms']:.4f} ms, "
-                f"plain {rec['plain_ms']:.4f} ms, library "
-                f"{rec['library_ms']:.4f} ms, bound {rec['bound_ms']:.4f} ms "
-                f"({rec['bound_by']}); device ms a call by launch (profiler) "
-                f"{ {k: round(v, 4) for k, v in rec['split_ms'].items()} }")
+                continue
+            log(f"[kernels] {name} {kind} {label} {shape}: kernel "
+                f"{r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, library "
+                f"{r['library_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
+                f"({r['bound_by']}); device ms a call by launch (profiler) "
+                f"{ {k: round(v, 4) for k, v in r['split_ms'].items()} }"
+                + (f"; forward lse max|kernel-plain| "
+                   f"{r['lse_max_abs_err']:.2e}" if "lse_max_abs_err" in r
+                   else ""))
         del cases
         torch.cuda.empty_cache()
     # Off the tensor-core contract: a bf16 hd 192 backward raises before
@@ -2991,7 +3081,37 @@ def _train_grads(fam, cfg, params, batch):
     for p in leaves:
         p.requires_grad_(True)
     loss, metrics = fam.train_loss(cfg, params, batch)
-    return loss.detach(), torch.autograd.grad(loss, leaves)
+    # a leaf the loss does not reach (hubert's token embedding) gets zeros,
+    # as the train step gives it
+    grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+    return loss.detach(), [torch.zeros_like(p) if g is None else g
+                           for p, g in zip(leaves, grads)]
+
+
+def _parity_batch(cfg, rng):
+    """(numpy batch, its description) of the train parity at B 2: tokens and
+    labels over ZS positions; a frame frontend's ZS frames with labels and
+    a Bernoulli(0.3) ``loss_mask``; a patch frontend's ``frontend_len``
+    patches before 64 text tokens (one chunk of any ``logit_chunk`` from
+    64 up)."""
+    import numpy as np
+
+    def ints(*shape):
+        return rng.integers(0, cfg.vocab_size, shape).astype(np.int64)
+
+    if cfg.frontend == "frame":
+        return ({"frames": rng.standard_normal((2, ZS, cfg.frontend_dim),
+                                               dtype=np.float32),
+                 "labels": ints(2, ZS),
+                 "loss_mask": (rng.random((2, ZS)) < 0.3).astype(
+                     np.float32)}, f"B 2 x {ZS} frames")
+    if cfg.frontend == "patch":
+        p = cfg.frontend_len
+        return ({"patches": rng.standard_normal((2, p, cfg.frontend_dim),
+                                                dtype=np.float32),
+                 "tokens": ints(2, 64), "labels": ints(2, 64)},
+                f"B 2 x ({p} patches + 64 tokens)")
+    return {"tokens": ints(2, ZS), "labels": ints(2, ZS)}, f"B 2, S {ZS}"
 
 
 def _train_parity(cfg, label, kernels=("flash_attention_fwd",
@@ -2999,8 +3119,10 @@ def _train_parity(cfg, label, kernels=("flash_attention_fwd",
                                         "rmsnorm_fused", "rmsnorm_bwd"),
                   want=None):
     """``train_loss`` and every gradient at ``cfg`` (f32, depth 2, B 2, S
-    256) on the card (kernels, backward kernels) against the CPU (plain
-    versions, autograd) from the same weights; each of ``kernels``
+    256; a frame frontend's 256 frames, a patch frontend's patches before
+    64 text tokens: ``_parity_batch``) on the card (kernels, backward
+    kernels) against the CPU (plain versions, autograd) from the same
+    weights; each of ``kernels``
     launched at least once a layer, or, given ``want``, every kernel's
     launches exactly those (the others none). The loss within 1e-5; of the
     CPU's loss where that is above 128, whose f32 ulp exceeds 1e-5. Every
@@ -3014,9 +3136,7 @@ def _train_parity(cfg, label, kernels=("flash_attention_fwd",
     gpu = init_params(cfg, fam.layout(cfg), seed=0, device="cuda",
                       dtype=torch.float32)
     cpu = _to(gpu, "cpu")
-    rng = np.random.default_rng(2)
-    batch = {k: rng.integers(0, cfg.vocab_size, (2, ZS)).astype(np.int64)
-             for k in ("tokens", "labels")}
+    batch, shape = _parity_batch(cfg, np.random.default_rng(2))
     reset_launch_counts()
     gl, gg = _train_grads(fam, cfg, gpu, {k: torch.from_numpy(v).cuda()
                                           for k, v in batch.items()})
@@ -3028,8 +3148,8 @@ def _train_parity(cfg, label, kernels=("flash_attention_fwd",
     loss_err = abs(gl.item() - cl.item()) / (abs(cl.item()) if relative
                                              else 1.0)
     grad_err = max(_rel_err(a.cpu(), b) for a, b in zip(gg, cg))
-    log(f"[train parity] {label} widths, {cfg.num_layers} layers, f32, B 2, "
-        f"S {ZS}: loss card {gl.item():.6f} cpu {cl.item():.6f} "
+    log(f"[train parity] {label} widths, {cfg.num_layers} layers, f32, "
+        f"{shape}: loss card {gl.item():.6f} cpu {cl.item():.6f} "
         f"(|diff|{' / |cpu|' if relative else ''} {loss_err:.2e}, "
         f"tol 1e-5), max gradient error / leaf max "
         f"{grad_err:.2e} (tol 1e-4) over {len(cg)} leaves, launches "
@@ -3052,10 +3172,14 @@ def _train_parity(cfg, label, kernels=("flash_attention_fwd",
 
 
 def phase_train_parity():
-    """internlm2-1.8b widths and olmoe-1b-7b widths (the MoE aux losses) at
-    depth 2 in f32, card against CPU."""
+    """internlm2-1.8b widths, olmoe-1b-7b widths (the MoE aux losses) and
+    the frontends' (hubert-xlarge: frames, a loss mask, bidirectional
+    attention at hd 80; paligemma-3b: patches before the text, MQA at hd
+    256, its 257,216-token tied vocabulary) at depth 2 in f32, card against
+    CPU: the f32 flash backward at hd 80 and 256 on the CUDA-core route."""
     from repro_torch.configs import get_config
-    for name in ("internlm2-1.8b", "olmoe-1b-7b"):
+    for name in ("internlm2-1.8b", "olmoe-1b-7b", "hubert-xlarge",
+                 "paligemma-3b"):
         _train_parity(get_config(name).replace(num_layers=2, dtype="float32"),
                       name)
 
@@ -3144,7 +3268,7 @@ class _GpuSampler:
                 "temp_c_max": max(x[3] for x in every)}
 
 
-def _timed_checkpointer(store, run):
+def _timed_checkpointer(store, run, keep_last=None):
     """A Checkpointer whose saves and restores are timed (synchronized)."""
     import torch
     from repro_torch.checkpoint import Checkpointer
@@ -3167,7 +3291,7 @@ def _timed_checkpointer(store, run):
                                 _tree_bytes(out[1])))
             return out
 
-    ck = Timed(store, run)
+    ck = Timed(store, run, keep_last=keep_last)
     ck.events = []
     return ck
 
@@ -3200,22 +3324,74 @@ def _plain_call_counter():
     return calls, lambda: [u() for u in undo]
 
 
-def _train_run(cfg, opt, revoke: bool, *, batch=TB, seq=TS,
-               steps=TRAIN_STEPS, every=TRAIN_EVERY,
-               revoke_step=TRAIN_REVOKE):
-    """One ElasticTrainer run of ``steps`` steps on a fresh store, batch x
-    seq, checkpoints every ``every`` steps, revoked once at
-    ``revoke_step`` if ``revoke``; returns (trainer, report, probe,
-    checkpoint events)."""
-    from repro_torch.core import ObjectStore, VirtualClock
+def _corpus_source(store, cfg, batch, seq):
+    """Token batches (``TokenLoader``, seed 0) over the synthetic corpus
+    that the train and job phases read, built in ``store`` at ``cfg``'s
+    vocabulary."""
     from repro_torch.data import SyntheticCorpus, TokenLoader
-    from repro_torch.train import ElasticTrainer
-    store = ObjectStore(clock=VirtualClock())
     keys = SyntheticCorpus.build(store, TRAIN_CORPUS, **TRAIN_SHARDS,
                                  vocab_size=cfg.vocab_size)
-    loader = TokenLoader(store.get, keys, batch_size=batch, seq_len=seq,
-                         seed=0)
-    ck = _timed_checkpointer(store, "revoked" if revoke else "plain")
+    return TokenLoader(store.get, keys, batch_size=batch, seq_len=seq,
+                       seed=0)
+
+
+class _FrameBatches:
+    """hubert-xlarge's training batches, a pure function of the step (so a
+    restart replays them): ``batch`` x ``seq`` frames of standard normal
+    ``frontend_dim`` features from (seed, step), labelled with HuBERT's kind
+    of target, the index of the nearest of ``vocab_size`` fixed random
+    centroids (from ``seed``), and a ``loss_mask`` drawn Bernoulli(0.3), the
+    reference's tests' rate."""
+
+    def __init__(self, cfg, batch, seq, seed=0):
+        import numpy as np
+        self.shape, self.seed = (batch, seq, cfg.frontend_dim), seed
+        self.centroids = np.random.default_rng(seed).standard_normal(
+            (cfg.vocab_size, cfg.frontend_dim), dtype=np.float32)
+
+    def batch_at(self, step):
+        import numpy as np
+        rng = np.random.default_rng((self.seed, step))
+        frames = rng.standard_normal(self.shape, dtype=np.float32)
+        c = self.centroids
+        # argmin_c |x - c|^2 = argmin_c |c|^2 - 2 x.c
+        labels = ((c * c).sum(-1) - 2.0 * (frames @ c.T)).argmin(-1)
+        mask = rng.random(self.shape[:2]) < 0.3
+        return {"frames": frames, "labels": labels.astype(np.int32),
+                "loss_mask": mask.astype(np.float32)}
+
+
+class _PatchBatches:
+    """paligemma-3b's training batches: each step's text from ``text`` (a
+    ``TokenLoader``) after ``frontend_len`` standard normal patch
+    embeddings from (seed, step)."""
+
+    def __init__(self, text, cfg, batch, seed=0):
+        self.text, self.seed = text, seed
+        self.shape = (batch, cfg.frontend_len, cfg.frontend_dim)
+
+    def batch_at(self, step):
+        import numpy as np
+        rng = np.random.default_rng((self.seed, step))
+        return {**self.text.batch_at(step),
+                "patches": rng.standard_normal(self.shape, dtype=np.float32)}
+
+
+def _train_run(cfg, opt, revoke: bool, *, batch=TB, seq=TS,
+               steps=TRAIN_STEPS, every=TRAIN_EVERY,
+               revoke_step=TRAIN_REVOKE, source=_corpus_source):
+    """One ElasticTrainer run of ``steps`` steps on a fresh store, batch x
+    seq from ``source(store, cfg, batch, seq)`` (an object with
+    ``batch_at(step)``), checkpoints every ``every`` steps (the latest
+    kept: a restart restores only it, and paligemma-3b's state is ~15 GB
+    of host memory a copy), revoked once at ``revoke_step`` if ``revoke``;
+    returns (trainer, report, probe, checkpoint events)."""
+    from repro_torch.core import ObjectStore, VirtualClock
+    from repro_torch.train import ElasticTrainer
+    store = ObjectStore(clock=VirtualClock())
+    loader = source(store, cfg, batch, seq)
+    ck = _timed_checkpointer(store, "revoked" if revoke else "plain",
+                             keep_last=1)
     trainer = ElasticTrainer(cfg, opt, ck, seed=0, device="cuda")
     probe = _StepProbe(trainer._step_fn)
     trainer._step_fn = probe
@@ -3230,6 +3406,21 @@ def _train_run(cfg, opt, revoke: bool, *, batch=TB, seq=TS,
     rep = trainer.train(loader, steps, checkpoint_every=every,
                         revoke_at=revoke_at)
     return trainer, rep, probe, ck.events
+
+
+def _transformer_step_launches(cfg):
+    """A dense transformer's training step with remat "full", bf16: each
+    layer's flash forward and two norms run again in its recompute, and
+    ``final_norm`` once -> (launches, launches by route): flash forward 2L
+    and backward L, all on sm90; RMSNorm forward 4L + 1 and backward 2L + 1
+    on its register kernel."""
+    L = cfg.num_layers
+    want = {"flash_attention_fwd": 2 * L, "flash_attention_bwd": L,
+            "rmsnorm_fused": 4 * L + 1, "rmsnorm_bwd": 2 * L + 1}
+    return want, {
+        "flash_attention_fwd": {"sm90": 2 * L, "cuda_core": 0},
+        "flash_attention_bwd": {"sm90": L, "cuda_core": 0},
+        "rmsnorm_bwd": {"registers": 2 * L + 1, "smem": 0}}
 
 
 def phase_train(smi: str):
@@ -3255,12 +3446,7 @@ def phase_train(smi: str):
     opt = AdamWConfig(learning_rate=TRAIN_LR, warmup_steps=2,
                       decay_steps=100, state_dtype="int8")
     L = cfg.num_layers
-    want = {"flash_attention_fwd": 2 * L, "flash_attention_bwd": L,
-            "rmsnorm_fused": 4 * L + 1, "rmsnorm_bwd": 2 * L + 1}
-    want_routes = {
-        "flash_attention_fwd": {"sm90": 2 * L, "cuda_core": 0},
-        "flash_attention_bwd": {"sm90": L, "cuda_core": 0},
-        "rmsnorm_bwd": {"registers": 2 * L + 1, "smem": 0}}
+    want, want_routes = _transformer_step_launches(cfg)
     plain_calls, undo = _plain_call_counter()
     torch.use_deterministic_algorithms(True)
     try:
@@ -3851,10 +4037,11 @@ def _zamba_step_launches(cfg) -> dict:
 
 
 def _revoked_train(cfg, label, want, want_routes, smi, *, batch, seq,
-                   steps, every, revoke_step):
+                   steps, every, revoke_step, source=_corpus_source):
     """Full-width, full-depth ``cfg`` (bf16 compute over f32 masters, remat
-    "full", seed 0) trained by ElasticTrainer on the train phase's
-    synthetic corpus, batch x seq, int8 AdamW moments, ``steps`` steps
+    "full", seed 0) trained by ElasticTrainer on batches from ``source``
+    (the train phase's synthetic corpus by default; ``_train_run``), batch
+    x seq positions, int8 AdamW moments, ``steps`` steps
     with checkpoints every ``every``: once uninterrupted, once revoked
     after step ``revoke_step``, whose work is lost, and resumed from the
     last checkpoint before it, under ``torch.use_deterministic_algorithms``.
@@ -3870,7 +4057,7 @@ def _revoked_train(cfg, label, want, want_routes, smi, *, batch, seq,
     opt = AdamWConfig(learning_rate=TRAIN_LR, warmup_steps=2,
                       decay_steps=100, state_dtype="int8")
     run_kw = dict(batch=batch, seq=seq, steps=steps, every=every,
-                  revoke_step=revoke_step)
+                  revoke_step=revoke_step, source=source)
     plain_calls, undo = _plain_call_counter()
     torch.use_deterministic_algorithms(True)
     try:
@@ -3988,13 +4175,13 @@ def _zamba_train_run(cfg, smi):
                           every=ZT_EVERY, revoke_step=ZT_REVOKE)
 
 
-def _zamba_step_profile(cfg, smi):
-    """One full-width zamba2-1.2b training step as ``_zamba_train_run``
-    takes it (B ZT_B x ZT_S, int8 moments, seed 0) through
+def _step_profile(cfg, label, batch, smi):
+    """One full-width training step of ``cfg`` on ``batch`` (host numpy
+    arrays, moved to the card; int8 moments, seed 0) through
     ``launch/profile_serve.py``'s ``profile`` (a warm-up step, one timed
     without the profiler, one under ``torch.profiler``): the device busy
-    share of the step's wall and the ten kernels with the most device
-    time, and the SSD backward's share."""
+    share of the step's wall, the ten kernels with the most device time,
+    and the port's backward kernels' device time by family."""
     import torch
     from repro_torch.launch.profile_serve import profile
     from repro_torch.train import AdamWConfig, ElasticTrainer
@@ -4004,12 +4191,7 @@ def _zamba_step_profile(cfg, smi):
     params, opt_state = trainer.init_state()
     for leaf in _leaves(params):
         leaf.requires_grad_(True)
-    gen = torch.Generator(device="cuda")
-    gen.manual_seed(0)
-    tokens = torch.randint(0, cfg.vocab_size, (ZT_B, ZT_S + 1),
-                           generator=gen, device="cuda", dtype=torch.int32)
-    batch = {"tokens": tokens[:, :-1].contiguous(),
-             "labels": tokens[:, 1:].contiguous()}
+    batch = {k: torch.from_numpy(v).cuda() for k, v in batch.items()}
     state = [params, opt_state]
 
     def step():
@@ -4017,25 +4199,40 @@ def _zamba_step_profile(cfg, smi):
 
     prof = profile(step)
     if not prof["kernels"] or prof["device_ms"] <= 0:
-        raise AssertionError("zamba train profile: the profiler saw no "
-                             "device kernel")
+        raise AssertionError(f"{label} profile: the profiler saw no device "
+                             f"kernel")
     top = [dict(k, name=k["name"][:90]) for k in prof["kernels"][:10]]
-    ssd = sum(k["device_ms"] for k in prof["kernels"]
-              if "ssd_bwd" in k["name"])
+    bwd = {fam: sum(k["device_ms"] for k in prof["kernels"]
+                    if fam in k["name"])
+           for fam in ("ssd_bwd", "flash_bwd", "rmsnorm_bwd")}
     rec = {**{k: prof[k] for k in ("wall_ms", "wall_profiled_ms",
                                    "device_ms", "busy_share", "launches")},
-           "ssd_bwd_ms": ssd, "top_kernels": top}
-    log(f"[zamba train] profiled step (B {ZT_B} x S {ZT_S}): wall "
+           "ssd_bwd_ms": bwd["ssd_bwd"], "backward_kernels_ms": bwd,
+           "top_kernels": top}
+    log(f"[{label}] profiled step of {cfg.name}: wall "
         f"{rec['wall_ms']:.1f} ms unprofiled, device kernels "
         f"{rec['device_ms']:.1f} ms, busy share {rec['busy_share']:.3f}, "
-        f"{rec['launches']} launches; the SSD backward's kernels "
-        f"{ssd:.2f} ms; top ten by device time: " + "; ".join(
+        f"{rec['launches']} launches; the port's backward kernels by "
+        f"family { {k: round(v, 2) for k, v in bwd.items() if v} } ms; top "
+        f"ten by device time: " + "; ".join(
             f"{k['device_ms']:.2f} ms {k['count']}x {k['name'][:70]}"
             for k in top) + f"; on {smi}")
     del state, params, opt_state, trainer
     gc.collect()
     torch.cuda.empty_cache()
     return rec
+
+
+def _zamba_step_profile(cfg, smi):
+    """One full-width zamba2-1.2b training step as ``_zamba_train_run``
+    takes it (B ZT_B x ZT_S tokens from seed 0) through ``_step_profile``;
+    its record's ``ssd_bwd_ms`` is the SSD backward's share."""
+    import numpy as np
+    tokens = np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (ZT_B, ZT_S + 1)).astype(np.int32)
+    return _step_profile(cfg, "zamba train", {
+        "tokens": np.ascontiguousarray(tokens[:, :-1]),
+        "labels": np.ascontiguousarray(tokens[:, 1:])}, smi)
 
 
 def phase_zamba_train(smi: str):
@@ -4657,7 +4854,66 @@ def phase_frontends(smi: str):
 
 
 # ---------------------------------------------------------------------------
-# phase 13: the examples
+# phase 13: training the frontends at full width
+# ---------------------------------------------------------------------------
+
+# Each frontend's run: 4 steps with checkpoints every 2; the second run is
+# revoked after step 3 (lost, replayed from the step-2 checkpoint).
+FT_STEPS, FT_EVERY, FT_REVOKE = 4, 2, 3
+
+
+def _frame_source(store, cfg, batch, seq):
+    return _FrameBatches(cfg, batch, seq)
+
+
+def _patch_source(store, cfg, batch, seq):
+    """``_PatchBatches`` over the synthetic corpus at ``cfg``'s vocabulary:
+    ``seq`` positions, the first ``frontend_len`` of them patches."""
+    return _PatchBatches(_corpus_source(store, cfg, batch,
+                                        seq - cfg.frontend_len), cfg, batch)
+
+
+def phase_frontend_train(smi: str):
+    """Full-width, full-depth hubert-xlarge (48 layers, hd 80,
+    bidirectional; HB_B x HB_S frames with HuBERT's cluster targets,
+    ``_FrameBatches``) and paligemma-3b (18 layers, MQA at hd 256, the tied
+    257,216-token vocabulary; PG_B x (256 patches + PG_TRAIN_TEXT tokens of
+    the synthetic corpus), ``_PatchBatches``) trained through
+    ``_revoked_train``: bf16 over f32 masters, remat "full", int8 moments,
+    under ``torch.use_deterministic_algorithms``; FT_STEPS steps, once
+    uninterrupted and once revoked after step FT_REVOKE; the final states'
+    SHA-256 equal, the loss falling, every step's launches exactly
+    ``_transformer_step_launches`` (every flash launch forward and backward
+    on sm90, hd 80 on the hd-128 kernels) and no plain version called;
+    then one step of each on its first batch profiled (``_step_profile``)."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import ObjectStore, VirtualClock
+    out, seconds = {}, {}
+    for name, batch, seq, source in (
+            ("hubert-xlarge", HB_B, HB_S, _frame_source),
+            ("paligemma-3b", PG_B, 256 + PG_TRAIN_TEXT, _patch_source)):
+        cfg = get_config(name)
+        want, want_routes = _transformer_step_launches(cfg)
+        t = time.perf_counter()
+        out[name] = _revoked_train(
+            cfg, "frontend train", want, want_routes, smi, batch=batch,
+            seq=seq, steps=FT_STEPS, every=FT_EVERY, revoke_step=FT_REVOKE,
+            source=source)
+        seconds[name] = time.perf_counter() - t
+        t = time.perf_counter()
+        first = source(ObjectStore(clock=VirtualClock()), cfg, batch,
+                       seq).batch_at(0)
+        out[name]["profile"] = _step_profile(cfg, "frontend train", first,
+                                             smi)
+        seconds[name + " profiled step"] = time.perf_counter() - t
+    out["seconds"] = seconds
+    log(f"[frontend train] seconds a part: "
+        f"{ {k: round(v, 1) for k, v in seconds.items()} }")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 14: the examples
 # ---------------------------------------------------------------------------
 
 def phase_examples(smi: str):
@@ -4758,6 +5014,12 @@ def phase_examples(smi: str):
     return out
 
 
+def _frontend_train_launches(ft, name) -> dict:
+    """A kernel's launches in each frontend training run (uninterrupted)."""
+    return {arch: ft[arch]["launches"][name]
+            for arch in ("hubert-xlarge", "paligemma-3b")}
+
+
 def _clock_text(clocks: dict) -> str:
     """One run's nvidia-smi samples a step, for a log line."""
     parts = []
@@ -4843,6 +5105,7 @@ def main() -> int:
     zt = timed("zamba train", phase_zamba_train, smi)
     xl = timed("xlstm", phase_xlstm, smi)
     fr = timed("frontends", phase_frontends, smi)
+    ft = timed("frontend train", phase_frontend_train, smi)
     ex = timed("examples", phase_examples, smi)
     frontend_launches = {
         "hubert-xlarge encode": fr["hubert-xlarge"]["launches"],
@@ -4892,6 +5155,9 @@ def main() -> int:
             entry["launches_job"] = job["launches"][name]
         if name in zt["train"]["launches_per_step"]:
             entry["launches_zamba_train"] = zt["train"]["launches"][name]
+        if name in ft["hubert-xlarge"]["launches_per_step"]:
+            entry["launches_frontend_train"] = _frontend_train_launches(
+                ft, name)
         record.append(entry)
     for name, fwd in (("rmsnorm_bwd", "rmsnorm_fused"),
                       ("flash_attention_bwd", "flash_attention_fwd")):
@@ -4913,6 +5179,12 @@ def main() -> int:
             "split_ms": rec["split_ms"]})
         record[-1]["launches_zamba_train"] = zt["train"]["launches"][name]
         record[-1]["zamba_shapes_max_rel_err"] = zt["bwd_shapes"][name]
+        record[-1]["launches_frontend_train"] = _frontend_train_launches(
+            ft, name)
+        if "frontend_shapes" in rec:
+            record[-1]["frontend_shapes"] = {
+                kind: bwd[name][kind]["frontend_shapes"]
+                for kind in bwd[name] if "frontend_shapes" in bwd[name][kind]}
         if name == "rmsnorm_bwd":
             record[-1]["launches_xlstm_train"] = \
                 xl["train"]["launches"][name]
@@ -4941,8 +5213,8 @@ def main() -> int:
     print(json.dumps({"kernels": record, "transformers": transformers,
                       "residency": moves, "gateway": gateway,
                       "train": train, "job": job, "zamba_train": zt,
-                      "xlstm": xl,
-                      "frontends": fr, "examples": ex}))
+                      "xlstm": xl, "frontends": fr,
+                      "frontend_train": ft, "examples": ex}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -15,10 +15,12 @@
 //
 // q (B,Sq,H,hd), k/v (B,Skv,KV,hd), f32; key j is visible to query i when
 // j <= i (causal; positions aligned at 0) or always. Any B, Sq, Skv, H, KV
-// with H % KV == 0 (any G); hd % 32 == 0, 32 <= hd <= 256. bf16 takes the
-// tensor-core kernels of flash_attention_bwd_sm90.cu; f32 stays here
-// because wgmma has no full-f32 mode (TF32 keeps ~3 decimal digits and
-// could not meet the f32 checks at 1e-4).
+// with H % KV == 0 (any G); hd % 32 == 0, 32 <= hd <= 256, or hd 80
+// (HuBERT: 1280 / 16), instantiated at its own width: a thread's slice of
+// the accumulators is every 16th column, so hd % 16 == 0 is all the loops
+// need. bf16 takes the tensor-core kernels of flash_attention_bwd_sm90.cu;
+// f32 stays here because wgmma has no full-f32 mode (TF32 keeps ~3 decimal
+// digits and could not meet the f32 checks at 1e-4).
 //
 // Deterministic, with no atomics: the dK/dV kernel's block owns one tile of
 // M keys of one KV head and loops over the G query heads of its group and
@@ -349,6 +351,7 @@ int launch(const Args& a, cudaStream_t s) {
   switch (a.hd) {
     case 32: return launch_hd<32>(a, s);
     case 64: return launch_hd<64>(a, s);
+    case 80: return launch_hd<80>(a, s);
     case 96: return launch_hd<96>(a, s);
     case 128: return launch_hd<128>(a, s);
     case 160: return launch_hd<160>(a, s);
@@ -365,7 +368,7 @@ extern "C" {
 
 // q (B,Sq,H,hd), k/v (B,Skv,KV,hd), o and dout like q, contiguous f32; lse
 // (B,H,Sq) f32 from the forward; delta (B,H,Sq) f32 scratch; dq like q and
-// dk/dv like k, written whole.
+// dk/dv like k, written whole. hd % 32 == 0, 32 <= hd <= 256, or hd 80.
 int flash_attention_f32_bwd(const float* q, const float* k, const float* v,
                             const float* o, const float* dout, const float* lse,
                             float* delta, float* dq, float* dk, float* dv,

@@ -16,9 +16,20 @@
 //                                                  flash_bwd_dq_sm90_kernel
 //
 // with dK and dQ scaled by 1/sqrt(hd) in the epilogue. q (B,Sq,H,hd), k/v
-// (B,Skv,KV,hd), o and dout like q, bf16; hd 64 or 128; any B, Sq, Skv, H,
-// KV with H % KV == 0 (any G); key j visible to query i when j <= i (causal;
-// positions aligned at 0) or always.
+// (B,Skv,KV,hd), o and dout like q, bf16; hd 64, 80, 128 or 256; any B, Sq,
+// Skv, H, KV with H % KV == 0 (any G); key j visible to query i when j <= i
+// (causal; positions aligned at 0) or always.
+//
+// Every tile moves through 4-D tensor maps over (hd, heads, S, B), so a
+// head's columns are their own dimension, as in the forward
+// (flash_attention.cu). The kernels compute at HD, the next width they are
+// instantiated at (64, 128, 256): hd 80 (HuBERT: 1280 / 16) runs the HD-128
+// kernels, TMA zero-filling columns 80-127 of every Q, K, V, O and dO tile
+// and clipping them from every dQ, dK and dV store. Zero columns add
+// nothing to a score or to dP, and give zero gradient columns, so no padded
+// copy exists in memory; the price is 128/80 = 1.6x the tensor-core work.
+// The scale is 1/sqrt(hd) of the true hd, and the delta pass reads rows of
+// the true width.
 //
 // What bounds it: at internlm2-1.8b's training shape (B 8, S 1024, H 16,
 // KV 8, hd 128, causal) the five products a visible (query, key) pair
@@ -27,8 +38,8 @@
 // FMAs on CUDA cores (flash_attention_bwd.cu, now f32 only). Here every
 // product is a wgmma m64n64k16 bf16 -> f32:
 //
-// - dK/dV kernel: a block of one warpgroup (128 threads) a (64-key tile,
-//   KV head, batch). The K and V tiles arrive once by TMA; the Q and dO
+// - dK/dV kernel: a block of one warpgroup (128 threads; two at hd 256) a
+//   (64-key tile, KV head, batch). The K and V tiles arrive once by TMA; the Q and dO
 //   tiles of each (query head of the group, query tile at or below the
 //   diagonal) stream through a two-stage TMA + mbarrier ring, the next
 //   tile's copy in flight while this one computes. S^T and dP^T come from
@@ -37,14 +48,21 @@
 //   layout: a row is a key, a column a query; the query's lse and delta go
 //   through shared memory a tile), rounded to bf16 A-fragments, and dV +=
 //   P^T dO, dK += dS^T Q take dO and Q MN-major from the same stage, as the
-//   forward's O += P V takes V. dK and dV stay f32 in registers (hd/2 each
-//   a thread). The block loops over the G heads of its group itself in a
-//   fixed order, so the GQA sum needs no atomics.
+//   forward's O += P V takes V. dK and dV stay f32 in registers, at most
+//   64 + 64 a thread: up to hd 128 one warpgroup holds all of both (hd/2
+//   each a thread); at hd 256 (PaliGemma) the block has two warpgroups,
+//   each forming the whole S^T and dP^T tile and keeping columns 128w ..
+//   128w + 127 of dK and dV (two extra products a pair, against a
+//   register file that cannot hold 256 accumulators a thread). The block
+//   loops over the G heads of its group itself in a fixed order, so the
+//   GQA sum needs no atomics. With MQA (KV 1) the grid is only
+//   (S / 64) x B blocks: 64 of 132 SMs at PaliGemma's training shape.
 // - dQ kernel: a block a (64-row query tile, head, batch), longest causal
 //   rows first; Q and dO arrive once, K and V stream through the ring
-//   (the forward's pattern); dQ += dS K with K MN-major.
-// - The delta pass: a thread a 16-byte vector of O and dO, hd/8 lanes a
-//   row, summed with shuffles.
+//   (the forward's pattern); dQ += dS K with K MN-major; dQ f32 in
+//   registers, hd/2 a thread (128 at hd 256, beside S and dP).
+// - The delta pass: a thread a 16-byte vector of O and dO, hd/8 vectors a
+//   row over 8, 16 or 32 lanes (hd 80: 10 of 16), summed with shuffles.
 //
 // Masks: the causal mask runs on the diagonal tile only, and tiles past it
 // are never loaded. Rows and keys past a ragged S are zero-filled by TMA,
@@ -127,20 +145,29 @@ __device__ __forceinline__ void store_tile(uint8_t* dst, const float (&acc)[NC][
     }
 }
 
-// delta[b,h,i] = sum_d dO * O in f32: hd/8 lanes a (b, i, h) row, a 16-byte
-// vector of each a lane.
-template <int HD>
+// Lanes a row of the delta pass: HDT/8 16-byte vectors, rounded up to a
+// power of two for the shuffle sum.
+template <int HDT>
+__host__ __device__ constexpr int delta_lanes() {
+  return HDT / 8 <= 8 ? 8 : HDT / 8 <= 16 ? 16 : 32;
+}
+
+// delta[b,h,i] = sum_d dO * O in f32 over the row's HDT (the tensors' hd)
+// columns: L lanes a (b, i, h) row, HDT/8 of them holding a 16-byte vector
+// of each and the rest (hd 80: 6 of 16) adding 0.
+template <int HDT>
 __global__ void __launch_bounds__(256) flash_bwd_delta_sm90_kernel(
     const __nv_bfloat16* __restrict__ o, const __nv_bfloat16* __restrict__ g,
     float* __restrict__ delta, long rows, int Sq, int H) {
-  constexpr int L = HD / 8;
+  constexpr int V = HDT / 8;
+  constexpr int L = delta_lanes<HDT>();
   const long t = long(blockIdx.x) * blockDim.x + threadIdx.x;
   const long row = t / L;
   const int c = int(t % L);
   float s = 0.f;
-  if (row < rows) {
-    const uint4 a = *reinterpret_cast<const uint4*>(o + row * HD + c * 8);
-    const uint4 b = *reinterpret_cast<const uint4*>(g + row * HD + c * 8);
+  if (row < rows && c < V) {
+    const uint4 a = *reinterpret_cast<const uint4*>(o + row * HDT + c * 8);
+    const uint4 b = *reinterpret_cast<const uint4*>(g + row * HDT + c * 8);
     const __nv_bfloat162* ah = reinterpret_cast<const __nv_bfloat162*>(&a);
     const __nv_bfloat162* bh = reinterpret_cast<const __nv_bfloat162*>(&b);
 #pragma unroll
@@ -159,14 +186,20 @@ __global__ void __launch_bounds__(256) flash_bwd_delta_sm90_kernel(
   }
 }
 
+// Warpgroups a block of the dK/dV kernel: each holds HD / groups columns
+// of dK and of dV, at most 128 (64 + 64 accumulators a thread).
 template <int HD>
-__global__ void __launch_bounds__(128, 1) flash_bwd_dkdv_sm90_kernel(
+constexpr int dkdv_groups() { return HD > 128 ? 2 : 1; }
+
+template <int HD, int NW>
+__global__ void __launch_bounds__(128 * NW, 1) flash_bwd_dkdv_sm90_kernel(
     const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tdo,
     const __grid_constant__ CUtensorMap tk, const __grid_constant__ CUtensorMap tv,
     const __grid_constant__ CUtensorMap tdk, const __grid_constant__ CUtensorMap tdv,
     BwdArgs a) {
   using namespace sm90;
   constexpr int NC = HD / 64;
+  constexpr int NO = NC / NW;                 // sub-tiles a warpgroup owns
   constexpr uint32_t TB = tile_bytes<HD>();
   extern __shared__ uint8_t smem_raw[];
   __shared__ uint64_t bars[3];                // K/V, ring stage 0, stage 1
@@ -178,7 +211,8 @@ __global__ void __launch_bounds__(128, 1) flash_bwd_dkdv_sm90_kernel(
 
   const int kt = blockIdx.x, kvh = blockIdx.y, b = blockIdx.z;
   const int G = a.H / a.KV;
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int tid = threadIdx.x, lane = tid & 31, warp = (tid >> 5) & 3;
+  const uint32_t own = (tid >> 7) * NO * kSub;  // this warpgroup's columns
   const int k0 = kt * kTile;
   // Causal: query tiles below the key tile see none of its keys.
   const int qt0 = a.causal ? kt : 0;
@@ -188,12 +222,12 @@ __global__ void __launch_bounds__(128, 1) flash_bwd_dkdv_sm90_kernel(
   // Tile t of the stream: head kvh*G + t / nq, query rows from q_row(t).
   auto head = [&](int t) { return kvh * G + t / nq; };
   auto q_row = [&](int t) { return (qt0 + t % nq) * kTile; };
-  auto load_stats = [&](int t, int stage) {   // every thread: one value
+  auto load_stats = [&](int t, int stage) {   // the first 128 threads
     const int r = tid & (kTile - 1), row = q_row(t) + r;
     const long li = (long(b) * a.H + head(t)) * a.Sq + row;
     if (tid < kTile)
       stats[stage][0][r] = row < a.Sq ? a.lse[li] * kLog2e : __int_as_float(0x7f800000);
-    else
+    else if (tid < 2 * kTile)
       stats[stage][1][r] = row < a.Sq ? a.delta[li] : 0.f;
   };
 
@@ -203,15 +237,15 @@ __global__ void __launch_bounds__(128, 1) flash_bwd_dkdv_sm90_kernel(
   }
   __syncthreads();
   if (tid == 0) {
-    load_tile_pair<NC>(kS, vS, &tk, &tv, &bars[0], kvh * HD, k0, b);
+    load_tile_pair_4d<NC>(kS, vS, &tk, &tv, &bars[0], kvh, k0, b);
     if (ntiles > 0)
-      load_tile_pair<NC>(qS, gS, &tq, &tdo, &bars[1], head(0) * HD, q_row(0), b);
+      load_tile_pair_4d<NC>(qS, gS, &tq, &tdo, &bars[1], head(0), q_row(0), b);
   }
   if (ntiles > 0) load_stats(0, 0);
 
-  float dk[NC][32], dv[NC][32];
+  float dk[NO][32], dv[NO][32];
 #pragma unroll
-  for (int c = 0; c < NC; ++c)
+  for (int c = 0; c < NO; ++c)
 #pragma unroll
     for (int i = 0; i < 32; ++i) dk[c][i] = dv[c][i] = 0.f;
   const int r0 = warp * 16 + (lane >> 2), cq = 2 * (lane & 3);
@@ -225,15 +259,16 @@ __global__ void __launch_bounds__(128, 1) flash_bwd_dkdv_sm90_kernel(
     __syncthreads();
     if (t + 1 < ntiles) {
       if (tid == 0)
-        load_tile_pair<NC>(qS + (st ^ 1) * TB, gS + (st ^ 1) * TB, &tq, &tdo,
-                           &bars[1 + (st ^ 1)], head(t + 1) * HD, q_row(t + 1),
-                           b);
+        load_tile_pair_4d<NC>(qS + (st ^ 1) * TB, gS + (st ^ 1) * TB, &tq,
+                              &tdo, &bars[1 + (st ^ 1)], head(t + 1),
+                              q_row(t + 1), b);
       load_stats(t + 1, st ^ 1);
     }
     mbar_wait(&bars[1 + st], (t >> 1) & 1);
     const uint32_t qs = smem_u32(qS + st * TB), gs = smem_u32(gS + st * TB);
 
-    // S^T = K Q^T and dP^T = V dO^T: rows keys, columns queries.
+    // S^T = K Q^T and dP^T = V dO^T: rows keys, columns queries (the whole
+    // tile in each warpgroup).
     float s[32], dp[32];
 #pragma unroll
     for (int i = 0; i < 32; ++i) s[i] = dp[i] = 0.f;
@@ -269,8 +304,8 @@ __global__ void __launch_bounds__(128, 1) flash_bwd_dkdv_sm90_kernel(
       }
     }
 
-    // dV += P^T dO, dK += dS^T Q: the A-fragments in bf16, dO and Q
-    // MN-major from the stage.
+    // dV += P^T dO, dK += dS^T Q over this warpgroup's columns: the
+    // A-fragments in bf16, dO and Q MN-major from the stage.
     uint32_t pa[4][4], da[4][4];
 #pragma unroll
     for (int kk = 0; kk < 4; ++kk) {
@@ -278,29 +313,30 @@ __global__ void __launch_bounds__(128, 1) flash_bwd_dkdv_sm90_kernel(
       p_fragment(dp, kk, da[kk]);
     }
     wgmma_fence();
-    product_rs<NC>(dv, pa, gs);
-    product_rs<NC>(dk, da, qs);
+    product_rs<NO>(dv, pa, gs + own);
+    product_rs<NO>(dk, da, qs + own);
     wgmma_commit();
     wgmma_wait0();
 #pragma unroll
-    for (int c = 0; c < NC; ++c) {
+    for (int c = 0; c < NO; ++c) {
       fence_regs(dv[c]);
       fence_regs(dk[c]);
     }
   }
 
-  // Epilogue: dK / sqrt(hd) and dV in bf16 into the K and V tiles, one TMA
-  // store a sub-tile (rows past Skv clipped by the map).
+  // Epilogue: dK / sqrt(hd) and dV in bf16 into the K and V tiles (each
+  // warpgroup its columns), one TMA store a sub-tile (rows past Skv and
+  // columns past hd clipped by the map).
   __syncthreads();                            // every wgmma read of K, V done
-  store_tile<NC>(kS, dk, a.scale, r0, cq);
-  store_tile<NC>(vS, dv, 1.f, r0, cq);
+  store_tile<NO>(kS + own, dk, a.scale, r0, cq);
+  store_tile<NO>(vS + own, dv, 1.f, r0, cq);
   fence_proxy_async();
   __syncthreads();
   if (tid == 0) {
 #pragma unroll
     for (int c = 0; c < NC; ++c) {
-      tma_store_3d(&tdk, kS + c * kSub, kvh * HD + c * 64, k0, b);
-      tma_store_3d(&tdv, vS + c * kSub, kvh * HD + c * 64, k0, b);
+      tma_store_4d(&tdk, kS + c * kSub, c * 64, kvh, k0, b);
+      tma_store_4d(&tdv, vS + c * kSub, c * 64, kvh, k0, b);
     }
     tma_store_wait();
   }
@@ -335,8 +371,8 @@ __global__ void __launch_bounds__(128, 1) flash_bwd_dq_sm90_kernel(
   }
   __syncthreads();
   if (tid == 0) {
-    load_tile_pair<NC>(qS, gS, &tq, &tdo, &bars[0], h * HD, q0, b);
-    if (ntiles > 0) load_tile_pair<NC>(kS, vS, &tk, &tv, &bars[1], kvh * HD, 0, b);
+    load_tile_pair_4d<NC>(qS, gS, &tq, &tdo, &bars[0], h, q0, b);
+    if (ntiles > 0) load_tile_pair_4d<NC>(kS, vS, &tk, &tv, &bars[1], kvh, 0, b);
   }
 
   // This thread's two rows' stats; a row past Sq gets P = 0.
@@ -362,8 +398,9 @@ __global__ void __launch_bounds__(128, 1) flash_bwd_dq_sm90_kernel(
     if (t + 1 < ntiles) {
       __syncthreads();                        // tile t-1 (same stage) used
       if (tid == 0)
-        load_tile_pair<NC>(kS + (st ^ 1) * TB, vS + (st ^ 1) * TB, &tk, &tv,
-                           &bars[1 + (st ^ 1)], kvh * HD, (t + 1) * kTile, b);
+        load_tile_pair_4d<NC>(kS + (st ^ 1) * TB, vS + (st ^ 1) * TB, &tk,
+                              &tv, &bars[1 + (st ^ 1)], kvh, (t + 1) * kTile,
+                              b);
     }
     mbar_wait(&bars[1 + st], (t >> 1) & 1);
     const uint32_t ks = smem_u32(kS + st * TB), vs = smem_u32(vS + st * TB);
@@ -411,7 +448,7 @@ __global__ void __launch_bounds__(128, 1) flash_bwd_dq_sm90_kernel(
   __syncthreads();
   if (tid == 0) {
 #pragma unroll
-    for (int c = 0; c < NC; ++c) tma_store_3d(&tdq, qS + c * kSub, h * HD + c * 64, q0, b);
+    for (int c = 0; c < NC; ++c) tma_store_4d(&tdq, qS + c * kSub, c * 64, h, q0, b);
     tma_store_wait();
   }
 }
@@ -422,43 +459,49 @@ int set_smem(K kern, size_t bytes) {
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, int(bytes)));
 }
 
-template <int HD>
+// HD is the compute width, HDT (<= HD) the tensors' own hd.
+template <int HD, int HDT>
 int launch_hd(const void* q, const void* k, const void* v, const void* o,
               const void* dout, const float* lse, float* delta, void* dq,
               void* dk, void* dv, int B, int Sq, int Skv, int H, int KV,
               int causal, cudaStream_t stream) {
-  // (B, S, heads*hd) bf16 as 3-D maps, innermost first; 64 x 64 boxes.
+  // (B, S, heads, hd) bf16 as 4-D maps, innermost first; boxes of 64
+  // columns x 1 head x 64 rows, zero-filled past hd and past S.
   CUtensorMap tq, tdo, tdq, tk, tv, tdk, tdv;
-  const cuuint64_t qdim[3] = {cuuint64_t(H) * HD, cuuint64_t(Sq), cuuint64_t(B)};
-  const cuuint64_t qstr[2] = {cuuint64_t(H) * HD * 2, cuuint64_t(Sq) * H * HD * 2};
-  const cuuint64_t kdim[3] = {cuuint64_t(KV) * HD, cuuint64_t(Skv), cuuint64_t(B)};
-  const cuuint64_t kstr[2] = {cuuint64_t(KV) * HD * 2, cuuint64_t(Skv) * KV * HD * 2};
-  const cuuint32_t box[3] = {64, 64, 1};
+  const cuuint64_t row = cuuint64_t(HDT) * 2;
+  const cuuint64_t qdim[4] = {cuuint64_t(HDT), cuuint64_t(H), cuuint64_t(Sq),
+                              cuuint64_t(B)};
+  const cuuint64_t qstr[3] = {row, row * H, row * H * Sq};
+  const cuuint64_t kdim[4] = {cuuint64_t(HDT), cuuint64_t(KV), cuuint64_t(Skv),
+                              cuuint64_t(B)};
+  const cuuint64_t kstr[3] = {row, row * KV, row * KV * Skv};
+  const cuuint32_t box[4] = {64, 1, 64, 1};
   const auto bf = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
   const auto sw = CU_TENSOR_MAP_SWIZZLE_128B;
-  if (!sm90::encode_map(&tq, bf, 3, q, qdim, qstr, box, sw) ||
-      !sm90::encode_map(&tdo, bf, 3, dout, qdim, qstr, box, sw) ||
-      !sm90::encode_map(&tdq, bf, 3, dq, qdim, qstr, box, sw) ||
-      !sm90::encode_map(&tk, bf, 3, k, kdim, kstr, box, sw) ||
-      !sm90::encode_map(&tv, bf, 3, v, kdim, kstr, box, sw) ||
-      !sm90::encode_map(&tdk, bf, 3, dk, kdim, kstr, box, sw) ||
-      !sm90::encode_map(&tdv, bf, 3, dv, kdim, kstr, box, sw))
+  if (!sm90::encode_map(&tq, bf, 4, q, qdim, qstr, box, sw) ||
+      !sm90::encode_map(&tdo, bf, 4, dout, qdim, qstr, box, sw) ||
+      !sm90::encode_map(&tdq, bf, 4, dq, qdim, qstr, box, sw) ||
+      !sm90::encode_map(&tk, bf, 4, k, kdim, kstr, box, sw) ||
+      !sm90::encode_map(&tv, bf, 4, v, kdim, kstr, box, sw) ||
+      !sm90::encode_map(&tdk, bf, 4, dk, kdim, kstr, box, sw) ||
+      !sm90::encode_map(&tdv, bf, 4, dv, kdim, kstr, box, sw))
     return int(cudaErrorInvalidValue);
 
   const long rows = long(B) * Sq * H;
-  const long threads = rows * (HD / 8);
-  flash_bwd_delta_sm90_kernel<HD><<<unsigned((threads + 255) / 256), 256, 0, stream>>>(
+  const long threads = rows * delta_lanes<HDT>();
+  flash_bwd_delta_sm90_kernel<HDT><<<unsigned((threads + 255) / 256), 256, 0, stream>>>(
       static_cast<const __nv_bfloat16*>(o), static_cast<const __nv_bfloat16*>(dout),
       delta, rows, Sq, H);
   int e = int(cudaGetLastError());
   if (e) return e;
 
-  const float scale = 1.0f / sqrtf(float(HD));
+  const float scale = 1.0f / sqrtf(float(HDT));
   BwdArgs a{lse, delta, Sq, Skv, H, KV, causal, scale, scale * sm90::kLog2e};
   constexpr size_t smem = smem_bytes<HD>();
-  auto dkdv = flash_bwd_dkdv_sm90_kernel<HD>;
+  constexpr int NW = dkdv_groups<HD>();
+  auto dkdv = flash_bwd_dkdv_sm90_kernel<HD, NW>;
   if ((e = set_smem(dkdv, smem))) return e;
-  dkdv<<<dim3((Skv + kTile - 1) / kTile, KV, B), 128, smem, stream>>>(
+  dkdv<<<dim3((Skv + kTile - 1) / kTile, KV, B), 128 * NW, smem, stream>>>(
       tq, tdo, tk, tv, tdk, tdv, a);
   if ((e = int(cudaGetLastError()))) return e;
   auto dqk = flash_bwd_dq_sm90_kernel<HD>;
@@ -474,7 +517,8 @@ extern "C" {
 
 // q (B,Sq,H,hd), k/v (B,Skv,KV,hd), o and dout like q, contiguous bf16,
 // 16-byte aligned; lse (B,H,Sq) f32 from the forward; delta (B,H,Sq) f32
-// scratch; dq like q and dk/dv like k, written whole. hd 64 or 128.
+// scratch; dq like q and dk/dv like k, written whole. hd 64, 80, 128 or 256
+// (hd 80 computed at 128 over zero-filled columns).
 int flash_attention_bwd_sm90(const void* q, const void* k, const void* v,
                              const void* o, const void* dout, const float* lse,
                              float* delta, void* dq, void* dk, void* dv, int B,
@@ -487,11 +531,17 @@ int flash_attention_bwd_sm90(const void* q, const void* k, const void* v,
   const int c = causal ? 1 : 0;
   switch (hd) {
     case 64:
-      return launch_hd<64>(q, k, v, o, dout, lse, delta, dq, dk, dv, B, Sq, Skv,
-                           H, KV, c, s);
+      return launch_hd<64, 64>(q, k, v, o, dout, lse, delta, dq, dk, dv, B, Sq,
+                               Skv, H, KV, c, s);
+    case 80:
+      return launch_hd<128, 80>(q, k, v, o, dout, lse, delta, dq, dk, dv, B, Sq,
+                                Skv, H, KV, c, s);
     case 128:
-      return launch_hd<128>(q, k, v, o, dout, lse, delta, dq, dk, dv, B, Sq, Skv,
-                            H, KV, c, s);
+      return launch_hd<128, 128>(q, k, v, o, dout, lse, delta, dq, dk, dv, B,
+                                 Sq, Skv, H, KV, c, s);
+    case 256:
+      return launch_hd<256, 256>(q, k, v, o, dout, lse, delta, dq, dk, dv, B,
+                                 Sq, Skv, H, KV, c, s);
   }
   return int(cudaErrorInvalidValue);
 }

@@ -155,16 +155,19 @@ def attention_route(q_dtype, kv_dtype, hd: int) -> str:
     return "cuda_core"
 
 
-# Head dims of the tensor-core (wgmma + TMA) flash-attention backward.
-SM90_BWD_HEAD_DIMS = (64, 128)
+# Head dims of the tensor-core (wgmma + TMA) flash-attention backward: its
+# instantiations' and hd 80, which runs the hd-128 kernels over columns
+# zero-filled by TMA (the forward's way, ``flash_attention/kernel.py``).
+SM90_BWD_HEAD_DIMS = (64, 80, 128, 256)
 
 
 def attention_bwd_route(dtype, hd: int) -> str:
     """The kernels a flash-attention backward takes, by dtype: ``"sm90"``
-    (``flash_attention_bwd_sm90.cu``'s wgmma + TMA dK/dV and dQ kernels)
-    for bf16, ``"cuda_core"`` (``flash_attention_bwd.cu``) for f32, since
-    wgmma has no full-f32 mode. Raises for a bf16 call whose hd the
-    tensor-core kernels do not take; it is never rerouted."""
+    (``flash_attention_bwd_sm90.cu``'s wgmma + TMA dK/dV and dQ kernels,
+    called with the true hd) for bf16, ``"cuda_core"``
+    (``flash_attention_bwd.cu``) for f32, since wgmma has no full-f32 mode.
+    Raises for a bf16 call whose hd the tensor-core kernels do not take; it
+    is never rerouted."""
     if dtype == torch.bfloat16:
         if hd not in SM90_BWD_HEAD_DIMS:
             raise ValueError(f"bf16 flash-attention backward runs on the "

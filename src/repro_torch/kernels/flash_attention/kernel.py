@@ -22,11 +22,13 @@ Both mask the ragged edges themselves: no ``S % block`` contract. With
 chosen by dtype (``_cuda.attention_bwd_route``):
 
 - bf16 -> ``flash_attention_bwd_sm90`` (``csrc/flash_attention_bwd_sm90.cu``):
-  a dK/dV kernel (a warpgroup a 64-key tile, Q and dO streamed by TMA) and a
-  dQ kernel (a warpgroup a 64-row query tile, K and V streamed), every
-  product a wgmma; hd 64 or 128, any other hd raises.
+  a dK/dV kernel (a warpgroup a 64-key tile, two at hd 256, Q and dO
+  streamed by TMA) and a dQ kernel (a warpgroup a 64-row query tile, K and
+  V streamed), every product a wgmma; hd in (64, 80, 128, 256), any other
+  hd raises. hd 80 runs the hd-128 kernels over 4-D tensor maps that
+  zero-fill columns 80-127, as the forward does, at the scale 80^-0.5.
 - f32 -> ``flash_attention_f32_bwd`` (``csrc/flash_attention_bwd.cu``): the
-  CUDA-core kernels; hd % 32 == 0, 32 <= hd <= 256.
+  CUDA-core kernels; hd % 32 == 0, 32 <= hd <= 256, or hd 80.
 """
 from __future__ import annotations
 
@@ -52,9 +54,10 @@ def _check(name, q, k, v):
 
 
 def _check_cuda_core_hd(name, hd):
-    if hd % 32 or not 32 <= hd <= 256:
+    if hd != 80 and (hd % 32 or not 32 <= hd <= 256):
         raise ValueError(f"{name}: the CUDA-core kernel's contract is "
-                         f"hd % 32 == 0, 32 <= hd <= 256; got hd={hd}")
+                         f"hd % 32 == 0, 32 <= hd <= 256, or hd 80; got "
+                         f"hd={hd}")
 
 
 # The forward's head dims on the tensor-core route: the wgmma kernels' and
@@ -67,15 +70,11 @@ def _fwd_route(dtype, hd: int) -> str:
     (which routes hd 80 as the hd-128 kernel it runs): bf16 hd in
     ``SM90_FWD_HEAD_DIMS``, f32 hd % 32 == 0 up to 256 or hd 80. Raises
     outside it; a call is never rerouted."""
-    if dtype == torch.bfloat16:
-        ok, contract = hd in SM90_FWD_HEAD_DIMS, f"hd in {SM90_FWD_HEAD_DIMS}"
-    else:
-        ok = hd == 80 or (hd % 32 == 0 and 32 <= hd <= 256)
-        contract = "hd % 32 == 0, 32 <= hd <= 256, or hd 80"
-    if not ok:
-        kind = "wgmma" if dtype == torch.bfloat16 else "CUDA-core"
-        raise ValueError(f"flash_attention_fwd: the {kind} kernel's contract "
-                         f"is {contract}; got hd={hd}")
+    if dtype != torch.bfloat16:
+        _check_cuda_core_hd("flash_attention_fwd", hd)
+    elif hd not in SM90_FWD_HEAD_DIMS:
+        raise ValueError(f"flash_attention_fwd: the wgmma kernel's contract "
+                         f"is hd in {SM90_FWD_HEAD_DIMS}; got hd={hd}")
     return _cuda.attention_route(dtype, dtype, 128 if hd == 80 else hd)
 
 

@@ -2,13 +2,15 @@
 where their CUDA code cannot run:
 
 (a) ``attention_bwd_route``, which picks the flash-attention backward's
-    kernels by dtype: bf16 at hd 64 or 128 -> "sm90" (the wgmma + TMA
-    dK/dV and dQ kernels), f32 -> "cuda_core", a bf16 hd the tensor-core
-    kernels do not take -> raises (never rerouted);
+    kernels by dtype: bf16 at hd 64, 80, 128 or 256 -> "sm90" (the wgmma +
+    TMA dK/dV and dQ kernels; hd 80 runs the hd-128 ones), f32 ->
+    "cuda_core" (hd 80 too), a bf16 hd the tensor-core kernels do not take
+    -> raises (never rerouted);
 (b) the wrappers against a stand-in library: ``flash_attention_bwd`` calls
     the entry of its route (bf16 -> ``flash_attention_bwd_sm90``, f32 ->
-    ``flash_attention_f32_bwd``) and counts the launch on it, and an
-    off-contract bf16 call raises before any launch; ``rmsnorm_bwd`` calls
+    ``flash_attention_f32_bwd``) with the true hd (80 too: the kernel
+    zero-fills, not the wrapper) and counts the launch on it, and an
+    off-contract call raises before any launch; ``rmsnorm_bwd`` calls
     the register kernel or the shared-memory one by D, as the forward does,
     and counts the launch on that path;
 (c) a plain-torch emulation of the tensor-core backward's arithmetic --
@@ -19,7 +21,11 @@ where their CUDA code cannot run:
     the group's heads in the kernel's order, dK and dQ scaled by
     1/sqrt(hd) at the end -- held against ``jax.vjp`` of the reference's
     ``chunked_attention`` in bf16, G 2, a ragged S of 96, causal and full,
-    with rows whose scores reach +-30. Tolerance 2e-2 of each gradient's
+    with rows whose scores reach +-30; and at the frontends' widths: hd 80
+    with its columns zero-filled to the hd-128 kernels' 128 and the scale
+    80^-0.5, not causal (HuBERT), and hd 256 at G 8, causal (PaliGemma's
+    MQA; the two warpgroups of its dK/dV block each form the whole S^T and
+    dP^T, so the arithmetic is the one-warpgroup kernel's). Tolerance 2e-2 of each gradient's
     max |value| (chip_smoke's TOL_BF16): P and dS are rounded to bf16 (2^-9
     relative) before products of 64-96 terms, and the reference rounds its
     own intermediates to bf16 in other places.
@@ -52,14 +58,20 @@ TILE = 64
     (torch.float32, 128, "cuda_core"),
     (torch.float32, 64, "cuda_core"),
     (torch.float32, 192, "cuda_core"),
+    (torch.bfloat16, 80, "sm90"),
+    (torch.bfloat16, 256, "sm90"),
+    (torch.float32, 80, "cuda_core"),
 ])
 def test_attention_bwd_route(dtype, hd, route):
     assert attention_bwd_route(dtype, hd) == route
 
 
-@pytest.mark.parametrize("hd", [96, 192, 256])
+CONTRACT = r"hd in \(64, 80, 128, 256\)"
+
+
+@pytest.mark.parametrize("hd", [96, 192])
 def test_attention_bwd_route_raises_on_bf16_hd_outside_contract(hd):
-    with pytest.raises(ValueError, match=r"hd in \(64, 128\)"):
+    with pytest.raises(ValueError, match=CONTRACT):
         attention_bwd_route(torch.bfloat16, hd)
 
 
@@ -114,6 +126,12 @@ def _flash_bwd_call(dtype, *, b=2, s=96, h=4, nkv=2, hd=64, causal=True):
      "flash_attention_f32_bwd"),
     (torch.float32, 96, False, "flash_attention_bwd.cu",
      "flash_attention_f32_bwd"),
+    (torch.bfloat16, 80, False, "flash_attention_bwd_sm90.cu",
+     "flash_attention_bwd_sm90"),
+    (torch.bfloat16, 256, True, "flash_attention_bwd_sm90.cu",
+     "flash_attention_bwd_sm90"),
+    (torch.float32, 80, False, "flash_attention_bwd.cu",
+     "flash_attention_f32_bwd"),
 ])
 def test_flash_bwd_wrapper_launches_its_route(stand_in, dtype, hd, causal,
                                               source, entry):
@@ -133,8 +151,8 @@ def test_flash_bwd_wrapper_launches_its_route(stand_in, dtype, hd, causal,
 
 
 @pytest.mark.parametrize("dtype,hd,match", [
-    (torch.bfloat16, 192, r"hd in \(64, 128\)"),
-    (torch.bfloat16, 256, r"hd in \(64, 128\)"),
+    (torch.bfloat16, 192, CONTRACT),
+    (torch.bfloat16, 96, CONTRACT),
     (torch.float32, 48, "hd % 32 == 0"),
 ])
 def test_off_contract_flash_bwd_raises_before_launch(stand_in, dtype, hd,
@@ -176,11 +194,12 @@ def _bf16(x):
     return x.to(torch.bfloat16).float()
 
 
-def _tiles(x, n):
-    """(B, S, heads, hd) -> (B, n*TILE, heads, hd), zero-filled past S (as
-    TMA fills a tile's rows past the tensor)."""
-    pad = torch.zeros(x.shape[0], n * TILE - x.shape[1], *x.shape[2:])
-    return torch.cat([x, pad], dim=1)
+def _tiles(x, n, width):
+    """(B, S, heads, hd) -> (B, n*TILE, heads, width), zero-filled past S
+    and past hd (as TMA fills a tile's rows and columns past the tensor)."""
+    out = torch.zeros(x.shape[0], n * TILE, x.shape[2], width)
+    out[:, :x.shape[1], :, :x.shape[3]] = x
+    return out
 
 
 def _visible(q0, k0, s, causal, keys_by_row):
@@ -196,29 +215,33 @@ def emulate_flash_bwd(q, k, v, o, do, lse, causal):
     """The dK/dV and dQ kernels' arithmetic on bf16 values held in f32.
 
     q, o, do (B,S,H,hd); k, v (B,S,KV,hd); lse (B,H,S) f32, the natural
-    log-sum-exp of the scaled scores. Returns (dq, dk, dv) f32 before the
-    kernels' final bf16 cast."""
+    log-sum-exp of the scaled scores. The kernels compute at width 128 for
+    hd 80 (its columns past 80 zero) and at hd otherwise, scaled by the true
+    hd. Returns (dq, dk, dv) f32 before the kernels' final bf16 cast."""
     b, s, h, hd = q.shape
     nkv = k.shape[2]
     g = h // nkv
     n = -(-s // TILE)
+    width = 128 if hd == 80 else hd
     scale = 1.0 / math.sqrt(hd)
     scale_log2 = math.log2(math.e) * scale
-    qt_, kt_, vt_, ot_, dot_ = (_tiles(x, n) for x in (q, k, v, o, do))
+    qt_, kt_, vt_, ot_, dot_ = (_tiles(x, n, width)
+                                for x in (q, k, v, o, do))
     # the delta pass, and the row statistics a row past S gets
     delta = torch.zeros(b, h, n * TILE)
     delta[..., :s] = (do * o).sum(-1).transpose(1, 2)
     lse2 = torch.full((b, h, n * TILE), math.inf)
     lse2[..., :s] = lse * math.log2(math.e)
-    dq = torch.zeros(b, n * TILE, h, hd)
-    dk = torch.zeros(b, n * TILE, nkv, hd)
+    dq = torch.zeros(b, n * TILE, h, width)
+    dk = torch.zeros(b, n * TILE, nkv, width)
     dv = torch.zeros_like(dk)
     for bi in range(b):
         for kvh in range(nkv):
             for kt in range(n):                      # a dK/dV block
                 keys = slice(kt * TILE, (kt + 1) * TILE)
                 kk, vv = kt_[bi, keys, kvh], vt_[bi, keys, kvh]
-                acc_k, acc_v = torch.zeros(TILE, hd), torch.zeros(TILE, hd)
+                acc_k = torch.zeros(TILE, width)
+                acc_v = torch.zeros(TILE, width)
                 for hh in range(kvh * g, (kvh + 1) * g):
                     for qt in range(kt if causal else 0, n):
                         rows = slice(qt * TILE, (qt + 1) * TILE)
@@ -238,7 +261,7 @@ def emulate_flash_bwd(q, k, v, o, do, lse, causal):
             for qt in range(n):                      # a dQ block
                 rows = slice(qt * TILE, (qt + 1) * TILE)
                 qq, gg = qt_[bi, rows, hh], dot_[bi, rows, hh]
-                acc = torch.zeros(TILE, hd)
+                acc = torch.zeros(TILE, width)
                 for kt in range(qt + 1 if causal else n):
                     keys = slice(kt * TILE, (kt + 1) * TILE)
                     kk, vv = kt_[bi, keys, kvh], vt_[bi, keys, kvh]
@@ -249,7 +272,7 @@ def emulate_flash_bwd(q, k, v, o, do, lse, causal):
                     ds = p * (gg @ vv.T - delta[bi, hh, rows][:, None])
                     acc += _bf16(ds) @ kk
                 dq[bi, rows, hh] = acc * scale
-    return dq[:, :s], dk[:, :s], dv[:, :s]
+    return dq[:, :s, :, :hd], dk[:, :s, :, :hd], dv[:, :s, :, :hd]
 
 
 def _forward(q, k, v, causal):
@@ -264,12 +287,10 @@ def _forward(q, k, v, causal):
     return _bf16(o), torch.logsumexp(sc, -1), sc
 
 
-@pytest.mark.parametrize("causal", [True, False])
-def test_flash_bwd_emulation_matches_jax_vjp(causal):
+def _emulation_against_jax_vjp(b, s, h, nkv, hd, causal, boost=10.0):
     rng = np.random.RandomState(20)
-    b, s, h, nkv, hd = 2, 96, 4, 2, 64       # G 2, a ragged second tile
     q = rng.randn(b, s, h, hd).astype(np.float32)
-    q[:, :8] *= 10.0                          # rows whose scores reach +-30
+    q[:, :8] *= boost                         # rows whose scores reach +-30
     k = rng.randn(b, s, nkv, hd).astype(np.float32)
     v = rng.randn(b, s, nkv, hd).astype(np.float32)
     do = rng.randn(b, s, h, hd).astype(np.float32)
@@ -287,5 +308,20 @@ def test_flash_bwd_emulation_matches_jax_vjp(causal):
             for x in vjp(jnp.asarray(do, jnp.bfloat16))]
     got = emulate_flash_bwd(qb, kb, vb, o, dob, lse, causal)
     for name, gx, wx in zip(("dq", "dk", "dv"), got, want):
+        assert gx.shape == wx.shape, (name, gx.shape, wx.shape)
         err = np.abs(_bf16(gx).numpy() - wx).max() / np.abs(wx).max()
         assert err <= TOL_BF16, (name, err)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_bwd_emulation_matches_jax_vjp(causal):
+    # G 2, a ragged second tile
+    _emulation_against_jax_vjp(2, 96, 4, 2, 64, causal)
+
+
+@pytest.mark.parametrize("b,h,nkv,hd,causal", [
+    (2, 4, 4, 80, False),                     # HuBERT: H = KV, bidirectional
+    (1, 8, 1, 256, True),                     # PaliGemma: MQA, G 8
+], ids=["hd80 full", "hd256 G8 causal"])
+def test_flash_bwd_emulation_at_frontend_widths(b, h, nkv, hd, causal):
+    _emulation_against_jax_vjp(b, 96, h, nkv, hd, causal, boost=12.0)

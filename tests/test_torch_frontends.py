@@ -21,7 +21,12 @@ with numpy from a seed; the kernels' plain versions run on the CPU.
   routes at hd 80 against a stand-in library (bf16 and f32 entries with
   the true hd; a width outside the contract raises before any call);
 - the serve launcher refuses the encoder-only arch as the reference's
-  does."""
+  does;
+- a reduced hubert-xlarge ``ElasticTrainer`` run on frames labelled with
+  the nearest of ``vocab_size`` fixed random centroids (the card's
+  training batches, HuBERT's kind of target), revoked after step 3 and
+  resumed from the step-2 checkpoint: its final state bit for bit the
+  uninterrupted run's, the loss falling."""
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -36,10 +41,14 @@ from repro.models import layers as jax_layers  # noqa: E402
 from repro.models.params import init_params as jax_init  # noqa: E402
 from repro.serve import ServeEngine as JaxServeEngine  # noqa: E402
 from repro.train import train_step as jts  # noqa: E402
+from repro_torch.checkpoint import Checkpointer  # noqa: E402
+from repro_torch.checkpoint.checkpointer import _flatten  # noqa: E402
 from repro_torch.configs import get_reduced_config  # noqa: E402
+from repro_torch.core import ObjectStore, VirtualClock  # noqa: E402
 from repro_torch.kernels import flash_attention  # noqa: E402
 from repro_torch.models import get_family, params_from_reference  # noqa: E402
 from repro_torch.serve import ServeEngine  # noqa: E402
+from repro_torch.train import AdamWConfig, ElasticTrainer  # noqa: E402
 from repro_torch.train import train_step as tts  # noqa: E402
 
 TOL = dict(atol=1e-4, rtol=1e-4)
@@ -309,3 +318,53 @@ def test_serve_launcher_refuses_encoder_only():
     with pytest.raises(SystemExit, match="hubert-xlarge is encoder-only "
                                          r"\(no decode step\)"):
         main(["--arch", "hubert-xlarge", "--device", "cpu"])
+
+
+class _FrameBatches:
+    """hubert's training batches, a pure function of the step (a restart
+    replays them): standard normal frames from (seed, step), each labelled
+    with the nearest of ``vocab_size`` fixed random centroids, and a
+    Bernoulli(0.3) loss mask."""
+
+    def __init__(self, cfg, batch, seq, seed=0):
+        self.shape, self.seed = (batch, seq, cfg.frontend_dim), seed
+        self.centroids = np.random.default_rng(seed).standard_normal(
+            (cfg.vocab_size, cfg.frontend_dim), dtype=np.float32)
+
+    def batch_at(self, step):
+        rng = np.random.default_rng((self.seed, step))
+        frames = rng.standard_normal(self.shape, dtype=np.float32)
+        c = self.centroids
+        labels = ((c * c).sum(-1) - 2.0 * (frames @ c.T)).argmin(-1)
+        return {"frames": frames, "labels": labels.astype(np.int32),
+                "loss_mask": (rng.random(self.shape[:2]) < 0.3).astype(
+                    np.float32)}
+
+
+def test_hubert_trainer_revocation_restart_bitwise_equal():
+    cfg = get_reduced_config("hubert-xlarge")
+    assert cfg.remat == "full"
+    store = ObjectStore(clock=VirtualClock())
+    loader = _FrameBatches(cfg, 4, 24)
+    opt = AdamWConfig(learning_rate=1e-3, warmup_steps=2, decay_steps=50,
+                      state_dtype="int8")
+    ref = ElasticTrainer(cfg, opt, Checkpointer(store, "h-ref"), seed=0,
+                         device="cpu")
+    ref_rep = ref.train(loader, 4, checkpoint_every=2)
+    rev = ElasticTrainer(cfg, opt, Checkpointer(store, "h-rev"), seed=0,
+                         device="cpu")
+    fired = []
+
+    def revoke(step):
+        if step == 3 and not fired:
+            fired.append(step)
+            return True
+        return False
+
+    rev_rep = rev.train(loader, 4, checkpoint_every=2, revoke_at=revoke)
+    assert rev_rep.restarts == 1 and rev_rep.steps_run == 5
+    assert ref_rep.losses[4] == rev_rep.losses[4] < ref_rep.losses[1]
+    a = [t for _, t in _flatten(ref.final_state)]
+    b = [t for _, t in _flatten(rev.final_state)]
+    assert len(a) == len(b) > 0
+    assert all(torch.equal(x.detach(), y.detach()) for x, y in zip(a, b))

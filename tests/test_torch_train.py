@@ -7,7 +7,11 @@ numpy batch.
 Reduced internlm2-1.8b (``remat="full"``: one torch.utils.checkpoint a
 layer against the reference's jax.checkpoint), yi-6b, olmoe-1b-7b under
 both ``moe_impl``s (the aux losses), ``logit_chunk`` dividing the sequence
-and not (the reference's fallback), and ``loss_mask``. The loss within
+and not (the reference's fallback), ``loss_mask``, and the frontends as
+they train: hubert-xlarge (frames, a Bernoulli(0.3) ``loss_mask``,
+bidirectional attention, remat "full") and paligemma-3b (patches before
+the text, dropped before the loss; its ``logit_chunk`` of 640 over the
+text, one chunk; remat "full"). The loss within
 1e-5 and every gradient leaf within 1e-4 of its max |value| (the same f32
 arithmetic summed in another order). Also: ``remat="dots"`` raises,
 naming what it waits on. The microbatched step is checked in
@@ -64,12 +68,24 @@ def _pair(arch, seed=0, **kw):
     return (jcfg, jfam, jp), (tcfg, tfam, tp)
 
 
-def _batch(vocab, mask=False, seed=0):
+def _batch(cfg, mask=False, seed=0):
+    """tokens and labels (B,S), with ``mask`` a loss_mask; a frame
+    frontend's frames (B,S,F), labels and a Bernoulli(0.3) loss_mask; a
+    patch frontend's patches (B,P,F) after the tokens' draws."""
     rng = np.random.RandomState(seed)
+    vocab = cfg.vocab_size
+    if cfg.frontend == "frame":
+        return {"frames": rng.randn(B, S, cfg.frontend_dim).astype(
+                    np.float32),
+                "labels": rng.randint(0, vocab, (B, S)).astype(np.int32),
+                "loss_mask": (rng.rand(B, S) < 0.3).astype(np.float32)}
     batch = {"tokens": rng.randint(0, vocab, (B, S)).astype(np.int32),
              "labels": rng.randint(0, vocab, (B, S)).astype(np.int32)}
     if mask:
         batch["loss_mask"] = (rng.rand(B, S) < 0.6).astype(np.float32)
+    if cfg.frontend == "patch":
+        batch["patches"] = rng.randn(B, cfg.frontend_len,
+                                     cfg.frontend_dim).astype(np.float32)
     return batch
 
 
@@ -81,6 +97,8 @@ CASES = {
     "logit_chunk 8": ("yi-6b", {"logit_chunk": 8}, False),
     "logit_chunk 6 ragged": ("yi-6b", {"logit_chunk": 6}, False),
     "loss_mask": ("yi-6b", {}, True),
+    "hubert-xlarge frames": ("hubert-xlarge", {}, True),
+    "paligemma-3b patches": ("paligemma-3b", {}, False),
 }
 
 
@@ -88,9 +106,9 @@ CASES = {
 def test_train_loss_and_grads_match_reference(case):
     arch, kw, mask = CASES[case]
     (jcfg, jfam, jp), (tcfg, tfam, tp) = _pair(arch, **kw)
-    if arch == "internlm2-1.8b":
+    if arch in ("internlm2-1.8b", "hubert-xlarge", "paligemma-3b"):
         assert tcfg.remat == jcfg.remat == "full"
-    batch = _batch(tcfg.vocab_size, mask)
+    batch = _batch(tcfg, mask)
     jb = {k: jnp.asarray(v) for k, v in batch.items()}
     (jloss, jmet), jgrads = jax.jit(jax.value_and_grad(
         lambda p: jfam.train_loss(jcfg, p, jb), has_aux=True))(jp)
@@ -107,7 +125,10 @@ def test_train_loss_and_grads_match_reference(case):
     tg = _flat(tp)
     assert set(jg) == set(tg)
     for name, want in jg.items():
-        got = tg[name].grad.numpy()
+        # a leaf the loss never reaches (hubert's token embedding) has no
+        # grad in torch and zeros in JAX; the train step gives it zeros
+        g = tg[name].grad
+        got = np.zeros_like(want) if g is None else g.numpy()
         scale = max(float(np.abs(want).max()), 1e-30)
         err = float(np.abs(got - want).max()) / scale
         assert err <= GRAD_TOL, (name, err)
@@ -116,7 +137,7 @@ def test_train_loss_and_grads_match_reference(case):
 def test_remat_dots_raises():
     (_, _, _), (tcfg, tfam, tp) = _pair("yi-6b", remat="dots")
     batch = {k: torch.from_numpy(v)
-             for k, v in _batch(tcfg.vocab_size).items()}
+             for k, v in _batch(tcfg).items()}
     with pytest.raises(NotImplementedError, match="Queue 1, item 5"):
         tfam.train_loss(tcfg, tp, batch)
 
