@@ -209,6 +209,22 @@ Phases, each of which must pass (a failure exits nonzero):
    then COMPLETED, a clean shutdown), quickstart (the loss falls over 10
    steps), elastic_training (22 steps through the revocation at step 20)
    and serve_demo (4 prompts from weights restored bit for bit).
+15. distributed: ring attention through the flash kernels
+   (``ring_attention_single_device``, R 4 shards, bf16) at starcoder2-7b's
+   attention width (H 36 over KV 4, hd 128, B 1), causal and full: at S
+   32768 (8192 a shard) held to one whole-sequence flash forward and
+   backward (out, dQ, dK, dV within TOL_BF16), at S 2048 to the plain
+   versions, exactly 10 forward and 10 backward launches causal (the
+   blocks in the future skipped), 16 and 16 full, all on sm90, and timed
+   at S 32768 beside the whole-sequence kernels and the bound; then a
+   one-process NCCL group and a (1, 1) ("data", "model") mesh under
+   ``activate_rules``: full-width starcoder2-7b at depth 2, B 2 x S 4096,
+   one ``build_loss_and_grads`` and one ``build_train_step`` step with
+   ``attn_impl`` "ring" (every attention through
+   ``ring_attention_sharded``) and "chunked" from the same weights, under
+   deterministic algorithms: losses, every gradient and every updated
+   parameter equal bit for bit, launches exact, no plain version; last,
+   ``compressed_psum`` over that group equal to ``ef_step``.
 
 The second-to-last line of output is a JSON ``kernels`` record (with the
 launches on the transformer runs, the residency phase's move times, the
@@ -216,12 +232,13 @@ gateway phase's results, the train, job, zamba train and xlstm phases'
 numbers, ``ssd_scan_bwd`` among the kernels, each kernel's Zamba2
 training launches as ``launches_zamba_train``, RMSNorm's xLSTM launches as
 ``launches_xlstm_serve`` and ``launches_xlstm_train``, each kernel's
-launches in the frontends phase as ``launches_frontends`` and in the
-frontends' training as ``launches_frontend_train``, and the frontends,
-frontend train and examples phases' numbers); the last is
+launches in the frontends phase as ``launches_frontends``, in the
+frontends' training as ``launches_frontend_train`` and in the distributed
+phase as ``launches_distributed``, and the frontends, frontend train,
+examples and distributed phases' numbers); the last is
 ``{"ok": true, "device": {...}}``. Without CUDA, or without the port
 beside this script, it prints no result and exits nonzero. It takes no
-arguments: every run drives all fourteen phases.
+arguments: every run drives all fifteen phases.
 """
 from __future__ import annotations
 
@@ -5020,6 +5037,16 @@ def _frontend_train_launches(ft, name) -> dict:
             for arch in ("hubert-xlarge", "paligemma-3b")}
 
 
+def _distributed_launches(dr, name) -> dict:
+    """A kernel's launches in each distributed run: the R = 4 rings at
+    RING_S and the starcoder2-7b ring step's loss and gradients."""
+    out = {f"ring_{tag}_s{RING_S}": r["launches"].get(name, 0)
+           for tag, r in dr["rings"].items()}
+    out["starcoder2_ring_step"] = \
+        dr["starcoder2_step"]["launches"]["ring"].get(name, 0)
+    return out
+
+
 def _clock_text(clocks: dict) -> str:
     """One run's nvidia-smi samples a step, for a log line."""
     parts = []
@@ -5050,6 +5077,346 @@ def _state_digest(state) -> str:
         h.update(f"{name}:{t.dtype}:{tuple(t.shape)}".encode())
         h.update(t.detach().reshape(-1).view(torch.uint8).cpu().numpy())
     return h.hexdigest()
+
+
+# ---------------------------------------------------------------------------
+# phase 15: distributed -- the ring through the kernels, a ring train step
+# ---------------------------------------------------------------------------
+
+# starcoder2-7b's attention width (configs/starcoder2_7b.py): 36 heads of
+# 128 over 4 KV heads, the head count a 16-way model axis does not divide.
+# The single-device ring cuts RING_S into RING_SHARDS shards (8192 each);
+# a plain version cannot hold a 32k x 32k score matrix, so the ring is held
+# to the plain versions at RING_S_PLAIN.
+RING_H, RING_KV, RING_HD, RING_SHARDS = 36, 4, 128, 4
+RING_S, RING_S_PLAIN = 32768, 2048
+# starcoder2-7b at full width and depth 2 (of 32), batch 2 x 4096: the
+# ring and chunked train steps on a one-process (1, 1) ("data", "model")
+# mesh.
+SC_DEPTH, SC_B, SC_S = 2, 2, 4096
+
+
+def _ring_blocks(causal: bool) -> int:
+    """The ring's visible blocks: the forward's launches, and the
+    backward's; a causal ring skips the R(R-1)/2 blocks in the future."""
+    r = RING_SHARDS
+    return r * (r + 1) // 2 if causal else r * r
+
+
+def _ring_grads(q, k, v, dout, causal):
+    """(out, dq, dk, dv) of ``ring_attention_single_device``."""
+    import torch
+    from repro_torch.distributed import ring_attention_single_device
+    leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+    out = ring_attention_single_device(*leaves, shards=RING_SHARDS,
+                                       causal=causal)
+    return (out.detach(), *torch.autograd.grad(out, leaves, dout))
+
+
+def _flash_whole(q, k, v, dout, causal):
+    """(out, dq, dk, dv) of one flash forward and backward over the whole
+    sequence."""
+    from repro_torch import kernels as K
+    out, lse = K.flash_attention_fwd(q, k, v, causal=causal, return_lse=True)
+    return (out, *K.flash_attention_bwd(q, k, v, out, dout, lse,
+                                        causal=causal))
+
+
+def _plain_whole(q, k, v, dout, causal):
+    from repro_torch import kernels as K
+    return (K.attention_reference(q, k, v, causal=causal),
+            *K.attention_bwd_reference(q, k, v, dout, causal=causal))
+
+
+def _ring_case(gen, s, causal, against):
+    """The R = 4 ring at sequence ``s`` in bf16: its launches exactly
+    ``_ring_blocks`` forward and backward, nothing else; out, dQ, dK and dV
+    within TOL_BF16 of ``against``'s (of each one's max) -> (errors,
+    launches, inputs)."""
+    import torch
+    from repro_torch import kernels as K
+
+    def rn(*shape):
+        return (0.5 * torch_randn(gen, "cuda", *shape)).to(torch.bfloat16)
+
+    inp = (rn(1, s, RING_H, RING_HD), rn(1, s, RING_KV, RING_HD),
+           rn(1, s, RING_KV, RING_HD), rn(1, s, RING_H, RING_HD))
+    K.reset_launch_counts()
+    got = _ring_grads(*inp, causal)
+    torch.cuda.synchronize()
+    counts = {k: v for k, v in K.launch_counts().items() if v}
+    routes = K.launch_counts_by_route()
+    want_counts = {"flash_attention_fwd": _ring_blocks(causal),
+                   "flash_attention_bwd": _ring_blocks(causal)}
+    errs = [_rel_err(a, b) for a, b in zip(got, against(*inp, causal))]
+    on_sm90 = all(routes[k]["sm90"] == n for k, n in want_counts.items())
+    ok = counts == want_counts and on_sm90 and all(
+        math.isfinite(e) and e <= TOL_BF16 for e in errs)
+    log(f"[distributed] ring R {RING_SHARDS} S {s} "
+        f"{'causal' if causal else 'full'} vs {against.__name__}: "
+        f"max|ring-want|/max|want| out, dq, dk, dv "
+        f"{['%.2e' % e for e in errs]} (tol {TOL_BF16}); launches {counts} "
+        f"(want {want_counts}, all sm90: {on_sm90}) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"distributed ring S {s} causal {causal}: "
+                             f"errors {errs}, launches {counts}, routes "
+                             f"{routes}")
+    return errs, counts, inp
+
+
+def _ring_timing(inp, causal):
+    """Device ms of the ring's forward and of its forward + backward at
+    RING_S, beside one whole-sequence flash forward (with the row lse) and
+    backward, and the bound of the attention's work (every input read once,
+    every output written once; 4 hd flops a visible pair forward, 10
+    backward, at the bf16 peak)."""
+    import torch
+    from repro_torch import kernels as K
+    from repro_torch.distributed import ring_attention_single_device
+    q, k, v, dout = inp
+    s = q.shape[1]
+    out, lse = K.flash_attention_fwd(q, k, v, causal=causal, return_lse=True)
+
+    def ring_fwd():
+        with torch.no_grad():
+            ring_attention_single_device(q, k, v, shards=RING_SHARDS,
+                                         causal=causal)
+
+    pairs = RING_H * (s * (s + 1) // 2 if causal else s * s)
+    fwd_bytes = 2 * (2 * s * RING_H * RING_HD + 2 * s * RING_KV * RING_HD)
+    bwd_bytes, bwd_flops = _flash_bwd_bound(1, s, RING_H, RING_KV, RING_HD,
+                                            2, causal=causal)
+    rec = {
+        "ring_fwd_ms": time_ms(ring_fwd, iters=3, warmup=1),
+        "ring_fwd_bwd_ms": time_ms(lambda: _ring_grads(q, k, v, dout,
+                                                       causal),
+                                   iters=3, warmup=1),
+        "flash_fwd_ms": time_ms(lambda: K.flash_attention_fwd(
+            q, k, v, causal=causal, return_lse=True), iters=3, warmup=1),
+        "flash_bwd_ms": time_ms(lambda: K.flash_attention_bwd(
+            q, k, v, out, dout, lse, causal=causal), iters=3, warmup=1),
+        "fwd_bound_ms": max(fwd_bytes / HBM_BYTES_PER_S,
+                            4.0 * RING_HD * pairs / BF16_FLOPS_PER_S) * 1e3,
+        "fwd_bwd_bound_ms": max((fwd_bytes + bwd_bytes) / HBM_BYTES_PER_S,
+                                (4.0 * RING_HD * pairs + bwd_flops)
+                                / BF16_FLOPS_PER_S) * 1e3}
+    return rec
+
+
+def _counting(module, name, calls):
+    """Wrap ``module.name`` to count its calls in ``calls[name]``; returns
+    the undo."""
+    fn = getattr(module, name)
+
+    def counted(*a, **kw):
+        calls[name] = calls.get(name, 0) + 1
+        return fn(*a, **kw)
+    setattr(module, name, counted)
+    return lambda: setattr(module, name, fn)
+
+
+def _sc_train_step(mesh, smi):
+    """starcoder2-7b at full width and depth SC_DEPTH, bf16 over f32 master
+    weights, remat full: one ``build_train_step`` step (AdamW, f32 moments)
+    and its ``build_loss_and_grads`` with ``attn_impl`` "ring" and
+    "chunked", from the same weights (seed 0) and batch, under rules on a
+    (1, 1) mesh and deterministic algorithms. The ring runs at R = 1: the
+    same kernels in the same order as the chunked path, one block whose
+    merge is the block itself, so the losses, every gradient and every
+    updated parameter must be equal bit for bit. Every attention call of
+    the ring step goes through ``ring_attention_sharded`` (2L with the
+    recompute), none of the chunked step's; launches exact; no plain
+    version."""
+    import torch
+    from repro_torch import kernels as K
+    from repro_torch.configs import get_config
+    from repro_torch.distributed import ShardingRules, activate_rules
+    from repro_torch.distributed import ring_attention as ring_mod
+    from repro_torch.models import count_params, get_family, init_params
+    from repro_torch.models import layers
+    from repro_torch.train import AdamWConfig, adamw, build_train_step
+    from repro_torch.train.train_step import build_loss_and_grads
+    cfg = get_config("starcoder2-7b").replace(num_layers=SC_DEPTH)
+    assert cfg.remat == "full" and cfg.num_heads % 16
+    fam = get_family(cfg)
+    base = init_params(cfg, fam.layout(cfg), seed=0, device="cuda",
+                       dtype=torch.float32)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(1)
+    batch = {n: torch.randint(0, cfg.vocab_size, (SC_B, SC_S), generator=gen,
+                              device="cuda") for n in ("tokens", "labels")}
+    opt = AdamWConfig(learning_rate=TRAIN_LR, warmup_steps=2,
+                      decay_steps=100)
+    want, want_routes = _transformer_step_launches(cfg)
+
+    def fresh():
+        return adamw.tree_map(lambda p: p.detach().clone().requires_grad_(),
+                              base)
+
+    calls = {}
+    plain_calls, undo_plain = _plain_call_counter()
+    undo = [_counting(layers, "ring_attention_sharded", calls)] + [
+        _counting(ring_mod, n, calls) for n in
+        ("attention_reference", "attention_lse_reference",
+         "attention_bwd_lse_reference")]
+    runs = {}
+    torch.use_deterministic_algorithms(True)
+    try:
+        with activate_rules(ShardingRules(mesh)):
+            for impl in ("ring", "chunked"):
+                c = cfg.replace(attn_impl=impl)
+                calls.clear()
+                K.reset_launch_counts()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                loss, _, grads = build_loss_and_grads(c)(fresh(), batch)
+                torch.cuda.synchronize()
+                grad_s = time.perf_counter() - t0
+                counts = {k: v for k, v in K.launch_counts().items() if v}
+                routes = K.launch_counts_by_route()
+                ring_calls = calls.get("ring_attention_sharded", 0)
+                params = fresh()
+                step = build_train_step(c, opt)
+                t0 = time.perf_counter()
+                params, _, metrics = step(params, adamw.init(opt, params),
+                                          batch)
+                torch.cuda.synchronize()
+                runs[impl] = dict(
+                    loss=loss, grads=grads, metrics=metrics,
+                    params=[p.detach() for p in adamw.tree_leaves(params)],
+                    counts=counts, routes=routes, ring_calls=ring_calls,
+                    plain=sum(v for k, v in calls.items()
+                              if k != "ring_attention_sharded"),
+                    grad_s=grad_s, step_s=time.perf_counter() - t0)
+    finally:
+        torch.use_deterministic_algorithms(False)
+        for u in undo:
+            u()
+        undo_plain()
+    ring, chunked = runs["ring"], runs["chunked"]
+    diff = [i for i, (a, b) in enumerate(zip(ring["grads"],
+                                             chunked["grads"]))
+            if not torch.equal(a, b)]
+    pdiff = [i for i, (a, b) in enumerate(zip(ring["params"],
+                                              chunked["params"]))
+             if not torch.equal(a, b)]
+    same_loss = torch.equal(ring["loss"], chunked["loss"]) and all(
+        torch.equal(ring["metrics"][k], chunked["metrics"][k])
+        for k in ring["metrics"])
+    rec = {"config": "starcoder2-7b", "layers": SC_DEPTH,
+           "params": count_params(cfg), "batch": SC_B, "seq": SC_S,
+           "loss": {k: r["loss"].item() for k, r in runs.items()},
+           "loss_and_grads_s": {k: r["grad_s"] for k, r in runs.items()},
+           "step_s": {k: r["step_s"] for k, r in runs.items()},
+           "launches": {k: r["counts"] for k, r in runs.items()},
+           "ring_attention_sharded_calls": ring["ring_calls"],
+           "bitwise": {"loss_and_metrics": same_loss,
+                       "grads_differing": diff, "params_differing": pdiff},
+           "leaves": len(ring["grads"])}
+    log(f"[distributed] starcoder2-7b width, {SC_DEPTH} layers "
+        f"({rec['params'] / 1e9:.3f} B params), bf16 over f32 masters, "
+        f"remat full, B {SC_B} x S {SC_S}, (1, 1) mesh: loss ring "
+        f"{rec['loss']['ring']:.6f} chunked {rec['loss']['chunked']:.6f}, "
+        f"loss and metrics equal {same_loss}; gradients differing "
+        f"{diff} and updated parameters differing {pdiff} of "
+        f"{rec['leaves']}; ring_attention_sharded calls {ring['ring_calls']}"
+        f" (want {2 * SC_DEPTH}) and {chunked['ring_calls']} in the chunked "
+        f"step; launches {rec['launches']} (want {want} each); loss and "
+        f"grads s {rec['loss_and_grads_s']} (the ring's first: it includes "
+        f"the process's first step at these shapes), step s "
+        f"{rec['step_s']}; on {smi}")
+    for impl, r in runs.items():
+        if r["counts"] != want or any(r["routes"][k] != v
+                                      for k, v in want_routes.items()):
+            raise AssertionError(f"distributed {impl} step: launches "
+                                 f"{r['counts']} {r['routes']}, want {want}")
+        if r["plain"]:
+            raise AssertionError(f"distributed {impl}: a ring plain version "
+                                 f"ran on the card")
+    if ring["ring_calls"] != 2 * SC_DEPTH or chunked["ring_calls"]:
+        raise AssertionError(f"distributed: ring_attention_sharded calls "
+                             f"{ring['ring_calls']} / {chunked['ring_calls']}")
+    if sum(plain_calls.values()):
+        raise AssertionError(f"distributed: a plain version ran on the card:"
+                             f" {plain_calls}")
+    if not (same_loss and not diff and not pdiff):
+        raise AssertionError(f"distributed: the ring step is not the chunked "
+                             f"step bit for bit: {rec['bitwise']}")
+    return rec, ring["grads"], base
+
+
+def _compressed_psum_check(mesh, grads, base):
+    """``compressed_psum`` of the ring step's gradients over the one-rank
+    NCCL "data" group: equal to ``ef_step``'s output and residual, bit for
+    bit (an all-reduce over one rank, a divide by 1)."""
+    import torch
+    from repro_torch.train import adamw
+    from repro_torch.train.grad_compress import (compressed_psum, ef_step,
+                                                 init_compressor)
+    it = iter(grads)
+    tree = adamw.tree_map(lambda _: next(it), base)
+    state = init_compressor(tree)
+    want, wstate = ef_step(tree, state)
+    got, gstate = compressed_psum(tree, mesh.get_group("data"), state)
+    torch.cuda.synchronize()
+    same = all(torch.equal(a, b) for a, b in zip(
+        adamw.tree_leaves(got) + adamw.tree_leaves(gstate.residual),
+        adamw.tree_leaves(want) + adamw.tree_leaves(wstate.residual)))
+    log(f"[distributed] compressed_psum over the one-rank NCCL group equals "
+        f"ef_step over {len(grads)} gradient leaves: {same}")
+    if not same:
+        raise AssertionError("distributed: compressed_psum != ef_step")
+    return same
+
+
+def phase_distributed(smi: str):
+    """(a) ``ring_attention_single_device`` at R 4 in bf16 at starcoder2-7b's
+    attention width (H 36, KV 4, hd 128, B 1), causal and full: at S 32768
+    (8192 a shard) held to one whole-sequence flash forward and backward,
+    at S 2048 to the plain versions, the launches exactly 10 forward and
+    10 backward (causal) or 16 and 16 (full), all on sm90, and at S 32768
+    timed beside the whole-sequence kernels; (b) a one-process NCCL group,
+    a (1, 1) ("data", "model") mesh under ``activate_rules``, and the
+    starcoder2-7b ring and chunked train steps equal bit for bit
+    (``_sc_train_step``); (c) ``compressed_psum`` over that group equal to
+    ``ef_step``."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_mesh
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    rec = {"shards": RING_SHARDS, "heads": RING_H, "kv_heads": RING_KV,
+           "head_dim": RING_HD, "rings": {}}
+    for causal in (True, False):
+        tag = "causal" if causal else "full"
+        errs, counts, inp = _ring_case(gen, RING_S, causal, _flash_whole)
+        timing = _ring_timing(inp, causal)
+        del inp
+        plain_errs, _, _ = _ring_case(gen, RING_S_PLAIN, causal,
+                                      _plain_whole)
+        rec["rings"][tag] = {"s": RING_S, "max_rel_err_vs_flash": errs,
+                             f"s{RING_S_PLAIN}_max_rel_err_vs_plain":
+                                 plain_errs,
+                             "launches": counts, **timing}
+        log(f"[distributed] ring R {RING_SHARDS} S {RING_S} {tag}: forward "
+            f"{timing['ring_fwd_ms']:.2f} ms, forward + backward "
+            f"{timing['ring_fwd_bwd_ms']:.2f} ms; one whole-sequence flash "
+            f"forward {timing['flash_fwd_ms']:.2f} ms, backward "
+            f"{timing['flash_bwd_ms']:.2f} ms; bound forward "
+            f"{timing['fwd_bound_ms']:.2f} ms, forward + backward "
+            f"{timing['fwd_bwd_bound_ms']:.2f} ms; on {smi}")
+        torch.cuda.empty_cache()
+    mesh = make_mesh((1, 1), ("data", "model"), device="cuda")
+    try:
+        rec["starcoder2_step"], grads, base = _sc_train_step(mesh, smi)
+        rec["compressed_psum_equals_ef_step"] = _compressed_psum_check(
+            mesh, grads, base)
+        del grads, base
+    finally:
+        dist.destroy_process_group()
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rec
 
 
 # ---------------------------------------------------------------------------
@@ -5107,6 +5474,7 @@ def main() -> int:
     fr = timed("frontends", phase_frontends, smi)
     ft = timed("frontend train", phase_frontend_train, smi)
     ex = timed("examples", phase_examples, smi)
+    dr = timed("distributed", phase_distributed, smi)
     frontend_launches = {
         "hubert-xlarge encode": fr["hubert-xlarge"]["launches"],
         "paligemma-3b patch prefill + decode":
@@ -5158,6 +5526,7 @@ def main() -> int:
         if name in ft["hubert-xlarge"]["launches_per_step"]:
             entry["launches_frontend_train"] = _frontend_train_launches(
                 ft, name)
+        entry["launches_distributed"] = _distributed_launches(dr, name)
         record.append(entry)
     for name, fwd in (("rmsnorm_bwd", "rmsnorm_fused"),
                       ("flash_attention_bwd", "flash_attention_fwd")):
@@ -5181,6 +5550,7 @@ def main() -> int:
         record[-1]["zamba_shapes_max_rel_err"] = zt["bwd_shapes"][name]
         record[-1]["launches_frontend_train"] = _frontend_train_launches(
             ft, name)
+        record[-1]["launches_distributed"] = _distributed_launches(dr, name)
         if "frontend_shapes" in rec:
             record[-1]["frontend_shapes"] = {
                 kind: bwd[name][kind]["frontend_shapes"]
@@ -5207,14 +5577,16 @@ def main() -> int:
         "bound_by": ssd["bf16"]["bound_by"], "library_ms": None,
         "shape": ssd["bf16"]["shape"], "split_ms": ssd["bf16"]["split_ms"],
         "f32": {k: ssd["f32"][k] for k in ("ms", "plain_ms", "bound_ms",
-                                           "bound_by")}})
+                                           "bound_by")},
+        "launches_distributed": _distributed_launches(dr, "ssd_scan_bwd")})
     log(f"[done] every phase passed in {time.perf_counter() - t0:.1f} s on "
         f"{smi}; seconds a phase: {seconds}")
     print(json.dumps({"kernels": record, "transformers": transformers,
                       "residency": moves, "gateway": gateway,
                       "train": train, "job": job, "zamba_train": zt,
                       "xlstm": xl, "frontends": fr,
-                      "frontend_train": ft, "examples": ex}))
+                      "frontend_train": ft, "examples": ex,
+                      "distributed": dr}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

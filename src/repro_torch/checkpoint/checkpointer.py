@@ -154,6 +154,10 @@ class Checkpointer:
         return sorted(out)
 
     def latest_step(self) -> Optional[int]:
+        """The newest complete checkpoint's step, after any async write in
+        flight has finished: a restart must not miss the checkpoint it is
+        still writing."""
+        self.wait()
         steps = self.steps()
         return steps[-1] if steps else None
 

@@ -2,13 +2,13 @@
 
 The port keeps its own copy of the reference ``ModelConfig``: the fields the
 transformer's (dense, with experts, and with the audio and VLM frontends),
-xLSTM's and the Zamba2 hybrid's serving and training paths read, with the
-``dtype`` strings mapped to torch dtypes.
+xLSTM's and the Zamba2 hybrid's serving and training paths and the
+distributed layer read, with the ``dtype`` strings mapped to torch dtypes.
 """
 from __future__ import annotations
 
 import dataclasses
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 
 import torch
 
@@ -64,6 +64,12 @@ class ModelConfig:
     causal: bool = True
     encoder_only: bool = False
     rope_theta: float = 10_000.0
+    # "chunked" | "dense" | "pallas" | "ring", as in the reference. Only
+    # "ring" changes the port's behaviour: under sharding rules whose mesh
+    # has a "model" axis, the training and prefill attention runs as ring
+    # attention over it (distributed/ring_attention.py); every other value
+    # runs the flash-attention kernel.
+    attn_impl: str = "chunked"
 
     # --- serving (paged KV cache / continuous batching) ------------------------
     page_size: int = 16              # KV rows per physical cache page
@@ -107,6 +113,10 @@ class ModelConfig:
     remat: str = "none"
     logit_chunk: int = 0             # chunk the loss over seq (0 = off)
     tie_embeddings: bool = False
+
+    # --- per-arch sharding rule overrides (logical axis -> mesh axis name) ------
+    sharding_overrides: dict = field(default_factory=dict, hash=False,
+                                     compare=False)
 
     def __post_init__(self):
         if self.head_dim == 0:

@@ -13,7 +13,8 @@ through ``attention_bwd_route``; ``ssd_scan_bwd``, by dtype through
 from ._cuda import attention_bwd_route, attention_route, ssd_route
 from .decode_attention import (default_num_splits, flash_decode_fwd,
                                paged_decode_attention, paged_decode_reference)
-from .flash_attention import (attention_bwd_reference,
+from .flash_attention import (attention_bwd_lse_reference,
+                              attention_bwd_reference,
                               attention_lse_reference, attention_reference,
                               flash_attention, flash_attention_bwd,
                               flash_attention_fwd)
@@ -68,6 +69,7 @@ __all__ = ["default_num_splits", "flash_decode_fwd", "flash_prefill_fwd",
            "quantize_pool", "rmsnorm", "rmsnorm_fused", "rmsnorm_reference",
            "flash_attention", "flash_attention_fwd", "attention_reference",
            "flash_attention_bwd", "attention_bwd_reference",
+           "attention_bwd_lse_reference",
            "attention_lse_reference", "rmsnorm_bwd", "rmsnorm_bwd_reference",
            "mamba_chunk_scan", "ssd_scan", "ssd_chunked_reference",
            "ssd_scan_bwd", "ssd_chunked_backward_reference",

@@ -46,3 +46,35 @@ def attention_bwd_reference(q, k, v, dout, *, causal: bool = True):
         leaves = [t.detach().requires_grad_() for t in (q, k, v)]
         out = attention_reference(*leaves, causal=causal)
         return torch.autograd.grad(out, leaves, dout)
+
+
+def attention_bwd_lse_reference(q, k, v, out, dout, lse, *,
+                                causal: bool = True):
+    """(dq, dk, dv) of one attention block under the backward kernel's own
+    contract: the probabilities exp(s - ``lse``) and delta =
+    rowsum(``dout`` * ``out``) are built from the ``out`` (B,Sq,H,hd) and
+    ``lse`` (B,H,Sq) given, not recomputed. A ring block passes the merged
+    output and log-sum-exp of every block a query row sees, so the result
+    is that block's share of the whole gradient. f32 arithmetic, results
+    in q's dtype."""
+    b, sq, h, hd = q.shape
+    skv, nkv = k.shape[1], k.shape[2]
+    g = h // nkv
+    scale = 1.0 / math.sqrt(hd)
+    qg = q.reshape(b, sq, nkv, g, hd).float()
+    dog = dout.reshape(b, sq, nkv, g, hd).float()
+    s = torch.einsum("bqkgh,bskh->bkgqs", qg, k.float()) * scale
+    if causal:
+        mask = (torch.arange(sq, device=q.device)[:, None]
+                >= torch.arange(skv, device=q.device)[None, :])
+        s = torch.where(mask, s, MASK_VALUE)
+    p = torch.exp(s - lse.reshape(b, nkv, g, sq, 1))
+    delta = (dout.float() * out.float()).sum(-1)                # (B,Sq,H)
+    delta = delta.permute(0, 2, 1).reshape(b, nkv, g, sq, 1)
+    dp = torch.einsum("bqkgh,bskh->bkgqs", dog, v.float())
+    ds = p * (dp - delta) * scale
+    dq = torch.einsum("bkgqs,bskh->bqkgh", ds, k.float())
+    dk = torch.einsum("bkgqs,bqkgh->bskh", ds, qg)
+    dv = torch.einsum("bkgqs,bqkgh->bskh", p, dog)
+    return (dq.reshape(b, sq, h, hd).to(q.dtype), dk.to(k.dtype),
+            dv.to(v.dtype))

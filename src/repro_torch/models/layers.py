@@ -24,6 +24,8 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
+from ..distributed.ring_attention import ring_attention_sharded
+from ..distributed.sharding import current_rules
 from ..kernels.decode_attention import paged_decode_attention
 from ..kernels.flash_attention import flash_attention
 from ..kernels.flash_attention.ref import MASK_VALUE
@@ -45,7 +47,7 @@ def rmsnorm(x, weight, eps: float = 1e-6):
 
 
 def norm_spec(d: int) -> ParamSpec:
-    return ParamSpec((d,), init="ones", dtype="float32")
+    return ParamSpec((d,), ("embed",), init="ones", dtype="float32")
 
 
 def rope_frequencies(head_dim: int, theta: float, device=None):
@@ -141,10 +143,10 @@ def _scatter_cache(cache, k, v, pos):
 def attention_param_specs(cfg) -> dict:
     d, h, kv, hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     return {
-        "wq": ParamSpec((d, h, hd)),
-        "wk": ParamSpec((d, kv, hd)),
-        "wv": ParamSpec((d, kv, hd)),
-        "wo": ParamSpec((h, hd, d)),
+        "wq": ParamSpec((d, h, hd), ("embed", "heads", "head_dim")),
+        "wk": ParamSpec((d, kv, hd), ("embed", "kv_heads", "head_dim")),
+        "wv": ParamSpec((d, kv, hd), ("embed", "kv_heads", "head_dim")),
+        "wo": ParamSpec((h, hd, d), ("heads", "head_dim", "embed")),
         "norm": norm_spec(d),
     }
 
@@ -172,13 +174,22 @@ def _out_proj(o, wo):
 def attention_block(cfg, p, x, positions, *, cache=None, decode_pos=None):
     """Pre-norm attention residual block over a dense cache.
 
-    Prefill: ``cache is None`` -> (y, (k, v)) so prefill can emit the cache.
+    Prefill: ``cache is None`` -> (y, (k, v)) so prefill can emit the cache;
+    with ``cfg.attn_impl == "ring"`` under sharding rules whose mesh has a
+    ``"model"`` axis, the attention is ``ring_attention_sharded`` over it.
     Decode: ``cache=(k_cache, v_cache)`` (B,Smax,KV,hd) and ``decode_pos``
     (B,) -> (y, (k_cache, v_cache)), the new row written in place."""
     q, k, v = _qkv_proj(cfg, p, x, positions)
     if cache is None:
-        o = chunked_attention(q, k, v,
-                              causal=cfg.causal and not cfg.encoder_only)
+        causal = cfg.causal and not cfg.encoder_only
+        rules = current_rules()
+        if (cfg.attn_impl == "ring" and rules is not None
+                and "model" in rules.axis_sizes):
+            # sequence-sharded ring attention over the model axis, for head
+            # counts the axis does not divide
+            o = ring_attention_sharded(q, k, v, rules.mesh, causal=causal)
+        else:
+            o = chunked_attention(q, k, v, causal=causal)
         new_cache = (k, v)
     else:
         new_cache = _scatter_cache(cache, k, v, decode_pos)
@@ -282,10 +293,11 @@ def paged_prefill_attention_block(cfg, p, x, *, pool, page_table, q_start,
 
 def mlp_param_specs(cfg) -> dict:
     d, f = cfg.d_model, cfg.d_ff
-    specs = {"w_up": ParamSpec((d, f)), "w_down": ParamSpec((f, d)),
+    specs = {"w_up": ParamSpec((d, f), ("embed", "mlp")),
+             "w_down": ParamSpec((f, d), ("mlp", "embed")),
              "norm": norm_spec(d)}
     if cfg.mlp_gated:
-        specs["w_gate"] = ParamSpec((d, f))
+        specs["w_gate"] = ParamSpec((d, f), ("embed", "mlp"))
     return specs
 
 
@@ -304,9 +316,10 @@ def mlp_block(cfg, p, x):
 
 def embed_param_specs(cfg) -> dict:
     specs = {"embedding": ParamSpec((cfg.vocab_size, cfg.d_model),
-                                    init="embed")}
+                                    ("vocab", "embed"), init="embed")}
     if not cfg.tie_embeddings:
-        specs["unembed"] = ParamSpec((cfg.d_model, cfg.vocab_size))
+        specs["unembed"] = ParamSpec((cfg.d_model, cfg.vocab_size),
+                                     ("embed", "vocab"))
     return specs
 
 

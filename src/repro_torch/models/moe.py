@@ -35,16 +35,16 @@ def moe_param_specs(cfg) -> dict:
     d, f, e = cfg.d_model, cfg.d_ff, cfg.num_experts
     specs = {
         "norm": norm_spec(d),
-        "router": ParamSpec((d, e), dtype="float32", experts=True),
-        "we_gate": ParamSpec((e, d, f), experts=True),
-        "we_up": ParamSpec((e, d, f), experts=True),
-        "we_down": ParamSpec((e, f, d), experts=True),
+        "router": ParamSpec((d, e), ("embed", "experts"), dtype="float32"),
+        "we_gate": ParamSpec((e, d, f), ("experts", "embed", "moe_mlp")),
+        "we_up": ParamSpec((e, d, f), ("experts", "embed", "moe_mlp")),
+        "we_down": ParamSpec((e, f, d), ("experts", "moe_mlp", "embed")),
     }
     if cfg.moe_dense_ff:
         fd = cfg.moe_dense_ff
-        specs["dense_gate"] = ParamSpec((d, fd))
-        specs["dense_up"] = ParamSpec((d, fd))
-        specs["dense_down"] = ParamSpec((fd, d))
+        specs["dense_gate"] = ParamSpec((d, fd), ("embed", "mlp"))
+        specs["dense_up"] = ParamSpec((d, fd), ("embed", "mlp"))
+        specs["dense_down"] = ParamSpec((fd, d), ("mlp", "embed"))
     return specs
 
 

@@ -1,8 +1,9 @@
 """Parameter layout, on-device init, and conversion from the reference.
 
-A model is a nested dict of ``ParamSpec`` leaves, as in the reference;
-layer weights carry a leading ``L`` axis (``stack_specs``) and the model
-loops over it. Parameters are a nested dict of tensors of the same shape.
+A model is a nested dict of ``ParamSpec`` leaves, as in the reference, each
+with the reference's logical axis names, which the sharding rules
+(``distributed/sharding.py``) map to mesh dimensions; layer weights carry a
+leading ``"layers"`` axis (``stack_specs``) and the model loops over it. Parameters are a nested dict of tensors of the same shape.
 Matrix weights are stored in the compute dtype ``cfg.dtype`` for serving
 (cast once at load, which equals the reference's cast at every use), or in
 the ``dtype=`` given, e.g. ``cfg.pdtype`` for training's master weights;
@@ -23,12 +24,20 @@ from ..device import resolve_device
 @dataclass(frozen=True)
 class ParamSpec:
     shape: tuple[int, ...]
+    axes: tuple[Optional[str], ...]  # a logical axis name (or None) a dim
     init: str = "normal"           # normal | zeros | ones | embed
     scale: Optional[float] = None  # stddev override for "normal"/"embed"
     dtype: Optional[str] = None    # override the model dtype (f32 norms)
-    # The leaf has an experts axis (the reference's "experts" logical axis):
-    # the routed experts' weights and the router.
-    experts: bool = False
+
+    def __post_init__(self):
+        if len(self.shape) != len(self.axes):
+            raise ValueError(f"shape {self.shape} vs axes {self.axes}")
+
+    @property
+    def experts(self) -> bool:
+        """The leaf has an experts axis: the routed experts' weights and
+        the router."""
+        return "experts" in self.axes
 
 
 def tree_map_specs(fn: Callable[[ParamSpec], object], layout):
@@ -40,10 +49,10 @@ def tree_map_specs(fn: Callable[[ParamSpec], object], layout):
 
 
 def stack_specs(layer_specs, n: int):
-    """Add a leading layer axis of extent ``n`` to every leaf."""
+    """Add a leading ``"layers"`` axis of extent ``n`` to every leaf."""
     return tree_map_specs(
-        lambda s: ParamSpec((n,) + s.shape, s.init, s.scale, s.dtype,
-                            s.experts),
+        lambda s: ParamSpec((n,) + s.shape, ("layers",) + s.axes, s.init,
+                            s.scale, s.dtype),
         layer_specs)
 
 

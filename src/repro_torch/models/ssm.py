@@ -32,14 +32,17 @@ def mamba_param_specs(cfg) -> dict:
     conv_ch = din + 2 * n  # conv over (x, B, C) as in Mamba2
     return {
         "norm": norm_spec(d),
-        "w_in": ParamSpec((d, 2 * din + 2 * n + h)),
-        "conv_w": ParamSpec((cfg.ssm_conv, conv_ch)),
-        "conv_b": ParamSpec((conv_ch,), init="zeros"),
-        "dt_bias": ParamSpec((h,), init="zeros", dtype="float32"),
-        "A_log": ParamSpec((h,), init="ones", dtype="float32"),
-        "D": ParamSpec((h,), init="ones", dtype="float32"),
-        "gate_norm": ParamSpec((din,), init="ones", dtype="float32"),
-        "w_out": ParamSpec((din, d)),
+        "w_in": ParamSpec((d, 2 * din + 2 * n + h), ("embed", "mlp")),
+        "conv_w": ParamSpec((cfg.ssm_conv, conv_ch), ("conv", "mlp")),
+        "conv_b": ParamSpec((conv_ch,), ("mlp",), init="zeros"),
+        "dt_bias": ParamSpec((h,), ("ssm_heads",), init="zeros",
+                             dtype="float32"),
+        "A_log": ParamSpec((h,), ("ssm_heads",), init="ones",
+                           dtype="float32"),
+        "D": ParamSpec((h,), ("ssm_heads",), init="ones", dtype="float32"),
+        "gate_norm": ParamSpec((din,), ("mlp",), init="ones",
+                               dtype="float32"),
+        "w_out": ParamSpec((din, d), ("mlp", "embed")),
     }
 
 

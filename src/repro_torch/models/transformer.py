@@ -29,6 +29,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from ..device import resolve_device
+from ..distributed.sharding import activate_rules, current_rules
 from . import layers as L
 from .moe import moe_block, moe_param_specs
 from .params import ParamSpec, stack_specs
@@ -67,9 +68,21 @@ def _unbind_layers(tree) -> list[dict]:
 def _remat(cfg, fn):
     """``cfg.remat``: "full" recomputes each layer in backward (one
     non-reentrant ``torch.utils.checkpoint`` a layer, the reference's
-    ``nothing_saveable``); "none" keeps its activations."""
+    ``nothing_saveable``); "none" keeps its activations.
+
+    The recompute runs under the sharding rules that were active when the
+    layer ran: they are thread-local, and autograd runs a CUDA backward on
+    a thread of its own, where none are active (a ring layer would
+    otherwise be recomputed as the chunked one)."""
     if cfg.remat == "full":
-        return lambda *args: checkpoint(fn, *args, use_reentrant=False)
+        def run(*args):
+            rules = current_rules()
+
+            def under_rules(*a):
+                with activate_rules(rules):
+                    return fn(*a)
+            return checkpoint(under_rules, *args, use_reentrant=False)
+        return run
     if cfg.remat == "dots":
         raise NotImplementedError(
             f"{cfg.name}: remat='dots' (save the matmul outputs) is not "
@@ -96,8 +109,8 @@ class TransformerFamily:
             "final_norm": L.norm_spec(cfg.d_model),
         }
         if cfg.frontend:
-            layout["frontend_proj"] = ParamSpec((cfg.frontend_dim,
-                                                 cfg.d_model))
+            layout["frontend_proj"] = ParamSpec(
+                (cfg.frontend_dim, cfg.d_model), ("frontend", "embed"))
         return layout
 
     # -- embedding / frontend -------------------------------------------------

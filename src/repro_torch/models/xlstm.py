@@ -34,19 +34,20 @@ def mlstm_param_specs(cfg) -> dict:
     hd = din // h
     return {
         "norm": norm_spec(d),
-        "w_up_x": ParamSpec((d, din)),
-        "w_up_z": ParamSpec((d, din)),
-        "conv_w": ParamSpec((cfg.ssm_conv, din)),
-        "conv_b": ParamSpec((din,), init="zeros"),
-        "wq": ParamSpec((din, h, hd)),
-        "wk": ParamSpec((din, h, hd)),
-        "wv": ParamSpec((din, h, hd)),
-        "w_i": ParamSpec((din, h)),
-        "w_f": ParamSpec((din, h)),
-        "b_i": ParamSpec((h,), init="zeros", dtype="float32"),
-        "b_f": ParamSpec((h,), init="ones", dtype="float32"),
-        "out_norm": ParamSpec((din,), init="ones", dtype="float32"),
-        "w_down": ParamSpec((din, d)),
+        "w_up_x": ParamSpec((d, din), ("embed", "mlp")),
+        "w_up_z": ParamSpec((d, din), ("embed", "mlp")),
+        "conv_w": ParamSpec((cfg.ssm_conv, din), ("conv", "mlp")),
+        "conv_b": ParamSpec((din,), ("mlp",), init="zeros"),
+        "wq": ParamSpec((din, h, hd), ("mlp", "heads", "head_dim")),
+        "wk": ParamSpec((din, h, hd), ("mlp", "heads", "head_dim")),
+        "wv": ParamSpec((din, h, hd), ("mlp", "heads", "head_dim")),
+        "w_i": ParamSpec((din, h), ("mlp", "heads")),
+        "w_f": ParamSpec((din, h), ("mlp", "heads")),
+        "b_i": ParamSpec((h,), ("heads",), init="zeros", dtype="float32"),
+        "b_f": ParamSpec((h,), ("heads",), init="ones", dtype="float32"),
+        "out_norm": ParamSpec((din,), ("mlp",), init="ones",
+                              dtype="float32"),
+        "w_down": ParamSpec((din, d), ("mlp", "embed")),
     }
 
 
@@ -198,13 +199,17 @@ def slstm_param_specs(cfg) -> dict:
     return {
         "norm": norm_spec(d),
         # input weights for the four gates (z, i, f, o)
-        "w_gates": ParamSpec((d, 4, h, hd)),
+        "w_gates": ParamSpec((d, 4, h, hd),
+                             ("embed", None, "heads", "head_dim")),
         # block-diagonal recurrent weights per head, per gate
-        "r_gates": ParamSpec((4, h, hd, hd), dtype="float32"),
-        "b_gates": ParamSpec((4, h, hd), init="zeros", dtype="float32"),
-        "ffn_gate": ParamSpec((d, f)),
-        "ffn_up": ParamSpec((d, f)),
-        "ffn_down": ParamSpec((f, d)),
+        "r_gates": ParamSpec((4, h, hd, hd),
+                             (None, "heads", "head_dim", None),
+                             dtype="float32"),
+        "b_gates": ParamSpec((4, h, hd), (None, "heads", "head_dim"),
+                             init="zeros", dtype="float32"),
+        "ffn_gate": ParamSpec((d, f), ("embed", "mlp")),
+        "ffn_up": ParamSpec((d, f), ("embed", "mlp")),
+        "ffn_down": ParamSpec((f, d), ("mlp", "embed")),
     }
 
 

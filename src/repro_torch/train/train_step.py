@@ -11,10 +11,13 @@ decode caches are updated in place and returned.
 """
 from __future__ import annotations
 
+import math
 from typing import Callable
 
 import torch
+import torch.distributed as dist
 
+from ..distributed.sharding import current_rules
 from ..models import get_family
 from . import adamw
 
@@ -33,15 +36,54 @@ def _split(batch, n: int):
              for k, x in batch.items()} for i in range(n)]
 
 
-def build_train_step(cfg, opt_cfg: adamw.AdamWConfig,
-                     microbatches: int = 1) -> Callable:
-    """``train_step(params, opt_state, batch) -> (params, opt_state,
-    metrics)``: the loss and gradients of ``family.train_loss`` over
-    ``microbatches`` slices of the batch (f32 gradient sums divided by
-    their count, the losses and metrics averaged), then ``adamw.update``,
-    which writes the parameters in place. ``params``' leaves must require
-    grad. Metrics: ``total_loss``, the family's metrics, ``grad_norm`` and
-    ``lr``, as 0-d tensors."""
+def _token_count(batch):
+    """The tokens a batch's loss averages over, as an f32 scalar tensor:
+    its ``loss_mask``'s sum, or every label."""
+    if "loss_mask" in batch:
+        return batch["loss_mask"].float().sum()
+    labels = batch["labels"]
+    return torch.full((), float(labels.numel()), device=labels.device)
+
+
+def _data_parallel(rules):
+    """(process groups, this rank's batch slice, slice count) over the
+    active rules' batch dimensions (the ``"batch"`` rule's) of extent > 1,
+    or None."""
+    axes = () if rules is None else tuple(
+        a for a in rules.mesh_axes_for("batch") if rules.axis_sizes[a] > 1)
+    if not axes:
+        return None
+    index = 0
+    for a in axes:          # the spec's order: the first dimension major
+        index = index * rules.axis_sizes[a] + rules.mesh.get_local_rank(a)
+    return ([rules.mesh.get_group(a) for a in axes], index,
+            math.prod(rules.axis_sizes[a] for a in axes))
+
+
+def _rows(x, index: int, size: int):
+    if x.shape[0] % size:
+        raise ValueError(f"batch {x.shape[0]} % data-parallel ranks {size} "
+                         f"!= 0")
+    n = x.shape[0] // size
+    return x[index * n:(index + 1) * n]
+
+
+def build_loss_and_grads(cfg, microbatches: int = 1) -> Callable:
+    """``loss_and_grads(params, batch) -> (loss, metrics, grads)``: the loss
+    and gradients of ``family.train_loss`` over ``microbatches`` slices of
+    the batch (f32 gradient sums divided by their count, the losses and
+    metrics averaged); ``grads`` follows ``adamw.tree_leaves(params)``,
+    zeros for a leaf the loss does not reach. ``params``' leaves must
+    require grad.
+
+    Data parallel: under active sharding rules whose batch dimensions
+    (``"pod"``, ``"data"``) have extent > 1, every rank is given the global
+    batch, as the reference's step is, and trains on its own rows of each
+    microbatch. Its loss, metrics and gradients are weighted by its share
+    of the microbatch's tokens (the ``loss_mask``'s sum, or every label)
+    and summed over those dimensions' groups in f32: the reference's token
+    mean over the global microbatch, not a mean of the ranks' means. With
+    no such rules the step is the single-process one, op for op."""
     family = get_family(cfg)
 
     def grads_of(params, leaves, mb):
@@ -52,22 +94,63 @@ def build_train_step(cfg, opt_cfg: adamw.AdamWConfig,
         return loss.detach(), {k: torch.as_tensor(v).detach()
                                for k, v in metrics.items()}, grads
 
-    def train_step(params, opt_state, batch):
-        leaves = adamw.tree_leaves(params)
+    def local(params, leaves, batch):
         if microbatches == 1:
-            loss, metrics, grads = grads_of(params, leaves, batch)
-        else:
-            g_acc, l_acc, mets = None, 0.0, []
-            for mb in _split(batch, microbatches):
-                loss, metrics, g = grads_of(params, leaves, mb)
-                g_acc = ([x.float() for x in g] if g_acc is None
-                         else [a + x.float() for a, x in zip(g_acc, g)])
-                l_acc = l_acc + loss
-                mets.append(metrics)
-            grads = [g / microbatches for g in g_acc]
-            loss = l_acc / microbatches
-            metrics = {k: torch.stack([m[k] for m in mets]).float().mean()
-                       for k in mets[0]}
+            return grads_of(params, leaves, batch)
+        g_acc, l_acc, mets = None, 0.0, []
+        for mb in _split(batch, microbatches):
+            loss, metrics, g = grads_of(params, leaves, mb)
+            g_acc = ([x.float() for x in g] if g_acc is None
+                     else [a + x.float() for a, x in zip(g_acc, g)])
+            l_acc = l_acc + loss
+            mets.append(metrics)
+        metrics = {k: torch.stack([m[k] for m in mets]).float().mean()
+                   for k in mets[0]}
+        return l_acc / microbatches, metrics, [g / microbatches
+                                               for g in g_acc]
+
+    def data_parallel(params, leaves, batch, dp):
+        groups, index, size = dp
+        g_acc, v_acc, names = None, None, None
+        mbs = [batch] if microbatches == 1 else _split(batch, microbatches)
+        for mb in mbs:
+            rows = {k: _rows(x, index, size) for k, x in mb.items()}
+            w = _token_count(rows) / _token_count(mb).clamp_min(1.0)
+            loss, metrics, g = grads_of(params, leaves, rows)
+            names = list(metrics)
+            vec = torch.stack([loss.float()] + [metrics[k].float()
+                                                for k in names]) * w
+            g = [x.float() * w for x in g]
+            g_acc = g if g_acc is None else [a + x for a, x in zip(g_acc, g)]
+            v_acc = vec if v_acc is None else v_acc + vec
+        for t in [v_acc, *g_acc]:
+            for group in groups:
+                dist.all_reduce(t, group=group)
+        v_acc, g_acc = v_acc / len(mbs), [g / len(mbs) for g in g_acc]
+        return v_acc[0], dict(zip(names, v_acc[1:])), g_acc
+
+    def loss_and_grads(params, batch):
+        leaves = adamw.tree_leaves(params)
+        dp = _data_parallel(current_rules())
+        if dp is None:
+            return local(params, leaves, batch)
+        return data_parallel(params, leaves, batch, dp)
+
+    return loss_and_grads
+
+
+def build_train_step(cfg, opt_cfg: adamw.AdamWConfig,
+                     microbatches: int = 1) -> Callable:
+    """``train_step(params, opt_state, batch) -> (params, opt_state,
+    metrics)``: ``build_loss_and_grads``' loss and gradients (data
+    parallel under rules that split the batch), then ``adamw.update``,
+    which writes the parameters in place. ``params``' leaves must require
+    grad. Metrics: ``total_loss``, the family's metrics, ``grad_norm`` and
+    ``lr``, as 0-d tensors."""
+    loss_and_grads = build_loss_and_grads(cfg, microbatches)
+
+    def train_step(params, opt_state, batch):
+        loss, metrics, grads = loss_and_grads(params, batch)
         it = iter(grads)
         grad_tree = adamw.tree_map(lambda _: next(it), params)
         params, opt_state, opt_metrics = adamw.update(opt_cfg, grad_tree,

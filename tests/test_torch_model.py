@@ -187,8 +187,8 @@ def test_init_params_on_device_and_unported_family():
 def test_config_fields_match_reference(arch):
     """Every field of the port's config, full and reduced, equals the
     reference's, the frontend fields of hubert-xlarge and paligemma-3b
-    among them (the port lacks the reference's attention-chunk, scan and
-    sharding fields, and has none the reference lacks)."""
+    among them (the port lacks the reference's attention-chunk and scan
+    fields, and has none the reference lacks)."""
     import dataclasses
     from repro.configs.base import ModelConfig as JaxModelConfig
     names = [f.name for f in dataclasses.fields(ModelConfig)]

@@ -241,6 +241,29 @@ def test_checkpoint_latest_and_gc():
     assert ck.latest_step() == 4
 
 
+def test_checkpoint_latest_step_waits_for_a_write_in_flight(monkeypatch):
+    """A revoked trainer asks for the latest step while its async save may
+    still be writing: ``latest_step`` waits for the write, so the restart
+    resumes from it (the reference's reads the store first, and under load
+    restarted an async revocation run from step 0)."""
+    import threading
+    store = ObjectStore(clock=VirtualClock())
+    ck = Checkpointer(store, "runD")
+    write, gate = ck._write, threading.Event()
+
+    def held(step, host):
+        gate.wait(timeout=30)
+        write(step, host)
+    monkeypatch.setattr(ck, "_write", held)
+    ck.save(1, {"w": torch.zeros(4)}, blocking=False)
+    assert ck.steps() == []                 # the write is still held
+    timer = threading.Timer(0.2, gate.set)
+    timer.start()
+    assert ck.latest_step() == 1
+    timer.join(timeout=30)
+    assert not timer.is_alive()
+
+
 def test_checkpoint_corruption_detected_on_restore():
     store = ObjectStore(clock=VirtualClock())
     ck = Checkpointer(store, "runD")
