@@ -119,6 +119,17 @@ Phases, each of which must pass (a failure exits nonzero):
    version called; prints step ms,
    tokens/s, peak device memory and the checkpoints' save and restore
    seconds and GB/s, and the final state's SHA-256.
+8b. launch: the launch layer's dry-run (``repro_torch.launch.dryrun``'s
+   ``analyze_cell``: ``build_cell`` and ``step_analysis`` on meta
+   tensors) of the train phase's own cell -- internlm2-1.8b at
+   ``ShapeConfig("train_8x1k", "train", 1024, 8)`` on the (1, 1) card
+   mesh, with the train phase's ``AdamWConfig`` (int8 moments) -- beside
+   that phase's measured step: the predicted bytes a device against its
+   peak device memory (failing beyond 3%), the traced matmul FLOPs
+   against the model FLOPs, the roofline terms from ``H100_SXM`` against
+   the measured step, the measured share of peak (model time / step
+   time), and ``H100_SXM``'s memory against the card's; it fails if the
+   trace dispatched anything on the card or launched a kernel.
 9. job: the same training run as a job of the Kotta batch runtime
    (``KottaService``): an outsider's submit refused and audited; alice's
    job staged under her role by the executor's assume-role, run on a
@@ -229,7 +240,8 @@ Phases, each of which must pass (a failure exits nonzero):
 The second-to-last line of output is a JSON ``kernels`` record (with the
 launches on the transformer runs, the residency phase's move times, the
 gateway phase's results, the train, job, zamba train and xlstm phases'
-numbers, ``ssd_scan_bwd`` among the kernels, each kernel's Zamba2
+numbers, the launch phase's prediction, ``ssd_scan_bwd`` among the
+kernels, each kernel's Zamba2
 training launches as ``launches_zamba_train``, RMSNorm's xLSTM launches as
 ``launches_xlstm_serve`` and ``launches_xlstm_train``, each kernel's
 launches in the frontends phase as ``launches_frontends``, in the
@@ -238,7 +250,7 @@ phase as ``launches_distributed``, and the frontends, frontend train,
 examples and distributed phases' numbers); the last is
 ``{"ok": true, "device": {...}}``. Without CUDA, or without the port
 beside this script, it prints no result and exits nonzero. It takes no
-arguments: every run drives all fifteen phases.
+arguments: every run drives all sixteen phases (8b among them).
 """
 from __future__ import annotations
 
@@ -3440,6 +3452,13 @@ def _transformer_step_launches(cfg):
         "rmsnorm_bwd": {"registers": 2 * L + 1, "smem": 0}}
 
 
+def _train_opt():
+    """The train phase's AdamW: int8 moments, a short warm-up."""
+    from repro_torch.train import AdamWConfig
+    return AdamWConfig(learning_rate=TRAIN_LR, warmup_steps=2,
+                       decay_steps=100, state_dtype="int8")
+
+
 def phase_train(smi: str):
     """Full-width, full-depth internlm2-1.8b (24 layers, bf16 compute over
     f32 master weights, remat "full", seed 0) trained by ``ElasticTrainer``
@@ -3456,12 +3475,10 @@ def phase_train(smi: str):
     import torch
     from repro_torch.configs import get_config
     from repro_torch.models import count_params
-    from repro_torch.train import AdamWConfig
     from repro_torch.train.adamw import tree_leaves
     cfg = get_config("internlm2-1.8b")
     assert cfg.remat == "full" and cfg.param_dtype == "float32"
-    opt = AdamWConfig(learning_rate=TRAIN_LR, warmup_steps=2,
-                      decay_steps=100, state_dtype="int8")
+    opt = _train_opt()
     L = cfg.num_layers
     want, want_routes = _transformer_step_launches(cfg)
     plain_calls, undo = _plain_call_counter()
@@ -3571,6 +3588,103 @@ def phase_train(smi: str):
                              f"{rev_rep.losses} {ref_rep.losses}")
     torch.cuda.empty_cache()
     return rec
+
+
+# ---------------------------------------------------------------------------
+# phase 8b: the launch layer's dry-run against the measured training step
+# ---------------------------------------------------------------------------
+
+#: The dry-run's bytes a device against the train phase's peak: 3%. The
+#: readings were -0.2% and -0.0% on the H100; leaving out a whole class of
+#: state (the f32 gradients, ~22% of internlm2's peak, or the int8
+#: moments, ~11%) would fail it.
+LAUNCH_MEMORY_TOL = 0.03
+
+
+def phase_launch(smi: str, train: dict):
+    """The dry-run of the train phase's cell (internlm2-1.8b, B ``TB`` x S
+    ``TS``, the card mesh, int8 moments) beside that phase's measured
+    step; fails if the predicted bytes a device are more than
+    ``LAUNCH_MEMORY_TOL`` off the run's peak device memory, or if the
+    trace touched the card (an op on a CUDA tensor, a kernel launch, a
+    byte allocated). Host tensors may take part (a scalar made on the CPU
+    before it reaches the meta device)."""
+    import torch
+    from repro_torch import kernels
+    from repro_torch.configs import ShapeConfig, get_config
+    from repro_torch.core.cost import H100_SXM
+    from repro_torch.launch.dryrun import analyze_cell
+    cfg = get_config("internlm2-1.8b")
+    shape = ShapeConfig("train_8x1k", "train", TS, TB)
+    kernels.reset_launch_counts()
+    torch.cuda.synchronize()
+    allocated = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    rec = analyze_cell(cfg, shape, "card", opt_cfg=_train_opt())
+    wall = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    launched = {k: v for k, v in kernels.launch_counts().items() if v}
+    touched = torch.cuda.memory_allocated() - allocated
+    mem, roof, hlo = rec["memory"], rec["roofline"], rec["hlo"]
+    predicted = mem["per_device_total"]
+    # the run's own peak: what earlier phases left allocated is not its
+    measured = train["max_memory_allocated_bytes"] \
+        - train["allocated_before_bytes"]
+    step_s = train["step_ms_median_after_first"] / 1e3
+    terms = {k: roof[k] for k in ("compute_s", "memory_s", "collective_s")}
+    total = torch.cuda.get_device_properties(0).total_memory
+    out = {
+        "cell": {"arch": cfg.name, "shape": dataclasses.asdict(shape),
+                 "mesh": "card", "state_dtype": "int8"},
+        "trace_s": rec["trace_s"], "phase_s": wall,
+        "predicted_per_device_bytes": predicted,
+        "measured_peak_bytes": measured,
+        "max_memory_allocated_bytes": train["max_memory_allocated_bytes"],
+        "allocated_before_bytes": train["allocated_before_bytes"],
+        "memory_rel_err": predicted / measured - 1.0,
+        "memory": mem, "dot_flops": hlo["dot_flops"],
+        "model_flops": roof["model_flops"],
+        "useful_flops_ratio": roof["useful_flops_ratio"],
+        "kernel_regions": hlo["kernel_regions"],
+        "roofline_terms_s": terms, "memory_fused_s": roof["memory_fused_s"],
+        "bottleneck": roof["bottleneck"],
+        "roofline_s": max(terms.values()),
+        "roofline_fraction": roof["roofline_fraction"],
+        "model_time_s": roof["model_time_s"],
+        "measured_step_s": step_s,
+        "measured_share_of_peak": roof["model_time_s"] / step_s,
+        "spec": dataclasses.asdict(H100_SXM),
+        "card_total_memory_bytes": total, "card": smi,
+        "devices_seen": hlo["devices_seen"], "launches": launched,
+        "bytes_allocated_on_card": touched}
+    log(f"[launch] dry-run of internlm2-1.8b train B {TB} x S {TS} (card "
+        f"mesh, int8 moments, traced on meta in {rec['trace_s']:.2f} s): "
+        f"predicted {predicted / 2**30:.2f} GiB a device vs the train "
+        f"phase's peak {measured / 2**30:.2f} GiB "
+        f"(max_memory_allocated {out['max_memory_allocated_bytes'] / 2**30:.2f}"
+        f" GiB, {out['allocated_before_bytes'] / 2**30:.2f} held before; "
+        f"{out['memory_rel_err'] * 100:+.1f}%); dot FLOPs "
+        f"{hlo['dot_flops']:.4e} vs model FLOPs {roof['model_flops']:.4e} "
+        f"(useful ratio {roof['useful_flops_ratio']:.3f}); roofline "
+        f"compute {terms['compute_s'] * 1e3:.1f} / memory "
+        f"{terms['memory_s'] * 1e3:.1f} (fused "
+        f"{roof['memory_fused_s'] * 1e3:.1f}) / collective "
+        f"{terms['collective_s'] * 1e3:.1f} ms, bound "
+        f"{out['roofline_s'] * 1e3:.1f} ms ({roof['bottleneck']}) vs the "
+        f"measured step {step_s * 1e3:.1f} ms; model time "
+        f"{roof['model_time_s'] * 1e3:.1f} ms: measured share of peak "
+        f"{out['measured_share_of_peak']:.4f}; H100_SXM.hbm_bytes "
+        f"{H100_SXM.hbm_bytes:.4e} vs the card's total_memory {total:.4e}; "
+        f"on {smi}")
+    if "cuda" in hlo["devices_seen"] or launched or touched:
+        raise AssertionError(f"launch: the meta trace touched the card: "
+                             f"devices {hlo['devices_seen']}, launches "
+                             f"{launched}, {touched} bytes allocated")
+    if abs(out["memory_rel_err"]) > LAUNCH_MEMORY_TOL:
+        raise AssertionError(f"launch: predicted {predicted} bytes, the "
+                             f"train phase's peak {measured}: more than "
+                             f"{LAUNCH_MEMORY_TOL:.0%} apart")
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -5257,8 +5371,7 @@ def _sc_train_step(mesh, smi):
     plain_calls, undo_plain = _plain_call_counter()
     undo = [_counting(layers, "ring_attention_sharded", calls)] + [
         _counting(ring_mod, n, calls) for n in
-        ("attention_reference", "attention_lse_reference",
-         "attention_bwd_lse_reference")]
+        ("attention_out_lse_reference", "attention_bwd_lse_reference")]
     runs = {}
     torch.use_deterministic_algorithms(True)
     try:
@@ -5468,6 +5581,7 @@ def main() -> int:
     gateway_launches, gateway = timed("gateway", phase_gateway, smi)
     timed("train parity", phase_train_parity)
     train = timed("train", phase_train, smi)
+    launch = timed("launch", phase_launch, smi, train)
     job = timed("job", phase_job, smi, train)
     zt = timed("zamba train", phase_zamba_train, smi)
     xl = timed("xlstm", phase_xlstm, smi)
@@ -5583,7 +5697,8 @@ def main() -> int:
         f"{smi}; seconds a phase: {seconds}")
     print(json.dumps({"kernels": record, "transformers": transformers,
                       "residency": moves, "gateway": gateway,
-                      "train": train, "job": job, "zamba_train": zt,
+                      "train": train, "launch": launch, "job": job,
+                      "zamba_train": zt,
                       "xlstm": xl, "frontends": fr,
                       "frontend_train": ft, "examples": ex,
                       "distributed": dr}))

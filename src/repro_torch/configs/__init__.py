@@ -1,7 +1,8 @@
 from . import (arctic_480b, hubert_xlarge, internlm2_1_8b, mistral_nemo_12b,
                olmoe_1b_7b, paligemma_3b, starcoder2_7b, xlstm_350m, yi_6b,
                zamba2_1_2b)
-from .base import ModelConfig, torch_dtype
+from .base import (DECODE_32K, LONG_500K, PREFILL_32K, SHAPES, TRAIN_4K,
+                   ModelConfig, ShapeConfig, runnable, torch_dtype)
 
 _MODULES = {
     "arctic-480b": arctic_480b,
@@ -30,5 +31,23 @@ def get_reduced_config(name: str) -> ModelConfig:
     return _MODULES[name].reduced()
 
 
-__all__ = ["ARCH_NAMES", "ModelConfig", "get_config", "get_reduced_config",
+def get_shape(name: str) -> ShapeConfig:
+    return SHAPES[name]
+
+
+def all_cells():
+    """Every (arch, shape) cell with its verdict: (arch, shape name,
+    runnable, reason)."""
+    out = []
+    for arch in ARCH_NAMES:
+        cfg = get_config(arch)
+        for shape in SHAPES.values():
+            ok, why = runnable(cfg, shape)
+            out.append((arch, shape.name, ok, why))
+    return out
+
+
+__all__ = ["ARCH_NAMES", "DECODE_32K", "LONG_500K", "ModelConfig",
+           "PREFILL_32K", "SHAPES", "ShapeConfig", "TRAIN_4K", "all_cells",
+           "get_config", "get_reduced_config", "get_shape", "runnable",
            "torch_dtype"]

@@ -3,7 +3,9 @@
 The port keeps its own copy of the reference ``ModelConfig``: the fields the
 transformer's (dense, with experts, and with the audio and VLM frontends),
 xLSTM's and the Zamba2 hybrid's serving and training paths and the
-distributed layer read, with the ``dtype`` strings mapped to torch dtypes.
+distributed layer read, with the ``dtype`` strings mapped to torch dtypes;
+and of its ``ShapeConfig``: the four shapes every architecture is dry-run
+at (``SHAPES``) and the skip rules (``runnable``).
 """
 from __future__ import annotations
 
@@ -148,3 +150,47 @@ class ModelConfig:
     @property
     def ssm_heads(self) -> int:
         return self.d_inner // self.ssm_headdim
+
+    def param_count(self) -> int:
+        """Total parameters, from the layout alone."""
+        from ..models.registry import count_params  # lazy: no import cycle
+        return count_params(self)
+
+    def active_param_count(self) -> int:
+        """Parameters touched per token (MoE: the routed experts only)."""
+        from ..models.registry import count_params
+        return count_params(self, active_only=True)
+
+
+@dataclass(frozen=True)
+class ShapeConfig:
+    name: str
+    kind: str            # "train" | "prefill" | "decode"
+    seq_len: int         # train/prefill: sequence length; decode: KV-cache length
+    global_batch: int
+
+    @property
+    def is_decode(self) -> bool:
+        return self.kind == "decode"
+
+
+# The assigned LM-family shape set (the same four for every architecture).
+TRAIN_4K = ShapeConfig("train_4k", "train", 4_096, 256)
+PREFILL_32K = ShapeConfig("prefill_32k", "prefill", 32_768, 32)
+DECODE_32K = ShapeConfig("decode_32k", "decode", 32_768, 128)
+LONG_500K = ShapeConfig("long_500k", "decode", 524_288, 1)
+
+SHAPES: dict[str, ShapeConfig] = {
+    s.name: s for s in (TRAIN_4K, PREFILL_32K, DECODE_32K, LONG_500K)
+}
+
+
+def runnable(cfg: ModelConfig, shape: ShapeConfig) -> tuple[bool, str]:
+    """The skip rules: (runnable, the reason where it is not)."""
+    if cfg.encoder_only and shape.is_decode:
+        return False, "encoder-only arch has no autoregressive decode step"
+    full_attention = cfg.family in ("dense", "moe", "vlm", "audio")
+    if shape.name == "long_500k" and full_attention:
+        return False, ("pure full-attention arch; long_500k requires "
+                       "sub-quadratic")
+    return True, ""

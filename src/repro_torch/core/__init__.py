@@ -16,11 +16,11 @@ contributions as composable components.
 - :mod:`repro_torch.core.simulator` — discrete-event reproduction of §VII-C
 
 The reference's TPU roofline constants (``TpuChipSpec``, ``TPU_V5E``) are
-not copied.
+not copied; ``cost.H100_SXM`` gives the dry-run the card's peak figures.
 """
 from .clock import Clock, VirtualClock, days, hours
-from .cost import (ComputePricing, StoragePricing, lifecycle_annual_cost,
-                   placement_cost)
+from .cost import (H100_SXM, ComputePricing, GpuChipSpec, StoragePricing,
+                   lifecycle_annual_cost, placement_cost)
 from .lifecycle import (DEFAULT_POLICY, LifecyclePolicy, ObjectArchivedError,
                         ObjectNotFoundError, ObjectStore, SecureStorage,
                         StorageError, Tier)

@@ -18,8 +18,10 @@ month over the 3-month window) while the **inactive** ``1 - A_data``
 fraction rests in Glacier, which matches every Table III row to the cent
 (the equation as printed cannot reproduce the paper's own table).
 
-The reference's TPU roofline constants are not copied: they describe no
-hardware the port runs on.
+The reference's TPU roofline constants (``TpuChipSpec``, ``TPU_V5E``) are
+not copied: they describe no hardware the port runs on. In their place the
+dry-run reads :data:`H100_SXM`, a :class:`GpuChipSpec` with the same field
+names.
 
 Sizes are decimal GB, as in the paper.
 """
@@ -183,3 +185,37 @@ def placement_cost(
     else:
         transfer = (data_down_gb + data_up_gb) * p.inter_region_transfer_per_gb
     return compute + transfer                                            # Eq (4)
+
+
+# ---------------------------------------------------------------------------
+# Roofline hardware constants of the card the port runs on
+# ---------------------------------------------------------------------------
+
+@dataclass(frozen=True)
+class GpuChipSpec:
+    """One GPU's peak figures for the dry-run's roofline terms
+    (``launch/dryrun.py``): ``peak_bf16_flops`` in FLOP/s (dense),
+    ``hbm_bandwidth`` in B/s, ``hbm_bytes`` the device memory, and
+    ``nvlink_bandwidth`` the B/s one GPU sends over NVLink.
+
+    The collective term divides a device's collective wire bytes (the
+    bytes it sends under the ring conventions of
+    ``launch/step_analysis.py``) by ``nvlink_bandwidth``. NVIDIA quotes
+    NVLink per GPU as the sum of both directions; a ring step sends and
+    receives the same bytes at once, one direction each, so the rate that
+    bounds the bytes sent is half that sum."""
+    name: str
+    power_w: float
+    peak_bf16_flops: float
+    hbm_bandwidth: float
+    hbm_bytes: float
+    nvlink_bandwidth: float
+
+
+#: NVIDIA H100 SXM5, from the NVIDIA H100 Tensor Core GPU datasheet: bf16
+#: dense tensor-core peak 989.4 TFLOP/s (1,979 with structured sparsity),
+#: HBM3 3.35 TB/s, 80 GB, NVLink 900 GB/s a GPU in both directions
+#: together (450 GB/s each way), at its 700 W maximum power.
+H100_SXM = GpuChipSpec(name="NVIDIA H100 80GB HBM3", power_w=700.0,
+                       peak_bf16_flops=989.4e12, hbm_bandwidth=3.35e12,
+                       hbm_bytes=80e9, nvlink_bandwidth=900e9 / 2)

@@ -41,23 +41,22 @@ from __future__ import annotations
 import torch
 import torch.distributed as dist
 
+from ..kernels._meta import on_kernel_route
 from ..kernels.flash_attention import (attention_bwd_lse_reference,
-                                       attention_lse_reference,
-                                       attention_reference,
+                                       attention_out_lse_reference,
                                        flash_attention_bwd,
                                        flash_attention_fwd)
 
 
 def _block_fwd(q, k, v, causal):
     """(out in q's dtype, lse (B,H,Sq) f32) of one block."""
-    if q.is_cuda:
+    if on_kernel_route(q):
         return flash_attention_fwd(q, k, v, causal=causal, return_lse=True)
-    return (attention_reference(q, k, v, causal=causal),
-            attention_lse_reference(q, k, v, causal=causal))
+    return attention_out_lse_reference(q, k, v, causal=causal)
 
 
 def _block_bwd(q, k, v, out, dout, lse, causal):
-    if q.is_cuda:
+    if on_kernel_route(q):
         return flash_attention_bwd(q, k, v, out, dout, lse, causal=causal)
     return attention_bwd_lse_reference(q, k, v, out, dout, lse,
                                        causal=causal)

@@ -107,9 +107,13 @@ class ShardingRules:
         """DTensor placements of ``spec_for``: one a mesh dimension,
         ``Shard(d)`` where tensor dimension d is split over it, else
         ``Replicate()``."""
+        return self.placements_of(self.spec_for(shape, axes))
+
+    def placements_of(self, spec: tuple) -> list:
+        """DTensor placements of a spec (one entry a tensor dimension)."""
         from torch.distributed.tensor import Replicate, Shard
         owner = {}
-        for d, entry in enumerate(self.spec_for(shape, axes)):
+        for d, entry in enumerate(spec):
             for a in ((entry,) if isinstance(entry, str) else entry or ()):
                 owner[a] = d
         return [Shard(owner[a]) if a in owner else Replicate()

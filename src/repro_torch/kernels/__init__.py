@@ -9,7 +9,9 @@ route. RMSNorm, flash attention and the SSD scan also have backward kernels
 of the port's own (``rmsnorm_bwd``, by D; ``flash_attention_bwd``, by dtype
 through ``attention_bwd_route``; ``ssd_scan_bwd``, by dtype through
 ``ssd_route``), which their ``ops`` entries call through
-``torch.autograd.Function``s when a gradient is wanted."""
+``torch.autograd.Function``s when a gradient is wanted. Every wrapper
+given a meta tensor takes its meta route (``_meta``): the plain version
+for shapes only, inside a kernel region, no launch counted."""
 from ._cuda import attention_bwd_route, attention_route, ssd_route
 from .decode_attention import (default_num_splits, flash_decode_fwd,
                                paged_decode_attention, paged_decode_reference)

@@ -23,14 +23,17 @@ from __future__ import annotations
 
 import torch
 
-from .. import _cuda
+from .. import _cuda, _meta
+from .ref import paged_decode_reference
 
 
+@_meta.route(paged_decode_reference, ignore=("num_splits",))
 def flash_decode_fwd(q, k_pages, v_pages, page_table, lengths, *,
                      k_scale=None, v_scale=None, num_splits: int = 1):
     """q: (B,H,hd) f32/bf16; k/v_pages: (KV,P,ps,hd) f32/bf16, or int8 with
     (KV,P,ps) f32 ``k_scale``/``v_scale``; page_table: (B,npages) int32;
-    lengths: (B,) int32 -> (B,H,hd) in q's dtype. CUDA tensors only."""
+    lengths: (B,) int32 -> (B,H,hd) in q's dtype.
+    CUDA tensors, or meta ones (``_meta``)."""
     _cuda.check_paged("flash_decode_fwd", q, k_pages, v_pages, page_table,
                       lengths, k_scale, v_scale, q_ndim=3)
     b, h, hd = q.shape

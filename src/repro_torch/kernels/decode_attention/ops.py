@@ -1,13 +1,15 @@
 """Public entry of paged GQA decode attention, dispatched by device.
 
 A CUDA tensor launches the hand-written kernel (``kernel.py``) or raises; a
-CPU tensor takes the plain version (``ref.py``). There is no fallback from
-one to the other.
+meta tensor takes the wrapper's meta route (``kernels/_meta.py``: the plain
+version for shapes, no launch); a CPU tensor takes the plain version
+(``ref.py``). There is no fallback from one to the other.
 """
 from __future__ import annotations
 
 import torch
 
+from .._meta import on_kernel_route
 from .kernel import flash_decode_fwd
 from .ref import paged_decode_reference
 
@@ -36,7 +38,7 @@ def paged_decode_attention(q, k_pages, v_pages, page_table, lengths, *,
     ``k_scale``/``v_scale``: per-row scale pages of an int8 pool; both the
     kernel and the plain version dequantize with the same f32 arithmetic.
     """
-    if q.is_cuda:
+    if on_kernel_route(q):
         splits = default_num_splits(page_table.shape[1],
                                     batch=page_table.shape[0],
                                     split_budget=split_budget)

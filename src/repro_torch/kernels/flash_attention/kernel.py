@@ -34,7 +34,9 @@ from __future__ import annotations
 
 import torch
 
-from .. import _cuda
+from .. import _cuda, _meta
+from .ref import (attention_bwd_lse_reference, attention_out_lse_reference,
+                  attention_reference)
 
 
 def _check(name, q, k, v):
@@ -78,12 +80,20 @@ def _fwd_route(dtype, hd: int) -> str:
     return _cuda.attention_route(dtype, dtype, 128 if hd == 80 else hd)
 
 
+def _plain_fwd(q, k, v, *, causal: bool = True, return_lse: bool = False):
+    """``flash_attention_fwd``'s contract in the plain version."""
+    if return_lse:
+        return attention_out_lse_reference(q, k, v, causal=causal)
+    return attention_reference(q, k, v, causal=causal)
+
+
+@_meta.route(_plain_fwd)
 def flash_attention_fwd(q, k, v, *, causal: bool = True,
                         return_lse: bool = False):
     """q: (B,Sq,H,hd); k/v: (B,Skv,KV,hd), one dtype (f32/bf16) ->
     (B,Sq,H,hd), and with ``return_lse`` also the rows' natural
     log-sum-exp of the scaled scores (B,H,Sq) f32. H % KV == 0; hd per
-    route (module docstring). CUDA tensors only."""
+    route (module docstring). CUDA tensors, or meta ones (``_meta``)."""
     _check("flash_attention_fwd", q, k, v)
     b, sq, h, hd = q.shape
     _, skv, nkv, _ = k.shape
@@ -106,12 +116,13 @@ flash_attention_fwd.launches = 0
 flash_attention_fwd.launches_by_route = {"sm90": 0, "cuda_core": 0}
 
 
+@_meta.route(attention_bwd_lse_reference)
 def flash_attention_bwd(q, k, v, out, dout, lse, *, causal: bool = True):
     """Gradients of ``flash_attention_fwd`` (q, k, v, its ``out`` and
     ``lse``) for the output gradient ``dout`` -> (dq, dk, dv) in q's dtype.
     Three launches (the delta = rowsum(dout * out) pass, then the dK/dV and
     dQ kernels), counted as one, on the route of q's dtype (module
-    docstring); any S and G; CUDA tensors only."""
+    docstring); any S and G; CUDA tensors, or meta ones (``_meta``)."""
     _check("flash_attention_bwd", q, k, v)
     _cuda.check_cuda("flash_attention_bwd", q, out, dout, lse)
     b, sq, h, hd = q.shape

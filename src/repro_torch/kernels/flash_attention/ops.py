@@ -1,6 +1,8 @@
 """Public entry of dense GQA flash attention, dispatched by device: a CUDA
-tensor launches the kernel or raises, a CPU tensor takes the plain
-version, which autograd differentiates.
+tensor launches the kernel or raises, a meta tensor takes the same path
+through the wrappers' meta route (``kernels/_meta.py``: the plain version
+for shapes, no launch), a CPU tensor takes the plain version, which
+autograd differentiates.
 
 Where a gradient is wanted (autograd on, an input that requires grad), a
 CUDA call goes through ``FlashAttention``: the forward kernel with its row
@@ -13,6 +15,7 @@ from __future__ import annotations
 
 import torch
 
+from .._meta import on_kernel_route
 from .kernel import flash_attention_bwd, flash_attention_fwd
 from .ref import attention_reference
 
@@ -35,7 +38,7 @@ class FlashAttention(torch.autograd.Function):
 
 
 def flash_attention(q, k, v, *, causal: bool = True):
-    if q.is_cuda:
+    if on_kernel_route(q):
         q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
         if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
                                         or v.requires_grad):

@@ -9,9 +9,9 @@ import torch
 MASK_VALUE = -1e30
 
 
-def attention_reference(q, k, v, *, causal: bool = True):
-    """q: (B,Sq,H,hd); k/v: (B,Skv,KV,hd) -> (B,Sq,H,hd) in q's dtype. f32
-    scores and softmax; key j is visible to query i when j <= i if causal."""
+def _scores(q, k, causal: bool):
+    """The scaled, masked f32 scores (B,KV,G,Sq,Skv) of q (B,Sq,H,hd) against
+    k (B,Skv,KV,hd): key j is visible to query i when j <= i if causal."""
     b, sq, h, hd = q.shape
     skv, nkv = k.shape[1], k.shape[2]
     qg = q.reshape(b, sq, nkv, h // nkv, hd).float()
@@ -20,23 +20,37 @@ def attention_reference(q, k, v, *, causal: bool = True):
         mask = (torch.arange(sq, device=q.device)[:, None]
                 >= torch.arange(skv, device=q.device)[None, :])
         s = torch.where(mask, s, MASK_VALUE)
-    p = torch.softmax(s, dim=-1)
-    out = torch.einsum("bkgqs,bskh->bqkgh", p, v.float())
-    return out.reshape(b, sq, h, hd).to(q.dtype)
+    return s
+
+
+def _weighted(s, v, q):
+    """softmax(``s``) applied to v -> (B,Sq,H,hd) in q's dtype."""
+    out = torch.einsum("bkgqs,bskh->bqkgh", torch.softmax(s, dim=-1),
+                       v.float())
+    return out.reshape(q.shape).to(q.dtype)
+
+
+def attention_reference(q, k, v, *, causal: bool = True):
+    """q: (B,Sq,H,hd); k/v: (B,Skv,KV,hd) -> (B,Sq,H,hd) in q's dtype. f32
+    scores and softmax; key j is visible to query i when j <= i if causal."""
+    return _weighted(_scores(q, k, causal), v, q)
 
 
 def attention_lse_reference(q, k, v, *, causal: bool = True):
     """The rows' natural log-sum-exp of the scaled scores (B,H,Sq) f32: what
     the forward kernel writes for the backward."""
-    b, sq, h, hd = q.shape
-    skv, nkv = k.shape[1], k.shape[2]
-    qg = q.reshape(b, sq, nkv, h // nkv, hd).float()
-    s = torch.einsum("bqkgh,bskh->bkgqs", qg, k.float()) / math.sqrt(hd)
-    if causal:
-        mask = (torch.arange(sq, device=q.device)[:, None]
-                >= torch.arange(skv, device=q.device)[None, :])
-        s = torch.where(mask, s, MASK_VALUE)
-    return torch.logsumexp(s, dim=-1).reshape(b, h, sq)
+    b, sq, h, _ = q.shape
+    return torch.logsumexp(_scores(q, k, causal), dim=-1).reshape(b, h, sq)
+
+
+def attention_out_lse_reference(q, k, v, *, causal: bool = True):
+    """(``attention_reference``'s output, ``attention_lse_reference``'s
+    log-sum-exp) from one score matrix, as the forward kernel writes them
+    with ``return_lse``."""
+    b, sq, h, _ = q.shape
+    s = _scores(q, k, causal)
+    return (_weighted(s, v, q),
+            torch.logsumexp(s, dim=-1).reshape(b, h, sq))
 
 
 def attention_bwd_reference(q, k, v, dout, *, causal: bool = True):

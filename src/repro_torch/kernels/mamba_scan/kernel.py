@@ -41,8 +41,9 @@ from __future__ import annotations
 
 import torch
 
-from .. import _cuda
-from .ref import check_chunk
+from .. import _cuda, _meta
+from .ref import (check_chunk, ssd_chunked_backward_reference,
+                  ssd_chunked_reference)
 
 MAX_CHUNK = MAX_STATE = 128      # rows a block covers (both kernels)
 MAX_SMEM = 232448                # bytes of shared memory a Hopper block may use
@@ -80,12 +81,13 @@ def bwd_head_block(h: int) -> int:
     return 1
 
 
+@_meta.route(ssd_chunked_reference)
 def ssd_scan(x, dt, a_log, bmat, cmat, *, chunk: int = 128):
     """x: (B,S,H,P) f32/bf16; dt: (B,S,H); a_log: (H,); bmat/cmat: (B,S,N)
     in x's dtype -> (y (B,S,H,P) in x's dtype, h_final (B,H,N,P) f32), the
     state starting at zero. Chunks of ``min(chunk, S)`` steps, the last
     one ragged when S is not a multiple. Contract per route in the module
-    docstring. CUDA tensors only."""
+    docstring. CUDA tensors, or meta ones (``_meta``)."""
     b, s, h, p = x.shape
     n = bmat.shape[-1]
     chunk = check_chunk(s, chunk)
@@ -132,15 +134,16 @@ ssd_scan.launches = 0
 ssd_scan.launches_by_route = {"sm90": 0, "cuda_core": 0}
 
 
+@_meta.route(ssd_chunked_backward_reference)
 def ssd_scan_bwd(x, dt, a_log, bmat, cmat, dy, dh_final=None, *,
                  chunk: int = 128):
     """The gradient of ``ssd_scan``'s (y, h_final) for the cotangents dy (x's
     shape and dtype) and ``dh_final`` ((B,H,N,P) f32, zero if None) ->
     (dx, ddt (B,S,H) f32, da_log (H,) f32, dB, dC), dx, dB and dC in x's
-    dtype. Contract in the module docstring; CUDA tensors only. One launch
-    counted on its route (three kernels each: on sm90 the state walks, the
-    chunk body, the sums; on cuda_core the states, the reverse walk, the
-    sums)."""
+    dtype. Contract in the module docstring; CUDA tensors, or meta ones
+    (``_meta``). One launch counted on its route (three kernels each: on
+    sm90 the state walks, the chunk body, the sums; on cuda_core the
+    states, the reverse walk, the sums)."""
     b, s, h, p = x.shape
     n = bmat.shape[-1]
     chunk = check_chunk(s, chunk)

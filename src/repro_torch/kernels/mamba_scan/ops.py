@@ -1,6 +1,8 @@
 """Public entry of the Mamba2 SSD chunked scan, dispatched by device: a
-CUDA tensor launches the kernel or raises, a CPU tensor takes the plain
-chunked version, which autograd differentiates.
+CUDA tensor launches the kernel or raises, a meta tensor takes the same
+path through the wrappers' meta route (``kernels/_meta.py``: the plain
+version for shapes, no launch), a CPU tensor takes the plain chunked
+version, which autograd differentiates.
 
 Where a gradient is wanted (autograd on, an input that requires grad), a
 CUDA call goes through ``SSDScan``: the forward kernel with its inputs
@@ -12,6 +14,7 @@ from __future__ import annotations
 
 import torch
 
+from .._meta import on_kernel_route
 from .kernel import ssd_scan, ssd_scan_bwd
 from .ref import ssd_chunked_reference
 
@@ -38,7 +41,7 @@ class SSDScan(torch.autograd.Function):
 def mamba_chunk_scan(x, dt, a_log, bmat, cmat, *, chunk: int = 128):
     """-> (y (B,S,H,P) in x's dtype, h_final (B,H,N,P) f32); the state
     starts at zero; no D-skip. A ``None`` gradient of h_final is zero."""
-    if not x.is_cuda:
+    if not on_kernel_route(x):
         return ssd_chunked_reference(x, dt, a_log, bmat, cmat, chunk=chunk)
     x, bmat, cmat = x.contiguous(), bmat.contiguous(), cmat.contiguous()
     if torch.is_grad_enabled() and any(

@@ -21,14 +21,17 @@ from __future__ import annotations
 
 import torch
 
-from .. import _cuda
+from .. import _cuda, _meta
+from .ref import paged_prefill_reference
 
 
+@_meta.route(paged_prefill_reference)
 def flash_prefill_fwd(q, k_pages, v_pages, page_table, q_start, *,
                       k_scale=None, v_scale=None):
     """q: (B,C,H,hd) f32/bf16; k/v_pages: (KV,P,ps,hd) f32/bf16, or int8
     with (KV,P,ps) f32 scales; page_table: (B,npages) int32; q_start: (B,)
-    int32 -> (B,C,H,hd) in q's dtype. CUDA tensors only."""
+    int32 -> (B,C,H,hd) in q's dtype.
+    CUDA tensors, or meta ones (``_meta``)."""
     _cuda.check_paged("flash_prefill_fwd", q, k_pages, v_pages, page_table,
                       q_start, k_scale, v_scale, q_ndim=4)
     route = _cuda.paged_route("flash_prefill_fwd", q, k_pages)

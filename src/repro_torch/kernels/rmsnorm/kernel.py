@@ -25,7 +25,8 @@ from __future__ import annotations
 
 import torch
 
-from .. import _cuda
+from .. import _cuda, _meta
+from .ref import rmsnorm_bwd_reference, rmsnorm_reference
 
 MAX_D = 32768            # the shared-memory kernel stages the row as f32
 MAX_VECTORS = 1024       # the register kernel: a 16-byte vector a thread
@@ -37,9 +38,10 @@ def rmsnorm_path(d: int, dtype) -> str:
     return "registers" if -(-d // per_vector) <= MAX_VECTORS else "smem"
 
 
+@_meta.route(rmsnorm_reference)
 def rmsnorm_fused(x, weight, eps: float = 1e-6):
     """x: (..., D) f32/bf16; weight: (D,) -> same shape and dtype as x.
-    CUDA tensors only."""
+    CUDA tensors, or meta ones (``_meta``)."""
     d = x.shape[-1]
     x2 = x.reshape(-1, d).contiguous()
     w = weight.float().contiguous()
@@ -67,12 +69,13 @@ rmsnorm_fused.launches = 0
 BWD_BLOCKS = 4 * 132
 
 
+@_meta.route(rmsnorm_bwd_reference)
 def rmsnorm_bwd(x, weight, g, eps: float = 1e-6):
     """Gradients of ``rmsnorm_fused(x, weight, eps)`` for the output
     gradient ``g`` (x's shape and dtype) -> (dx like x, dw (D,) in the
     weight's dtype). Two launches (dx with the dw partials, then their
     reduction), counted as one, on the kernel of ``rmsnorm_path``. CUDA
-    tensors only."""
+    tensors, or meta ones (``_meta``)."""
     d = x.shape[-1]
     x2 = x.reshape(-1, d).contiguous()
     g2 = g.reshape(-1, d).contiguous()

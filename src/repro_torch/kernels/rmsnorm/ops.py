@@ -1,5 +1,7 @@
 """Public entry of RMSNorm, dispatched by device: a CUDA tensor launches the
-kernel or raises, a CPU tensor takes the plain version, which autograd
+kernel or raises, a meta tensor takes the same path through the wrappers'
+meta route (``kernels/_meta.py``: the plain version for shapes, no
+launch), a CPU tensor takes the plain version, which autograd
 differentiates.
 
 Where a gradient is wanted (autograd on, x or the weight requiring grad), a
@@ -10,6 +12,7 @@ from __future__ import annotations
 
 import torch
 
+from .._meta import on_kernel_route
 from .kernel import rmsnorm_bwd, rmsnorm_fused
 from .ref import rmsnorm_reference
 
@@ -29,7 +32,7 @@ class RMSNorm(torch.autograd.Function):
 
 
 def rmsnorm(x, weight, eps: float = 1e-6):
-    if x.is_cuda:
+    if on_kernel_route(x):
         if torch.is_grad_enabled() and (x.requires_grad
                                         or weight.requires_grad):
             return RMSNorm.apply(x, weight, eps)

@@ -19,14 +19,17 @@ from __future__ import annotations
 
 import torch
 
-from .. import _cuda
+from .. import _cuda, _meta
+from .ref import paged_verify_reference
 
 
+@_meta.route(paged_verify_reference, ignore=("num_splits",))
 def flash_verify_fwd(q, k_pages, v_pages, page_table, pos, *,
                      k_scale=None, v_scale=None, num_splits: int = 1):
     """q: (B,T,H,hd) f32/bf16; k/v_pages: (KV,P,ps,hd) f32/bf16, or int8
     with (KV,P,ps) f32 scales; page_table: (B,npages) int32; pos: (B,) int32
-    -> (B,T,H,hd) in q's dtype. CUDA tensors only."""
+    -> (B,T,H,hd) in q's dtype.
+    CUDA tensors, or meta ones (``_meta``)."""
     _cuda.check_paged("flash_verify_fwd", q, k_pages, v_pages, page_table,
                       pos, k_scale, v_scale, q_ndim=4)
     b, t, h, hd = q.shape

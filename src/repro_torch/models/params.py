@@ -129,6 +129,14 @@ def init_params(cfg, layout, *, seed: int = 0, device="cuda", dtype=None):
     return tree_map_specs(leaf, layout)
 
 
+def abstract_params(cfg, layout, dtype=None):
+    """``layout`` as meta tensors: ``init_params``' shapes and dtypes,
+    nothing allocated (the dry-run's stand-ins)."""
+    return tree_map_specs(
+        lambda s: torch.empty(s.shape, dtype=_leaf_dtype(s, cfg, dtype),
+                              device="meta"), layout)
+
+
 def params_from_reference(cfg, layout, np_tree, *, device="cuda",
                           dtype=None):
     """The reference's parameters (a nested dict of numpy arrays, e.g.

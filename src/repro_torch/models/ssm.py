@@ -127,6 +127,11 @@ def mamba_block(cfg, p, x, *, cache=None):
     return x + out, {"conv": conv_cache.to(dt_), "ssm": h_final}
 
 
+#: The logical axes of one layer's decode-cache leaves (before stacking).
+MAMBA_CACHE_AXES = {"conv": ("batch", None, "mlp"),
+                    "ssm": ("batch", "ssm_heads", None, None)}
+
+
 def mamba_cache_shapes(cfg, batch: int) -> dict:
     """Decode-cache shapes and dtypes for one layer (before stacking)."""
     conv_ch = cfg.d_inner + 2 * cfg.ssm_state

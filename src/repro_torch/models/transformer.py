@@ -3,9 +3,10 @@ and VLM frontends), the xLSTM stack of (mLSTM, sLSTM) pairs and the Zamba2
 hybrid.
 
 All families expose the surface the static ``ServeEngine`` calls:
-``layout``, ``prefill``, ``decode``, ``cache_layout`` and
-``grown_cache_leaves`` (the decode-cache leaves whose axis 2 is the
-sequence, which the engine grows to ``max_len``), and ``train_loss``
+``layout``, ``prefill``, ``decode``, ``cache_layout`` (and the logical
+axes of its leaves, ``cache_axes``) and ``grown_cache_leaves`` (the
+decode-cache leaves whose axis 2 is the sequence, which the engine grows
+to ``max_len``), and ``train_loss``
 (every family; the Zamba2 hybrid's differentiates the SSD scan through
 its backward kernel on the card). The transformer's frontends are the
 reference's stubs: an audio config (HuBERT, ``frontend="frame"``) takes
@@ -33,9 +34,11 @@ from ..distributed.sharding import activate_rules, current_rules
 from . import layers as L
 from .moe import moe_block, moe_param_specs
 from .params import ParamSpec, stack_specs
-from .ssm import mamba_block, mamba_cache_shapes, mamba_param_specs
-from .xlstm import (mlstm_block, mlstm_cache_shapes, mlstm_param_specs,
-                    slstm_block, slstm_cache_shapes, slstm_param_specs)
+from .ssm import (MAMBA_CACHE_AXES, mamba_block, mamba_cache_shapes,
+                  mamba_param_specs)
+from .xlstm import (MLSTM_CACHE_AXES, SLSTM_CACHE_AXES, mlstm_block,
+                    mlstm_cache_shapes, mlstm_param_specs, slstm_block,
+                    slstm_cache_shapes, slstm_param_specs)
 
 
 def _layer(tree, i: int):
@@ -63,6 +66,15 @@ def _unbind_layers(tree) -> list[dict]:
             for k, v in tree.items()}
     n = len(next(iter(flat.values())))
     return [{k: v[i] for k, v in flat.items()} for i in range(n)]
+
+
+#: The logical axes of a dense K or V cache (L, B, S, KV, hd).
+KV_CACHE_AXES = ("layers", "batch", "cache_seq", "kv_heads", None)
+
+
+def _stacked(axes: dict) -> dict:
+    """One layer's cache axes with the leading ``"layers"`` axis."""
+    return {k: ("layers",) + a for k, a in axes.items()}
 
 
 def _remat(cfg, fn):
@@ -243,6 +255,10 @@ class TransformerFamily:
                cfg.head_dim), cfg.cdtype)
         return {"k": kv, "v": kv}
 
+    def cache_axes(self, cfg) -> dict:
+        """The logical axes of ``cache_layout``'s leaves, keyed as it is."""
+        return {"k": KV_CACHE_AXES, "v": KV_CACHE_AXES}
+
     # -- the paged paths ----------------------------------------------------------
     def _stack(self, cfg, params, x, pool, attn):
         """Run every layer: ``attn(layer_attn_params, h, layer_pool)`` then
@@ -422,6 +438,11 @@ class XLSTMFamily:
         return {"m": stk(mlstm_cache_shapes(cfg, batch)),
                 "s": stk(slstm_cache_shapes(cfg, batch))}
 
+    def cache_axes(self, cfg) -> dict:
+        """The logical axes of ``cache_layout``'s leaves, keyed as it is."""
+        return {"m": _stacked(MLSTM_CACHE_AXES),
+                "s": _stacked(SLSTM_CACHE_AXES)}
+
 
 # ===========================================================================
 # Zamba2 hybrid (Mamba2 backbone + shared attention block)
@@ -545,3 +566,8 @@ class ZambaFamily:
         return {"mamba": {k: ((n,) + shape, dt) for k, (shape, dt)
                           in mamba_cache_shapes(cfg, batch).items()},
                 "attn_k": kv, "attn_v": kv}
+
+    def cache_axes(self, cfg) -> dict:
+        """The logical axes of ``cache_layout``'s leaves, keyed as it is."""
+        return {"mamba": _stacked(MAMBA_CACHE_AXES),
+                "attn_k": KV_CACHE_AXES, "attn_v": KV_CACHE_AXES}

@@ -172,6 +172,13 @@ def mlstm_block(cfg, p, x, *, cache=None):
     return x + out, {"conv": conv_cache.to(dt_), "C": c, "n": n, "m": m}
 
 
+#: The logical axes of one mLSTM block's decode-cache leaves.
+MLSTM_CACHE_AXES = {"conv": ("batch", None, "mlp"),
+                    "C": ("batch", "heads", None, None),
+                    "n": ("batch", "heads", None),
+                    "m": ("batch", "heads")}
+
+
 def mlstm_cache_shapes(cfg, batch: int) -> dict:
     """Decode-cache shapes and dtypes for one mLSTM block."""
     h = cfg.num_heads
@@ -265,6 +272,10 @@ def slstm_block(cfg, p, x, *, cache=None):
     hf = F.gelu(gate, approximate="tanh") * up
     y = y + hf @ p["ffn_down"].to(dt_)
     return y, {"c": c, "n": n, "m": m, "h": hl}
+
+
+#: The logical axes of one sLSTM block's decode-cache leaves.
+SLSTM_CACHE_AXES = {k: ("batch", "heads", None) for k in ("c", "n", "m", "h")}
 
 
 def slstm_cache_shapes(cfg, batch: int) -> dict:
