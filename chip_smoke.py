@@ -45,9 +45,11 @@ Phases, each of which must pass (a failure exits nonzero):
    in bf16 and f32; paligemma-3b's B 8, S 512, H 8 over KV 1, hd 256,
    causal, in bf16; the forward's row log-sum-exp held there too); RMSNorm
    at 8192 x 2048, D 5120, 7168 and a ragged 1002 (each on the kernel its
-   D picks); the training shapes timed beside the plain version, the
-   library's backward (SDPA, ``F.rms_norm``) and the bound, with each
-   launch's device time; and
+   D picks); in bf16 both at phase 8c (b)'s local shapes (flash at B 16,
+   S 4096, 1 head over 1, hd 128, causal; RMSNorm at 65536 x 2048), their
+   forward kernels held to the plain version there too; the training
+   shapes timed beside the plain version, the library's backward (SDPA,
+   ``F.rms_norm``) and the bound, with each launch's device time; and
    the flash forward at that training shape, with and without the row
    log-sum-exp, beside causal SDPA and the bound;
 4. parity: yi-6b widths at depth 2 in float32 -- prefill, decode and verify
@@ -130,6 +132,27 @@ Phases, each of which must pass (a failure exits nonzero):
    the measured step, the measured share of peak (model time / step
    time), and ``H100_SXM``'s memory against the card's; it fails if the
    trace dispatched anything on the card or launched a kernel.
+8c. sharding: the sharded train step (``build_train_step(...,
+   sharded=True)``: FSDP over "data", tensor parallelism over "model",
+   explicit autograd collectives). (a) a one-process NCCL group and a
+   (1, 1) ("data", "model") mesh, every collective issued over its one
+   rank: full-width, full-depth internlm2-1.8b, B 8 x 1024, bf16 over f32
+   masters, int8 moments, 3 steps under deterministic algorithms through
+   ``shard_params`` and the sharded step, against the replicated step from
+   the same weights and batches: losses, metrics and the final parameters
+   (``gather_params``) equal bit for bit, every step's launches exactly the
+   train phase's, every bf16 one on sm90, no plain version called; (b)
+   rank 0 of the single-pod (16, 16) mesh over a fake process group of
+   256 ranks: internlm2-1.8b ``train_4k`` (B 256 x 4096, rank 0's 16
+   rows), only rank 0's shards allocated, 2 sharded steps: the measured
+   peak device memory within 3% of the dry-run's sharded
+   ``per_device_total`` for the same cell, every step's launches exact at
+   the local shapes (flash at 1 query head over 1 KV head, hd 128, B 16,
+   S 4096; RMSNorm over 65536 rows of 2048), all on sm90, where the
+   backward-kernel checks held both kernels, forward and backward, to
+   their plain versions in bf16 (``SHARD_LOCAL_FLASH``,
+   ``SHARD_LOCAL_RMS``); prints the step's device ms beside the dry-run's
+   compute and memory terms.
 9. job: the same training run as a job of the Kotta batch runtime
    (``KottaService``): an outsider's submit refused and audited; alice's
    job staged under her role by the executor's assume-role, run on a
@@ -240,7 +263,9 @@ Phases, each of which must pass (a failure exits nonzero):
 The second-to-last line of output is a JSON ``kernels`` record (with the
 launches on the transformer runs, the residency phase's move times, the
 gateway phase's results, the train, job, zamba train and xlstm phases'
-numbers, the launch phase's prediction, ``ssd_scan_bwd`` among the
+numbers, the launch phase's prediction, the sharding phase's runs (each
+training kernel's launches in them as ``launches_sharding``),
+``ssd_scan_bwd`` among the
 kernels, each kernel's Zamba2
 training launches as ``launches_zamba_train``, RMSNorm's xLSTM launches as
 ``launches_xlstm_serve`` and ``launches_xlstm_train``, each kernel's
@@ -250,7 +275,7 @@ phase as ``launches_distributed``, and the frontends, frontend train,
 examples and distributed phases' numbers); the last is
 ``{"ok": true, "device": {...}}``. Without CUDA, or without the port
 beside this script, it prints no result and exits nonzero. It takes no
-arguments: every run drives all sixteen phases (8b among them).
+arguments: every run drives all seventeen phases (8b and 8c among them).
 """
 from __future__ import annotations
 
@@ -2809,6 +2834,11 @@ def _leaves(tree):
 # internlm2-1.8b's training shape (configs/internlm2_1_8b.py): batch 8 x
 # sequence 1024, 16 heads of 128 over 8 KV heads, d_model 2048.
 TB, TS, TH, TKV, THD, TD = 8, 1024, 16, 8, 128, 2048
+# The kernels' local shapes in phase 8c (b), internlm2-1.8b ``train_4k`` on
+# rank 0 of the (16, 16) mesh: 16 rows of 4096, 1 query head over the 1 KV
+# head it uses, hd 128, causal; RMSNorm over 16 x 4096 rows of 2048.
+SHARD_LOCAL_FLASH = (16, 4096, 1, 1, 128, True)
+SHARD_LOCAL_RMS = (16 * 4096, 2048)
 TRAIN_STEPS, TRAIN_EVERY, TRAIN_REVOKE = 6, 3, 4
 # The synthetic corpus both the train and the job phase read, under
 # dataset/<TRAIN_CORPUS>/: 2 shards of 65,536 tokens from seed 0.
@@ -3000,7 +3030,11 @@ def phase_backward_kernels():
     the tensor-core route and each f32 one on the CUDA-core route, and a
     bf16 hd 192 call, which must raise; RMSNorm at 8192 x 2048 and at D
     5120, 7168 and a ragged 1002 (scalar loads), each on the kernel of its
-    D. Each twice, bit for bit the same (no atomics). The training shapes
+    D; in bf16, both at phase 8c (b)'s local shapes (``SHARD_LOCAL_FLASH``:
+    B 16, S 4096, 1 head over 1, hd 128, causal; ``SHARD_LOCAL_RMS``: 65536
+    x 2048), with their forward kernels held to the plain version there
+    too (``_sharded_local_fwd``). Each twice, bit for bit the same (no
+    atomics). The training shapes
     timed beside the plain version, the library's backward (SDPA,
     ``F.rms_norm``) and the bound (at the true hd), with each launch's
     device time (``torch.profiler``): internlm2-1.8b's in bf16, the
@@ -3023,16 +3057,21 @@ def phase_backward_kernels():
     for dtype, tol, kind in ((torch.bfloat16, TOL_BF16, "bf16"),
                              (torch.float32, TOL_F32, "f32")):
         # The frontends' f32 case is hubert's hd 80; f32 at hd 256 runs in
-        # paligemma-3b's train parity (phase_train_parity).
+        # paligemma-3b's train parity (phase_train_parity). The sharded
+        # step's local shapes run in bf16 alone, as phase 8c (b) does.
+        bf16 = kind == "bf16"
         fshapes = flash_shapes + [
             (label, shape) for label, shape in frontend.items()
-            if kind == "bf16" or label == "hubert-xlarge"]
+            if bf16 or label == "hubert-xlarge"] + (
+            [("sharded local", SHARD_LOCAL_FLASH)] if bf16 else [])
+        rshapes = rms_shapes + ([("sharded local", SHARD_LOCAL_RMS)]
+                                if bf16 else [])
         cases = ([("flash_attention_bwd", label,
                    _flash_bwd_case(gen, dev, dtype, *shape), shape)
                   for label, shape in fshapes]
                  + [("rmsnorm_bwd", label, _rms_bwd_case(gen, dev, dtype,
                                                          *shape), shape)
-                    for label, shape in rms_shapes])
+                    for label, shape in rshapes])
         for name, label, (kern, plain, inputs), shape in cases:
             K.reset_launch_counts()
             got, again = kern(), kern()
@@ -3059,6 +3098,11 @@ def phase_backward_kernels():
             rec = results[name].setdefault(kind, {"max_abs_err": 0.0})
             rec["max_abs_err"] = max(rec["max_abs_err"], err)
             nbytes = 2 if kind == "bf16" else 4
+            if label == "sharded local":
+                rec["sharded_local"] = {
+                    "shape": shape, "bwd_max_rel_err": err,
+                    **_sharded_local_fwd(name, inputs, shape)}
+                continue
             if name == "flash_attention_bwd" and label in frontend:
                 q, k, v, _ = inputs
                 _, lse = K.flash_attention_fwd(q, k, v, causal=shape[5],
@@ -3101,6 +3145,47 @@ def phase_backward_kernels():
     if K.launch_counts()["flash_attention_bwd"]:
         raise AssertionError("flash_attention_bwd bf16 hd 192 launched")
     return results
+
+
+def _sharded_local_fwd(name, inputs, shape) -> dict:
+    """The forward kernel of a backward case at the sharded step's local
+    shape (``SHARD_LOCAL_FLASH``, ``SHARD_LOCAL_RMS``), once, against its
+    plain version on the same inputs: max|kernel - plain| over max|plain|
+    within TOL_BF16 (the flash forward's row log-sum-exp within 1e-3
+    absolute), one launch, the flash one on sm90."""
+    import torch
+    from repro_torch import kernels as K
+    K.reset_launch_counts()
+    if name == "flash_attention_bwd":
+        q, k, v, _ = inputs
+        causal = shape[5]
+        fwd = "flash_attention_fwd"
+        out, lse = K.flash_attention_fwd(q, k, v, causal=causal,
+                                         return_lse=True)
+        torch.cuda.synchronize()
+        routed = K.launch_counts_by_route()[fwd]["sm90"] == 1
+        errs = {"fwd_max_rel_err": _rel_err(out, K.attention_reference(
+                    q, k, v, causal=causal)),
+                "lse_max_abs_err": (lse - K.attention_lse_reference(
+                    q, k, v, causal=causal)).abs().max().item()}
+        ok = errs["lse_max_abs_err"] <= 1e-3
+    else:
+        x, w, _ = inputs
+        fwd, routed, ok = "rmsnorm_fused", True, True
+        out = K.rmsnorm_fused(x, w)
+        torch.cuda.synchronize()
+        errs = {"fwd_max_rel_err": _rel_err(out, K.rmsnorm_reference(x, w))}
+    launches = sum(K.launch_counts().values())
+    ok = (ok and routed and launches == 1 and math.isfinite(
+        errs["fwd_max_rel_err"]) and errs["fwd_max_rel_err"] <= TOL_BF16)
+    log(f"[kernels] {fwd} bf16 sharded local {shape}: "
+        f"{ {k: '%.2e' % v for k, v in errs.items()} } (tol {TOL_BF16}"
+        f"{'; lse 1e-3' if 'lse_max_abs_err' in errs else ''}), {launches} "
+        f"launch{'' if routed else ' off sm90'} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"{fwd} at the sharded local shape {shape}: "
+                             f"{errs}, {launches} launches, routed {routed}")
+    return errs
 
 
 def _train_grads(fam, cfg, params, batch):
@@ -3685,6 +3770,275 @@ def phase_launch(smi: str, train: dict):
                              f"train phase's peak {measured}: more than "
                              f"{LAUNCH_MEMORY_TOL:.0%} apart")
     return out
+
+
+# ---------------------------------------------------------------------------
+# phase 8c: sharding -- the sharded train step on a (1, 1) mesh and on rank
+# 0 of the production mesh
+# ---------------------------------------------------------------------------
+
+#: (a): internlm2-1.8b steps on the one-process (1, 1) mesh, each run.
+SHARD_STEPS = 3
+#: (b): the production cell's steps on rank 0 of the (16, 16) mesh.
+SHARD_PROD_STEPS = 2
+
+
+def _shard_batches(cfg, n, batch, seq, seed, dtype=None):
+    """``n`` token batches (tokens, labels) of batch x seq on the card from
+    a CUDA generator (``dtype``: the index dtype, default int64)."""
+    import torch
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
+    kw = {} if dtype is None else {"dtype": dtype}
+    return [{k: torch.randint(0, cfg.vocab_size, (batch, seq), generator=gen,
+                              device="cuda", **kw)
+             for k in ("tokens", "labels")} for _ in range(n)]
+
+
+def _probe_launches(label, probe, want, want_routes):
+    """Every probed step's launches exactly ``want``, and ``want_routes``'
+    counts by route."""
+    for i, (_, counts, routes) in enumerate(probe.steps):
+        got = {k: v for k, v in counts.items() if v}
+        if got != want or any(routes[k] != v for k, v in want_routes.items()):
+            raise AssertionError(f"sharding {label} step {i + 1}: launches "
+                                 f"{got} routes {routes}, want {want} "
+                                 f"{want_routes}")
+
+
+def _sharded_one_rank(smi):
+    """(a) internlm2-1.8b at full width and depth, bf16 over f32 masters,
+    remat full, the train phase's AdamW (int8 moments), B ``TB`` x S
+    ``TS``, ``SHARD_STEPS`` steps under deterministic algorithms: once the
+    replicated ``build_train_step`` with no rules, once through
+    ``shard_params`` and ``build_train_step(..., sharded=True)`` on a
+    one-process NCCL group's (1, 1) ("data", "model") mesh, every
+    collective issued over its one rank. The losses and metrics of every
+    step and the final parameters (``gather_params``) equal bit for bit;
+    every sharded step's launches exactly the train phase's, every bf16 one
+    on sm90; no plain version called."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.configs import get_config
+    from repro_torch.distributed import ShardingRules, activate_rules
+    from repro_torch.distributed.sharding import gather_params, shard_params
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import get_family, init_params
+    from repro_torch.models.params import tree_map_specs
+    from repro_torch.train import adamw, build_train_step
+    cfg = get_config("internlm2-1.8b")
+    layout = get_family(cfg).layout(cfg)
+    opt = _train_opt()
+    want, want_routes = _transformer_step_launches(cfg)
+    batches = _shard_batches(cfg, SHARD_STEPS, TB, TS, seed=2)
+    base = init_params(cfg, layout, seed=0, device="cuda",
+                       dtype=torch.float32)
+    for p in adamw.tree_leaves(base):
+        p.requires_grad_(True)
+    mesh = make_mesh((1, 1), ("data", "model"), device="cuda")
+    plain_calls, undo = _plain_call_counter()
+    torch.use_deterministic_algorithms(True)
+    runs = {}
+    try:
+        rules = ShardingRules(mesh)
+        shards = shard_params(base, layout, rules)
+        for label in ("replicated", "sharded"):
+            sharded = label == "sharded"
+            params = shards if sharded else base
+            state = adamw.init(opt, params, tree_map_specs(
+                lambda s: s.shape, layout) if sharded else None)
+            probe = _StepProbe(build_train_step(cfg, opt, sharded=sharded))
+            metrics = []
+            with activate_rules(rules if sharded else None):
+                for b in batches:
+                    params, state, m = probe(params, state, b)
+                    metrics.append({k: v.detach().clone()
+                                    for k, v in m.items()})
+                final = (gather_params(params, layout, rules) if sharded
+                         else params)
+            runs[label] = dict(
+                metrics=metrics, probe=probe,
+                final=[t.detach() for t in adamw.tree_leaves(final)])
+            del state, params
+            gc.collect()
+    finally:
+        torch.use_deterministic_algorithms(False)
+        undo()
+        dist.destroy_process_group()
+    rep, shd = runs["replicated"], runs["sharded"]
+    same_metrics = all(a.keys() == b.keys() and all(
+        torch.equal(a[k], b[k]) for k in a)
+        for a, b in zip(rep["metrics"], shd["metrics"]))
+    differing = [i for i, (a, b) in enumerate(zip(rep["final"], shd["final"]))
+                 if not torch.equal(a, b)]
+    rec = {"config": cfg.name, "layers": cfg.num_layers, "batch": TB,
+           "seq": TS, "steps": SHARD_STEPS, "state_dtype": "int8",
+           "mesh": [1, 1],
+           "losses": {k: [m["total_loss"].item() for m in r["metrics"]]
+                      for k, r in runs.items()},
+           "grad_norm": {k: [m["grad_norm"].item() for m in r["metrics"]]
+                         for k, r in runs.items()},
+           "step_ms": {k: [s[0] * 1e3 for s in r["probe"].steps]
+                       for k, r in runs.items()},
+           "bitwise": {"metrics": same_metrics,
+                       "params_differing": differing,
+                       "leaves": len(rep["final"])},
+           "launches_per_step": want,
+           "launches": _run_launches(shd["probe"]),
+           "plain_calls": dict(plain_calls)}
+    log(f"[sharding] (a) internlm2-1.8b {cfg.num_layers} layers, bf16 over "
+        f"f32 masters, int8 moments, B {TB} x S {TS}, {SHARD_STEPS} steps "
+        f"under deterministic algorithms, replicated vs sharded on a "
+        f"one-process NCCL (1, 1) mesh: losses {rec['losses']}; metrics "
+        f"equal {same_metrics}; final parameters differing {differing} of "
+        f"{len(rep['final'])}; step ms {rec['step_ms']}; sharded launches "
+        f"{rec['launches']} ({want} a step); on {smi}")
+    _probe_launches("(a)", shd["probe"], want, want_routes)
+    if sum(plain_calls.values()):
+        raise AssertionError(f"sharding (a): a plain version ran on the "
+                             f"card: {plain_calls}")
+    if not same_metrics or differing:
+        raise AssertionError(f"sharding (a): the sharded step on one rank is "
+                             f"not the replicated step bit for bit: "
+                             f"{rec['bitwise']}")
+    return rec
+
+
+def _sharded_production(smi):
+    """(b) rank 0 of the single-pod (16, 16) ("data", "model") mesh over a
+    fake process group of 256 ranks (``launch.dryrun.fake_mesh``, which
+    registers the fake backend for CUDA too): internlm2-1.8b ``train_4k``
+    (B 256 x S 4096, rank 0's 16 rows), only rank 0's shards allocated
+    (``init_params(..., rules=)``, f32 masters, the cell's default AdamW:
+    f32 moments), ``SHARD_PROD_STEPS`` sharded steps. The collectives move
+    nothing, so the loss is not a result. Held: the measured peak device
+    memory within ``LAUNCH_MEMORY_TOL`` of the dry-run's sharded
+    ``per_device_total`` for the same cell, and every step's launches
+    exactly the train phase's kinds at the local shapes (1 query head and
+    1 KV head at hd 128, B 16, S 4096; RMSNorm over 65536 rows of 2048),
+    every bf16 one on sm90."""
+    import torch
+    from repro_torch.configs import get_config, get_shape
+    from repro_torch.distributed import activate_rules
+    from repro_torch.launch.dryrun import analyze_cell, cell_rules, fake_mesh
+    from repro_torch.launch.input_specs import default_opt_cfg
+    from repro_torch.models import get_family, init_params
+    from repro_torch.models.params import tree_map_specs
+    from repro_torch.train import adamw, build_train_step
+    cfg = get_config("internlm2-1.8b")
+    shape = get_shape("train_4k")
+    layout = get_family(cfg).layout(cfg)
+    opt = default_opt_cfg(cfg)
+    want, want_routes = _transformer_step_launches(cfg)
+    plain_calls, undo = _plain_call_counter()
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    try:
+        with fake_mesh("single") as mesh:
+            rules = cell_rules(cfg, shape, mesh)
+            rows = shape.global_batch // rules.axis_sizes["data"]
+            params = init_params(cfg, layout, seed=0, device="cuda",
+                                 dtype=torch.float32, rules=rules)
+            for p in adamw.tree_leaves(params):
+                p.requires_grad_(True)
+            state = adamw.init(opt, params,
+                               tree_map_specs(lambda s: s.shape, layout))
+            batches = _shard_batches(cfg, SHARD_PROD_STEPS, rows,
+                                     shape.seq_len, seed=3,
+                                     dtype=torch.int32)
+            local = {k: tuple(v.shape)
+                     for k, v in params["layers"]["attn"].items()}
+            # the kernel phase held the kernels to their plain versions at
+            # these local shapes (phase_backward_kernels)
+            fb, fs, fh, _, fhd, _ = SHARD_LOCAL_FLASH
+            if ((rows, shape.seq_len, local["wq"][2], cfg.head_dim)
+                    != (fb, fs, fh, fhd) or (rows * shape.seq_len, cfg.d_model)
+                    != SHARD_LOCAL_RMS):
+                raise AssertionError(
+                    f"sharding (b): local shapes {rows} x {shape.seq_len}, "
+                    f"attention {local}, not the kernel phase's "
+                    f"{SHARD_LOCAL_FLASH} and {SHARD_LOCAL_RMS}")
+            probe = _StepProbe(build_train_step(cfg, opt, sharded=True))
+            device_ms = []
+            with activate_rules(rules):
+                for b in batches:
+                    start = torch.cuda.Event(enable_timing=True)
+                    end = torch.cuda.Event(enable_timing=True)
+                    start.record()
+                    params, state, _ = probe(params, state, b)
+                    end.record()
+                    torch.cuda.synchronize()
+                    device_ms.append(start.elapsed_time(end))
+            peak = torch.cuda.max_memory_allocated() - held
+            del params, state, batches
+    finally:
+        undo()
+    gc.collect()
+    torch.cuda.empty_cache()
+    dry = analyze_cell(cfg, shape, "single")
+    predicted = dry["memory"]["per_device_total"]
+    roof = dry["roofline"]
+    rec = {"config": cfg.name, "shape": dataclasses.asdict(shape),
+           "mesh": list(rules.axis_sizes.values()), "rank": 0, "rows": rows,
+           "steps": SHARD_PROD_STEPS, "state_dtype": opt.state_dtype,
+           "local_attention_shapes": local,
+           "measured_peak_bytes": peak, "allocated_before_bytes": held,
+           "predicted_per_device_bytes": predicted,
+           "memory_rel_err": predicted / peak - 1.0,
+           "dryrun_param_placement": dry["param_placement"],
+           "dryrun_memory": dry["memory"],
+           "step_device_ms": device_ms,
+           "step_ms": [s[0] * 1e3 for s in probe.steps],
+           "roofline_terms_s": {k: roof[k] for k in
+                                ("compute_s", "memory_s", "collective_s")},
+           "memory_fused_s": roof["memory_fused_s"],
+           "collective_by_op": dry["hlo"]["collective_by_op"],
+           "launches_per_step": want, "launches": _run_launches(probe),
+           "plain_calls": dict(plain_calls), "card": smi}
+    log(f"[sharding] (b) internlm2-1.8b train_4k on rank 0 of the "
+        f"{tuple(rules.axis_sizes.values())} mesh (a fake process group), "
+        f"{rows} rows x {shape.seq_len}, "
+        f"rank 0's shards only (attention leaves {local}), f32 moments, "
+        f"{SHARD_PROD_STEPS} steps: peak device memory {peak / 2**30:.3f} "
+        f"GiB vs the dry-run's sharded per_device_total "
+        f"{predicted / 2**30:.3f} GiB ({rec['memory_rel_err'] * 100:+.2f}%);"
+        f" step device ms {[round(x, 1) for x in device_ms]} beside the "
+        f"dry-run's compute {roof['compute_s'] * 1e3:.1f} / memory "
+        f"{roof['memory_s'] * 1e3:.1f} (fused "
+        f"{roof['memory_fused_s'] * 1e3:.1f}) / collective "
+        f"{roof['collective_s'] * 1e3:.1f} ms; launches {rec['launches']} "
+        f"({want} a step); on {smi}")
+    _probe_launches("(b)", probe, want, want_routes)
+    if sum(plain_calls.values()):
+        raise AssertionError(f"sharding (b): a plain version ran on the "
+                             f"card: {plain_calls}")
+    if dry["param_placement"] != "sharded" or not dry["memory"]["fits_hbm"]:
+        raise AssertionError(f"sharding (b): the dry-run says "
+                             f"{dry['param_placement']}, fits "
+                             f"{dry['memory']['fits_hbm']}")
+    if abs(rec["memory_rel_err"]) > LAUNCH_MEMORY_TOL:
+        raise AssertionError(f"sharding (b): predicted {predicted} bytes, "
+                             f"measured {peak}: more than "
+                             f"{LAUNCH_MEMORY_TOL:.0%} apart")
+    return rec
+
+
+def phase_sharding(smi: str):
+    """(a) the sharded train step on a one-process (1, 1) mesh, bit for bit
+    the replicated step (``_sharded_one_rank``); (b) rank 0 of the
+    production mesh at internlm2-1.8b's ``train_4k`` cell against the
+    dry-run's sharded prediction (``_sharded_production``)."""
+    import torch
+    t0 = time.perf_counter()
+    rec = {"one_rank": _sharded_one_rank(smi)}
+    gc.collect()
+    torch.cuda.empty_cache()
+    rec["production"] = _sharded_production(smi)
+    rec["phase_s"] = time.perf_counter() - t0
+    return rec
 
 
 # ---------------------------------------------------------------------------
@@ -5161,6 +5515,13 @@ def _distributed_launches(dr, name) -> dict:
     return out
 
 
+def _sharding_launches(shd, name) -> dict:
+    """A kernel's launches in the sharding phase's sharded runs: (a) on the
+    one-rank mesh, (b) on rank 0 of the production mesh."""
+    return {run: shd[run]["launches"].get(name, 0)
+            for run in ("one_rank", "production")}
+
+
 def _clock_text(clocks: dict) -> str:
     """One run's nvidia-smi samples a step, for a log line."""
     parts = []
@@ -5582,6 +5943,7 @@ def main() -> int:
     timed("train parity", phase_train_parity)
     train = timed("train", phase_train, smi)
     launch = timed("launch", phase_launch, smi, train)
+    shd = timed("sharding", phase_sharding, smi)
     job = timed("job", phase_job, smi, train)
     zt = timed("zamba train", phase_zamba_train, smi)
     xl = timed("xlstm", phase_xlstm, smi)
@@ -5635,6 +5997,7 @@ def main() -> int:
         if name in train["launches_per_step"]:
             entry["launches_train"] = train["launches"][name]
             entry["launches_job"] = job["launches"][name]
+            entry["launches_sharding"] = _sharding_launches(shd, name)
         if name in zt["train"]["launches_per_step"]:
             entry["launches_zamba_train"] = zt["train"]["launches"][name]
         if name in ft["hubert-xlarge"]["launches_per_step"]:
@@ -5654,6 +6017,7 @@ def main() -> int:
             "launches": train["launches"][name],
             "launches_per_step": train["launches_per_step"][name],
             "launches_job": job["launches"][name],
+            "launches_sharding": _sharding_launches(shd, name),
             "launches_by_route": train["launches_by_route"][name],
             "max_abs_err": max(r["max_abs_err"] for r in bwd[name].values()),
             "ms": rec["ms"], "plain_ms": rec["plain_ms"],
@@ -5665,6 +6029,8 @@ def main() -> int:
         record[-1]["launches_frontend_train"] = _frontend_train_launches(
             ft, name)
         record[-1]["launches_distributed"] = _distributed_launches(dr, name)
+        # the forward's and the backward's errors at phase 8c (b)'s shapes
+        record[-1]["sharded_local"] = rec["sharded_local"]
         if "frontend_shapes" in rec:
             record[-1]["frontend_shapes"] = {
                 kind: bwd[name][kind]["frontend_shapes"]
@@ -5697,7 +6063,8 @@ def main() -> int:
         f"{smi}; seconds a phase: {seconds}")
     print(json.dumps({"kernels": record, "transformers": transformers,
                       "residency": moves, "gateway": gateway,
-                      "train": train, "launch": launch, "job": job,
+                      "train": train, "launch": launch,
+                      "sharding": shd, "job": job,
                       "zamba_train": zt,
                       "xlstm": xl, "frontends": fr,
                       "frontend_train": ft, "examples": ex,

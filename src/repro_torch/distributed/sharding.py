@@ -13,11 +13,17 @@ model) production meshes.
 entry a dimension, ``None``, a mesh-dimension name or a tuple of names.
 ``placements_for`` turns it into DTensor placements, one a mesh dimension.
 
-In this slice parameters and activations stay plain tensors, replicated on
-every rank: the layer that moves data across ranks is explicit (the ring
-attention's P2P and gathers, the data-parallel reduction of the train
-step), where the reference leaves it to GSPMD. ``shard`` therefore acts
-only on a DTensor.
+The port applies the placements at run time to the transformer's train
+step (``train/train_step.py``, ``sharded=True``): ``shard_params`` cuts
+every leaf to this rank's shard (``local_shape``), the step trains the
+shards, and ``gather_params`` puts the whole leaves back together (for
+tests and checks). Shards are plain tensors, not DTensors: the data
+movement is explicit, in the autograd collectives of
+``distributed/collectives.py``, where the reference leaves it to GSPMD.
+Everything else (serving, the other families, the replicated train step
+with its data-parallel all-reduce and the ring attention's P2P) holds
+plain tensors whole on every rank, and ``shard`` therefore acts only on a
+DTensor.
 """
 from __future__ import annotations
 
@@ -152,6 +158,73 @@ def shard(x, axes: tuple[Optional[str], ...]):
         return x
     return x.redistribute(rules.mesh,
                           rules.placements_for(tuple(x.shape), axes))
+
+
+def _coord(rules: ShardingRules, axes: tuple[str, ...]) -> int:
+    """This rank's block index over ``axes`` (the first dimension major)."""
+    index = 0
+    for a in axes:
+        index = index * rules.axis_sizes[a] + rules.mesh.get_local_rank(a)
+    return index
+
+
+def local_shape(rules: ShardingRules, shape: tuple[int, ...],
+                axes: tuple[Optional[str], ...]) -> tuple[int, ...]:
+    """A leaf's shape on one rank under ``spec_for``: each sharded dimension
+    divided by its mesh extent."""
+    from .collectives import entry_axes
+    return tuple(d // rules._extent(entry_axes(e))
+                 for d, e in zip(shape, rules.spec_for(shape, axes)))
+
+
+def shard_params(params, layout, rules: ShardingRules):
+    """This rank's shard of every leaf of ``params`` (whole tensors shaped as
+    ``layout``'s specs): a contiguous copy of its block of each sharded
+    dimension, ``requires_grad`` as the leaf's. The sharded train step's
+    parameters."""
+    from ..models.params import ParamSpec
+    from .collectives import entry_axes
+
+    def leaf(p, spec: ParamSpec):
+        if tuple(p.shape) != spec.shape:
+            raise ValueError(f"leaf {tuple(p.shape)} vs layout {spec.shape}")
+        index = []
+        for d, e in zip(spec.shape, rules.spec_for(spec.shape, spec.axes)):
+            axes = entry_axes(e)
+            n = d // rules._extent(axes)
+            i = _coord(rules, axes)
+            index.append(slice(i * n, (i + 1) * n))
+        out = p.detach()[tuple(index)].contiguous().clone()
+        return out.requires_grad_(p.requires_grad)
+
+    return _map2(leaf, params, layout)
+
+
+def gather_params(params, layout, rules: ShardingRules):
+    """The whole leaves from every rank's shards (``shard_params``' inverse):
+    all-gathers over each sharded dimension, no gradient. Every rank of
+    the mesh must call it."""
+    import torch
+    from .collectives import all_gather_dim, entry_axes
+
+    @torch.no_grad()
+    def leaf(p, spec):
+        out = p.detach()
+        for dim, e in enumerate(rules.spec_for(spec.shape, spec.axes)):
+            for a in reversed(entry_axes(e)):      # the minor dimension first
+                out = all_gather_dim(out, dim, rules.mesh.get_group(a))
+        return out
+
+    return _map2(leaf, params, layout)
+
+
+def _map2(fn, tree, layout):
+    if isinstance(tree, dict):
+        missing = set(tree) ^ set(layout)
+        if missing:
+            raise ValueError(f"keys differ from the layout: {sorted(missing)}")
+        return {k: _map2(fn, v, layout[k]) for k, v in tree.items()}
+    return fn(tree, layout)
 
 
 def param_sharding(layout, rules: ShardingRules):

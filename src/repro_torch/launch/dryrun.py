@@ -9,12 +9,18 @@ port runs on that mesh, traced once on one rank:
   size (``fake_world``): this process is rank 0, and the c10d operations
   the step dispatches are counted (``launch/step_analysis.py``) but move
   no data;
-- parameters, optimizer state, the batch and the decode cache are held
-  whole on every rank (``"param_placement": "replicated"``): the port does
-  not shard at run time yet. The train step computes on this rank's
-  data-parallel rows and all-reduces the gradients
-  (``train/train_step.py``); prefill, encode and decode run whole. The
-  placements ``build_cell`` computes are not applied;
+- the train cells of the transformer without experts run the sharded
+  step (``"param_placement": "sharded"``, ``train/train_step.py``'s
+  ``sharded=True``): parameters, gradients, AdamW state and the batch are
+  rank 0's shards, placed by ``build_cell``'s placements, each layer's
+  weights gathered over "data" inside its remat body and its tensor
+  parallel parts reduced over "model" (``distributed/collectives.py``).
+  Rank 0 is representative: the placements are symmetric;
+- every other cell (MoE, Zamba2, xLSTM, prefill, encode and decode) holds
+  its tensors whole on every rank (``"param_placement": "replicated"``,
+  and ``"replicated_because"`` says why): the train step computes on this
+  rank's data-parallel rows and all-reduces the gradients; prefill, encode
+  and decode run whole;
 - the memory figures are the traced step's (``StepAnalysis.finish``), and
   the roofline terms divide its counts by ``core.cost.H100_SXM``'s peaks;
 - the record is rank 0's: where ranks' work differs (under
@@ -22,7 +28,8 @@ port runs on that mesh, traced once on one rank:
   block alone), it is that rank's.
 
 ``--mesh card`` is the (1, 1) ("data", "model") mesh of one H100: a cell
-the card can hold is traced exactly as it runs there.
+the card can hold is traced exactly as it runs there (on one device the
+replicated step).
 
 The ``hlo`` section keeps the reference's key for the counts that
 ``step_analysis`` fills; ``trace_s`` takes the place of ``lower_s`` and
@@ -45,7 +52,7 @@ from contextlib import contextmanager
 from ..configs import ARCH_NAMES, SHAPES, get_config, get_shape, runnable
 from ..core.cost import H100_SXM
 from ..distributed.sharding import ShardingRules, activate_rules
-from .input_specs import build_cell, shape_rule_overrides
+from .input_specs import build_cell, shape_rule_overrides, train_placement
 from .mesh import PRODUCTION_MESHES
 from .step_analysis import analyze_step
 
@@ -58,20 +65,31 @@ MESHES = {"single": PRODUCTION_MESHES[False],
 @contextmanager
 def fake_world(size: int):
     """A fake process group of ``size`` ranks, this process rank 0, for the
-    CPU and meta devices: collectives dispatch and move nothing. Raises if
-    a process group is already initialised."""
+    CPU, meta and CUDA devices: collectives dispatch and move nothing.
+    Raises if a process group is already initialised."""
     import torch.distributed as dist
     # registers the "fake" backend
     from torch.testing._internal.distributed.fake_pg import FakeStore
     if dist.is_initialized():
         raise RuntimeError("the dry-run starts its own fake process group; "
                            "one is already initialised")
-    dist.init_process_group("cpu:fake,meta:fake", store=FakeStore(), rank=0,
-                            world_size=size)
+    dist.init_process_group("cpu:fake,meta:fake,cuda:fake",
+                            store=FakeStore(), rank=0, world_size=size)
     try:
         yield
     finally:
         dist.destroy_process_group()
+
+
+@contextmanager
+def fake_mesh(mesh_kind):
+    """Rank 0's ``DeviceMesh`` of ``mesh_kind`` (a key of ``MESHES``, or
+    (shape, dimension names)) over a ``fake_world`` of its size."""
+    from torch.distributed.device_mesh import init_device_mesh
+    mesh_shape, names = (MESHES[mesh_kind] if isinstance(mesh_kind, str)
+                         else mesh_kind)
+    with fake_world(math.prod(mesh_shape)):
+        yield init_device_mesh("cpu", mesh_shape, mesh_dim_names=names)
 
 
 def run_cell(arch: str, shape_name: str, mesh_kind: str,
@@ -95,21 +113,40 @@ def run_cell(arch: str, shape_name: str, mesh_kind: str,
     return result
 
 
-def analyze_cell(cfg, shape, mesh_kind: str, *, opt_cfg=None,
+def _placement(cfg, shape, n_dev: int):
+    """(placement, why it is replicated) of a cell's traced step."""
+    default, why = train_placement(cfg, shape)
+    if default == "replicated":
+        return default, why
+    if n_dev == 1:
+        return "replicated", ("one device holds the cell whole: the "
+                              "replicated step")
+    return "sharded", ""
+
+
+def cell_rules(cfg, shape, mesh, rule_overrides: dict | None = None):
+    """The cell's ``ShardingRules`` over ``mesh``: the arch's overrides, the
+    shape's and ``rule_overrides``."""
+    return ShardingRules(mesh, {**cfg.sharding_overrides,
+                                **shape_rule_overrides(cfg, shape),
+                                **(rule_overrides or {})})
+
+
+def analyze_cell(cfg, shape, mesh_kind, *, opt_cfg=None,
                  microbatches: int = 1,
                  rule_overrides: dict | None = None) -> dict:
-    """Trace ``cfg``'s step at ``shape`` on one rank of the ``mesh_kind``
-    mesh -> the record's status, memory, step counts and roofline."""
-    from torch.distributed.device_mesh import init_device_mesh
-    mesh_shape, names = MESHES[mesh_kind]
-    n_dev = math.prod(mesh_shape)
-    with fake_world(n_dev):
-        mesh = init_device_mesh("cpu", mesh_shape, mesh_dim_names=names)
-        rules = ShardingRules(mesh, {**cfg.sharding_overrides,
-                                     **shape_rule_overrides(cfg, shape),
-                                     **(rule_overrides or {})})
+    """Trace ``cfg``'s step at ``shape`` on rank 0 of the ``mesh_kind`` mesh
+    (``fake_mesh``'s argument) -> the record's status, placement, memory,
+    step counts and roofline. A cell that ``train_placement`` calls
+    sharded traces the sharded step on a mesh of more than one device, the
+    replicated step on one (as a card runs it)."""
+    with fake_mesh(mesh_kind) as mesh:
+        n_dev = mesh.size()
+        placement, why = _placement(cfg, shape, n_dev)
+        rules = cell_rules(cfg, shape, mesh, rule_overrides)
         step, args, _ = build_cell(cfg, shape, rules, opt_cfg=opt_cfg,
-                                   microbatches=microbatches)
+                                   microbatches=microbatches,
+                                   placement=placement)
         t0 = time.perf_counter()
         with activate_rules(rules):
             _, rep, mem = analyze_step(step, args)
@@ -125,9 +162,11 @@ def analyze_cell(cfg, shape, mesh_kind: str, *, opt_cfg=None,
              "collective_s": t_collective}
     bottleneck = max(terms, key=terms.get)
     model_time = model_flops / (n_dev * chip.peak_bf16_flops)
+    placed = {"param_placement": placement}
+    if why:
+        placed["replicated_because"] = why
     return {
-        "status": "ok", "devices": n_dev, "chip": chip.name,
-        "param_placement": "replicated",
+        "status": "ok", "devices": n_dev, "chip": chip.name, **placed,
         "trace_s": round(t_trace, 2),
         "memory": {**mem,
                    "peak_live_bytes": rep.peak_live_bytes,
@@ -252,7 +291,7 @@ def _print_summary(res: dict) -> None:
         r = res["roofline"]
         m = res["memory"]
         print(f"[ok]   {res['arch']:<18} {res['shape']:<12} {res['mesh']:<6} "
-              f"trace={res['trace_s']:6.1f}s "
+              f"{res['param_placement']:<10} trace={res['trace_s']:6.1f}s "
               f"mem/dev={m['per_device_total']/2**30:8.2f}GiB "
               f"fits={m['fits_hbm']} "
               f"terms(c/m/x)={r['compute_s']:.2e}/{r['memory_s']:.2e}/"

@@ -6,8 +6,14 @@ decode caches are tensors on the ``meta`` device, which the cell's step
 (``train/train_step.py``) runs on for the dry-run (``launch/dryrun.py``,
 ``launch/step_analysis.py``). Placements are DTensor placements, one a
 mesh dimension, from the sharding rules (``distributed/sharding.py``), as
-``param_sharding`` gives a parameter's. The port does not apply them yet:
-it runs every tensor whole on every rank (``distributed/sharding.py``).
+``param_sharding`` gives a parameter's.
+
+The train cells of the transformer without experts (``train_placement``)
+are the sharded step's (``train/train_step.py``, ``sharded=True``): their
+parameters, optimizer state and batch are stand-ins at one rank's local
+shapes (``distributed.sharding.local_shape``), as the placements place
+them. Every other cell (MoE, Zamba2, xLSTM, prefill, encode and decode)
+holds its tensors whole on every rank, as the port still runs it.
 
 Training takes the master weights in ``cfg.param_dtype``, as the trainer
 holds them; prefill, encode and decode take them in ``cfg.dtype``, as the
@@ -21,12 +27,13 @@ from typing import Any
 import torch
 
 from ..configs.base import ModelConfig, ShapeConfig
-from ..distributed.sharding import ShardingRules, param_sharding
+from ..distributed.sharding import ShardingRules, local_shape, param_sharding
 from ..models import get_family
 from ..models.params import abstract_params, tree_map_specs
 from ..train import adamw
 from ..train.train_step import (build_decode_step, build_encode_step,
-                                build_prefill_step, build_train_step)
+                                build_prefill_step, build_train_step,
+                                sharded_step_gap)
 
 BATCH_AXES = ("batch", None)
 
@@ -117,17 +124,56 @@ def default_opt_cfg(cfg: ModelConfig) -> adamw.AdamWConfig:
     return adamw.AdamWConfig(state_dtype=state_dtype)
 
 
+def train_placement(cfg: ModelConfig, shape: ShapeConfig) -> tuple[str, str]:
+    """("sharded", "") for the train cells that ``sharded_step_gap``
+    passes, else ("replicated", why)."""
+    if shape.kind != "train":
+        return "replicated", (f"{shape.kind} cells run whole on every rank "
+                              "(the sharded KV cache and serve steps wait)")
+    gap = sharded_step_gap(cfg)
+    return ("replicated", gap) if gap else ("sharded", "")
+
+
+def _local_structs(rules: ShardingRules, structs, axes):
+    """Meta stand-ins at one rank's local shapes."""
+    if isinstance(structs, dict):
+        return {k: _local_structs(rules, v, axes[k])
+                for k, v in structs.items()}
+    return _struct(local_shape(rules, tuple(structs.shape), axes),
+                   structs.dtype)
+
+
 def build_cell(cfg: ModelConfig, shape: ShapeConfig, rules: ShardingRules,
                opt_cfg: adamw.AdamWConfig | None = None,
-               microbatches: int = 1):
+               microbatches: int = 1, placement: str = "replicated"):
     """-> (the port's step function, its arguments as meta tensors, their
     placements), as the reference's ``build_cell`` returns (step, abstract
-    arguments, in_shardings)."""
+    arguments, in_shardings). ``placement="sharded"`` (a cell that
+    ``train_placement`` calls sharded): the arguments are one rank's
+    shards and the step ``sharded=True``; the placements returned are the
+    reference's either way."""
     family = get_family(cfg)
     layout = family.layout(cfg)
     p_sh = param_sharding(layout, rules)
     structs, axes = batch_specs(cfg, shape)
     b_sh = _place_tree(rules, structs, axes)
+    if placement == "sharded" and train_placement(cfg, shape)[0] != placement:
+        raise ValueError(f"{cfg.name} {shape.name}: "
+                         f"{train_placement(cfg, shape)[1]}")
+
+    if placement == "sharded":
+        abs_params = abstract_params(cfg, layout, cfg.pdtype, rules)
+        for p in adamw.tree_leaves(abs_params):
+            p.requires_grad_(True)
+        opt_cfg = opt_cfg or default_opt_cfg(cfg)
+        abs_opt = adamw.init(opt_cfg, abs_params,
+                             tree_map_specs(lambda s: s.shape, layout))
+        o_sh, _ = optimizer_state_sharding(opt_cfg, abstract_params(
+            cfg, layout, cfg.pdtype), layout, rules)
+        step = build_train_step(cfg, opt_cfg, microbatches, sharded=True)
+        return step, (abs_params, abs_opt,
+                      _local_structs(rules, structs, axes)), (p_sh, o_sh,
+                                                              b_sh)
 
     if shape.kind == "train":
         abs_params = abstract_params(cfg, layout, cfg.pdtype)

@@ -29,7 +29,9 @@ the reference's ``HloReport`` that it can fill honestly:
   the kernel writes, and counts as ordinary traffic;
 - **collectives** (``collective_wire_bytes``, ``collective_by_op``,
   ``collective_count``): every ``c10d`` operation the step dispatches (the
-  data-parallel gradient all-reduce, ring attention's hops and gathers),
+  data-parallel gradient all-reduce, ring attention's hops and gathers,
+  the sharded step's weight all-gathers over "data" and their gradients'
+  reduce-scatters, its tensor-parallel all-reduces over "model"),
   under the reference's ring conventions for a group of g ranks:
   all-gather and all-to-all |result|·(g-1)/g, all-reduce
   2·|result|·(g-1)/g, reduce-scatter |result|·(g-1), a point-to-point send

@@ -15,17 +15,30 @@ backward kernels where a gradient is wanted). Caches are updated IN PLACE:
 where the reference returns a new pool or cache (and the engine donates
 the old one), the port writes new KV rows into the tensors with indexed
 assignment and returns the same objects.
+
+Under the sharded train step (``distributed/collectives.py``'s
+``activate_sharded``) the training functions take this rank's weights,
+placed by each leaf's spec: the attention block projects the rank's query
+heads and, where the KV heads are whole over ``"model"``, only the KV head
+its query heads use (a head count that the model dimension does not
+divide runs the whole block on every model rank); the FFN is column- then
+row-parallel; the embedding lookup, the logits and the cross-entropy are
+vocab-parallel. Where a dimension stays whole the function is the
+replicated one, op for op.
 """
 from __future__ import annotations
 
 import math
+from typing import Callable
 
 import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
+from ..distributed.collectives import (activate_sharded, all_max, copy_to,
+                                       current_sharded, reduce_from)
 from ..distributed.ring_attention import ring_attention_sharded
-from ..distributed.sharding import current_rules
+from ..distributed.sharding import activate_rules, current_rules
 from ..kernels.decode_attention import paged_decode_attention
 from ..kernels.flash_attention import flash_attention
 from ..kernels.flash_attention.ref import MASK_VALUE
@@ -160,9 +173,70 @@ def _proj(x, w):
 def _qkv_proj(cfg, p, x, positions):
     """Pre-norm q/k/v projections with RoPE, shared by the paged blocks."""
     xn = rmsnorm(x, p["norm"], cfg.norm_eps)
-    q = apply_rope(_proj(xn, p["wq"]), positions, cfg.rope_theta)
-    k = apply_rope(_proj(xn, p["wk"]), positions, cfg.rope_theta)
-    return q, k, _proj(xn, p["wv"])
+    return _qkv(cfg, xn, p["wq"], p["wk"], p["wv"], positions)
+
+
+def _qkv(cfg, xn, wq, wk, wv, positions):
+    q = apply_rope(_proj(xn, wq), positions, cfg.rope_theta)
+    k = apply_rope(_proj(xn, wk), positions, cfg.rope_theta)
+    return q, k, _proj(xn, wv)
+
+
+def _model_group(spec: Callable[[], ParamSpec], dim: int):
+    """The ``"model"`` process group when the sharded step is active and
+    dimension ``dim`` of the leaf ``spec()`` is sharded over it, else None.
+    ``spec`` is called only under the sharded step: the replicated path
+    builds no spec."""
+    sh = current_sharded()
+    return sh.group("model") if sh is not None and sh.split(spec(), dim) \
+        else None
+
+
+def carry_context(fn):
+    """``fn`` run under the sharding rules and the sharded step's context
+    active where this is called: both are thread-local, and autograd runs
+    a CUDA backward, and so a checkpoint's recompute, on a thread of its
+    own."""
+    rules, sh = current_rules(), current_sharded()
+
+    def run(*args):
+        with activate_rules(rules), activate_sharded(sh):
+            return fn(*args)
+    return run
+
+
+def _kv_head_of(cfg, local_heads: int, rank: int) -> int:
+    """The one KV head that a model rank's ``local_heads`` query heads use
+    when the KV heads stay whole; raises where they straddle two groups."""
+    group = cfg.num_heads // cfg.num_kv_heads
+    if group % local_heads:
+        raise ValueError(f"{cfg.name}: {local_heads} query heads a rank "
+                         f"straddle the KV groups of {group} heads")
+    return rank * local_heads // group
+
+
+def _attention_sharded(cfg, p, x, positions, causal):
+    """The training attention block under the sharded step (module
+    docstring): the rank's query heads; its KV heads, or where those are
+    whole the one KV head its query heads use (whose weights' gradient is
+    summed over "model"); the output projection's partial sums reduced.
+    Heads whole: the replicated block on every model rank."""
+    specs = attention_param_specs(cfg)
+    group = _model_group(lambda: specs["wq"], 1)
+    if group is None:
+        q, k, v = _qkv_proj(cfg, p, x, positions)
+        return x + _out_proj(chunked_attention(q, k, v, causal=causal),
+                             p["wo"]), (k, v)
+    xn = copy_to(rmsnorm(x, p["norm"], cfg.norm_eps), group)
+    wk, wv = p["wk"], p["wv"]
+    if _model_group(lambda: specs["wk"], 1) is None:
+        kv = _kv_head_of(cfg, p["wq"].shape[1],
+                         current_sharded().coord("model"))
+        wk = copy_to(wk, group)[:, kv:kv + 1]
+        wv = copy_to(wv, group)[:, kv:kv + 1]
+    q, k, v = _qkv(cfg, xn, p["wq"], wk, wv, positions)
+    o = chunked_attention(q, k, v, causal=causal)
+    return x + reduce_from(_out_proj(o, p["wo"]), group), (k, v)
 
 
 def _out_proj(o, wo):
@@ -179,6 +253,9 @@ def attention_block(cfg, p, x, positions, *, cache=None, decode_pos=None):
     ``"model"`` axis, the attention is ``ring_attention_sharded`` over it.
     Decode: ``cache=(k_cache, v_cache)`` (B,Smax,KV,hd) and ``decode_pos``
     (B,) -> (y, (k_cache, v_cache)), the new row written in place."""
+    if cache is None and current_sharded() is not None:
+        return _attention_sharded(cfg, p, x, positions,
+                                  cfg.causal and not cfg.encoder_only)
     q, k, v = _qkv_proj(cfg, p, x, positions)
     if cache is None:
         causal = cfg.causal and not cfg.encoder_only
@@ -306,12 +383,19 @@ def _act(name: str, x):
 
 
 def mlp_block(cfg, p, x):
+    """The gated (or plain) FFN residual block; column-parallel up and gate
+    and row-parallel down under the sharded step where the FFN width is
+    sharded over "model"."""
     dt = cfg.cdtype
+    group = _model_group(lambda: mlp_param_specs(cfg)["w_up"], 1)
     xn = rmsnorm(x, p["norm"], cfg.norm_eps)
+    if group is not None:
+        xn = copy_to(xn, group)
     up = xn @ p["w_up"].to(dt)
     h = _act(cfg.mlp_act, xn @ p["w_gate"].to(dt)) * up if cfg.mlp_gated \
         else _act(cfg.mlp_act, up)
-    return x + h @ p["w_down"].to(dt)
+    y = h @ p["w_down"].to(dt)
+    return x + (y if group is None else reduce_from(y, group))
 
 
 def embed_param_specs(cfg) -> dict:
@@ -323,12 +407,39 @@ def embed_param_specs(cfg) -> dict:
     return specs
 
 
+def _vocab_group(cfg):
+    """The ``"model"`` group when the sharded step shards the vocabulary of
+    the output projection (the embedding's rows when tied), else None."""
+    if cfg.tie_embeddings:
+        return _model_group(lambda: embed_param_specs(cfg)["embedding"], 0)
+    return _model_group(lambda: embed_param_specs(cfg)["unembed"], 1)
+
+
+def _vocab_offset(rows: int) -> int:
+    """The first vocabulary row of this model rank's shard of ``rows``."""
+    return current_sharded().coord("model") * rows
+
+
 def embed_tokens(cfg, p, tokens):
-    return p["embedding"].to(cfg.cdtype)[tokens.long()]
+    """The token embeddings; vocab-parallel under the sharded step (a masked
+    lookup in the rank's rows, summed over "model")."""
+    group = _model_group(lambda: embed_param_specs(cfg)["embedding"], 0)
+    if group is None:
+        return p["embedding"].to(cfg.cdtype)[tokens.long()]
+    rows = p["embedding"].shape[0]
+    local = tokens.long() - _vocab_offset(rows)
+    hit = (local >= 0) & (local < rows)
+    e = p["embedding"].to(cfg.cdtype)[local.clamp(0, rows - 1)]
+    return reduce_from(torch.where(hit[..., None], e, 0), group)
 
 
 def logits_fn(cfg, p, x):
+    """x @ the output projection; under the sharded step with the vocabulary
+    sharded, this rank's vocabulary columns."""
     w = p["embedding"].T if cfg.tie_embeddings else p["unembed"]
+    group = _vocab_group(cfg)
+    if group is not None:
+        x = copy_to(x, group)
     return x @ w.to(cfg.cdtype)
 
 
@@ -340,11 +451,30 @@ def _label_logits(lg, labels):
     return torch.where(hit, lg, 0.0).sum(-1)
 
 
-def softmax_xent(logits, labels, logit_dtype=torch.float32):
-    """Mean token cross-entropy, stats in float32."""
+def token_nll(logits, labels, logit_dtype=torch.float32, cfg=None):
+    """Every token's log-sum-exp less its label's logit, in ``logit_dtype``.
+    Given ``cfg``, under the sharded step with the vocabulary sharded,
+    ``logits`` are the rank's columns (``logits_fn``): the row maximum of
+    the shards' log-sum-exps and their sum of exponentials are reduced over
+    "model", as is the label's logit (one shard holds it). On one rank this
+    is ``torch.logsumexp``'s result bit for bit: exp(0) = 1, log(1) = 0."""
     lg = logits.to(logit_dtype)
-    return torch.mean(torch.logsumexp(lg, dim=-1)
-                      - _label_logits(lg, labels.long()))
+    labels = labels.long()
+    group = None if cfg is None else _vocab_group(cfg)
+    if group is None:
+        return torch.logsumexp(lg, dim=-1) - _label_logits(lg, labels)
+    part = torch.logsumexp(lg, dim=-1)
+    top = all_max(part, group)
+    # torch.logsumexp shifts by 0 where the maximum is infinite
+    top = torch.where(top.abs() == math.inf, 0.0, top)
+    lse = torch.log(reduce_from(torch.exp(part - top), group)) + top
+    local = labels - _vocab_offset(lg.shape[-1])
+    return lse - reduce_from(_label_logits(lg, local), group)
+
+
+def softmax_xent(logits, labels, logit_dtype=torch.float32, cfg=None):
+    """Mean token cross-entropy, stats in float32 (``token_nll``)."""
+    return torch.mean(token_nll(logits, labels, logit_dtype, cfg))
 
 
 def chunked_xent(cfg, p, x, labels, chunk: int):
@@ -355,11 +485,12 @@ def chunked_xent(cfg, p, x, labels, chunk: int):
     b, s, d = x.shape
     chunk = min(chunk, s)
     if s % chunk:
-        return softmax_xent(logits_fn(cfg, p, x), labels)
+        return softmax_xent(logits_fn(cfg, p, x), labels, cfg=cfg)
 
     def one(xs, ys):
-        return softmax_xent(logits_fn(cfg, p, xs), ys) * chunk
+        return softmax_xent(logits_fn(cfg, p, xs), ys, cfg=cfg) * chunk
 
+    one = carry_context(one)
     parts = [checkpoint(one, x[:, i:i + chunk], labels[:, i:i + chunk],
                         use_reentrant=False) for i in range(0, s, chunk)]
     return torch.stack(parts).sum() / s

@@ -19,6 +19,7 @@ import torch
 
 from ..configs import torch_dtype
 from ..device import resolve_device
+from ..distributed.sharding import local_shape
 
 
 @dataclass(frozen=True)
@@ -94,9 +95,15 @@ def _std(spec: ParamSpec) -> float:
 SCRATCH_ELEMS = 1 << 28
 
 
-def init_params(cfg, layout, *, seed: int = 0, device="cuda", dtype=None):
+def init_params(cfg, layout, *, seed: int = 0, device="cuda", dtype=None,
+                rules=None):
     """Materialize ``layout`` on ``device`` from a ``torch.Generator``, matrix
-    weights in ``dtype`` (default ``cfg.dtype``).
+    weights in ``dtype`` (default ``cfg.dtype``). With ``rules``
+    (``ShardingRules`` over an initialised mesh) only this rank's shard of
+    each leaf is allocated and drawn (``distributed.sharding.local_shape``),
+    at the whole leaf's standard deviation: the sharded train step's
+    parameters for a cell whose whole parameters one device cannot hold
+    (the draws are not the shards of the whole leaves' draws).
 
     Normal leaves are truncated at two standard deviations, as in the
     reference (whose ``jax.random`` bits this does not reproduce). Stacked
@@ -111,13 +118,15 @@ def init_params(cfg, layout, *, seed: int = 0, device="cuda", dtype=None):
 
     def leaf(spec: ParamSpec):
         dt = _leaf_dtype(spec, cfg, dtype)
+        shape = spec.shape if rules is None else local_shape(
+            rules, spec.shape, spec.axes)
         if spec.init == "zeros":
-            return torch.zeros(spec.shape, dtype=dt, device=dev)
+            return torch.zeros(shape, dtype=dt, device=dev)
         if spec.init == "ones":
-            return torch.ones(spec.shape, dtype=dt, device=dev)
-        out = torch.empty(spec.shape, dtype=dt, device=dev)
+            return torch.ones(shape, dtype=dt, device=dev)
+        out = torch.empty(shape, dtype=dt, device=dev)
         std = _std(spec)
-        for layer in (out if len(spec.shape) > 2 else [out]):
+        for layer in (out if len(shape) > 2 else [out]):
             big = layer.dim() > 2 and layer.numel() > SCRATCH_ELEMS
             for part in (layer if big else [layer]):
                 tmp = torch.empty(part.shape, dtype=torch.float32, device=dev)
@@ -129,12 +138,14 @@ def init_params(cfg, layout, *, seed: int = 0, device="cuda", dtype=None):
     return tree_map_specs(leaf, layout)
 
 
-def abstract_params(cfg, layout, dtype=None):
-    """``layout`` as meta tensors: ``init_params``' shapes and dtypes,
-    nothing allocated (the dry-run's stand-ins)."""
+def abstract_params(cfg, layout, dtype=None, rules=None):
+    """``layout`` as meta tensors: ``init_params``' shapes and dtypes (with
+    ``rules``, one rank's shards), nothing allocated (the dry-run's
+    stand-ins)."""
     return tree_map_specs(
-        lambda s: torch.empty(s.shape, dtype=_leaf_dtype(s, cfg, dtype),
-                              device="meta"), layout)
+        lambda s: torch.empty(
+            s.shape if rules is None else local_shape(rules, s.shape, s.axes),
+            dtype=_leaf_dtype(s, cfg, dtype), device="meta"), layout)
 
 
 def params_from_reference(cfg, layout, np_tree, *, device="cuda",
@@ -142,7 +153,8 @@ def params_from_reference(cfg, layout, np_tree, *, device="cuda",
     """The reference's parameters (a nested dict of numpy arrays, e.g.
     ``jax.tree.map(np.asarray, params)``) as the port's tensors on
     ``device``, matrix weights in ``dtype`` (default ``cfg.dtype``), each
-    checked against ``layout``'s shape."""
+    checked against ``layout``'s shape. The sharded train step takes them
+    through ``distributed.sharding.shard_params``."""
     dev = resolve_device(device)
 
     def go(node, tree, path):

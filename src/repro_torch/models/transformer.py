@@ -30,7 +30,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from ..device import resolve_device
-from ..distributed.sharding import activate_rules, current_rules
+from ..distributed.collectives import current_sharded
 from . import layers as L
 from .moe import moe_block, moe_param_specs
 from .params import ParamSpec, stack_specs
@@ -82,18 +82,15 @@ def _remat(cfg, fn):
     non-reentrant ``torch.utils.checkpoint`` a layer, the reference's
     ``nothing_saveable``); "none" keeps its activations.
 
-    The recompute runs under the sharding rules that were active when the
-    layer ran: they are thread-local, and autograd runs a CUDA backward on
-    a thread of its own, where none are active (a ring layer would
-    otherwise be recomputed as the chunked one)."""
+    The recompute runs under the sharding rules and the sharded step's
+    context that were active when the layer ran (``layers.carry_context``):
+    they are thread-local, and autograd runs a CUDA backward on a thread of
+    its own, where none are active (a ring layer would otherwise be
+    recomputed as the chunked one, a sharded one as the replicated one)."""
     if cfg.remat == "full":
         def run(*args):
-            rules = current_rules()
-
-            def under_rules(*a):
-                with activate_rules(rules):
-                    return fn(*a)
-            return checkpoint(under_rules, *args, use_reentrant=False)
+            return checkpoint(L.carry_context(fn), *args,
+                              use_reentrant=False)
         return run
     if cfg.remat == "dots":
         raise NotImplementedError(
@@ -150,11 +147,25 @@ class TransformerFamily:
         Returns (total loss, metrics): the mean token cross-entropy plus, with
         experts, ``load_balance_loss * moe_lb_loss + router_z_loss *
         moe_z_loss``, each aux the mean over layers (zeros without
-        experts)."""
+        experts).
+
+        Under the sharded step (``distributed/collectives.py``) ``params``
+        are this rank's shards: the leaves outside the layer stack are
+        gathered over "data" once, and each layer's inside its remat body,
+        so the recompute gathers them again and the whole weights are freed
+        with the layer."""
+        sh = current_sharded()
+        if sh is not None:
+            top = {k: v for k, v in params.items() if k != "layers"}
+            params = {**sh.gather_data(top, sh.layout),
+                      "layers": params["layers"]}
+            layer_specs = self.layer_specs(cfg)
         x, positions, _ = self._embed(cfg, params, batch)
         moe = bool(cfg.num_experts)
 
         def layer(h, lp):
+            if sh is not None:
+                lp = sh.gather_data(lp, layer_specs)
             h, _ = L.attention_block(cfg, lp["attn"], h, positions)
             if moe:
                 h, aux = moe_block(cfg, lp["ffn"], h)
@@ -184,11 +195,10 @@ class TransformerFamily:
             logits = L.logits_fn(cfg, params, x)
             if "loss_mask" in batch:
                 m = batch["loss_mask"].float()
-                lg = logits.float()
-                nll = torch.logsumexp(lg, dim=-1) - L._label_logits(lg, labels)
+                nll = L.token_nll(logits, labels, cfg=cfg)
                 loss = (nll * m).sum() / m.sum().clamp_min(1.0)
             else:
-                loss = L.softmax_xent(logits, labels)
+                loss = L.softmax_xent(logits, labels, cfg=cfg)
         total = (loss + cfg.load_balance_loss * aux["moe_lb_loss"]
                  + cfg.router_z_loss * aux["moe_z_loss"])
         return total, {"loss": loss, **aux}

@@ -11,7 +11,9 @@ A counterpart of the reference's ``repro/train/adamw.py``:
   stay f32. Quantization error is bounded by scale/2 per element.
 
 Parameters, gradients and moments are nested dicts of tensors on the
-parameters' device (a moment leaf is a tensor or a :class:`QTensor`). The
+parameters' device (a moment leaf is a tensor or a :class:`QTensor`); the
+sharded train step gives this rank's shards of each (``init``'s
+``shapes``, ``update``'s ``reduce_sq``). The
 arithmetic follows the reference's order in f32. ``update`` writes the new
 parameters into the parameter tensors IN PLACE (the reference returns a
 new tree): at full width a second copy of the f32 master weights would
@@ -120,10 +122,13 @@ class AdamWState(NamedTuple):
     v: Any
 
 
-def _encode(cfg: AdamWConfig, x, sqrt_domain: bool = False):
-    if (cfg.state_dtype != "int8" or x.numel() < QUANT_MIN_SIZE
-            or (x.dim() and x.shape[-1] % QBLOCK)):
-        return x
+def _quantized(cfg: AdamWConfig, shape: tuple[int, ...]) -> bool:
+    """A moment of a leaf of this (whole) shape is stored int8."""
+    return (cfg.state_dtype == "int8" and math.prod(shape) >= QUANT_MIN_SIZE
+            and not (shape and shape[-1] % QBLOCK))
+
+
+def _encode(x, sqrt_domain: bool = False):
     if sqrt_domain:  # v >= 0: quantize sqrt(v) — compresses the dynamic range
         return quantize_blockwise(torch.sqrt(x))
     return quantize_blockwise(x)
@@ -136,31 +141,64 @@ def _decode(x, sqrt_domain: bool = False):
     return d * d if sqrt_domain else d
 
 
-def init(cfg: AdamWConfig, params) -> AdamWState:
+def _paths(tree, prefix: str = ""):
+    """A tree of every leaf's path ("layers/attn/wq")."""
+    if isinstance(tree, dict):
+        return {k: _paths(v, f"{prefix}{k}/") for k, v in tree.items()}
+    return prefix[:-1]
+
+
+def init(cfg: AdamWConfig, params, shapes=None) -> AdamWState:
+    """Zero moments for ``params``. ``shapes`` (a tree of tuples) gives the
+    whole leaves' shapes where ``params`` are shards: whether a moment is
+    int8 is decided on the whole leaf, as on one device, and a shard's
+    blocks are the whole leaf's when its last dimension is a multiple of
+    ``QBLOCK`` (raises otherwise, naming the leaf)."""
     if cfg.state_dtype not in ("float32", "int8"):
         raise ValueError(f"unknown state_dtype {cfg.state_dtype!r}")
+    if shapes is None:
+        shapes = tree_map(lambda p: tuple(p.shape), params)
 
-    def zeros(p):
-        return torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+    def moment(p, shape, path, sqrt_domain):
+        x = torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+        if not _quantized(cfg, tuple(shape)):
+            return x
+        if p.shape[-1] % QBLOCK:
+            raise ValueError(
+                f"{path}: int8 moments need the shard's last dimension "
+                f"({p.shape[-1]} of {shape[-1]}) to be a multiple of QBLOCK "
+                f"{QBLOCK}")
+        return _encode(x, sqrt_domain)
 
     dev = tree_leaves(params)[0].device
+    paths = _paths(params)
     return AdamWState(
         torch.zeros((), dtype=torch.int32, device=dev),
-        tree_map(lambda p: _encode(cfg, zeros(p)), params),
-        tree_map(lambda p: _encode(cfg, zeros(p), sqrt_domain=True), params))
+        tree_map(lambda p, s, n: moment(p, s, n, False), params, shapes,
+                 paths),
+        tree_map(lambda p, s, n: moment(p, s, n, True), params, shapes,
+                 paths))
 
 
-def global_norm(tree) -> torch.Tensor:
-    sq = [torch.sum(torch.square(x.float())) for x in tree_leaves(tree)]
-    return torch.sqrt(torch.sum(torch.stack(sq)))
+def global_norm(tree, reduce_sq=None) -> torch.Tensor:
+    """The L2 norm over every leaf. ``reduce_sq`` (the sharded step's
+    ``ShardedParams.reduce_sq``) sums the leaves' stacked sums of squares
+    over the ranks that hold other parts of them."""
+    sq = torch.stack([torch.sum(torch.square(x.float()))
+                      for x in tree_leaves(tree)])
+    if reduce_sq is not None:
+        sq = reduce_sq(sq)
+    return torch.sqrt(torch.sum(sq))
 
 
 @torch.no_grad()
-def update(cfg: AdamWConfig, grads, state: AdamWState, params):
+def update(cfg: AdamWConfig, grads, state: AdamWState, params,
+           reduce_sq=None):
     """Returns (params, new_state, metrics); ``params``' tensors hold the
-    updated values (in place)."""
+    updated values (in place). A moment stays int8 or f32 as ``init`` made
+    it. ``reduce_sq``: as ``global_norm``'s, for shards."""
     step = state.step + 1
-    gnorm = global_norm(grads)
+    gnorm = global_norm(grads, reduce_sq)
     clip = torch.clamp(cfg.max_grad_norm / torch.clamp(gnorm, min=1e-9),
                        max=1.0)
     lr = lr_at(cfg, step, device=gnorm.device)
@@ -175,7 +213,9 @@ def update(cfg: AdamWConfig, grads, state: AdamWState, params):
         upd = (m / bc1) / (torch.sqrt(v / bc2) + cfg.eps)
         upd = upd + cfg.weight_decay * p.float()
         p.copy_((p.float() - lr * upd).to(p.dtype))
-        return _encode(cfg, m), _encode(cfg, v, sqrt_domain=True)
+        if isinstance(m_enc, QTensor):
+            return _encode(m), _encode(v, sqrt_domain=True)
+        return m, v
 
     out = tree_map(lambda p, g, m, v: leaf(p, g, m, v), params, grads,
                    state.m, state.v)

@@ -4,6 +4,11 @@ and decode steps, the continuous engine's dense (ragged) admission step,
 its steps over the shared paged KV pool, and the encoder-only encode
 step.
 
+The train step runs replicated (every parameter whole on every rank,
+data parallel under rules that split the batch) or, chosen by its caller
+with ``sharded=True``, on this rank's shards (``distributed/sharding.py``'s
+``shard_params``, ``distributed/collectives.py``).
+
 Each builder returns a plain function that runs one model pass and, for
 the decode-like steps, takes the greedy argmax over the compute-dtype
 logits (ties resolve to the first index, as in the reference). Pools and
@@ -17,8 +22,11 @@ from typing import Callable
 import torch
 import torch.distributed as dist
 
+from ..distributed.collectives import (ShardedParams, activate_sharded,
+                                       all_reduce_sum)
 from ..distributed.sharding import current_rules
 from ..models import get_family
+from ..models.transformer import TransformerFamily
 from . import adamw
 
 
@@ -68,7 +76,103 @@ def _rows(x, index: int, size: int):
     return x[index * n:(index + 1) * n]
 
 
-def build_loss_and_grads(cfg, microbatches: int = 1) -> Callable:
+def local_batch(batch, microbatches: int = 1):
+    """This rank's rows of a global batch for the sharded step, under the
+    active rules: its block of the ``"batch"`` dimensions, as the
+    reference's ``input_sharding`` places the batch; with ``microbatches``,
+    its block of each of the reference's microbatches in turn, so that the
+    step's own split gives each microbatch's rows to their ranks."""
+    _, index, size = _data_parallel(current_rules()) or (None, 0, 1)
+    return {k: torch.cat([_rows(mb[k], index, size)
+                          for mb in _split(batch, microbatches)])
+            for k in batch}
+
+
+def sharded_step_gap(cfg) -> str:
+    """Why the sharded train step does not cover ``cfg``, or "" where it
+    does: the transformer without experts, its attention chunked."""
+    if not isinstance(get_family(cfg), TransformerFamily):
+        return (f"the {cfg.family} family trains replicated (its sharded "
+                "step waits)")
+    if cfg.num_experts:
+        return ("MoE trains replicated (expert parallelism over 'model' "
+                "waits)")
+    if cfg.attn_impl != "chunked":
+        return (f"attn_impl {cfg.attn_impl!r} trains replicated (the sharded "
+                "step's attention is chunked)")
+    return ""
+
+
+class _ShardedContext:
+    """The sharded step's ``ShardedParams`` for the active rules, built once
+    a rules object."""
+
+    def __init__(self, cfg):
+        gap = sharded_step_gap(cfg)
+        if gap:
+            raise NotImplementedError(f"{cfg.name}: {gap}")
+        self.layout = get_family(cfg).layout(cfg)
+        self.rules, self.sh = None, None
+
+    def __call__(self) -> ShardedParams:
+        rules = current_rules()
+        if rules is None:
+            raise ValueError("the sharded step runs under active sharding "
+                             "rules (activate_rules)")
+        if rules is not self.rules:
+            self.rules, self.sh = rules, ShardedParams(rules, self.layout)
+        return self.sh
+
+
+def _sharded_loss_and_grads(cfg, microbatches: int, context):
+    """``build_loss_and_grads``' sharded step: ``params`` are this rank's
+    shards, ``batch`` its rows (``local_batch``). Each microbatch's loss is
+    weighted by the rank's share of the microbatch's tokens, the global
+    count all-reduced over the batch dimensions, before its backward: the
+    weight gathers' reduce-scatters then sum the ranks' shares over
+    "data", and only a leaf whole over a batch dimension is all-reduced
+    over it afterwards. Every collective is issued, over groups of one
+    rank too."""
+    family = get_family(cfg)
+
+    def loss_and_grads(params, batch):
+        sh = context()
+        leaves = adamw.tree_leaves(params)
+        groups = [sh.group(a) for a in sh.batch_axes()]
+        mbs = [batch] if microbatches == 1 else _split(batch, microbatches)
+        g_acc, v_acc, names = None, None, None
+        for mb in mbs:
+            count = _token_count(mb)
+            total = count
+            for group in groups:
+                total = all_reduce_sum(total, group)
+            w = count / total.clamp_min(1.0)
+            with activate_sharded(sh):
+                loss, metrics = family.train_loss(cfg, params, mb)
+                g = torch.autograd.grad(loss * w, leaves, allow_unused=True)
+            g = [torch.zeros_like(p) if x is None else x
+                 for p, x in zip(leaves, g)]
+            names = list(metrics)
+            vec = torch.stack([loss.detach().float()] + [
+                torch.as_tensor(metrics[k]).detach().float()
+                for k in names]) * w
+            g_acc = g if g_acc is None else [a + x.float()
+                                             for a, x in zip(g_acc, g)]
+            v_acc = vec if v_acc is None else v_acc + vec
+        for group in groups:
+            v_acc = all_reduce_sum(v_acc, group)
+        for i, axes in enumerate(sh.leaf_axes()):
+            for a in sh.batch_axes():
+                if a not in axes:
+                    g_acc[i] = all_reduce_sum(g_acc[i], sh.group(a))
+        v_acc, g_acc = v_acc / len(mbs), [g / len(mbs) for g in g_acc]
+        return v_acc[0], dict(zip(names, v_acc[1:])), g_acc
+
+    return loss_and_grads
+
+
+def build_loss_and_grads(cfg, microbatches: int = 1, *,
+                         sharded: bool = False) -> Callable:
     """``loss_and_grads(params, batch) -> (loss, metrics, grads)``: the loss
     and gradients of ``family.train_loss`` over ``microbatches`` slices of
     the batch (f32 gradient sums divided by their count, the losses and
@@ -83,7 +187,15 @@ def build_loss_and_grads(cfg, microbatches: int = 1) -> Callable:
     of the microbatch's tokens (the ``loss_mask``'s sum, or every label)
     and summed over those dimensions' groups in f32: the reference's token
     mean over the global microbatch, not a mean of the ranks' means. With
-    no such rules the step is the single-process one, op for op."""
+    no such rules the step is the single-process one, op for op.
+
+    ``sharded=True`` (a config that ``sharded_step_gap`` passes, under
+    active rules):
+    ``params`` are this rank's shards (``shard_params``) and ``batch`` its
+    rows (``local_batch``); ``grads`` are the shards' gradients
+    (``_sharded_loss_and_grads``)."""
+    if sharded:
+        return _sharded_loss_and_grads(cfg, microbatches, _ShardedContext(cfg))
     family = get_family(cfg)
 
     def grads_of(params, leaves, mb):
@@ -140,21 +252,30 @@ def build_loss_and_grads(cfg, microbatches: int = 1) -> Callable:
 
 
 def build_train_step(cfg, opt_cfg: adamw.AdamWConfig,
-                     microbatches: int = 1) -> Callable:
+                     microbatches: int = 1, *,
+                     sharded: bool = False) -> Callable:
     """``train_step(params, opt_state, batch) -> (params, opt_state,
     metrics)``: ``build_loss_and_grads``' loss and gradients (data
     parallel under rules that split the batch), then ``adamw.update``,
     which writes the parameters in place. ``params``' leaves must require
     grad. Metrics: ``total_loss``, the family's metrics, ``grad_norm`` and
-    ``lr``, as 0-d tensors."""
-    loss_and_grads = build_loss_and_grads(cfg, microbatches)
+    ``lr``, as 0-d tensors.
+
+    ``sharded=True``: every argument is this rank's shard (parameters from
+    ``shard_params``, the optimizer state from ``adamw.init`` with the
+    whole shapes, the batch from ``local_batch``), and the gradient norm
+    counts every element once (``ShardedParams.reduce_sq``)."""
+    context = _ShardedContext(cfg) if sharded else None
+    loss_and_grads = (_sharded_loss_and_grads(cfg, microbatches, context)
+                      if sharded else build_loss_and_grads(cfg, microbatches))
 
     def train_step(params, opt_state, batch):
         loss, metrics, grads = loss_and_grads(params, batch)
         it = iter(grads)
         grad_tree = adamw.tree_map(lambda _: next(it), params)
-        params, opt_state, opt_metrics = adamw.update(opt_cfg, grad_tree,
-                                                      opt_state, params)
+        reduce_sq = context().reduce_sq if sharded else None
+        params, opt_state, opt_metrics = adamw.update(
+            opt_cfg, grad_tree, opt_state, params, reduce_sq=reduce_sq)
         return params, opt_state, {"total_loss": loss, **metrics,
                                    **opt_metrics}
 
