@@ -153,6 +153,23 @@ Phases, each of which must pass (a failure exits nonzero):
    their plain versions in bf16 (``SHARD_LOCAL_FLASH``,
    ``SHARD_LOCAL_RMS``); prints the step's device ms beside the dry-run's
    compute and memory terms.
+8d. expert parallel: the sharded MoE train step (experts over "model",
+   FSDP over "data", the router gathered whole, one reduce of the experts'
+   and Arctic's dense branch's partial outputs, the aux losses' token sums
+   all-reduced over "data"). (a) the one-process NCCL (1, 1) mesh:
+   full-width olmoe-1b-7b at depth 4 (64 experts top 8), B 8 x 1024 (16
+   groups of 512), bf16 over f32 masters, int8 moments, 3 steps under
+   deterministic algorithms, bit for bit the replicated step (losses,
+   metrics, final parameters), launches exactly the replicated step's on
+   sm90, no plain version called; (b) rank 0 of the (16, 16) mesh over a
+   fake process group: olmoe-1b-7b ``train_4k`` at full depth, then
+   arctic-480b ``train_4k`` (bf16 masters, int8 moments, some held at the
+   reference's placement), only rank 0's shards allocated, 2 steps each:
+   peak device memory within 3% of the dry-run's sharded
+   ``per_device_total``, launches exact at the local shapes, all on sm90
+   (arctic's flash at 56 heads over 8 and RMSNorm over 65536 x 7168 held
+   to their plain versions in the backward-kernel checks, the flash at B
+   2); each step's device ms beside the dry-run's terms.
 9. job: the same training run as a job of the Kotta batch runtime
    (``KottaService``): an outsider's submit refused and audited; alice's
    job staged under her role by the executor's assume-role, run on a
@@ -275,7 +292,8 @@ phase as ``launches_distributed``, and the frontends, frontend train,
 examples and distributed phases' numbers); the last is
 ``{"ok": true, "device": {...}}``. Without CUDA, or without the port
 beside this script, it prints no result and exits nonzero. It takes no
-arguments: every run drives all seventeen phases (8b and 8c among them).
+arguments: every run drives all eighteen phases (8b, 8c and 8d among
+them).
 """
 from __future__ import annotations
 
@@ -2839,6 +2857,14 @@ TB, TS, TH, TKV, THD, TD = 8, 1024, 16, 8, 128, 2048
 # head it uses, hd 128, causal; RMSNorm over 16 x 4096 rows of 2048.
 SHARD_LOCAL_FLASH = (16, 4096, 1, 1, 128, True)
 SHARD_LOCAL_RMS = (16 * 4096, 2048)
+# arctic-480b's in phase 8d (b): the 56 query heads over 8 KV heads stay
+# whole on a 16-way "model" axis, hd 128, B 16, S 4096; RMSNorm over 16 x
+# 4096 rows of 7168. The kernels are held to their plain versions at B 2
+# (``ARCTIC_CHECK_FLASH``): the plain version's S x S scores at B 16 would
+# take ~60 GB.
+ARCTIC_LOCAL_FLASH = (16, 4096, 56, 8, 128, True)
+ARCTIC_CHECK_FLASH = (2, 4096, 56, 8, 128, True)
+ARCTIC_LOCAL_RMS = (16 * 4096, 7168)
 TRAIN_STEPS, TRAIN_EVERY, TRAIN_REVOKE = 6, 3, 4
 # The synthetic corpus both the train and the job phase read, under
 # dataset/<TRAIN_CORPUS>/: 2 shards of 65,536 tokens from seed 0.
@@ -3032,8 +3058,10 @@ def phase_backward_kernels():
     5120, 7168 and a ragged 1002 (scalar loads), each on the kernel of its
     D; in bf16, both at phase 8c (b)'s local shapes (``SHARD_LOCAL_FLASH``:
     B 16, S 4096, 1 head over 1, hd 128, causal; ``SHARD_LOCAL_RMS``: 65536
-    x 2048), with their forward kernels held to the plain version there
-    too (``_sharded_local_fwd``). Each twice, bit for bit the same (no
+    x 2048) and at arctic-480b's of phase 8d (b) (``ARCTIC_CHECK_FLASH``:
+    B 2, S 4096, 56 heads over 8, hd 128, causal; ``ARCTIC_LOCAL_RMS``:
+    65536 x 7168), with their forward kernels held to the plain version
+    there too (``_sharded_local_fwd``). Each twice, bit for bit the same (no
     atomics). The training shapes
     timed beside the plain version, the library's backward (SDPA,
     ``F.rms_norm``) and the bound (at the true hd), with each launch's
@@ -3063,8 +3091,10 @@ def phase_backward_kernels():
         fshapes = flash_shapes + [
             (label, shape) for label, shape in frontend.items()
             if bf16 or label == "hubert-xlarge"] + (
-            [("sharded local", SHARD_LOCAL_FLASH)] if bf16 else [])
-        rshapes = rms_shapes + ([("sharded local", SHARD_LOCAL_RMS)]
+            [("sharded local", SHARD_LOCAL_FLASH),
+             ("arctic local", ARCTIC_CHECK_FLASH)] if bf16 else [])
+        rshapes = rms_shapes + ([("sharded local", SHARD_LOCAL_RMS),
+                                 ("arctic local", ARCTIC_LOCAL_RMS)]
                                 if bf16 else [])
         cases = ([("flash_attention_bwd", label,
                    _flash_bwd_case(gen, dev, dtype, *shape), shape)
@@ -3098,8 +3128,8 @@ def phase_backward_kernels():
             rec = results[name].setdefault(kind, {"max_abs_err": 0.0})
             rec["max_abs_err"] = max(rec["max_abs_err"], err)
             nbytes = 2 if kind == "bf16" else 4
-            if label == "sharded local":
-                rec["sharded_local"] = {
+            if label in ("sharded local", "arctic local"):
+                rec[label.replace(" ", "_")] = {
                     "shape": shape, "bwd_max_rel_err": err,
                     **_sharded_local_fwd(name, inputs, shape)}
                 continue
@@ -3806,10 +3836,11 @@ def _probe_launches(label, probe, want, want_routes):
                                  f"{want_routes}")
 
 
-def _sharded_one_rank(smi):
-    """(a) internlm2-1.8b at full width and depth, bf16 over f32 masters,
-    remat full, the train phase's AdamW (int8 moments), B ``TB`` x S
-    ``TS``, ``SHARD_STEPS`` steps under deterministic algorithms: once the
+def _sharded_one_rank(smi, cfg=None, tag="sharding"):
+    """(a) internlm2-1.8b (or ``cfg``) at full width and depth, bf16 over
+    f32 masters, remat full, the train phase's AdamW (int8 moments), B
+    ``TB`` x S ``TS``, ``SHARD_STEPS`` steps under deterministic
+    algorithms: once the
     replicated ``build_train_step`` with no rules, once through
     ``shard_params`` and ``build_train_step(..., sharded=True)`` on a
     one-process NCCL group's (1, 1) ("data", "model") mesh, every
@@ -3826,7 +3857,7 @@ def _sharded_one_rank(smi):
     from repro_torch.models import get_family, init_params
     from repro_torch.models.params import tree_map_specs
     from repro_torch.train import adamw, build_train_step
-    cfg = get_config("internlm2-1.8b")
+    cfg = cfg or get_config("internlm2-1.8b")
     layout = get_family(cfg).layout(cfg)
     opt = _train_opt()
     want, want_routes = _transformer_step_launches(cfg)
@@ -3886,37 +3917,40 @@ def _sharded_one_rank(smi):
            "launches_per_step": want,
            "launches": _run_launches(shd["probe"]),
            "plain_calls": dict(plain_calls)}
-    log(f"[sharding] (a) internlm2-1.8b {cfg.num_layers} layers, bf16 over "
+    log(f"[{tag}] (a) {cfg.name} {cfg.num_layers} layers, bf16 over "
         f"f32 masters, int8 moments, B {TB} x S {TS}, {SHARD_STEPS} steps "
         f"under deterministic algorithms, replicated vs sharded on a "
         f"one-process NCCL (1, 1) mesh: losses {rec['losses']}; metrics "
         f"equal {same_metrics}; final parameters differing {differing} of "
         f"{len(rep['final'])}; step ms {rec['step_ms']}; sharded launches "
         f"{rec['launches']} ({want} a step); on {smi}")
-    _probe_launches("(a)", shd["probe"], want, want_routes)
+    _probe_launches(f"{tag} (a)", shd["probe"], want, want_routes)
     if sum(plain_calls.values()):
-        raise AssertionError(f"sharding (a): a plain version ran on the "
+        raise AssertionError(f"{tag} (a): a plain version ran on the "
                              f"card: {plain_calls}")
     if not same_metrics or differing:
-        raise AssertionError(f"sharding (a): the sharded step on one rank is "
+        raise AssertionError(f"{tag} (a): the sharded step on one rank is "
                              f"not the replicated step bit for bit: "
                              f"{rec['bitwise']}")
     return rec
 
 
-def _sharded_production(smi):
+def _sharded_production(smi, arch="internlm2-1.8b",
+                        local_flash=SHARD_LOCAL_FLASH,
+                        local_rms=SHARD_LOCAL_RMS, tag="sharding"):
     """(b) rank 0 of the single-pod (16, 16) ("data", "model") mesh over a
     fake process group of 256 ranks (``launch.dryrun.fake_mesh``, which
-    registers the fake backend for CUDA too): internlm2-1.8b ``train_4k``
-    (B 256 x S 4096, rank 0's 16 rows), only rank 0's shards allocated
-    (``init_params(..., rules=)``, f32 masters, the cell's default AdamW:
-    f32 moments), ``SHARD_PROD_STEPS`` sharded steps. The collectives move
+    registers the fake backend for CUDA too): internlm2-1.8b (or ``arch``)
+    ``train_4k`` (B 256 x S 4096, rank 0's 16 rows), only rank 0's shards
+    allocated (``init_params(..., rules=)``, the master weights in the
+    config's ``param_dtype``, the cell's default AdamW: f32 moments, int8
+    for bf16 masters), ``SHARD_PROD_STEPS`` sharded steps. The collectives move
     nothing, so the loss is not a result. Held: the measured peak device
     memory within ``LAUNCH_MEMORY_TOL`` of the dry-run's sharded
     ``per_device_total`` for the same cell, and every step's launches
-    exactly the train phase's kinds at the local shapes (1 query head and
-    1 KV head at hd 128, B 16, S 4096; RMSNorm over 65536 rows of 2048),
-    every bf16 one on sm90."""
+    exactly the train phase's kinds at the local shapes (``local_flash``:
+    B, S, query heads, KV heads, hd; ``local_rms``: rows, D), every bf16
+    one on sm90."""
     import torch
     from repro_torch.configs import get_config, get_shape
     from repro_torch.distributed import activate_rules
@@ -3925,7 +3959,7 @@ def _sharded_production(smi):
     from repro_torch.models import get_family, init_params
     from repro_torch.models.params import tree_map_specs
     from repro_torch.train import adamw, build_train_step
-    cfg = get_config("internlm2-1.8b")
+    cfg = get_config(arch)
     shape = get_shape("train_4k")
     layout = get_family(cfg).layout(cfg)
     opt = default_opt_cfg(cfg)
@@ -3941,7 +3975,7 @@ def _sharded_production(smi):
             rules = cell_rules(cfg, shape, mesh)
             rows = shape.global_batch // rules.axis_sizes["data"]
             params = init_params(cfg, layout, seed=0, device="cuda",
-                                 dtype=torch.float32, rules=rules)
+                                 dtype=cfg.pdtype, rules=rules)
             for p in adamw.tree_leaves(params):
                 p.requires_grad_(True)
             state = adamw.init(opt, params,
@@ -3953,14 +3987,19 @@ def _sharded_production(smi):
                      for k, v in params["layers"]["attn"].items()}
             # the kernel phase held the kernels to their plain versions at
             # these local shapes (phase_backward_kernels)
-            fb, fs, fh, _, fhd, _ = SHARD_LOCAL_FLASH
-            if ((rows, shape.seq_len, local["wq"][2], cfg.head_dim)
-                    != (fb, fs, fh, fhd) or (rows * shape.seq_len, cfg.d_model)
-                    != SHARD_LOCAL_RMS):
+            fb, fs, fh, fkv, fhd, _ = local_flash
+            # heads whole or KV heads split: the local KV heads; heads split
+            # over whole KV heads: the one KV head the rank's heads use
+            heads_whole = local["wq"][2] == cfg.num_heads
+            kv_split = local["wk"][2] != cfg.num_kv_heads
+            kv = local["wk"][2] if heads_whole or kv_split else 1
+            if ((rows, shape.seq_len, local["wq"][2], kv, cfg.head_dim)
+                    != (fb, fs, fh, fkv, fhd)
+                    or (rows * shape.seq_len, cfg.d_model) != local_rms):
                 raise AssertionError(
-                    f"sharding (b): local shapes {rows} x {shape.seq_len}, "
+                    f"{tag} (b): local shapes {rows} x {shape.seq_len}, "
                     f"attention {local}, not the kernel phase's "
-                    f"{SHARD_LOCAL_FLASH} and {SHARD_LOCAL_RMS}")
+                    f"{local_flash} and {local_rms}")
             probe = _StepProbe(build_train_step(cfg, opt, sharded=True))
             device_ms = []
             with activate_rules(rules):
@@ -3998,10 +4037,11 @@ def _sharded_production(smi):
            "collective_by_op": dry["hlo"]["collective_by_op"],
            "launches_per_step": want, "launches": _run_launches(probe),
            "plain_calls": dict(plain_calls), "card": smi}
-    log(f"[sharding] (b) internlm2-1.8b train_4k on rank 0 of the "
+    log(f"[{tag}] (b) {cfg.name} train_4k on rank 0 of the "
         f"{tuple(rules.axis_sizes.values())} mesh (a fake process group), "
         f"{rows} rows x {shape.seq_len}, "
-        f"rank 0's shards only (attention leaves {local}), f32 moments, "
+        f"rank 0's shards only (attention leaves {local}), "
+        f"{opt.state_dtype} moments, "
         f"{SHARD_PROD_STEPS} steps: peak device memory {peak / 2**30:.3f} "
         f"GiB vs the dry-run's sharded per_device_total "
         f"{predicted / 2**30:.3f} GiB ({rec['memory_rel_err'] * 100:+.2f}%);"
@@ -4011,16 +4051,16 @@ def _sharded_production(smi):
         f"{roof['memory_fused_s'] * 1e3:.1f}) / collective "
         f"{roof['collective_s'] * 1e3:.1f} ms; launches {rec['launches']} "
         f"({want} a step); on {smi}")
-    _probe_launches("(b)", probe, want, want_routes)
+    _probe_launches(f"{tag} (b)", probe, want, want_routes)
     if sum(plain_calls.values()):
-        raise AssertionError(f"sharding (b): a plain version ran on the "
+        raise AssertionError(f"{tag} (b): a plain version ran on the "
                              f"card: {plain_calls}")
     if dry["param_placement"] != "sharded" or not dry["memory"]["fits_hbm"]:
-        raise AssertionError(f"sharding (b): the dry-run says "
+        raise AssertionError(f"{tag} (b): the dry-run says "
                              f"{dry['param_placement']}, fits "
                              f"{dry['memory']['fits_hbm']}")
     if abs(rec["memory_rel_err"]) > LAUNCH_MEMORY_TOL:
-        raise AssertionError(f"sharding (b): predicted {predicted} bytes, "
+        raise AssertionError(f"{tag} (b): predicted {predicted} bytes, "
                              f"measured {peak}: more than "
                              f"{LAUNCH_MEMORY_TOL:.0%} apart")
     return rec
@@ -4038,6 +4078,50 @@ def phase_sharding(smi: str):
     torch.cuda.empty_cache()
     rec["production"] = _sharded_production(smi)
     rec["phase_s"] = time.perf_counter() - t0
+    return rec
+
+
+# ---------------------------------------------------------------------------
+# phase 8d: expert parallel -- the sharded MoE train step on a (1, 1) mesh
+# and on rank 0 of the production mesh
+# ---------------------------------------------------------------------------
+
+#: (a): olmoe-1b-7b's depth on the one-process (1, 1) mesh.
+EP_LAYERS = 4
+
+
+def phase_expert_parallel(smi: str):
+    """(a) olmoe-1b-7b at full width and depth ``EP_LAYERS`` (64 experts
+    top 8, bf16 over f32 masters, int8 moments), B ``TB`` x S ``TS`` (16
+    groups of 512), ``SHARD_STEPS`` steps under deterministic algorithms,
+    the replicated step against the sharded one on a one-process NCCL
+    (1, 1) mesh (``_sharded_one_rank``): losses, metrics and the gathered
+    final parameters bit for bit, launches exactly the replicated step's,
+    every bf16 one on sm90, no plain version called. (b) rank 0 of the
+    single-pod (16, 16) mesh over a fake process group
+    (``_sharded_production``): olmoe-1b-7b ``train_4k`` at full depth
+    (f32 masters and moments), then arctic-480b ``train_4k`` (bf16
+    masters, int8 moments, all 35 layers), only rank 0's shards
+    allocated, ``SHARD_PROD_STEPS`` steps each: the measured peak device
+    memory within 3% of the dry-run's sharded ``per_device_total``,
+    launches exact at the local shapes (olmoe: ``SHARD_LOCAL_FLASH``,
+    ``SHARD_LOCAL_RMS``; arctic: ``ARCTIC_LOCAL_FLASH``,
+    ``ARCTIC_LOCAL_RMS``), all on sm90; each step's device ms beside the
+    dry-run's compute and memory terms."""
+    import torch
+    from repro_torch.configs import get_config
+    t0 = time.perf_counter()
+    tag = "expert parallel"
+    cfg = get_config("olmoe-1b-7b").replace(num_layers=EP_LAYERS)
+    rec = {"one_rank": _sharded_one_rank(smi, cfg, tag=tag)}
+    for arch, flash, rms in (
+            ("olmoe-1b-7b", SHARD_LOCAL_FLASH, SHARD_LOCAL_RMS),
+            ("arctic-480b", ARCTIC_LOCAL_FLASH, ARCTIC_LOCAL_RMS)):
+        gc.collect()
+        torch.cuda.empty_cache()
+        rec[arch] = _sharded_production(smi, arch, flash, rms, tag=tag)
+    rec["phase_s"] = time.perf_counter() - t0
+    log(f"[{tag}] phase {rec['phase_s']:.1f} s on {smi}")
     return rec
 
 
@@ -5522,6 +5606,14 @@ def _sharding_launches(shd, name) -> dict:
             for run in ("one_rank", "production")}
 
 
+def _ep_launches(ep, name) -> dict:
+    """A kernel's launches in the expert-parallel phase's sharded runs: (a)
+    olmoe on the one-rank mesh, (b) olmoe and arctic on rank 0 of the
+    production mesh."""
+    return {run: ep[run]["launches"].get(name, 0)
+            for run in ("one_rank", "olmoe-1b-7b", "arctic-480b")}
+
+
 def _clock_text(clocks: dict) -> str:
     """One run's nvidia-smi samples a step, for a log line."""
     parts = []
@@ -5944,6 +6036,7 @@ def main() -> int:
     train = timed("train", phase_train, smi)
     launch = timed("launch", phase_launch, smi, train)
     shd = timed("sharding", phase_sharding, smi)
+    ep = timed("expert parallel", phase_expert_parallel, smi)
     job = timed("job", phase_job, smi, train)
     zt = timed("zamba train", phase_zamba_train, smi)
     xl = timed("xlstm", phase_xlstm, smi)
@@ -5998,6 +6091,7 @@ def main() -> int:
             entry["launches_train"] = train["launches"][name]
             entry["launches_job"] = job["launches"][name]
             entry["launches_sharding"] = _sharding_launches(shd, name)
+            entry["launches_expert_parallel"] = _ep_launches(ep, name)
         if name in zt["train"]["launches_per_step"]:
             entry["launches_zamba_train"] = zt["train"]["launches"][name]
         if name in ft["hubert-xlarge"]["launches_per_step"]:
@@ -6018,6 +6112,7 @@ def main() -> int:
             "launches_per_step": train["launches_per_step"][name],
             "launches_job": job["launches"][name],
             "launches_sharding": _sharding_launches(shd, name),
+            "launches_expert_parallel": _ep_launches(ep, name),
             "launches_by_route": train["launches_by_route"][name],
             "max_abs_err": max(r["max_abs_err"] for r in bwd[name].values()),
             "ms": rec["ms"], "plain_ms": rec["plain_ms"],
@@ -6031,6 +6126,7 @@ def main() -> int:
         record[-1]["launches_distributed"] = _distributed_launches(dr, name)
         # the forward's and the backward's errors at phase 8c (b)'s shapes
         record[-1]["sharded_local"] = rec["sharded_local"]
+        record[-1]["arctic_local"] = rec["arctic_local"]
         if "frontend_shapes" in rec:
             record[-1]["frontend_shapes"] = {
                 kind: bwd[name][kind]["frontend_shapes"]
@@ -6064,7 +6160,7 @@ def main() -> int:
     print(json.dumps({"kernels": record, "transformers": transformers,
                       "residency": moves, "gateway": gateway,
                       "train": train, "launch": launch,
-                      "sharding": shd, "job": job,
+                      "sharding": shd, "expert_parallel": ep, "job": job,
                       "zamba_train": zt,
                       "xlstm": xl, "frontends": fr,
                       "frontend_train": ft, "examples": ex,

@@ -24,23 +24,48 @@ kernels take the local shards as they take whole tensors:
   projection, the FFN down projection, the vocab-parallel lookup and the
   loss's partial sums) become the whole on every model rank;
 - ``all_max(x, group)``: all-reduce (max), no gradient (the loss's row
-  maximum over the vocabulary shards).
+  maximum over the vocabulary shards);
+- ``all_reduce(x, group)``: all-reduce (sum) forward and backward: a sum
+  over ranks that every rank's loss then uses whole, each weighted by its
+  token share (the MoE aux losses' global token sums over the batch
+  dimensions, ``models/moe.py``). Rank r's loss is w_r * f(S) with
+  S = sum_r' s_r' and sum_r w_r = 1, so the gradient of s_r is the sum
+  over ranks of their upstream gradients: neither ``copy_to`` nor
+  ``reduce_from``;
+- ``gather_repeated(x, dim, group)``: all-gather along ``dim`` forward;
+  backward this rank's block of the gradient, not summed. It stands where
+  every rank of ``group`` repeats the same use of a weight it holds a block
+  of, so the gradient of the whole weight is already equal on every rank:
+  the MoE router ``(d, e)``, its experts over ``"model"``, whose logits,
+  softmax and top-k every model rank computes whole.
 
 Nothing is atomic and the order of every sum is fixed, so a run repeats
 bit for bit; a collective over one rank leaves its values as they are,
-which makes the sharded step on a (1, 1) mesh the replicated step's bits.
+and an all-reduce's result keeps the layout of the tensor it stands in
+for (a transposed gradient stays transposed, so the reductions after it
+add in the same order), which makes the sharded step on a (1, 1) mesh
+the replicated step's bits.
 
 ``ShardedParams`` is the step's context: the rules, the spec of every
 parameter leaf of the layout and one process group a mesh dimension
-(``mesh.get_group(name)``). ``activate_sharded`` makes it current for the
-model code (thread-local, as the rules are; ``models/transformer.py``'s
+(``mesh.get_group(name)``), and this rank's range of experts
+(``expert_range``). ``activate_sharded`` makes it current for the model
+code (thread-local, as the rules are; ``models/transformer.py``'s
 ``_remat`` carries it into the recompute).
+
+``BatchSplit`` is the data-parallel context of either train step: the
+process groups whose ranks hold other rows of the batch, and their count.
+``activate_batch_split`` makes it current; the MoE block then cuts the
+global batch into the reference's groups and takes its aux losses over
+every rank's tokens (``models/moe.py``).
 """
 from __future__ import annotations
 
+import functools
+import math
 import threading
 from contextlib import contextmanager
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
 import torch.distributed as dist
@@ -92,6 +117,17 @@ def all_reduce_sum(x, group):
     return out
 
 
+def _laid_out_as(x, like):
+    """``x`` (a collective's contiguous result) with ``like``'s strides
+    where ``like`` is dense and laid out otherwise: the tensor the
+    collective stands in for keeps its layout, so the reductions after it
+    run in the order they run without it (on one rank, the replicated
+    step's bits)."""
+    if x.stride() == like.stride():
+        return x
+    return torch.empty_like(like).copy_(x)
+
+
 # ---------------------------------------------------------------------------
 # The autograd collectives
 # ---------------------------------------------------------------------------
@@ -115,21 +151,52 @@ class _CopyTo(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        return all_reduce_sum(g, ctx.group), None
+        return _laid_out_as(all_reduce_sum(g, ctx.group), g), None
 
 
 class _ReduceFrom(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, group):
-        return all_reduce_sum(x, group)
+        return _laid_out_as(all_reduce_sum(x, group), x)
 
     @staticmethod
     def backward(ctx, g):
         return g, None
 
 
+class _AllReduce(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return _laid_out_as(all_reduce_sum(x, group), x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _laid_out_as(all_reduce_sum(g, ctx.group), g), None
+
+
+class _GatherRepeated(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dim, group):
+        ctx.dim, ctx.n = dim, x.shape[dim]
+        ctx.index = dist.get_rank(group)
+        return all_gather_dim(x, dim, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.narrow(ctx.dim, ctx.index * ctx.n, ctx.n), None, None
+
+
 def gather(x, dim: int, group):
     return _Gather.apply(x, dim, group)
+
+
+def all_reduce(x, group):
+    return _AllReduce.apply(x, group)
+
+
+def gather_repeated(x, dim: int, group):
+    return _GatherRepeated.apply(x, dim, group)
 
 
 def copy_to(x, group):
@@ -165,6 +232,9 @@ class ShardedParams:
         self.coords = {a: mesh.get_local_rank(a) for a in self.names}
         self.layout = layout
         self.specs = tree_map_specs(self.spec, layout)
+        self.last_gathers = _map_specs(
+            lambda spec: functools.partial(self._gather_last,
+                                           entry_axes(spec[-1])), self.specs)
 
     def spec(self, pspec) -> tuple:
         """A ``ParamSpec``'s mesh placement, one entry a dimension."""
@@ -192,6 +262,23 @@ class ShardedParams:
         their groups holds other rows."""
         return self.rules.mesh_axes_for("batch")
 
+    def batch_split(self) -> "BatchSplit":
+        """The ``BatchSplit`` of the batch dimensions, groups of one rank
+        included (every collective is issued)."""
+        return BatchSplit(tuple(self.groups[a] for a in self.batch_axes()),
+                          math.prod(self.rules.axis_sizes[a]
+                                    for a in self.batch_axes()))
+
+    def expert_range(self, pspec) -> tuple[int, int]:
+        """This rank's experts ``[first, last)`` of the leaf ``pspec``
+        (whose dimension 0 is its experts): its block over ``"model"`` where
+        they are sharded there, else all of them."""
+        e = pspec.shape[0]
+        if not self.split(pspec, 0):
+            return 0, e
+        n = e // self.rules.axis_sizes["model"]
+        return self.coord("model") * n, (self.coord("model") + 1) * n
+
     # -- FSDP ----------------------------------------------------------------
     def gather_data(self, tree, specs):
         """Every leaf of ``tree`` whole over ``"data"``: leaves sharded over
@@ -208,11 +295,10 @@ class ShardedParams:
 
     # -- gradients and the norm ------------------------------------------------
     def leaf_axes(self) -> list[tuple[str, ...]]:
-        """Per leaf (``tree_leaves`` order), the mesh dimensions it is
-        sharded over."""
-        from ..train.adamw import tree_leaves   # lazy: no import cycle
+        """Per leaf (the layout's order), the mesh dimensions it is sharded
+        over."""
         return [tuple(a for e in spec for a in entry_axes(e))
-                for spec in tree_leaves(self.specs)]
+                for spec in _spec_leaves(self.specs)]
 
     def reduce_sq(self, sq):
         """``sq`` (one sum of squares a leaf, stacked) summed over the mesh
@@ -226,6 +312,40 @@ class ShardedParams:
             sq = all_reduce_sum(torch.where(keep, sq, 0.0),
                                 self.groups[axis])
         return sq
+
+    # -- int8 moments at the reference's placement ------------------------
+    def _gather_last(self, axes: tuple[str, ...], x):
+        """``x``, a shard of a leaf whose last dimension is sharded over
+        ``axes``, with that dimension all-gathered whole (no autograd), and
+        this rank's offset in it. ``last_gathers`` holds one of these a
+        leaf, ``axes`` bound."""
+        n, block = x.shape[-1], 0
+        for a in axes:                # the first dimension major
+            block = block * self.rules.axis_sizes[a] + self.coord(a)
+        for a in reversed(axes):      # the minor dimension first
+            x = all_gather_dim(x, x.ndim - 1, self.groups[a])
+        return x, block * n
+
+
+def _spec_leaves(tree) -> list:
+    """The spec tuples of a tree of specs, in the layout's order."""
+    if isinstance(tree, dict):
+        return [leaf for v in tree.values() for leaf in _spec_leaves(v)]
+    return [tree]
+
+
+def _map_specs(fn, tree):
+    if isinstance(tree, dict):
+        return {k: _map_specs(fn, v) for k, v in tree.items()}
+    return fn(tree)
+
+
+class BatchSplit(NamedTuple):
+    """The process groups over which a train step splits the batch's rows
+    (``groups``) and the number of row blocks (``ranks``, the product of
+    their sizes)."""
+    groups: tuple
+    ranks: int
 
 
 _tls = threading.local()
@@ -243,3 +363,17 @@ def activate_sharded(ctx: Optional[ShardedParams]):
         yield ctx
     finally:
         _tls.sharded = prev
+
+
+def current_batch_split() -> Optional[BatchSplit]:
+    return getattr(_tls, "batch_split", None)
+
+
+@contextmanager
+def activate_batch_split(split: Optional[BatchSplit]):
+    prev = current_batch_split()
+    _tls.batch_split = split
+    try:
+        yield split
+    finally:
+        _tls.batch_split = prev

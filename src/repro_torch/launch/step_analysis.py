@@ -31,8 +31,11 @@ the reference's ``HloReport`` that it can fill honestly:
   ``collective_count``): every ``c10d`` operation the step dispatches (the
   data-parallel gradient all-reduce, ring attention's hops and gathers,
   the sharded step's weight all-gathers over "data" and their gradients'
-  reduce-scatters, its tensor-parallel all-reduces over "model"),
-  under the reference's ring conventions for a group of g ranks:
+  reduce-scatters, its tensor-parallel all-reduces over "model", the MoE
+  router's all-gather over "model" (``gather_repeated``: no collective in
+  its backward), the aux losses' token sums all-reduced over "data" in
+  both directions (``all_reduce``) and the int8 moments' gradient
+  gathers), under the reference's ring conventions for a group of g ranks:
   all-gather and all-to-all |result|·(g-1)/g, all-reduce
   2·|result|·(g-1)/g, reduce-scatter |result|·(g-1), a point-to-point send
   (the reference's collective-permute) |result|. Under a fake process group

@@ -35,8 +35,10 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
-from ..distributed.collectives import (activate_sharded, all_max, copy_to,
-                                       current_sharded, reduce_from)
+from ..distributed.collectives import (activate_batch_split,
+                                       activate_sharded, all_max, copy_to,
+                                       current_batch_split, current_sharded,
+                                       reduce_from)
 from ..distributed.ring_attention import ring_attention_sharded
 from ..distributed.sharding import activate_rules, current_rules
 from ..kernels.decode_attention import paged_decode_attention
@@ -193,14 +195,16 @@ def _model_group(spec: Callable[[], ParamSpec], dim: int):
 
 
 def carry_context(fn):
-    """``fn`` run under the sharding rules and the sharded step's context
-    active where this is called: both are thread-local, and autograd runs
-    a CUDA backward, and so a checkpoint's recompute, on a thread of its
-    own."""
-    rules, sh = current_rules(), current_sharded()
+    """``fn`` run under the sharding rules, the sharded step's context and
+    the batch split active where this is called: they are thread-local,
+    and autograd runs a CUDA backward, and so a checkpoint's recompute, on
+    a thread of its own."""
+    rules, sh, split = current_rules(), current_sharded(), \
+        current_batch_split()
 
     def run(*args):
-        with activate_rules(rules), activate_sharded(sh):
+        with activate_rules(rules), activate_sharded(sh), \
+                activate_batch_split(split):
             return fn(*args)
     return run
 

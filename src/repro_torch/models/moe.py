@@ -19,6 +19,22 @@ A ragged last group (tokens not a multiple of the group size) is routed as
 a group of its own size, with that size's capacity. The reference asserts
 a whole number of groups there; the port departs on purpose
 (src/repro_torch/README.md).
+
+Training splits the batch over data-parallel ranks (either train step,
+under a ``BatchSplit``, ``distributed/collectives.py``). The groups are
+then the reference's: ``min(moe_group_size, global tokens)``, whole groups
+a rank (a rank whose rows split a group raises; the reference would
+replicate the groups instead). The aux losses are the reference's global
+ones: their token sums are all-reduced over the batch dimensions before
+the products and means, so the load-balance loss is the product of the
+global batch's means, not a mean of the ranks' products.
+
+The sharded train step places the experts over ``"model"`` (expert
+parallelism) and FSDP over ``"data"``: ``moe_block`` routes every token
+on every model rank with the whole router, then dispatches, runs and
+combines only the rank's experts; the partial outputs (and Arctic's
+column- then row-parallel dense branch) are summed by one ``reduce_from``.
+On one rank every step reduces to the replicated block's operations.
 """
 from __future__ import annotations
 
@@ -27,7 +43,10 @@ import math
 import torch
 import torch.nn.functional as F
 
-from .layers import _act, norm_spec, rmsnorm
+from ..distributed.collectives import (all_reduce, copy_to,
+                                       current_batch_split, current_sharded,
+                                       gather_repeated, reduce_from)
+from .layers import _act, _model_group, norm_spec, rmsnorm
 from .params import ParamSpec
 
 
@@ -54,8 +73,8 @@ def expert_capacity(cfg, group_size: int) -> int:
 
 
 def _route(cfg, p, xg):
-    """f32 router over xg (g,s,d): (logits, probs, gate_vals, sel), the
-    top-k gates renormalised to sum to one."""
+    """f32 router ``p["router"]`` over xg (g,s,d): (logits, probs,
+    gate_vals, sel), the top-k gates renormalised to sum to one."""
     logits = torch.einsum("gsd,de->gse", xg.float(), p["router"].float())
     probs = torch.softmax(logits, dim=-1)
     gate_vals, sel = torch.topk(probs, cfg.experts_per_token, dim=-1)
@@ -70,84 +89,138 @@ def _priority(t):
     return t.transpose(1, 2).reshape(g, k * s, *t.shape[3:])
 
 
-def _einsum_dispatch(cfg, xg, gate_vals, sel, cap):
-    """One-hot dispatch and combine tensors (g,s,e,c): returns (ein
-    (e,g,c,d), undispatch, kept assignments)."""
+def _positions(one_hot):
+    """Each assignment's slot in its expert (g,ks,e): the assignments to
+    that expert ahead of it, an integer cumulative sum (exact, and
+    deterministic on CUDA, where a floating one is not)."""
+    return torch.cumsum(one_hot, dim=1, dtype=torch.int32) - one_hot
+
+
+def _einsum_dispatch(cfg, xg, gate_vals, sel, cap, experts=None):
+    """One-hot dispatch and combine tensors (g,s,e',c) for the experts
+    ``[e0, e1)`` (e' of them; default all): returns (ein (e',g,c,d),
+    undispatch, kept assignments over every expert). The positions and
+    drops are taken over every expert; only the experts' own slots are
+    built."""
     dt = xg.dtype
     g, gs, _ = xg.shape
     e, k = cfg.num_experts, cfg.experts_per_token
-    flat = _priority(F.one_hot(sel, e).float())                # (g,ks,e)
-    pos = torch.cumsum(flat, dim=1) - flat                    # slots before me
-    keep = (pos < cap).float() * flat
+    e0, e1 = experts or (0, e)
+    flat = _priority(F.one_hot(sel, e).to(torch.int32))      # (g,ks,e)
+    pos = _positions(flat)
+    keep = (pos < cap) & (flat > 0)
+    kept = keep.sum()
+    pos, keep = pos[..., e0:e1], keep[..., e0:e1].float()
     slot_1h = (pos[..., None] == torch.arange(cap, device=xg.device)
-               ).float() * keep[..., None]                    # (g,ks,e,c)
+               ).float() * keep[..., None]                    # (g,ks,e',c)
     gate_flat = _priority(gate_vals)                          # (g,ks)
     combine = (gate_flat[:, :, None, None] * slot_1h).reshape(
-        g, k, gs, e, cap).sum(dim=1)                          # (g,s,e,c)
+        g, k, gs, e1 - e0, cap).sum(dim=1)                    # (g,s,e',c)
     dispatch = (combine > 0.0).to(dt)
     ein = torch.einsum("gsec,gsd->egcd", dispatch, xg)
 
     def undispatch(eo):
         return torch.einsum("gsec,egcd->gsd", combine.to(dt), eo)
 
-    return ein, undispatch, keep.sum()
+    return ein, undispatch, kept
 
 
-def _sort_dispatch(cfg, xg, gate_vals, sel, cap):
-    """Scatter token rows into (e,g,c,d) expert buffers by slot index, with
-    the einsum dispatch's drops; the combine gathers them back and sums a
-    token's k rows."""
+def _sort_dispatch(cfg, xg, gate_vals, sel, cap, experts=None):
+    """Scatter token rows into (e',g,c,d) buffers of the experts ``[e0,
+    e1)`` (default all) by slot index, with the einsum dispatch's drops
+    (taken over every expert); the combine gathers them back and sums a
+    token's rows."""
     dt = xg.dtype
     g, gs, d = xg.shape
     e, k = cfg.num_experts, cfg.experts_per_token
+    e0, e1 = experts or (0, e)
+    n = (e1 - e0) * cap                                       # local slots
     sel_flat = _priority(sel)                                 # (g,ks)
     gate_flat = _priority(gate_vals)
     tok_idx = torch.arange(gs, device=xg.device).repeat(k)    # (ks,)
-    sel_1h = F.one_hot(sel_flat, e).float()                   # (g,ks,e)
-    pos = ((torch.cumsum(sel_1h, dim=1) - sel_1h) * sel_1h).sum(-1).long()
+    sel_1h = F.one_hot(sel_flat, e).to(torch.int32)           # (g,ks,e)
+    pos = (_positions(sel_1h) * sel_1h).sum(-1)
     keep = pos < cap
-    slot = torch.where(keep, sel_flat * cap + pos, e * cap)   # dropped: sentinel
+    kept = keep.sum()
+    mine = keep & (sel_flat >= e0) & (sel_flat < e1)
+    slot = torch.where(mine, (sel_flat - e0) * cap + pos, n)  # else: sentinel
     gidx = torch.arange(g, device=xg.device)[:, None]
-    buf = xg.new_zeros((g, e * cap + 1, d))
+    buf = xg.new_zeros((g, n + 1, d))
     buf[gidx, slot] = xg[:, tok_idx]
-    ein = buf[:, :-1].reshape(g, e, cap, d).transpose(0, 1)
+    ein = buf[:, :-1].reshape(g, e1 - e0, cap, d).transpose(0, 1)
 
     def undispatch(eo):
-        flat_eo = eo.transpose(0, 1).reshape(g, e * cap, d)
-        rows = flat_eo[gidx, slot.clamp(max=e * cap - 1)]
-        rows = torch.where(keep[..., None], rows, 0.0)
+        flat_eo = eo.transpose(0, 1).reshape(g, n, d)
+        rows = flat_eo[gidx, slot.clamp(max=n - 1)]
+        rows = torch.where(mine[..., None], rows, 0.0)
         contrib = rows * gate_flat[..., None].to(dt)          # (g,ks,d)
         return contrib.reshape(g, k, gs, d).sum(dim=1)
 
-    return ein, undispatch, keep.sum()
+    return ein, undispatch, kept
 
 
-def _groups(cfg, tokens: int):
-    """[(groups, group size)]: whole groups of ``min(moe_group_size,
-    tokens)``, then a ragged last group of its own size, if any."""
-    gs = min(cfg.moe_group_size, tokens)
+def _groups(cfg, tokens: int, ranks: int = 1):
+    """[(groups, group size)] of this rank's ``tokens``, ``ranks`` of which
+    hold other rows of the batch: the reference's groups of
+    ``min(moe_group_size, tokens * ranks)`` of the global batch, whole
+    groups a rank (raises where a rank's rows split a group). On one rank,
+    a ragged last group of its own size follows the whole ones, if any."""
+    gs = min(cfg.moe_group_size, tokens * ranks)
     n, rest = divmod(tokens, gs)
+    if rest and ranks > 1:
+        raise ValueError(
+            f"{cfg.name}: {tokens} tokens a rank, {ranks} ranks, do not hold "
+            f"whole MoE groups of {gs} (moe_group_size "
+            f"{cfg.moe_group_size}): each rank's rows must hold whole groups "
+            f"of the global batch")
     return [(n, gs)] + ([(1, rest)] if rest else [])
 
 
 def moe_block(cfg, p, x):
-    """x: (B,S,D) -> (x + y, aux). Pre-norm block, residual added inside."""
+    """x: (B,S,D) -> (x + y, aux). Pre-norm block, residual added inside.
+
+    Under the sharded step with the experts split over ``"model"``
+    (``distributed/collectives.py``): the router is gathered whole
+    (``gather_repeated``) and every model rank routes every token; the
+    expert input and the gates enter the rank's experts through
+    ``copy_to``; the dispatch, the FFNs and the combine cover only the
+    rank's experts; Arctic's dense branch is column- then row-parallel;
+    one ``reduce_from`` sums the experts' and the dense branch's partial
+    outputs. Under a ``BatchSplit`` (either train step, data parallel) the
+    groups are the global batch's and the aux losses are global: token
+    sums all-reduced over the batch dimensions (``all_reduce``)."""
     b, s, d = x.shape
     e, dt = cfg.num_experts, cfg.cdtype
+    # the specs only under the sharded step: the replicated path builds none
+    specs = moe_param_specs(cfg) if current_sharded() is not None else None
+    split = current_batch_split()
     xn = rmsnorm(x, p["norm"], cfg.norm_eps)
+    egroup = _model_group(lambda: specs["we_gate"], 0)
+    dgroup = (_model_group(lambda: specs["dense_gate"], 1)
+              if cfg.moe_dense_ff else None)
+    router, experts, xe, xd = p, None, xn, xn
+    if egroup is not None:
+        router = {"router": gather_repeated(p["router"], 1, egroup)}
+        experts = current_sharded().expert_range(specs["we_gate"])
+        xe = copy_to(xn, egroup)
+    if dgroup is not None:
+        xd = xe if egroup is not None else copy_to(xn, dgroup)
     dispatch_fn = (_sort_dispatch if cfg.moe_impl == "sort"
                    else _einsum_dispatch)
-    xs = xn.reshape(b * s, d)
+    xs, xes = xn.reshape(b * s, d), xe.reshape(b * s, d)
     ys, logits_all, probs_all, top1 = [], [], [], []
-    kept, start = 0.0, 0
-    for n, gs in _groups(cfg, b * s):
+    kept, start = 0, 0
+    for n, gs in _groups(cfg, b * s, split.ranks if split else 1):
         xg = xs[start:start + n * gs].reshape(n, gs, d)
+        xeg = xes[start:start + n * gs].reshape(n, gs, d)
         start += n * gs
-        logits, probs, gate_vals, sel = _route(cfg, p, xg)
-        ein, undispatch, n_kept = dispatch_fn(cfg, xg, gate_vals, sel,
-                                              expert_capacity(cfg, gs))
-        # expert FFNs: (e, g*c, d) batched over experts
-        h_in = ein.reshape(e, -1, d)
+        logits, probs, gate_vals, sel = _route(cfg, router, xg)
+        if egroup is not None:
+            gate_vals = copy_to(gate_vals, egroup)
+        ein, undispatch, n_kept = dispatch_fn(
+            cfg, xeg, gate_vals, sel, expert_capacity(cfg, gs), experts)
+        # expert FFNs: (e', g*c, d) batched over this rank's experts
+        h_in = ein.reshape(ein.shape[0], -1, d)
         hg = torch.bmm(h_in, p["we_gate"].to(dt))
         hu = torch.bmm(h_in, p["we_up"].to(dt))
         eo = torch.bmm(_act(cfg.mlp_act, hg) * hu, p["we_down"].to(dt))
@@ -157,19 +230,46 @@ def moe_block(cfg, p, x):
         top1.append(sel[..., 0].reshape(-1))
         kept = kept + n_kept
     y = torch.cat(ys).reshape(b, s, d)
-
+    # the partial sums over "model" (the rank's experts, the dense branch's
+    # columns) are reduced once, after the two are added where both are
+    group = egroup if egroup is not None else dgroup
     if cfg.moe_dense_ff:                       # Arctic's dense residual branch
-        h = _act(cfg.mlp_act, xn @ p["dense_gate"].to(dt)) \
-            * (xn @ p["dense_up"].to(dt))
-        y = y + h @ p["dense_down"].to(dt)
-
-    # Switch load balance: e * sum_e f_e P_e (f = share routed top-1).
-    logits, probs = torch.cat(logits_all), torch.cat(probs_all)
-    f_e = F.one_hot(torch.cat(top1), e).float().mean(dim=0)
-    lb_loss = e * torch.sum(f_e * probs.mean(dim=0))
-    z_loss = torch.mean(torch.logsumexp(logits, dim=-1) ** 2)
-    assignments = b * s * cfg.experts_per_token
-    aux = {"moe_lb_loss": lb_loss,
-           "moe_z_loss": z_loss,
-           "moe_drop_frac": 1.0 - kept / max(assignments, 1)}
+        h = _act(cfg.mlp_act, xd @ p["dense_gate"].to(dt)) \
+            * (xd @ p["dense_up"].to(dt))
+        yd = h @ p["dense_down"].to(dt)
+        if (egroup is None) != (dgroup is None):   # one partial, one whole
+            if egroup is not None:
+                y = reduce_from(y, group)
+            else:
+                yd = reduce_from(yd, group)
+            group = None
+        y = y + yd
+    if group is not None:
+        y = reduce_from(y, group)
+    aux = _aux_losses(cfg, torch.cat(logits_all), torch.cat(probs_all),
+                      torch.cat(top1), kept, split)
     return x + y, aux
+
+
+def _aux_losses(cfg, logits, probs, top1, kept, split):
+    """The Switch load-balance loss ``e * sum_e f_e P_e`` (f the share of
+    tokens routed top-1 to e, P the mean router probability), the router
+    z-loss and the dropped share of assignments, each over every token of
+    the global batch: this rank's token sums, all-reduced over ``split``'s
+    groups (``all_reduce``: the gradient of P and of the z-loss counted
+    once over the ranks), divided by the global token count."""
+    e = cfg.num_experts
+    tokens = logits.shape[0] * (split.ranks if split else 1)
+    sums = torch.cat([
+        probs.sum(dim=0),
+        (torch.logsumexp(logits, dim=-1) ** 2).sum()[None],
+        F.one_hot(top1, e).float().sum(dim=0),
+        torch.as_tensor(kept, device=probs.device).float()[None]])
+    if split is not None:
+        for group in split.groups:
+            sums = all_reduce(sums, group)
+    p_e, z, f_e, kept = (sums / tokens).split([e, 1, e, 1])
+    lb_loss = e * torch.sum(f_e.detach() * p_e)
+    drop = 1.0 - kept.detach()[0] / cfg.experts_per_token
+    return {"moe_lb_loss": lb_loss, "moe_z_loss": z[0],
+            "moe_drop_frac": drop}

@@ -7,7 +7,11 @@ step.
 The train step runs replicated (every parameter whole on every rank,
 data parallel under rules that split the batch) or, chosen by its caller
 with ``sharded=True``, on this rank's shards (``distributed/sharding.py``'s
-``shard_params``, ``distributed/collectives.py``).
+``shard_params``, ``distributed/collectives.py``): FSDP over "data",
+tensor parallelism over "model", and for MoE configs expert parallelism
+over "model" (``models/moe.py``). Either way a split batch is the
+reference's global batch to the MoE block: its groups are the global
+batch's and its aux losses global (``BatchSplit``).
 
 Each builder returns a plain function that runs one model pass and, for
 the decode-like steps, takes the greedy argmax over the compute-dtype
@@ -22,8 +26,9 @@ from typing import Callable
 import torch
 import torch.distributed as dist
 
-from ..distributed.collectives import (ShardedParams, activate_sharded,
-                                       all_reduce_sum)
+from ..distributed.collectives import (BatchSplit, ShardedParams,
+                                       activate_batch_split,
+                                       activate_sharded, all_reduce_sum)
 from ..distributed.sharding import current_rules
 from ..models import get_family
 from ..models.transformer import TransformerFamily
@@ -90,13 +95,11 @@ def local_batch(batch, microbatches: int = 1):
 
 def sharded_step_gap(cfg) -> str:
     """Why the sharded train step does not cover ``cfg``, or "" where it
-    does: the transformer without experts, its attention chunked."""
+    does: the transformer, dense or with experts (expert parallelism over
+    "model"), its attention chunked."""
     if not isinstance(get_family(cfg), TransformerFamily):
         return (f"the {cfg.family} family trains replicated (its sharded "
                 "step waits)")
-    if cfg.num_experts:
-        return ("MoE trains replicated (expert parallelism over 'model' "
-                "waits)")
     if cfg.attn_impl != "chunked":
         return (f"attn_impl {cfg.attn_impl!r} trains replicated (the sharded "
                 "step's attention is chunked)")
@@ -138,7 +141,8 @@ def _sharded_loss_and_grads(cfg, microbatches: int, context):
     def loss_and_grads(params, batch):
         sh = context()
         leaves = adamw.tree_leaves(params)
-        groups = [sh.group(a) for a in sh.batch_axes()]
+        split = sh.batch_split()
+        groups = split.groups
         mbs = [batch] if microbatches == 1 else _split(batch, microbatches)
         g_acc, v_acc, names = None, None, None
         for mb in mbs:
@@ -147,7 +151,7 @@ def _sharded_loss_and_grads(cfg, microbatches: int, context):
             for group in groups:
                 total = all_reduce_sum(total, group)
             w = count / total.clamp_min(1.0)
-            with activate_sharded(sh):
+            with activate_sharded(sh), activate_batch_split(split):
                 loss, metrics = family.train_loss(cfg, params, mb)
                 g = torch.autograd.grad(loss * w, leaves, allow_unused=True)
             g = [torch.zeros_like(p) if x is None else x
@@ -183,11 +187,15 @@ def build_loss_and_grads(cfg, microbatches: int = 1, *,
     Data parallel: under active sharding rules whose batch dimensions
     (``"pod"``, ``"data"``) have extent > 1, every rank is given the global
     batch, as the reference's step is, and trains on its own rows of each
-    microbatch. Its loss, metrics and gradients are weighted by its share
-    of the microbatch's tokens (the ``loss_mask``'s sum, or every label)
-    and summed over those dimensions' groups in f32: the reference's token
-    mean over the global microbatch, not a mean of the ranks' means. With
-    no such rules the step is the single-process one, op for op.
+    microbatch. Its loss (before the backward) and metrics are weighted by
+    its share of the microbatch's tokens (the ``loss_mask``'s sum, or every
+    label); they and the gradients are summed over those dimensions' groups
+    in f32: the reference's token mean over the global microbatch, not a
+    mean of the ranks' means. The
+    MoE block sees the split (``BatchSplit``): it cuts the reference's
+    groups of the global microbatch and takes its aux losses over every
+    rank's tokens (``models/moe.py``). With no such rules the step is the
+    single-process one, op for op.
 
     ``sharded=True`` (a config that ``sharded_step_gap`` passes, under
     active rules):
@@ -198,9 +206,10 @@ def build_loss_and_grads(cfg, microbatches: int = 1, *,
         return _sharded_loss_and_grads(cfg, microbatches, _ShardedContext(cfg))
     family = get_family(cfg)
 
-    def grads_of(params, leaves, mb):
+    def grads_of(params, leaves, mb, w=None):
         loss, metrics = family.train_loss(cfg, params, mb)
-        grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+        grads = torch.autograd.grad(loss if w is None else loss * w, leaves,
+                                    allow_unused=True)
         grads = [torch.zeros_like(p) if g is None else g
                  for p, g in zip(leaves, grads)]
         return loss.detach(), {k: torch.as_tensor(v).detach()
@@ -228,11 +237,14 @@ def build_loss_and_grads(cfg, microbatches: int = 1, *,
         for mb in mbs:
             rows = {k: _rows(x, index, size) for k, x in mb.items()}
             w = _token_count(rows) / _token_count(mb).clamp_min(1.0)
-            loss, metrics, g = grads_of(params, leaves, rows)
+            # the loss is weighted before its backward, so the MoE aux
+            # losses' all_reduce sums the ranks' weighted upstream gradients
+            with activate_batch_split(BatchSplit(tuple(groups), size)):
+                loss, metrics, g = grads_of(params, leaves, rows, w)
             names = list(metrics)
             vec = torch.stack([loss.float()] + [metrics[k].float()
                                                 for k in names]) * w
-            g = [x.float() * w for x in g]
+            g = [x.float() for x in g]
             g_acc = g if g_acc is None else [a + x for a, x in zip(g_acc, g)]
             v_acc = vec if v_acc is None else v_acc + vec
         for t in [v_acc, *g_acc]:
@@ -263,8 +275,10 @@ def build_train_step(cfg, opt_cfg: adamw.AdamWConfig,
 
     ``sharded=True``: every argument is this rank's shard (parameters from
     ``shard_params``, the optimizer state from ``adamw.init`` with the
-    whole shapes, the batch from ``local_batch``), and the gradient norm
-    counts every element once (``ShardedParams.reduce_sq``)."""
+    whole shapes, the batch from ``local_batch``), the gradient norm
+    counts every element once (``ShardedParams.reduce_sq``), and an int8
+    moment held at the reference's placement takes its gradient's last
+    dimension gathered whole (``ShardedParams.last_gathers``)."""
     context = _ShardedContext(cfg) if sharded else None
     loss_and_grads = (_sharded_loss_and_grads(cfg, microbatches, context)
                       if sharded else build_loss_and_grads(cfg, microbatches))
@@ -273,9 +287,10 @@ def build_train_step(cfg, opt_cfg: adamw.AdamWConfig,
         loss, metrics, grads = loss_and_grads(params, batch)
         it = iter(grads)
         grad_tree = adamw.tree_map(lambda _: next(it), params)
-        reduce_sq = context().reduce_sq if sharded else None
+        sh = context() if sharded else None
         params, opt_state, opt_metrics = adamw.update(
-            opt_cfg, grad_tree, opt_state, params, reduce_sq=reduce_sq)
+            opt_cfg, grad_tree, opt_state, params,
+            reduce_sq=sh and sh.reduce_sq, gather_last=sh and sh.last_gathers)
         return params, opt_state, {"total_loss": loss, **metrics,
                                    **opt_metrics}
 

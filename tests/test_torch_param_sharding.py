@@ -18,7 +18,18 @@ sharded train cell, all at once. Each rank takes the weights through
   over "data": data parallel without FSDP);
 - reduced hubert (frames, ``loss_mask``) with ``microbatches=2``;
 - reduced internlm2 with ``d_ff`` 256 and int8 moments (the FFN and
-  unembedding shards' last dimensions 128).
+  unembedding shards' last dimensions 128);
+- reduced olmoe (8 experts top 4, experts over "model") with
+  ``moe_group_size`` 16 (4 global groups, 2 a data rank), the einsum
+  dispatch and the load-balance and z-loss weights at 1.0, so that the aux
+  losses' share of the router's gradient would show a miscount;
+- reduced arctic with the sort dispatch and a dense branch of 129
+  columns, whole over "model" (8 heads over 2 KV heads: both sharded);
+- reduced arctic with ``d_model`` 128 and int8 moments: ``wo``,
+  ``we_down``, the dense branch (sharded over "model": one reduce of the
+  experts' and its partial sums) and the embedding have whole last
+  dimensions of 128 and shards of 64, so their moments are held at the
+  reference's placement (the last dimension whole).
 
 Held: losses and ``grad_norm`` within 1e-5 relative of the reference's;
 the gathered parameters after 2 steps within 1e-5 of the reference's,
@@ -30,7 +41,10 @@ reference's
 the sharded step on a one-process (1, 1) mesh equal to the replicated step
 bit for bit, the dry-run's sharded argument bytes against the reference's
 compiled ones, internlm2-1.8b ``train_4k`` on the single-pod mesh sharded
-and fitting, and the cells that stay replicated.
+and fitting, and the cells that stay replicated. The ranks also run the
+replicated data-parallel step (whole parameters, each data rank its rows)
+on the olmoe case: its load-balance loss is the global batch's, held to
+the reference within 1e-5.
 """
 import os
 import subprocess
@@ -82,7 +96,19 @@ CASES = {
                                        "d_model": 65}, 1, "float32"),
     "hubert_microbatched": ("hubert-xlarge", {}, 2, "float32"),
     "int8_moments": ("internlm2-1.8b", {"d_ff": 256}, 1, "int8"),
+    "moe_einsum_aux": ("olmoe-1b-7b", {"moe_group_size": 16,
+                                       "load_balance_loss": 1.0,
+                                       "router_z_loss": 1.0}, 1, "float32"),
+    # the dense branch's 129 columns stay whole over "model": the experts'
+    # partial sums are reduced alone and the whole branch added after
+    "moe_sort_dense": ("arctic-480b", {"moe_impl": "sort",
+                                       "moe_group_size": 32,
+                                       "moe_dense_ff": 129}, 1, "float32"),
+    "moe_int8_reference_placement": ("arctic-480b", {
+        "d_model": 128, "moe_group_size": 16}, 1, "int8"),
 }
+#: the case the replicated data-parallel step also runs
+DP_CASE = "moe_einsum_aux"
 # The reduced train cell of the dry-run comparison: the reference's
 # tests/test_sharding.py shape.
 DRY_ARCH, DRY_SHAPE = "internlm2-1.8b", ShapeConfig("mini_train", "train",
@@ -138,6 +164,12 @@ def _inputs(path):
         if cfg.frontend == "patch":
             batch["patches"] = rng.standard_normal(
                 (B, cfg.frontend_len, cfg.frontend_dim), dtype=np.float32)
+        if case == DP_CASE:
+            # the two data ranks' rows hold 64 and 48 of the loss's tokens:
+            # their weights in the data-parallel step are not 1/2
+            mask = np.ones((B, text), np.float32)
+            mask[B // 2:, :text // 4] = 0.0
+            batch["loss_mask"] = mask
         arrays.update({f"{case}/b/{k}": v for k, v in batch.items()})
     np.savez(path, **arrays)
 
@@ -148,6 +180,7 @@ sys.path.insert(0, sys.argv[1])
 import numpy as np
 CASES = %r
 OPT = %r
+DP_CASE = %r
 inp = dict(np.load(sys.argv[2]))
 
 def tree_of(case, kind, conv):
@@ -172,7 +205,7 @@ def flat(tree, prefix, out, conv):
     return out
 """
 
-_JAX_SIDE = _COMMON + r"""
+_JAX_SIDE = _COMMON.replace("DP_CASE = %r\n", "") + r"""
 import jax, jax.numpy as jnp
 from repro.configs import get_reduced_config
 from repro.train import adamw
@@ -238,6 +271,8 @@ for case, (arch, kw, mb, state) in CASES.items():
         flat(gather_params(adamw.tree_map(lambda _: next(grads), params),
                            layout, rules), case + "/g/", out, lambda t: t)
         st = adamw.init(opt, params, shapes)
+        flat(st.m, case + "/mq/", out, lambda t: np.array(
+            t.q.shape if isinstance(t, adamw.QTensor) else ()))
         step = build_train_step(cfg, opt, mb, sharded=True)
         for i in range(2):
             params, st, m = step(params, st, mine)
@@ -245,6 +280,15 @@ for case, (arch, kw, mb, state) in CASES.items():
             out[f"{case}/gnorm{i}"] = m["grad_norm"]
         flat(gather_params(params, layout, rules), case + "/p/", out,
              lambda t: t)
+    if case == DP_CASE:
+        params = whole()
+        step, st = build_train_step(cfg, opt, mb), adamw.init(opt, params)
+        with activate_rules(rules):
+            for i in range(2):
+                params, st, m = step(params, st, batch)
+                out[f"{case}/dp_loss{i}"] = m["total_loss"]
+                out[f"{case}/dp_gnorm{i}"] = m["grad_norm"]
+        flat(params, case + "/dp_p/", out, lambda t: t)
     if rank == 0:
         params = whole()
         grads = iter(build_loss_and_grads(cfg, mb)(params, batch)[2])
@@ -254,16 +298,15 @@ for case, (arch, kw, mb, state) in CASES.items():
         for i in range(2):
             params, st, m = step(params, st, batch)
             out[f"{case}/rep_loss{i}"] = m["total_loss"]
-    if state == "int8":
+    if case == "int8_moments":
         narrow = cfg.replace(d_ff=128)
         nl = get_family(narrow).layout(narrow)
         small = tree_map_specs(lambda s: torch.zeros(
             local_shape(rules, s.shape, s.axes)), nl)
-        try:
-            adamw.init(opt, small, tree_map_specs(lambda s: s.shape, nl))
-            out["int8_refusal"] = np.array("")
-        except ValueError as e:
-            out["int8_refusal"] = np.array(str(e))
+        m = adamw.init(opt, small, tree_map_specs(lambda s: s.shape, nl)).m
+        w_up = m["layers"]["ffn"]["w_up"]
+        out["int8_narrow_w_up"] = np.array(
+            [small["layers"]["ffn"]["w_up"].shape, w_up.shape])
 np.savez(sys.argv[3], **{k: (v.detach().numpy() if isinstance(v, torch.Tensor)
                              else v) for k, v in out.items()})
 dist.destroy_process_group()
@@ -317,8 +360,7 @@ def runs(tmp_path_factory):
 
     # the reference's steps in two processes: compiling them is its time
     names = list(CASES)
-    halves = [{k: CASES[k] for k in names[:3]},
-              {k: CASES[k] for k in names[3:]}]
+    halves = [{k: CASES[k] for k in names[i::3]} for i in range(3)]
     procs = [(spawn(_JAX_DRYRUN % (DRY_ARCH, DRY_SHAPE.seq_len,
                                    DRY_SHAPE.global_batch)),
               "the reference's dry-run")]
@@ -326,11 +368,12 @@ def runs(tmp_path_factory):
                      str(tmp / f"jax{i}.npz")), f"the JAX side {i}")
               for i, half in enumerate(halves)]
     for r in range(4):
-        procs.append((spawn(_TORCH_RANK % (CASES, OPT), str(inp),
+        procs.append((spawn(_TORCH_RANK % (CASES, OPT, DP_CASE), str(inp),
                             str(tmp / f"rank{r}.npz"), str(r),
                             str(tmp / "store")), f"gloo rank {r}"))
     outs = [_wait(proc, what) for proc, what in procs]
-    ref = {**np.load(tmp / "jax0.npz"), **np.load(tmp / "jax1.npz")}
+    ref = {k: v for i in range(len(halves))
+           for k, v in np.load(tmp / f"jax{i}.npz").items()}
     ranks = [dict(np.load(tmp / f"rank{r}.npz")) for r in range(4)]
     return ref, ranks, outs[0]
 
@@ -393,10 +436,16 @@ def test_sharded_step_matches_replicated_step(runs):
 
 def test_shard_shapes_match_reference_and_int8_refusal(runs):
     """Every rank's shard of every leaf is the reference's ``shard_shape``
-    over an AbstractMesh((2, 2)); int8 moments on a shard whose last
-    dimension is not a multiple of QBLOCK are refused, naming the leaf."""
+    over an AbstractMesh((2, 2)). Int8 moments of a shard whose last
+    dimension is not a multiple of QBLOCK, once refused, are held at the
+    reference's placement: every such moment's codes are the shard of the
+    reference's codes (the parameter's leading dimensions sharded, the
+    (blocks, QBLOCK) dimensions whole), and a ``d_ff`` 128 internlm2's
+    ``w_up`` shard (L, 32, 64) holds a moment of (L, 32, 128)."""
     _, ranks, _ = runs
     mesh = jax.sharding.AbstractMesh((2, 2), ("data", "model"))
+    P = jax.sharding.PartitionSpec
+    held = 0
     for case, (arch, kw, _, _) in CASES.items():
         jcfg = jax_reduced(arch).replace(dtype="float32", **kw)
         layout = jax_family(jcfg).layout(jcfg)
@@ -408,56 +457,112 @@ def test_shard_shapes_match_reference_and_int8_refusal(runs):
             got = {n: tuple(int(d) for d in rank[f"{case}/shape/{n}"])
                    for n in want}
             assert got == want, (case, got, want)
+            for n, spec in _flat(layout).items():
+                q = tuple(int(d) for d in rank[f"{case}/mq/{n}"])
+                whole_last = want[n][-1] == spec.shape[-1]
+                if not q or q[:-2] != want[n][:-1] or whole_last \
+                        or want[n][-1] % 128 == 0:
+                    continue
+                entries = tuple(placed[n].spec) + (None,) * (
+                    len(spec.shape) - len(tuple(placed[n].spec)))
+                qspec = jax.sharding.NamedSharding(
+                    mesh, P(*entries[:-1], None, None))
+                whole = spec.shape[:-1] + (spec.shape[-1] // 128, 128)
+                assert q == tuple(qspec.shard_shape(whole)), (case, n, q)
+                held += 1
+    # wo, we_down, dense_{gate,up,down} and the embedding, on every rank
+    assert held == 6 * len(ranks), held
     for rank in ranks:
-        msg = str(rank["int8_refusal"])
-        assert "layers/ffn/w_up" in msg and "QBLOCK" in msg, msg
+        local, moment = (tuple(int(d) for d in x)
+                         for x in rank["int8_narrow_w_up"])
+        assert local[-1] == 64 and moment == local[:-1] + (128,), \
+            (local, moment)
+
+
+def test_replicated_data_parallel_moe_matches_reference(runs):
+    """The replicated data-parallel step (whole parameters on every rank,
+    each data rank training on its rows) on the reduced olmoe case, its
+    load-balance and z-loss weights 1.0 and a ``loss_mask`` that gives its
+    two data ranks unequal token shares: losses and ``grad_norm`` within
+    1e-5 relative of the reference's, the parameters after 2 steps within
+    1e-5, equal on every rank. The load-balance loss is the product of the
+    global batch's means, as the reference's, not a mean of the ranks'
+    products."""
+    ref, ranks, _ = runs
+    case = DP_CASE
+    for i in range(2):
+        for kind in ("loss", "gnorm"):
+            key = f"{case}/{kind}{i}"
+            got = ranks[0][f"{case}/dp_{kind}{i}"]
+            assert _rel(got, ref[key]) <= REF_TOL, \
+                (key, float(got), float(ref[key]))
+            for other in ranks[1:]:
+                assert other[f"{case}/dp_{kind}{i}"] == got, key
+    keys = sorted(k for k in ref if k.startswith(case + "/p/"))
+    errs = {k: float(np.abs(ranks[0][k.replace("/p/", "/dp_p/")]
+                            - ref[k]).max()) for k in keys}
+    assert max(errs.values()) <= REF_TOL, errs
+    for other in ranks[1:]:
+        for k in keys:
+            k = k.replace("/p/", "/dp_p/")
+            np.testing.assert_array_equal(other[k], ranks[0][k])
 
 
 def test_one_rank_mesh_is_replicated_step_bit_for_bit():
     """On a one-process (1, 1) mesh, every collective issued over one rank,
     the sharded step (bf16 compute over f32 masters, remat full, int8
     moments) equals the replicated step bit for bit over 3 steps: losses,
-    every metric and every parameter."""
+    every metric and every parameter. For reduced internlm2 and reduced
+    olmoe (8 experts top 4, 4 groups of 16: the local-expert dispatch on
+    all experts, the router gathered over one rank)."""
     import torch.distributed as dist
     from repro_torch.launch.mesh import make_mesh
-    cfg = get_reduced_config("internlm2-1.8b").replace(d_ff=256)
-    layout = get_family(cfg).layout(cfg)
-    base = init_params(cfg, layout, seed=0, device="cpu",
-                       dtype=torch.float32)
-    gen = torch.Generator().manual_seed(1)
-    batch = {n: torch.randint(0, cfg.vocab_size, (B, S), generator=gen)
-             for n in ("tokens", "labels")}
+    cfgs = [get_reduced_config("internlm2-1.8b").replace(d_ff=256),
+            get_reduced_config("olmoe-1b-7b").replace(moe_group_size=16,
+                                                      remat="full")]
     opt = adamw.AdamWConfig(state_dtype="int8", **OPT)
-
-    def fresh():
-        return adamw.tree_map(lambda p: p.detach().clone().requires_grad_(),
-                              base)
-
-    params, step = fresh(), build_train_step(cfg, opt)
-    st, want = adamw.init(opt, params), []
-    for _ in range(3):
-        params, st, m = step(params, st, batch)
-        want.append(m)
     mesh = make_mesh((1, 1), ("data", "model"), device="cpu")
     try:
         rules = ShardingRules(mesh)
-        with activate_rules(rules):
-            shards = shard_params(fresh(), layout, rules)
-            sst = adamw.init(opt, shards,
-                             tree_map_specs(lambda s: s.shape, layout))
-            sstep, got = build_train_step(cfg, opt, sharded=True), []
+        for cfg in cfgs:
+            layout = get_family(cfg).layout(cfg)
+            base = init_params(cfg, layout, seed=0, device="cpu",
+                               dtype=torch.float32)
+            gen = torch.Generator().manual_seed(1)
+            batch = {n: torch.randint(0, cfg.vocab_size, (B, S),
+                                      generator=gen)
+                     for n in ("tokens", "labels")}
+
+            def fresh():
+                return adamw.tree_map(
+                    lambda p: p.detach().clone().requires_grad_(), base)
+
+            params, step = fresh(), build_train_step(cfg, opt)
+            st, want = adamw.init(opt, params), []
             for _ in range(3):
-                shards, sst, m = sstep(shards, sst, local_batch(batch))
-                got.append(m)
-            full = gather_params(shards, layout, rules)
+                params, st, m = step(params, st, batch)
+                want.append(m)
+            with activate_rules(rules):
+                shards = shard_params(fresh(), layout, rules)
+                sst = adamw.init(opt, shards,
+                                 tree_map_specs(lambda s: s.shape, layout))
+                sstep, got = build_train_step(cfg, opt, sharded=True), []
+                for _ in range(3):
+                    shards, sst, m = sstep(shards, sst, local_batch(batch))
+                    got.append(m)
+                full = gather_params(shards, layout, rules)
+            if not cfg.num_experts:
+                assert isinstance(sst.m["layers"]["ffn"]["w_up"],
+                                  adamw.QTensor)
+            for a, b in zip(want, got):
+                assert a.keys() == b.keys()
+                assert all(torch.equal(a[k], b[k]) for k in a), \
+                    (cfg.name, a, b)
+            for a, b in zip(adamw.tree_leaves(params),
+                            adamw.tree_leaves(full)):
+                assert torch.equal(a, b), cfg.name
     finally:
         dist.destroy_process_group()
-    assert isinstance(sst.m["layers"]["ffn"]["w_up"], adamw.QTensor)
-    for a, b in zip(want, got):
-        assert a.keys() == b.keys()
-        assert all(torch.equal(a[k], b[k]) for k in a), (a, b)
-    for a, b in zip(adamw.tree_leaves(params), adamw.tree_leaves(full)):
-        assert torch.equal(a, b)
 
 
 def test_dryrun_sharded_argument_bytes_match_reference(runs):
@@ -492,11 +597,16 @@ def test_full_size_internlm2_train_4k_is_sharded_and_fits():
 
 
 def test_other_cells_stay_replicated():
-    """MoE, Zamba2 and xLSTM train cells, a ring-attention train cell and
-    every serve cell say "replicated" and why; the sharded step refuses
-    MoE and ring attention for the same reasons."""
+    """Zamba2 and xLSTM train cells, a ring-attention train cell and every
+    serve cell say "replicated" and why; the sharded step refuses ring
+    attention for the same reason. The MoE train cells (olmoe, arctic) are
+    sharded now (expert parallelism over "model"), and a reduced olmoe
+    whose data ranks' rows would split a group of the global batch raises,
+    naming the sizes."""
+    from repro_torch.distributed.collectives import (BatchSplit,
+                                                     activate_batch_split)
     train = get_shape("train_4k")
-    for arch in ("olmoe-1b-7b", "arctic-480b", "zamba2-1.2b", "xlstm-350m"):
+    for arch in ("zamba2-1.2b", "xlstm-350m"):
         placement, why = train_placement(get_config(arch), train)
         assert placement == "replicated" and why, arch
     for shape in ("prefill_32k", "decode_32k"):
@@ -504,13 +614,25 @@ def test_other_cells_stay_replicated():
                                          get_shape(shape))
         assert placement == "replicated" and why, shape
     for arch in ("internlm2-1.8b", "yi-6b", "mistral-nemo-12b",
-                 "starcoder2-7b", "hubert-xlarge", "paligemma-3b"):
+                 "starcoder2-7b", "hubert-xlarge", "paligemma-3b",
+                 "olmoe-1b-7b", "arctic-480b"):
         assert train_placement(get_config(arch), train) == ("sharded", "")
     ring = get_reduced_config("internlm2-1.8b").replace(attn_impl="ring")
-    for cfg in (get_reduced_config("olmoe-1b-7b"), ring):
-        placement, why = train_placement(cfg, train)
-        assert placement == "replicated" and why, cfg.name
-        with pytest.raises(NotImplementedError) as err:
-            build_train_step(cfg, adamw.AdamWConfig(), sharded=True)
-        assert why in str(err.value), (why, str(err.value))
-    assert "ring" in train_placement(ring, train)[1]
+    placement, why = train_placement(ring, train)
+    assert placement == "replicated" and "ring" in why
+    with pytest.raises(NotImplementedError) as err:
+        build_train_step(ring, adamw.AdamWConfig(), sharded=True)
+    assert why in str(err.value), (why, str(err.value))
+    # reduced olmoe: B 4 x S 16 is one global group of 64 tokens, which two
+    # data ranks' 32 tokens each would split
+    cfg = get_reduced_config("olmoe-1b-7b")
+    params = init_params(cfg, get_family(cfg).layout(cfg), seed=0,
+                         device="cpu", dtype=torch.float32)
+    batch = {n: torch.zeros((2, S), dtype=torch.int64)
+             for n in ("tokens", "labels")}
+    # the groups are cut before any collective: no process group needed
+    with activate_batch_split(BatchSplit((), 2)), \
+            pytest.raises(ValueError) as err:
+        get_family(cfg).train_loss(cfg, params, batch)
+    msg = str(err.value)
+    assert cfg.name in msg and "32 tokens" in msg and "of 64" in msg, msg
