@@ -170,6 +170,28 @@ Phases, each of which must pass (a failure exits nonzero):
    (arctic's flash at 56 heads over 8 and RMSNorm over 65536 x 7168 held
    to their plain versions in the backward-kernel checks, the flash at B
    2); each step's device ms beside the dry-run's terms.
+8e. ssm sharding: the sharded Zamba2 and xLSTM train steps (Mamba2's
+   SSD over the rank's heads with the fused projection and conv gathered
+   whole over "model", its gated norm on gathered whole rows before a
+   row-parallel output projection; the mLSTM column- then row-parallel
+   around a recurrence every model rank repeats; the sLSTM on the rank's
+   heads where they split; Zamba2's shared block as 8c's attention and
+   FFN). (a) the one-process NCCL (1, 1) mesh: full-width zamba2-1.2b at
+   depth 6 (one group and one shared application), B 8 x 1024, and (c)
+   xlstm-350m at depth 2, B 8 x 256, each bf16 over f32 masters, int8
+   moments, 3 steps under deterministic algorithms, bit for bit the
+   replicated step (losses, metrics, final parameters), launches exactly
+   the replicated step's (every bf16 SSD scan, its backward and flash on
+   sm90), no plain version called; (b) rank 0 of the (16, 16) mesh over
+   a fake process group: zamba2-1.2b ``train_4k``, all 38 layers, only
+   rank 0's shards allocated, 2 steps: every kernel of the step first held
+   to its plain version at rank 0's local shapes in bf16 (the SSD scan and
+   its backward over 4 of the 64 heads at B 16 x 4096, flash over 2 heads
+   at hd 64, RMSNorm over 65536 rows of 2048 and 4096), then the peak
+   device memory within 3% of the dry-run's sharded ``per_device_total``,
+   launches exact at those shapes, all on sm90; each step's device ms
+   beside the dry-run's terms. xlstm-350m's ``train_4k`` on rank 0 waits
+   for a fused sLSTM kernel (its plain time loop at S 4096).
 9. job: the same training run as a job of the Kotta batch runtime
    (``KottaService``): an outsider's submit refused and audited; alice's
    job staged under her role by the executor's assume-role, run on a
@@ -220,11 +242,11 @@ Phases, each of which must pass (a failure exits nonzero):
    (launches, busy share, device time by kernel, the wall share inside
    ``slstm_scan``'s time loop); and training through
    ``ElasticTrainer`` at B 8 x 512 (remat full, int8 moments,
-   checkpoints every 2) at depth 6, 4 steps, once uninterrupted and once
+   checkpoints every 2) at depth 4, 4 steps, once uninterrupted and once
    revoked after step 3 (lost, and replayed from the step-2 checkpoint), under
    ``torch.use_deterministic_algorithms``: the two final states'
-   SHA-256 equal, the loss falling, RMSNorm's 19 forward and 10 backward
-   launches a step exact (3 pairs), no plain version called.
+   SHA-256 equal, the loss falling, RMSNorm's 13 forward and 7 backward
+   launches a step exact (2 pairs), no plain version called.
 12. frontends: hubert-xlarge and paligemma-3b widths at depth 2 in f32,
    card against CPU: hubert's encode logits (B 2 x 200 frames) and
    paligemma's prefill of 256 patches + 16 tokens, three decode steps
@@ -242,11 +264,11 @@ Phases, each of which must pass (a failure exits nonzero):
    paligemma's prefill (B 8, S 288, H 8 over KV 1, hd 256, causal) and
    the paged decode and prefill at hd 256, G 8, each timed beside SDPA
    and its bound.
-13. frontend train: full-width, full-depth hubert-xlarge (48 layers, hd
-   80, bidirectional; 8 x 1000 frames labelled with the nearest of 504
-   fixed random centroids, a Bernoulli(0.3) loss mask) and paligemma-3b
-   (18 layers, MQA at hd 256; 8 x (256 patches + 256 tokens of the
-   synthetic corpus), the text one logit chunk) trained by
+13. frontend train: full-width hubert-xlarge at half depth (24 of 48
+   layers, hd 80, bidirectional; 8 x 1000 frames labelled with the
+   nearest of 504 fixed random centroids, a Bernoulli(0.3) loss mask) and
+   paligemma-3b (9 of 18 layers, MQA at hd 256; 8 x (256 patches + 256
+   tokens of the synthetic corpus), the text one logit chunk) trained by
    ``ElasticTrainer`` as the zamba train phase trains Zamba2: bf16 over
    f32 masters, remat full, int8 moments, 4 steps, checkpoints every 2,
    once uninterrupted and once revoked after step 3, under
@@ -1059,10 +1081,10 @@ def _flash_bf16_edge_cases(gen, dev):
          lambda: K.attention_reference(q2, k2, v2))]
 
 
-def _ssd_case(gen, dev, dtype, b, s, chunk, dt_scale=1.0):
-    """An SSD scan at the Zamba2 widths (H 64, N = P = 64) and its plain
-    version on the same inputs; x / dt_scale keeps the outputs of order 1
-    under a strong decay."""
+def _ssd_case(gen, dev, dtype, b, s, chunk, dt_scale=1.0, h=Z_SSM_H):
+    """An SSD scan at the Zamba2 widths (H 64, or ``h`` heads; N = P = 64)
+    and its plain version on the same inputs; x / dt_scale keeps the
+    outputs of order 1 under a strong decay."""
     import torch
     import torch.nn.functional as F
     from repro_torch import kernels as K
@@ -1070,8 +1092,8 @@ def _ssd_case(gen, dev, dtype, b, s, chunk, dt_scale=1.0):
     def rn(*shape):
         return torch.randn(*shape, generator=gen, device=dev)
 
-    args = ((rn(b, s, Z_SSM_H, Z_P) / dt_scale).to(dtype),
-            F.softplus(rn(b, s, Z_SSM_H)) * dt_scale, 0.5 * rn(Z_SSM_H),
+    args = ((rn(b, s, h, Z_P) / dt_scale).to(dtype),
+            F.softplus(rn(b, s, h)) * dt_scale, 0.5 * rn(h),
             (rn(b, s, Z_N) * Z_N ** -0.5).to(dtype),
             (rn(b, s, Z_N) * Z_N ** -0.5).to(dtype))
     return (lambda: K.ssd_scan(*args, chunk=chunk),
@@ -3836,18 +3858,21 @@ def _probe_launches(label, probe, want, want_routes):
                                  f"{want_routes}")
 
 
-def _sharded_one_rank(smi, cfg=None, tag="sharding"):
+def _sharded_one_rank(smi, cfg=None, tag="sharding", launches=None,
+                      batch=TB, seq=TS, part="a"):
     """(a) internlm2-1.8b (or ``cfg``) at full width and depth, bf16 over
     f32 masters, remat full, the train phase's AdamW (int8 moments), B
-    ``TB`` x S ``TS``, ``SHARD_STEPS`` steps under deterministic
+    ``batch`` x S ``seq``, ``SHARD_STEPS`` steps under deterministic
     algorithms: once the
     replicated ``build_train_step`` with no rules, once through
     ``shard_params`` and ``build_train_step(..., sharded=True)`` on a
     one-process NCCL group's (1, 1) ("data", "model") mesh, every
     collective issued over its one rank. The losses and metrics of every
     step and the final parameters (``gather_params``) equal bit for bit;
-    every sharded step's launches exactly the train phase's, every bf16 one
-    on sm90; no plain version called."""
+    every sharded step's launches exactly the train phase's (``launches``:
+    (launches, by route) a step, default ``_transformer_step_launches``),
+    every bf16 one on sm90; no plain version called. ``part``: the
+    check's letter in the log and the errors."""
     import torch
     import torch.distributed as dist
     from repro_torch.configs import get_config
@@ -3860,8 +3885,8 @@ def _sharded_one_rank(smi, cfg=None, tag="sharding"):
     cfg = cfg or get_config("internlm2-1.8b")
     layout = get_family(cfg).layout(cfg)
     opt = _train_opt()
-    want, want_routes = _transformer_step_launches(cfg)
-    batches = _shard_batches(cfg, SHARD_STEPS, TB, TS, seed=2)
+    want, want_routes = launches or _transformer_step_launches(cfg)
+    batches = _shard_batches(cfg, SHARD_STEPS, batch, seq, seed=2)
     base = init_params(cfg, layout, seed=0, device="cuda",
                        dtype=torch.float32)
     for p in adamw.tree_leaves(base):
@@ -3902,8 +3927,8 @@ def _sharded_one_rank(smi, cfg=None, tag="sharding"):
         for a, b in zip(rep["metrics"], shd["metrics"]))
     differing = [i for i, (a, b) in enumerate(zip(rep["final"], shd["final"]))
                  if not torch.equal(a, b)]
-    rec = {"config": cfg.name, "layers": cfg.num_layers, "batch": TB,
-           "seq": TS, "steps": SHARD_STEPS, "state_dtype": "int8",
+    rec = {"config": cfg.name, "layers": cfg.num_layers, "batch": batch,
+           "seq": seq, "steps": SHARD_STEPS, "state_dtype": "int8",
            "mesh": [1, 1],
            "losses": {k: [m["total_loss"].item() for m in r["metrics"]]
                       for k, r in runs.items()},
@@ -3917,27 +3942,29 @@ def _sharded_one_rank(smi, cfg=None, tag="sharding"):
            "launches_per_step": want,
            "launches": _run_launches(shd["probe"]),
            "plain_calls": dict(plain_calls)}
-    log(f"[{tag}] (a) {cfg.name} {cfg.num_layers} layers, bf16 over "
-        f"f32 masters, int8 moments, B {TB} x S {TS}, {SHARD_STEPS} steps "
+    log(f"[{tag}] ({part}) {cfg.name} {cfg.num_layers} layers, bf16 over "
+        f"f32 masters, int8 moments, B {batch} x S {seq}, {SHARD_STEPS} steps "
         f"under deterministic algorithms, replicated vs sharded on a "
         f"one-process NCCL (1, 1) mesh: losses {rec['losses']}; metrics "
         f"equal {same_metrics}; final parameters differing {differing} of "
         f"{len(rep['final'])}; step ms {rec['step_ms']}; sharded launches "
         f"{rec['launches']} ({want} a step); on {smi}")
-    _probe_launches(f"{tag} (a)", shd["probe"], want, want_routes)
+    _probe_launches(f"{tag} ({part})", shd["probe"], want, want_routes)
     if sum(plain_calls.values()):
-        raise AssertionError(f"{tag} (a): a plain version ran on the "
+        raise AssertionError(f"{tag} ({part}): a plain version ran on the "
                              f"card: {plain_calls}")
     if not same_metrics or differing:
-        raise AssertionError(f"{tag} (a): the sharded step on one rank is "
-                             f"not the replicated step bit for bit: "
+        raise AssertionError(f"{tag} ({part}): the sharded step on one "
+                             f"rank is not the replicated step bit for bit: "
                              f"{rec['bitwise']}")
     return rec
 
 
 def _sharded_production(smi, arch="internlm2-1.8b",
                         local_flash=SHARD_LOCAL_FLASH,
-                        local_rms=SHARD_LOCAL_RMS, tag="sharding"):
+                        local_rms=SHARD_LOCAL_RMS, tag="sharding",
+                        launches=_transformer_step_launches,
+                        attn=("layers", "attn"), local_ssd_heads=None):
     """(b) rank 0 of the single-pod (16, 16) ("data", "model") mesh over a
     fake process group of 256 ranks (``launch.dryrun.fake_mesh``, which
     registers the fake backend for CUDA too): internlm2-1.8b (or ``arch``)
@@ -3949,8 +3976,10 @@ def _sharded_production(smi, arch="internlm2-1.8b",
     memory within ``LAUNCH_MEMORY_TOL`` of the dry-run's sharded
     ``per_device_total`` for the same cell, and every step's launches
     exactly the train phase's kinds at the local shapes (``local_flash``:
-    B, S, query heads, KV heads, hd; ``local_rms``: rows, D), every bf16
-    one on sm90."""
+    B, S, query heads, KV heads, hd, of the attention leaves at the path
+    ``attn``; ``local_rms``: rows, D; ``local_ssd_heads``: the Mamba2
+    layers' local SSM heads), every bf16 one on sm90 (``launches(cfg)``:
+    the step's launches and launches by route)."""
     import torch
     from repro_torch.configs import get_config, get_shape
     from repro_torch.distributed import activate_rules
@@ -3963,7 +3992,7 @@ def _sharded_production(smi, arch="internlm2-1.8b",
     shape = get_shape("train_4k")
     layout = get_family(cfg).layout(cfg)
     opt = default_opt_cfg(cfg)
-    want, want_routes = _transformer_step_launches(cfg)
+    want, want_routes = launches(cfg)
     plain_calls, undo = _plain_call_counter()
     gc.collect()
     torch.cuda.synchronize()
@@ -3983,23 +4012,29 @@ def _sharded_production(smi, arch="internlm2-1.8b",
             batches = _shard_batches(cfg, SHARD_PROD_STEPS, rows,
                                      shape.seq_len, seed=3,
                                      dtype=torch.int32)
-            local = {k: tuple(v.shape)
-                     for k, v in params["layers"]["attn"].items()}
+            leaves = params
+            for key in attn:
+                leaves = leaves[key]
+            local = {k: tuple(v.shape) for k, v in leaves.items()}
             # the kernel phase held the kernels to their plain versions at
-            # these local shapes (phase_backward_kernels)
+            # these local shapes (phase_backward_kernels, or phase 8e's own)
             fb, fs, fh, fkv, fhd, _ = local_flash
             # heads whole or KV heads split: the local KV heads; heads split
             # over whole KV heads: the one KV head the rank's heads use
-            heads_whole = local["wq"][2] == cfg.num_heads
-            kv_split = local["wk"][2] != cfg.num_kv_heads
-            kv = local["wk"][2] if heads_whole or kv_split else 1
-            if ((rows, shape.seq_len, local["wq"][2], kv, cfg.head_dim)
+            heads_whole = local["wq"][-2] == cfg.num_heads
+            kv_split = local["wk"][-2] != cfg.num_kv_heads
+            kv = local["wk"][-2] if heads_whole or kv_split else 1
+            ssd_heads = (params["mamba"]["dt_bias"].shape[-1]
+                         if local_ssd_heads else None)
+            if ((rows, shape.seq_len, local["wq"][-2], kv, cfg.head_dim)
                     != (fb, fs, fh, fkv, fhd)
-                    or (rows * shape.seq_len, cfg.d_model) != local_rms):
+                    or (rows * shape.seq_len, cfg.d_model) != local_rms
+                    or ssd_heads != local_ssd_heads):
                 raise AssertionError(
                     f"{tag} (b): local shapes {rows} x {shape.seq_len}, "
-                    f"attention {local}, not the kernel phase's "
-                    f"{local_flash} and {local_rms}")
+                    f"attention {local}, SSM heads {ssd_heads}, not the "
+                    f"kernel checks' {local_flash}, {local_rms} and "
+                    f"{local_ssd_heads}")
             probe = _StepProbe(build_train_step(cfg, opt, sharded=True))
             device_ms = []
             with activate_rules(rules):
@@ -4122,6 +4157,161 @@ def phase_expert_parallel(smi: str):
         rec[arch] = _sharded_production(smi, arch, flash, rms, tag=tag)
     rec["phase_s"] = time.perf_counter() - t0
     log(f"[{tag}] phase {rec['phase_s']:.1f} s on {smi}")
+    return rec
+
+
+# ---------------------------------------------------------------------------
+# phase 8e: ssm sharding -- the sharded Zamba2 and xLSTM train steps on a
+# (1, 1) mesh, and zamba2-1.2b on rank 0 of the production mesh
+# ---------------------------------------------------------------------------
+
+#: (a): zamba2-1.2b's depth on the one-process (1, 1) mesh: one group of 6
+#: Mamba2 layers and one shared application.
+SSM_ZAMBA_LAYERS = 6
+#: (c): xlstm-350m's depth (one mLSTM/sLSTM pair), batch and sequence on
+#: the (1, 1) mesh.
+SSM_XLSTM_LAYERS, SSM_XB, SSM_XS = 2, 8, 256
+# The kernels' local shapes in (b), zamba2-1.2b ``train_4k`` on rank 0 of
+# the (16, 16) mesh: 16 rows of 4096; the SSD over 4 of the 64 heads (N =
+# P = 64, chunk 128: B, S, heads, chunk); the shared block's flash over 2
+# of the 32 heads, hd 64, causal; RMSNorm over 16 x 4096 rows of 2048 (the
+# block norms) and of 4096 (the gated norm, on whole rows).
+ZAMBA_LOCAL_SSD = (16, 4096, 4, Z_CHUNK)
+ZAMBA_LOCAL_FLASH = (16, 4096, 2, 2, 64, True)
+ZAMBA_LOCAL_RMS = ((16 * 4096, 2048), (16 * 4096, 4096))
+
+
+def _zamba_local_kernels():
+    """Every kernel of (b)'s step, bf16, at rank 0's local shapes against
+    its plain version on the same inputs: the SSD scan (``ZAMBA_LOCAL_SSD``;
+    one launch on sm90, y and the final state within TOL_BF16 of their max
+    |plain|) and its backward (twice, bit for bit, on sm90; dx, dB and dC
+    within TOL_BF16, ddt and da_log within TOL_F32); flash attention's
+    backward and forward (``ZAMBA_LOCAL_FLASH``) and RMSNorm's at both
+    widths (``ZAMBA_LOCAL_RMS``, f32 weights away from one) through
+    ``_bwd_twice`` and ``_sharded_local_fwd``. -> {kernel: {shape: max
+    error}}."""
+    import torch
+    from repro_torch import kernels as K
+    from repro_torch.kernels.rmsnorm.kernel import rmsnorm_path
+    tag = "ssm sharding"
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(31)
+    bf = torch.bfloat16
+    b, s, h, chunk = ZAMBA_LOCAL_SSD
+    out = {}
+    kern, plain = _ssd_case(gen, dev, bf, b, s, chunk, h=h)
+    K.reset_launch_counts()
+    got = kern()
+    torch.cuda.synchronize()
+    routes = K.launch_counts_by_route()["ssd_scan"]
+    errs = [_rel_err(x, y) for x, y in zip(got, plain())]
+    ok = (routes["sm90"] == 1 and sum(K.launch_counts().values()) == 1
+          and all(math.isfinite(e) and e <= TOL_BF16 for e in errs))
+    log(f"[{tag}] ssd_scan bf16 local {ZAMBA_LOCAL_SSD}: max|kernel-plain|"
+        f"/max|plain| y, h_final {['%.2e' % e for e in errs]} (tol "
+        f"{TOL_BF16}), routes {routes} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"{tag}: ssd_scan at the local shape: {errs}, "
+                             f"routes {routes}")
+    out["ssd_scan"] = {str(ZAMBA_LOCAL_SSD): max(errs)}
+    del got, kern, plain
+    kern, plain, _ = _ssd_bwd_case(gen, dev, bf, b, s, chunk, h=h)
+    K.reset_launch_counts()
+    got, again = kern(), kern()
+    torch.cuda.synchronize()
+    routes = K.launch_counts_by_route()["ssd_scan_bwd"]
+    same = all(torch.equal(x, y) for x, y in zip(got, again))
+    errs = [_rel_err(x, y) for x, y in zip(got, plain())]
+    tols = [TOL_BF16 if x.dtype == bf else TOL_F32 for x in got]
+    ok = (routes["sm90"] == 2 and sum(K.launch_counts().values()) == 2
+          and same and all(math.isfinite(e) and e <= t
+                           for e, t in zip(errs, tols)))
+    log(f"[{tag}] ssd_scan_bwd bf16 local {ZAMBA_LOCAL_SSD}: "
+        f"max|kernel-plain|/max|plain| dx, ddt, da_log, dB, dC "
+        f"{['%.2e' % e for e in errs]} (tol {tols}), repeat bitwise {same}, "
+        f"routes {routes} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"{tag}: ssd_scan_bwd at the local shape: "
+                             f"{errs}, repeat {same}, routes {routes}")
+    out["ssd_scan_bwd"] = {str(ZAMBA_LOCAL_SSD): max(errs)}
+    del got, again, kern, plain
+    torch.cuda.empty_cache()
+    kern, plain, inputs = _flash_bwd_case(gen, dev, bf, *ZAMBA_LOCAL_FLASH)
+    out["flash_attention_bwd"] = {str(ZAMBA_LOCAL_FLASH): _bwd_twice(
+        tag, "flash_attention_bwd", f"bf16 local {ZAMBA_LOCAL_FLASH}",
+        "sm90", kern, plain)}
+    out["flash_attention_fwd"] = {str(ZAMBA_LOCAL_FLASH): _sharded_local_fwd(
+        "flash_attention_bwd", inputs, ZAMBA_LOCAL_FLASH)}
+    del kern, plain, inputs
+    torch.cuda.empty_cache()
+    out["rmsnorm_bwd"], out["rmsnorm_fused"] = {}, {}
+    for rows, d in ZAMBA_LOCAL_RMS:
+        kern, plain, inputs = _rms_bwd_case(gen, dev, bf, rows, d,
+                                            w_mean=0.25, w_std=0.05)
+        out["rmsnorm_bwd"][f"{rows}x{d}"] = _bwd_twice(
+            tag, "rmsnorm_bwd", f"bf16 local {rows}x{d}",
+            rmsnorm_path(d, bf), kern, plain)
+        out["rmsnorm_fused"][f"{rows}x{d}"] = _sharded_local_fwd(
+            "rmsnorm_bwd", inputs, (rows, d))
+        del kern, plain, inputs
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_ssm_sharding(smi: str):
+    """The sharded train step on the Zamba2 and xLSTM families. (a)
+    zamba2-1.2b at full width and depth ``SSM_ZAMBA_LAYERS``, B ``TB`` x S
+    ``TS``, and (c) xlstm-350m at depth ``SSM_XLSTM_LAYERS``, B ``SSM_XB``
+    x S ``SSM_XS``, each ``SHARD_STEPS`` steps under deterministic
+    algorithms, the replicated step against the sharded one on a
+    one-process NCCL (1, 1) mesh (``_sharded_one_rank``): losses, metrics
+    and the gathered final parameters bit for bit, launches exactly the
+    replicated step's (every bf16 SSD scan, its backward and flash on
+    sm90), no plain version called. (b) rank 0 of the single-pod (16, 16)
+    mesh over a fake process group (``_sharded_production``):
+    zamba2-1.2b ``train_4k``, all 38 layers, only rank 0's shards
+    allocated, ``SHARD_PROD_STEPS`` steps: the measured peak device memory
+    within 3% of the dry-run's sharded ``per_device_total``, launches
+    exact at the local shapes, each step's device ms beside the dry-run's
+    terms; every kernel of that step first held to its plain version at
+    those shapes (``_zamba_local_kernels``). xlstm-350m's ``train_4k`` on
+    rank 0 is not run: its plain sLSTM loop at S 4096 waits for a fused
+    sLSTM kernel."""
+    import torch
+    from repro_torch.configs import get_config
+    t0 = time.perf_counter()
+    tag, seconds = "ssm sharding", {}
+    cfg = get_config("zamba2-1.2b").replace(num_layers=SSM_ZAMBA_LAYERS)
+    rec = {"zamba_one_rank": _sharded_one_rank(
+        smi, cfg, tag=tag, launches=_zamba_bf16_step(cfg))}
+    seconds["a"] = time.perf_counter() - t0
+    t = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = get_config("xlstm-350m").replace(num_layers=SSM_XLSTM_LAYERS)
+    rec["xlstm_one_rank"] = _sharded_one_rank(
+        smi, cfg, tag=tag, launches=_xlstm_step_launches(cfg), batch=SSM_XB,
+        seq=SSM_XS, part="c")
+    seconds["c"] = time.perf_counter() - t
+    t = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    rec["local_kernels"] = _zamba_local_kernels()
+    seconds["local kernels"] = time.perf_counter() - t
+    t = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    rec["zamba_production"] = _sharded_production(
+        smi, "zamba2-1.2b", ZAMBA_LOCAL_FLASH, ZAMBA_LOCAL_RMS[0], tag=tag,
+        launches=_zamba_bf16_step, attn=("shared", "attn"),
+        local_ssd_heads=ZAMBA_LOCAL_SSD[2])
+    seconds["b"] = time.perf_counter() - t
+    rec["seconds"] = seconds
+    rec["phase_s"] = time.perf_counter() - t0
+    log(f"[{tag}] phase {rec['phase_s']:.1f} s "
+        f"({ {k: round(v, 1) for k, v in seconds.items()} }) on {smi}")
     return rec
 
 
@@ -4442,10 +4632,11 @@ ZT_B, ZT_S = 8, 1024
 ZT_STEPS, ZT_EVERY, ZT_REVOKE = 4, 2, 3
 
 
-def _ssd_bwd_case(gen, dev, dtype, b, s, chunk, dt_scale=1.0, with_dh=False):
-    """(kernel, plain, inputs) of one SSD backward at the Zamba2 widths:
-    ``_ssd_case``'s inputs, a cotangent dy of order 1 and, if ``with_dh``,
-    one for h_final."""
+def _ssd_bwd_case(gen, dev, dtype, b, s, chunk, dt_scale=1.0, with_dh=False,
+                  h=Z_SSM_H):
+    """(kernel, plain, inputs) of one SSD backward at the Zamba2 widths (H
+    64, or ``h`` heads): ``_ssd_case``'s inputs, a cotangent dy of order 1
+    and, if ``with_dh``, one for h_final."""
     import torch
     import torch.nn.functional as F
     from repro_torch import kernels as K
@@ -4453,12 +4644,12 @@ def _ssd_bwd_case(gen, dev, dtype, b, s, chunk, dt_scale=1.0, with_dh=False):
     def rn(*shape):
         return torch.randn(*shape, generator=gen, device=dev)
 
-    args = ((rn(b, s, Z_SSM_H, Z_P) / dt_scale).to(dtype),
-            F.softplus(rn(b, s, Z_SSM_H)) * dt_scale, 0.5 * rn(Z_SSM_H),
+    args = ((rn(b, s, h, Z_P) / dt_scale).to(dtype),
+            F.softplus(rn(b, s, h)) * dt_scale, 0.5 * rn(h),
             (rn(b, s, Z_N) * Z_N ** -0.5).to(dtype),
             (rn(b, s, Z_N) * Z_N ** -0.5).to(dtype),
-            rn(b, s, Z_SSM_H, Z_P).to(dtype),
-            rn(b, Z_SSM_H, Z_N, Z_P) if with_dh else None)
+            rn(b, s, h, Z_P).to(dtype),
+            rn(b, h, Z_N, Z_P) if with_dh else None)
     return (lambda: K.ssd_scan_bwd(*args, chunk=chunk),
             lambda: K.ssd_chunked_backward_reference(*args, chunk=chunk),
             args)
@@ -4724,14 +4915,12 @@ def _revoked_train(cfg, label, want, want_routes, smi, *, batch, seq,
     return rec
 
 
-def _zamba_train_run(cfg, smi):
-    """Full-width zamba2-1.2b (38 Mamba2 layers, 6 shared applications)
-    through ``_revoked_train`` at ZT_B x ZT_S: every step's launches
-    exactly ``_zamba_step_launches``, bf16 SSD scans and their backward,
-    flash forward and backward on sm90 and RMSNorm's backward on its
-    register kernel."""
+def _zamba_bf16_step(cfg):
+    """``_zamba_step_launches`` and, by route, a bf16 step's: SSD scans and
+    their backward, flash forward and backward on sm90, RMSNorm's backward
+    on its register kernel."""
     want = _zamba_step_launches(cfg)
-    want_routes = {
+    return want, {
         "ssd_scan": {"sm90": want["ssd_scan"], "cuda_core": 0},
         "ssd_scan_bwd": {"sm90": want["ssd_scan_bwd"], "cuda_core": 0},
         "flash_attention_fwd": {"sm90": want["flash_attention_fwd"],
@@ -4739,6 +4928,13 @@ def _zamba_train_run(cfg, smi):
         "flash_attention_bwd": {"sm90": want["flash_attention_bwd"],
                                 "cuda_core": 0},
         "rmsnorm_bwd": {"registers": want["rmsnorm_bwd"], "smem": 0}}
+
+
+def _zamba_train_run(cfg, smi):
+    """Full-width zamba2-1.2b (38 Mamba2 layers, 6 shared applications)
+    through ``_revoked_train`` at ZT_B x ZT_S: every step's launches
+    exactly ``_zamba_bf16_step``'s."""
+    want, want_routes = _zamba_bf16_step(cfg)
     return _revoked_train(cfg, "zamba train", want, want_routes, smi,
                           batch=ZT_B, seq=ZT_S, steps=ZT_STEPS,
                           every=ZT_EVERY, revoke_step=ZT_REVOKE)
@@ -4852,7 +5048,7 @@ def phase_zamba_train(smi: str):
 # phase 11: xLSTM -- parity, serve, train and where the time goes
 # ---------------------------------------------------------------------------
 
-# xlstm-350m's training run: full width at depth 6 (3 of its 12
+# xlstm-350m's training run: full width at depth 4 (2 of its 12
 # mLSTM/sLSTM pairs), batch 8 x 512 (8 mLSTM chunks of 64), 4 steps, checkpoints
 # every 2; the second run is revoked after step 3, loses it and resumes
 # from the step-2 checkpoint, so it runs 5 steps and replays one. A step
@@ -4860,8 +5056,9 @@ def phase_zamba_train(smi: str):
 # forward, recompute and backward, a pair at a time, bound by the host):
 # at depth 12 its 9 steps took 128.8 s of a 1,011 s whole run on an H100
 # whose host kept a training step's device busy 0.77 of its wall, so the
-# depth is 6, to keep the script well inside its 1,200 s limit.
-XB, XS, X_TRAIN_LAYERS = 8, 512, 6
+# depth was 6, and is 4 since the ssm sharding phase (8e) joined the
+# script, to keep it well inside its 1,200 s limit.
+XB, XS, X_TRAIN_LAYERS = 8, 512, 4
 X_STEPS, X_EVERY, X_REVOKE = 4, 2, 3
 
 
@@ -5076,12 +5273,18 @@ def _xlstm_train(cfg, smi):
     step's launches exact -- RMSNorm forward 2 (3P) + 1 (each pair's three
     norms run again in its recompute, ``final_norm`` once) and backward 3P
     + 1, every backward on its register kernel, P pairs."""
-    norms = _xlstm_norms(cfg)
-    want = {"rmsnorm_fused": 2 * (norms - 1) + 1, "rmsnorm_bwd": norms}
-    return _revoked_train(cfg, "xlstm train", want,
-                          {"rmsnorm_bwd": {"registers": norms, "smem": 0}},
+    want, want_routes = _xlstm_step_launches(cfg)
+    return _revoked_train(cfg, "xlstm train", want, want_routes,
                           smi, batch=XB, seq=XS, steps=X_STEPS,
                           every=X_EVERY, revoke_step=X_REVOKE)
+
+
+def _xlstm_step_launches(cfg):
+    """An xLSTM training step's launches and launches by route (RMSNorm
+    alone, its backward on the register kernel)."""
+    norms = _xlstm_norms(cfg)
+    return ({"rmsnorm_fused": 2 * (norms - 1) + 1, "rmsnorm_bwd": norms},
+            {"rmsnorm_bwd": {"registers": norms, "smem": 0}})
 
 
 def phase_xlstm(smi: str):
@@ -5429,6 +5632,11 @@ def phase_frontends(smi: str):
 # Each frontend's run: 4 steps with checkpoints every 2; the second run is
 # revoked after step 3 (lost, replayed from the step-2 checkpoint).
 FT_STEPS, FT_EVERY, FT_REVOKE = 4, 2, 3
+# Each frontend at full width and half its depth: at full depth (48 and 18
+# layers) the phase took 171.4-178.5 s on an H100, most of it checkpoint
+# host work over paligemma-3b's 15.2 GB state; the ssm sharding phase
+# (8e) takes its place in the script's 1,200 s.
+FT_LAYERS = {"hubert-xlarge": 24, "paligemma-3b": 9}
 
 
 def _frame_source(store, cfg, batch, seq):
@@ -5443,11 +5651,12 @@ def _patch_source(store, cfg, batch, seq):
 
 
 def phase_frontend_train(smi: str):
-    """Full-width, full-depth hubert-xlarge (48 layers, hd 80,
-    bidirectional; HB_B x HB_S frames with HuBERT's cluster targets,
-    ``_FrameBatches``) and paligemma-3b (18 layers, MQA at hd 256, the tied
-    257,216-token vocabulary; PG_B x (256 patches + PG_TRAIN_TEXT tokens of
-    the synthetic corpus), ``_PatchBatches``) trained through
+    """Full-width hubert-xlarge (``FT_LAYERS``: 24 of its 48 layers, hd
+    80, bidirectional; HB_B x HB_S frames with HuBERT's cluster targets,
+    ``_FrameBatches``) and paligemma-3b (9 of 18 layers, MQA at hd 256,
+    the tied 257,216-token vocabulary; PG_B x (256 patches +
+    PG_TRAIN_TEXT tokens of the synthetic corpus), ``_PatchBatches``)
+    trained through
     ``_revoked_train``: bf16 over f32 masters, remat "full", int8 moments,
     under ``torch.use_deterministic_algorithms``; FT_STEPS steps, once
     uninterrupted and once revoked after step FT_REVOKE; the final states'
@@ -5461,7 +5670,7 @@ def phase_frontend_train(smi: str):
     for name, batch, seq, source in (
             ("hubert-xlarge", HB_B, HB_S, _frame_source),
             ("paligemma-3b", PG_B, 256 + PG_TRAIN_TEXT, _patch_source)):
-        cfg = get_config(name)
+        cfg = get_config(name).replace(num_layers=FT_LAYERS[name])
         want, want_routes = _transformer_step_launches(cfg)
         t = time.perf_counter()
         out[name] = _revoked_train(
@@ -5612,6 +5821,15 @@ def _ep_launches(ep, name) -> dict:
     production mesh."""
     return {run: ep[run]["launches"].get(name, 0)
             for run in ("one_rank", "olmoe-1b-7b", "arctic-480b")}
+
+
+def _ssm_launches(ssm, name) -> dict:
+    """A kernel's launches in the ssm sharding phase's sharded runs: (a)
+    zamba2-1.2b and (c) xlstm-350m on the one-rank mesh, (b) zamba2-1.2b on
+    rank 0 of the production mesh."""
+    return {run: ssm[run]["launches"].get(name, 0)
+            for run in ("zamba_one_rank", "xlstm_one_rank",
+                        "zamba_production")}
 
 
 def _clock_text(clocks: dict) -> str:
@@ -6037,6 +6255,7 @@ def main() -> int:
     launch = timed("launch", phase_launch, smi, train)
     shd = timed("sharding", phase_sharding, smi)
     ep = timed("expert parallel", phase_expert_parallel, smi)
+    ssm = timed("ssm sharding", phase_ssm_sharding, smi)
     job = timed("job", phase_job, smi, train)
     zt = timed("zamba train", phase_zamba_train, smi)
     xl = timed("xlstm", phase_xlstm, smi)
@@ -6098,6 +6317,9 @@ def main() -> int:
             entry["launches_frontend_train"] = _frontend_train_launches(
                 ft, name)
         entry["launches_distributed"] = _distributed_launches(dr, name)
+        if name in ssm["local_kernels"]:
+            entry["launches_ssm_sharding"] = _ssm_launches(ssm, name)
+            entry["zamba_local_max_err"] = ssm["local_kernels"][name]
         record.append(entry)
     for name, fwd in (("rmsnorm_bwd", "rmsnorm_fused"),
                       ("flash_attention_bwd", "flash_attention_fwd")):
@@ -6124,6 +6346,8 @@ def main() -> int:
         record[-1]["launches_frontend_train"] = _frontend_train_launches(
             ft, name)
         record[-1]["launches_distributed"] = _distributed_launches(dr, name)
+        record[-1]["launches_ssm_sharding"] = _ssm_launches(ssm, name)
+        record[-1]["zamba_local_max_rel_err"] = ssm["local_kernels"][name]
         # the forward's and the backward's errors at phase 8c (b)'s shapes
         record[-1]["sharded_local"] = rec["sharded_local"]
         record[-1]["arctic_local"] = rec["arctic_local"]
@@ -6154,13 +6378,16 @@ def main() -> int:
         "shape": ssd["bf16"]["shape"], "split_ms": ssd["bf16"]["split_ms"],
         "f32": {k: ssd["f32"][k] for k in ("ms", "plain_ms", "bound_ms",
                                            "bound_by")},
-        "launches_distributed": _distributed_launches(dr, "ssd_scan_bwd")})
+        "launches_distributed": _distributed_launches(dr, "ssd_scan_bwd"),
+        "launches_ssm_sharding": _ssm_launches(ssm, "ssd_scan_bwd"),
+        "zamba_local_max_rel_err": ssm["local_kernels"]["ssd_scan_bwd"]})
     log(f"[done] every phase passed in {time.perf_counter() - t0:.1f} s on "
         f"{smi}; seconds a phase: {seconds}")
     print(json.dumps({"kernels": record, "transformers": transformers,
                       "residency": moves, "gateway": gateway,
                       "train": train, "launch": launch,
-                      "sharding": shd, "expert_parallel": ep, "job": job,
+                      "sharding": shd, "expert_parallel": ep,
+                      "ssm_sharding": ssm, "job": job,
                       "zamba_train": zt,
                       "xlstm": xl, "frontends": fr,
                       "frontend_train": ft, "examples": ex,

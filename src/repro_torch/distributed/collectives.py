@@ -4,9 +4,10 @@ The sharded step (``train/train_step.py``, ``sharded=True``) holds every
 parameter, gradient and AdamW moment as this rank's shard, placed by the
 reference's rules (``ShardingRules.spec_for``): FSDP over ``"data"`` on
 the ``"embed"`` dimension, tensor parallelism over ``"model"`` on heads,
-KV heads, the FFN width and the vocabulary. The reference leaves the data
+KV heads, SSM heads, the FFN and recurrent blocks' widths and the
+vocabulary. The reference leaves the data
 movement to GSPMD; here it is explicit, and every collective is one of
-four deterministic ``torch.autograd.Function``s on plain tensors, so the
+these deterministic ``torch.autograd.Function``s on plain tensors, so the
 kernels take the local shards as they take whole tensors:
 
 - ``gather(x, dim, group)``: all-gather along ``dim``
@@ -37,7 +38,14 @@ kernels take the local shards as they take whole tensors:
   every rank of ``group`` repeats the same use of a weight it holds a block
   of, so the gradient of the whole weight is already equal on every rank:
   the MoE router ``(d, e)``, its experts over ``"model"``, whose logits,
-  softmax and top-k every model rank computes whole.
+  softmax and top-k every model rank computes whole;
+- ``take_block(x, dim, group)``: this rank's block of ``dim`` forward;
+  backward the blocks' gradients all-gathered. It stands where a tensor
+  that every rank of ``group`` computes whole and equal enters work they
+  partition along ``dim`` (a norm over whole rows before a row-parallel
+  projection, ``models/ssm.py``, ``models/xlstm.py``): every rank then
+  holds the whole gradient, each block computed once, and the work before
+  it repeats with no partial sums.
 
 Nothing is atomic and the order of every sum is fixed, so a run repeats
 bit for bit; a collective over one rank leaves its values as they are,
@@ -48,8 +56,10 @@ the replicated step's bits.
 
 ``ShardedParams`` is the step's context: the rules, the spec of every
 parameter leaf of the layout and one process group a mesh dimension
-(``mesh.get_group(name)``), and this rank's range of experts
-(``expert_range``). ``activate_sharded`` makes it current for the model
+(``mesh.get_group(name)``), this rank's range of experts
+(``expert_range``), and a leaf made whole over "model" for work whose
+split does not follow its blocks (``model_whole``). ``activate_sharded``
+makes it current for the model
 code (thread-local, as the rules are; ``models/transformer.py``'s
 ``_remat`` carries it into the recompute).
 
@@ -187,6 +197,18 @@ class _GatherRepeated(torch.autograd.Function):
         return g.narrow(ctx.dim, ctx.index * ctx.n, ctx.n), None, None
 
 
+class _TakeBlock(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dim, group):
+        ctx.dim, ctx.group = dim, group
+        n = x.shape[dim] // dist.get_world_size(group)
+        return x.narrow(dim, dist.get_rank(group) * n, n)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_gather_dim(g, ctx.dim, ctx.group), None, None
+
+
 def gather(x, dim: int, group):
     return _Gather.apply(x, dim, group)
 
@@ -197,6 +219,10 @@ def all_reduce(x, group):
 
 def gather_repeated(x, dim: int, group):
     return _GatherRepeated.apply(x, dim, group)
+
+
+def take_block(x, dim: int, group):
+    return _TakeBlock.apply(x, dim, group)
 
 
 def copy_to(x, group):
@@ -278,6 +304,23 @@ class ShardedParams:
             return 0, e
         n = e // self.rules.axis_sizes["model"]
         return self.coord("model") * n, (self.coord("model") + 1) * n
+
+    # -- a leaf whole over "model" ------------------------------------------
+    def model_whole(self, x, pspec, *, repeated: bool):
+        """``x``, this rank's block of the leaf ``pspec`` (whole over
+        "data"), whole over ``"model"``, for work whose split does not
+        follow the leaf's blocks (the Mamba2 block's fused projection and
+        conv, a norm over whole rows, heads whole over a split leaf).
+        ``repeated``: every model rank repeats the work that uses it, so
+        each holds the whole gradient and keeps its block (``gather_repeated``,
+        or the leaf as it is where it is whole); else each does its part,
+        and the ranks' gradients are summed (``gather``, or ``copy_to``
+        where the leaf is whole)."""
+        for dim, entry in enumerate(self.spec(pspec)):
+            if "model" in entry_axes(entry):
+                gather_fn = gather_repeated if repeated else gather
+                return gather_fn(x, dim, self.groups["model"])
+        return x if repeated else copy_to(x, self.groups["model"])
 
     # -- FSDP ----------------------------------------------------------------
     def gather_data(self, tree, specs):

@@ -13,8 +13,9 @@ model) production meshes.
 entry a dimension, ``None``, a mesh-dimension name or a tuple of names.
 ``placements_for`` turns it into DTensor placements, one a mesh dimension.
 
-The port applies the placements at run time to the transformer's train
-step (``train/train_step.py``, ``sharded=True``), dense or with experts:
+The port applies the placements at run time to the train step
+(``train/train_step.py``, ``sharded=True``) of the transformer, dense or
+with experts, of Zamba2 and of xLSTM:
 ``shard_params`` cuts every leaf to this rank's shard (``local_shape``;
 an expert stack ``(e, d, f)`` to the rank's ``e / M`` experts of ``d /
 D`` rows), the step trains the shards, and ``gather_params`` puts the
@@ -22,8 +23,8 @@ whole leaves back together (for tests and checks). Shards are plain
 tensors, not DTensors: the data movement is explicit, in the autograd
 collectives of ``distributed/collectives.py``, where the reference
 leaves it to GSPMD.
-Everything else (serving, the other families, the replicated train step
-with its data-parallel all-reduce and the ring attention's P2P) holds
+Everything else (serving, the replicated train step with its
+data-parallel all-reduce and the ring attention's P2P) holds
 plain tensors whole on every rank, and ``shard`` therefore acts only on a
 DTensor.
 """

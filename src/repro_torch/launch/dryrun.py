@@ -9,17 +9,19 @@ port runs on that mesh, traced once on one rank:
   size (``fake_world``): this process is rank 0, and the c10d operations
   the step dispatches are counted (``launch/step_analysis.py``) but move
   no data;
-- the transformer's train cells, dense or with experts (olmoe-1b-7b,
-  arctic-480b), run the sharded step (``"param_placement": "sharded"``,
-  ``train/train_step.py``'s ``sharded=True``): parameters, gradients,
-  AdamW state and the batch are rank 0's shards, placed by
-  ``build_cell``'s placements, each layer's weights gathered over "data"
-  inside its remat body, its tensor parallel parts reduced over "model",
-  its experts rank 0's block over "model" with the router gathered whole
-  (``distributed/collectives.py``, ``models/moe.py``). Rank 0 is
+- the train cells of the transformer, dense or with experts (olmoe-1b-7b,
+  arctic-480b), of Zamba2 and of xLSTM run the sharded step
+  (``"param_placement": "sharded"``, ``train/train_step.py``'s
+  ``sharded=True``): parameters, gradients, AdamW state and the batch are
+  rank 0's shards, placed by ``build_cell``'s placements, each layer's
+  weights gathered over "data" inside its remat body, its tensor parallel
+  parts reduced over "model", its experts rank 0's block over "model"
+  with the router gathered whole, Mamba2's SSD over rank 0's heads and
+  the recurrent blocks split as ``models/ssm.py`` and ``models/xlstm.py``
+  say (``distributed/collectives.py``, ``models/moe.py``). Rank 0 is
   representative: the placements are symmetric;
-- every other cell (Zamba2, xLSTM, ring attention, prefill, encode and
-  decode) holds its tensors whole on every rank (``"param_placement":
+- every other cell (ring attention, prefill, encode and decode) holds its
+  tensors whole on every rank (``"param_placement":
   "replicated"``, and ``"replicated_because"`` says why): the train step
   computes on this
   rank's data-parallel rows and all-reduces the gradients; prefill, encode

@@ -8,15 +8,16 @@ decode caches are tensors on the ``meta`` device, which the cell's step
 mesh dimension, from the sharding rules (``distributed/sharding.py``), as
 ``param_sharding`` gives a parameter's.
 
-The transformer's train cells, dense or with experts (``train_placement``),
-are the sharded step's (``train/train_step.py``, ``sharded=True``): their
+The train cells of the transformer, dense or with experts, of Zamba2 and of
+xLSTM (``train_placement``) are the sharded step's
+(``train/train_step.py``, ``sharded=True``): their
 parameters, optimizer state and batch are stand-ins at one rank's local
 shapes (``distributed.sharding.local_shape``), as the placements place
 them; an int8 moment whose shard's last dimension is not a multiple of
 ``QBLOCK`` is held at the reference's placement, its last dimension whole
-(``adamw.moment_shape``). Every other cell (Zamba2, xLSTM, ring attention,
-prefill, encode and decode) holds its tensors whole on every rank, as the
-port still runs it.
+(``adamw.moment_shape``). Every other cell (ring attention, prefill,
+encode and decode) holds its tensors whole on every rank, as the port
+still runs it.
 
 Training takes the master weights in ``cfg.param_dtype``, as the trainer
 holds them; prefill, encode and decode take them in ``cfg.dtype``, as the

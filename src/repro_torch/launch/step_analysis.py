@@ -34,8 +34,14 @@ the reference's ``HloReport`` that it can fill honestly:
   reduce-scatters, its tensor-parallel all-reduces over "model", the MoE
   router's all-gather over "model" (``gather_repeated``: no collective in
   its backward), the aux losses' token sums all-reduced over "data" in
-  both directions (``all_reduce``) and the int8 moments' gradient
-  gathers), under the reference's ring conventions for a group of g ranks:
+  both directions (``all_reduce``), the int8 moments' gradient gathers,
+  and the Zamba2 and xLSTM blocks' over "model": Mamba2's fused
+  projection and conv weights gathered whole (their gradients
+  reduce-scattered), its gated activation all-gathered for the norm over
+  whole rows (``take_block``'s backward all-gathers the gradient), the
+  norms' weights gathered, the mLSTM's and the output projections'
+  partial sums all-reduced, the sLSTM's output all-gathered once a use),
+  under the reference's ring conventions for a group of g ranks:
   all-gather and all-to-all |result|·(g-1)/g, all-reduce
   2·|result|·(g-1)/g, reduce-scatter |result|·(g-1), a point-to-point send
   (the reference's collective-permute) |result|. Under a fake process group

@@ -10,12 +10,24 @@ tail and steps it in plain PyTorch, as the reference does in jnp.
 
 Single SSM parameter group (n_groups=1): B/C projections are shared across
 heads, as in the released Mamba2 models.
+
+Under the sharded train step (``distributed/collectives.py``) the block
+takes this rank's shards, and the compute split follows the placements,
+not the mesh: where the ``ssm_heads`` leaves are sharded over "model" the
+rank runs the SSD over its heads, on its z, x and dt columns and the whole
+B and C, else every model rank runs all of them; the gated RMSNorm spans
+all of ``d_inner``, so it runs on whole rows (the gated activation
+gathered over "model"), and the output projection is row-parallel over
+the rank's block of ``w_out``'s rows (``_mamba_sharded``).
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 
+from ..distributed.collectives import (copy_to, current_sharded,
+                                       gather_repeated, reduce_from,
+                                       take_block)
 from ..kernels.mamba_scan import mamba_chunk_scan
 from .layers import norm_spec, rmsnorm
 from .params import ParamSpec
@@ -94,11 +106,104 @@ def ssd_step(xh, dt, a_log, bmat, cmat, d_skip, h_prev):
     return y[:, None].to(xh.dtype), h_new
 
 
+class _Take(torch.autograd.Function):
+    """The blocks ``pieces`` ((start, length), ...) of ``x`` along ``dim``,
+    concatenated; backward one zero-filled gradient of ``x`` with each
+    block's gradient copied into its place (disjoint: no sums)."""
+
+    @staticmethod
+    def forward(ctx, x, dim, pieces):
+        ctx.dim, ctx.pieces, ctx.shape = dim, pieces, x.shape
+        return torch.cat([x.narrow(dim, a, n) for a, n in pieces], dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        out, at = g.new_zeros(ctx.shape), 0
+        for a, n in ctx.pieces:
+            out.narrow(ctx.dim, a, n).copy_(g.narrow(ctx.dim, at, n))
+            at += n
+        return out, None, None
+
+
+def take(x, dim: int, pieces):
+    """``_Take``, or ``x`` itself where ``pieces`` cover it in order (one
+    rank's split: the replicated block's ops)."""
+    at = 0
+    for a, n in pieces:
+        if a != at:
+            return _Take.apply(x, dim, tuple(pieces))
+        at += n
+    return x if at == x.shape[dim] else _Take.apply(x, dim, tuple(pieces))
+
+
+def _mamba_sharded(cfg, p, x):
+    """The training block under the sharded step (module docstring); ``p``
+    is this rank's shards, whole over "data". The heads' leaves decide the
+    split: sharded, the rank's heads, with the normed input entering
+    through ``copy_to`` and every leaf whose blocks do not follow the heads
+    made whole over "model" with their gradients summed
+    (``ShardedParams.model_whole``), the gated activation then gathered;
+    whole, every model rank repeats the SSD and the leaves are gathered
+    without a sum. Either way every rank runs the gated norm on whole rows
+    and ``take_block`` hands its columns to the row-parallel ``w_out``.
+    Where ``w_out``'s rows stay whole too, the replicated block runs on
+    every model rank."""
+    sh, specs = current_sharded(), mamba_param_specs(cfg)
+    if not sh.split(specs["w_out"], 0):
+        return _mamba_block(cfg, {k: sh.model_whole(v, specs[k],
+                                                     repeated=True)
+                                  for k, v in p.items()}, x, None)[0]
+    dt_ = cfg.cdtype
+    group, rank = sh.group("model"), sh.coord("model")
+    din, n, hd = cfg.d_inner, cfg.ssm_state, cfg.ssm_headdim
+    heads_split = sh.split(specs["dt_bias"], 0)
+    hl = p["dt_bias"].shape[0]          # this rank's heads
+    d0, dl = rank * hl * hd if heads_split else 0, hl * hd
+    xn = rmsnorm(x, p["norm"], cfg.norm_eps)
+    if heads_split:
+        xn = copy_to(xn, group)
+    rep = not heads_split
+    # z, x, B, C and dt columns of the fused projection; x, B and C channels
+    # of the conv
+    w_in = take(sh.model_whole(p["w_in"], specs["w_in"], repeated=rep), 1,
+                ((d0, dl), (din + d0, dl), (2 * din, 2 * n),
+                 (2 * din + 2 * n + d0 // hd, hl)))
+    channels = ((d0, dl), (din, 2 * n))
+    conv_w = take(sh.model_whole(p["conv_w"], specs["conv_w"], repeated=rep),
+                  1, channels)
+    conv_b = take(sh.model_whole(p["conv_b"], specs["conv_b"], repeated=rep),
+                  0, channels)
+    z, xs, bmat, cmat, dtp = torch.split(xn @ w_in.to(dt_),
+                                         [dl, dl, n, n, hl], dim=-1)
+    conv_out, _ = _conv1d(torch.cat([xs, bmat, cmat], dim=-1),
+                          conv_w.to(dt_), conv_b.to(dt_))
+    xs, bmat, cmat = torch.split(conv_out, [dl, n, n], dim=-1)
+    dtv = F.softplus(dtp.float() + p["dt_bias"].float())
+    xh = xs.reshape(*xs.shape[:2], hl, hd)
+    y, _ = ssd_chunked(xh, dtv, p["A_log"], bmat, cmat, p["D"],
+                       min(cfg.ssm_chunk, xs.shape[1]))
+    g = y.reshape(*y.shape[:2], dl) * F.silu(z)
+    if heads_split:
+        g = gather_repeated(g, g.ndim - 1, group)
+    y = rmsnorm(g, sh.model_whole(p["gate_norm"], specs["gate_norm"],
+                                  repeated=True), cfg.norm_eps)
+    y = take_block(y, y.ndim - 1, group)
+    return x + reduce_from(y @ p["w_out"].to(dt_), group)
+
+
 def mamba_block(cfg, p, x, *, cache=None):
     """Pre-norm Mamba2 residual block.
 
     cache: None (train/prefill from scratch) or dict(conv=(B,K-1,C),
-    ssm=(B,H,N,P)) for decode; returns (y, new_cache)."""
+    ssm=(B,H,N,P)) for decode; returns (y, new_cache). Under the sharded
+    step (``cache`` None) the sharded block, whose result is ``(y, None)``:
+    training keeps no cache."""
+    if cache is None and current_sharded() is not None:
+        return _mamba_sharded(cfg, p, x), None
+    return _mamba_block(cfg, p, x, cache)
+
+
+def _mamba_block(cfg, p, x, cache):
     dt_ = cfg.cdtype
     din, n, h = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads
     xn = rmsnorm(x, p["norm"], cfg.norm_eps)

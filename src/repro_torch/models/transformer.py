@@ -77,6 +77,15 @@ def _stacked(axes: dict) -> dict:
     return {k: ("layers",) + a for k, a in axes.items()}
 
 
+def _gather_top(sh, params, *stacks):
+    """``params`` with every leaf outside the subtrees ``stacks`` gathered
+    over "data" (``ShardedParams.gather_data``); the subtrees as they
+    are, gathered where their layers run."""
+    top = {k: v for k, v in params.items() if k not in stacks}
+    return {**sh.gather_data(top, sh.layout),
+            **{k: params[k] for k in stacks}}
+
+
 def _remat(cfg, fn):
     """``cfg.remat``: "full" recomputes each layer in backward (one
     non-reentrant ``torch.utils.checkpoint`` a layer, the reference's
@@ -156,9 +165,7 @@ class TransformerFamily:
         with the layer."""
         sh = current_sharded()
         if sh is not None:
-            top = {k: v for k, v in params.items() if k != "layers"}
-            params = {**sh.gather_data(top, sh.layout),
-                      "layers": params["layers"]}
+            params = _gather_top(sh, params, "layers")
             layer_specs = self.layer_specs(cfg)
         x, positions, _ = self._embed(cfg, params, batch)
         moe = bool(cfg.num_experts)
@@ -385,10 +392,23 @@ class XLSTMFamily:
     def train_loss(self, cfg, params, batch):
         """batch: tokens and labels (B,S). Returns (mean token
         cross-entropy, {"loss": it}); each pair runs under ``_remat``, as
-        the reference's scan body does."""
+        the reference's scan body does.
+
+        Under the sharded step ``params`` are this rank's shards: the
+        leaves outside the pairs are gathered over "data" once, each
+        pair's inside its remat body (``models/xlstm.py`` splits the
+        blocks over "model"), and the embedding and loss are
+        vocab-parallel."""
+        sh = current_sharded()
+        if sh is not None:
+            params = _gather_top(sh, params, "pairs")
+            specs = {"m": mlstm_param_specs(cfg), "s": slstm_param_specs(cfg)}
         x = L.embed_tokens(cfg, params, batch["tokens"])
 
         def pair(h, pm, ps):
+            if sh is not None:
+                pm = sh.gather_data(pm, specs["m"])
+                ps = sh.gather_data(ps, specs["s"])
             h, _ = mlstm_block(cfg, pm, h)
             return slstm_block(cfg, ps, h)[0]
 
@@ -398,7 +418,7 @@ class XLSTMFamily:
             x = body(x, pm, ps)
         x = L.rmsnorm(x, params["final_norm"], cfg.norm_eps)
         loss = L.softmax_xent(L.logits_fn(cfg, params, x),
-                              batch["labels"].long())
+                              batch["labels"].long(), cfg=cfg)
         return loss, {"loss": loss}
 
     def _forward(self, cfg, params, x, caches=None):
@@ -488,21 +508,41 @@ class ZambaFamily:
         """batch: tokens and labels (B,S). Returns (mean token
         cross-entropy, {"loss": it}); each Mamba layer runs under
         ``_remat``, the shared attention + FFN block outside it, as the
-        reference's scan body does."""
+        reference's scan body does.
+
+        Under the sharded step ``params`` are this rank's shards: the
+        embedding, unembedding and final norm are gathered over "data"
+        once, each Mamba layer's leaves inside its remat body
+        (``models/ssm.py`` splits the block over "model"), and the shared
+        block's at each application, whose attention and FFN are the
+        transformer's sharded ones; autograd sums the applications'
+        gradients of the shared shards."""
+        sh = current_sharded()
+        if sh is not None:
+            params = _gather_top(sh, params, "mamba", "shared")
+            specs = mamba_param_specs(cfg)
         x = L.embed_tokens(cfg, params, batch["tokens"])
         positions = torch.arange(x.shape[1], device=x.device)
-        body = _remat(cfg, lambda h, lp: mamba_block(cfg, lp, h)[0])
+
+        def layer(h, lp):
+            if sh is not None:
+                lp = sh.gather_data(lp, specs)
+            return mamba_block(cfg, lp, h)[0]
+
+        body = _remat(cfg, layer)
         layers = _unbind_layers(params["mamba"])
-        shared = params["shared"]
         for kind, i in self._schedule(cfg):
             if kind == "mamba":
                 x = body(x, layers[i])
-            else:
-                x, _ = L.attention_block(cfg, shared["attn"], x, positions)
-                x = L.mlp_block(cfg, shared["ffn"], x)
+                continue
+            shared = params["shared"]
+            if sh is not None:
+                shared = sh.gather_data(shared, sh.layout["shared"])
+            x, _ = L.attention_block(cfg, shared["attn"], x, positions)
+            x = L.mlp_block(cfg, shared["ffn"], x)
         x = L.rmsnorm(x, params["final_norm"], cfg.norm_eps)
         loss = L.softmax_xent(L.logits_fn(cfg, params, x),
-                              batch["labels"].long())
+                              batch["labels"].long(), cfg=cfg)
         return loss, {"loss": loss}
 
     def layout(self, cfg) -> dict:

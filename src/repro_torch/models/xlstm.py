@@ -11,12 +11,24 @@ The matrix products stay ``torch.matmul`` (the reference's ``mlstm_tile``
 region is jnp, outside any kernel); the block norms go through the RMSNorm
 kernel's ``ops`` entry. A ragged last mLSTM chunk is scanned at its own
 length, where the reference requires a multiple of the chunk.
+
+Under the sharded train step (``distributed/collectives.py``) the blocks
+take this rank's shards. The mLSTM's ``"mlp"`` width split over "model"
+makes its up projections and conv column-parallel and its q, k, v and
+gate projections row-parallel (partial sums reduced over "model"); every
+model rank then runs the recurrence over all heads, and the output norm's
+columns, the gate and the down projection's rows are the rank's again.
+The sLSTM runs its rank's heads where they are sharded (the heads are
+independent), and its FFN is column- then row-parallel where its width is.
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 
+from ..distributed.collectives import (copy_to, current_sharded, gather,
+                                       gather_repeated, reduce_from,
+                                       take_block)
 from .layers import _proj, norm_spec, rmsnorm
 from .params import ParamSpec
 from .ssm import _conv1d
@@ -143,9 +155,54 @@ def mlstm_chunked(q, k, v, log_i, log_f, state=None, chunk: int = 64):
     return torch.cat(hs, dim=2).transpose(1, 2), (c, n, m)
 
 
+def _mlstm_sharded(cfg, p, x):
+    """The training block under the sharded step (module docstring); ``p``
+    is this rank's shards, whole over "data". The normed input enters the
+    column-parallel up projections through ``copy_to``; every model rank
+    runs the recurrence and the output norm (its statistic spans the
+    width, its weight gathered whole) on the whole output, and
+    ``take_block`` hands the rank's columns to the gate and the
+    row-parallel down projection. Where the ``"mlp"`` width stays whole,
+    the replicated block runs on every model rank."""
+    sh, specs = current_sharded(), mlstm_param_specs(cfg)
+    if not sh.split(specs["w_up_x"], 1):
+        return _mlstm_block(cfg, {k: sh.model_whole(v, specs[k],
+                                                     repeated=True)
+                                  for k, v in p.items()}, x, None)[0]
+    dt_ = cfg.cdtype
+    group = sh.group("model")
+    xn = copy_to(rmsnorm(x, p["norm"], cfg.norm_eps), group)
+    xin = xn @ p["w_up_x"].to(dt_)
+    z = xn @ p["w_up_z"].to(dt_)
+    conv_out, _ = _conv1d(xin, p["conv_w"].to(dt_), p["conv_b"].to(dt_))
+    q = reduce_from(_proj(conv_out, p["wq"]), group)
+    k = reduce_from(_proj(conv_out, p["wk"]), group)
+    v = reduce_from(_proj(xin, p["wv"]), group)
+    b_i, b_f = (sh.model_whole(p[n], specs[n], repeated=True)
+                for n in ("b_i", "b_f"))
+    log_i = reduce_from(conv_out @ p["w_i"].to(dt_), group).float() \
+        + b_i.float()
+    log_f = F.logsigmoid(reduce_from(conv_out @ p["w_f"].to(dt_),
+                                     group).float() + b_f.float())
+    hs, _ = mlstm_chunked(q, k, v, log_i, log_f, None, min(64, q.shape[1]))
+    hs = rmsnorm(hs.reshape(*hs.shape[:2], -1),
+                 sh.model_whole(p["out_norm"], specs["out_norm"],
+                                repeated=True), cfg.norm_eps)
+    hs = take_block(hs, hs.ndim - 1, group)
+    out = (hs * F.silu(z)) @ p["w_down"].to(dt_)
+    return x + reduce_from(out, group)
+
+
 def mlstm_block(cfg, p, x, *, cache=None):
     """Pre-norm mLSTM residual block. cache: None (prefill from scratch) or
-    dict(conv, C, n, m); returns (y, new_cache)."""
+    dict(conv, C, n, m); returns (y, new_cache). Under the sharded step
+    (``cache`` None) the sharded block, whose result is ``(y, None)``."""
+    if cache is None and current_sharded() is not None:
+        return _mlstm_sharded(cfg, p, x), None
+    return _mlstm_block(cfg, p, x, cache)
+
+
+def _mlstm_block(cfg, p, x, cache):
     dt_ = cfg.cdtype
     xn = rmsnorm(x, p["norm"], cfg.norm_eps)
     xin = xn @ p["w_up_x"].to(dt_)
@@ -256,21 +313,51 @@ def slstm_scan(gates_in, r, b, state=None):
 
 def slstm_block(cfg, p, x, *, cache=None):
     """Pre-norm sLSTM residual block with its gated FFN. cache: None or
-    dict(c, n, m, h); returns (y, new_cache)."""
+    dict(c, n, m, h); returns (y, new_cache).
+
+    Under the sharded step (``cache`` None; ``p`` this rank's shards,
+    whole over "data"; the result ``(y, None)``): where the heads are
+    sharded over "model" the rank runs its heads' recurrence from the
+    normed input through ``copy_to``, and its output is gathered once for
+    each use: for the residual, which every model rank repeats, its
+    gradient the rank's block (``gather_repeated``), and for an FFN whose
+    width is sharded, which the ranks partition, its gradient summed
+    (``gather``). With the heads whole the output enters a sharded FFN
+    through ``copy_to``; a sharded FFN's partial sums are reduced."""
     dt_ = cfg.cdtype
+    sh = current_sharded() if cache is None else None
+    heads = ffn = None
+    if sh is not None:
+        specs = slstm_param_specs(cfg)
+        if sh.split(specs["w_gates"], 2):
+            heads = sh.group("model")
+        if sh.split(specs["ffn_gate"], 1):
+            ffn = sh.group("model")
     xn = rmsnorm(x, p["norm"], cfg.norm_eps)
+    if heads is not None:
+        xn = copy_to(xn, heads)
     gates_in = _proj(xn, p["w_gates"])                      # (B,S,4,H,hd)
     state = (None if cache is None else
              (cache["c"], cache["n"], cache["m"], cache["h"]))
     hs, (c, n, m, hl) = slstm_scan(gates_in, p["r_gates"], p["b_gates"],
                                    state)
     hs = hs.reshape(*hs.shape[:2], -1).to(dt_)
-    y = x + hs
+    res = hs_ffn = hs
+    if heads is not None:
+        res = hs_ffn = gather_repeated(hs, hs.ndim - 1, heads)
+        if ffn is not None:
+            hs_ffn = gather(hs, hs.ndim - 1, heads)
+    elif ffn is not None:
+        hs_ffn = copy_to(hs, ffn)
+    y = x + res
     # gated FFN (GLU, 4/3 factor)
-    gate = hs @ p["ffn_gate"].to(dt_)
-    up = hs @ p["ffn_up"].to(dt_)
+    gate = hs_ffn @ p["ffn_gate"].to(dt_)
+    up = hs_ffn @ p["ffn_up"].to(dt_)
     hf = F.gelu(gate, approximate="tanh") * up
-    y = y + hf @ p["ffn_down"].to(dt_)
+    down = hf @ p["ffn_down"].to(dt_)
+    y = y + (down if ffn is None else reduce_from(down, ffn))
+    if sh is not None:
+        return y, None
     return y, {"c": c, "n": n, "m": m, "h": hl}
 
 

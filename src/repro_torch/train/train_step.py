@@ -8,10 +8,12 @@ The train step runs replicated (every parameter whole on every rank,
 data parallel under rules that split the batch) or, chosen by its caller
 with ``sharded=True``, on this rank's shards (``distributed/sharding.py``'s
 ``shard_params``, ``distributed/collectives.py``): FSDP over "data",
-tensor parallelism over "model", and for MoE configs expert parallelism
-over "model" (``models/moe.py``). Either way a split batch is the
-reference's global batch to the MoE block: its groups are the global
-batch's and its aux losses global (``BatchSplit``).
+tensor parallelism over "model", for MoE configs expert parallelism
+over "model" (``models/moe.py``), and for the Zamba2 and xLSTM families
+their blocks split over "model" (``models/ssm.py``,
+``models/xlstm.py``). Either way a split batch is the reference's global
+batch to the MoE block: its groups are the global batch's and its aux
+losses global (``BatchSplit``).
 
 Each builder returns a plain function that runs one model pass and, for
 the decode-like steps, takes the greedy argmax over the compute-dtype
@@ -31,7 +33,8 @@ from ..distributed.collectives import (BatchSplit, ShardedParams,
                                        activate_sharded, all_reduce_sum)
 from ..distributed.sharding import current_rules
 from ..models import get_family
-from ..models.transformer import TransformerFamily
+from ..models.transformer import (TransformerFamily, XLSTMFamily,
+                                  ZambaFamily)
 from . import adamw
 
 
@@ -96,8 +99,9 @@ def local_batch(batch, microbatches: int = 1):
 def sharded_step_gap(cfg) -> str:
     """Why the sharded train step does not cover ``cfg``, or "" where it
     does: the transformer, dense or with experts (expert parallelism over
-    "model"), its attention chunked."""
-    if not isinstance(get_family(cfg), TransformerFamily):
+    "model"), the Zamba2 hybrid and the xLSTM stack, attention chunked."""
+    if not isinstance(get_family(cfg), (TransformerFamily, ZambaFamily,
+                                        XLSTMFamily)):
         return (f"the {cfg.family} family trains replicated (its sharded "
                 "step waits)")
     if cfg.attn_impl != "chunked":

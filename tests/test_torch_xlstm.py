@@ -58,6 +58,10 @@ REL = 1e-5                     # of the largest magnitude, float32
 B, H, MHD = 2, 4, 32           # batch; heads; mLSTM head dim (2 * 64 / 4)
 MAX_LEN = 40
 MARGIN = 1e-4                  # top-1 minus top-2 logit worth comparing at
+# The reference's functions compile with XLA's backend optimisations off:
+# on these widths that takes a fraction of the compile time and leaves the
+# float32 results within the tests' tolerances.
+FAST_XLA = {"xla_backend_optimization_level": 0}
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -70,6 +74,24 @@ def _one_thread():
     torch.set_num_threads(n)
 
 
+def _jit(fn, static_argnums=()):
+    """``jax.jit(fn, static_argnums)`` compiled with FAST_XLA, once for each
+    set of argument shapes (and static values)."""
+    compiled = {}
+
+    def call(*args):
+        static = tuple(args[i] for i in static_argnums)
+        dynamic = [a for i, a in enumerate(args) if i not in static_argnums]
+        leaves, tree = jax.tree.flatten(dynamic)
+        key = (static, tree, tuple((np.shape(x), np.result_type(x))
+                                   for x in leaves))
+        if key not in compiled:
+            compiled[key] = jax.jit(fn, static_argnums=static_argnums).lower(
+                *args).compile(FAST_XLA)
+        return compiled[key](*dynamic)
+    return call
+
+
 @pytest.fixture(scope="module")
 def model():
     """Both configs, both parameter trees and the reference's compiled
@@ -78,13 +100,13 @@ def model():
     tcfg = get_reduced_config("xlstm-350m").replace(dtype="float32")
     layout = jax_family(jcfg).layout(jcfg)
     # one compiled init: eagerly, each leaf's shape compiles on its own
-    jparams = jax.jit(lambda key: jax_init(layout, key, "float32"))(
+    jparams = _jit(lambda key: jax_init(layout, key, "float32"))(
         jax.random.PRNGKey(0))
     tparams = params_from_reference(tcfg, get_family(tcfg).layout(tcfg),
                                     jax.tree.map(np.asarray, jparams),
                                     device="cpu")
-    steps = (jax.jit(jts.build_prefill_step(jcfg)),
-             jax.jit(jts.build_decode_step(jcfg)))
+    steps = (_jit(jts.build_prefill_step(jcfg)),
+             _jit(jts.build_decode_step(jcfg)))
     return jcfg, tcfg, jparams, tparams, steps
 
 
@@ -157,7 +179,7 @@ def test_mlstm_scan_matches_reference(start):
     rng = np.random.RandomState(1)
     inputs = _gates(rng, 9)
     state = None if start == "zero" else _mlstm_state(rng)
-    jh, jstate = jax.jit(jx.mlstm_scan)(*inputs, state)
+    jh, jstate = _jit(jx.mlstm_scan)(*inputs, state)
     th, tstate = xlstm.mlstm_scan(*_t(inputs),
                                   None if state is None else _t(state))
     _close(th, jh, "h")
@@ -171,7 +193,7 @@ def test_mlstm_chunked_matches_reference(start):
     rng = np.random.RandomState(2)
     inputs = _gates(rng, 128)
     state = None if start == "zero" else _mlstm_state(rng)
-    chunked = jax.jit(jx.mlstm_chunked, static_argnums=6)
+    chunked = _jit(jx.mlstm_chunked, static_argnums=(6,))
     jh, jstate = chunked(*inputs, state, 64)
     th, tstate = xlstm.mlstm_chunked(*_t(inputs),
                                      None if state is None else _t(state), 64)
@@ -189,7 +211,7 @@ def test_mlstm_ragged_chunk_matches_reference_scan():
     state = _mlstm_state(rng)
     with pytest.raises(ValueError, match="seq 70 % chunk 64"):
         jx.mlstm_chunked(*inputs, state, 64)
-    jh, jstate = jax.jit(jx.mlstm_scan)(*inputs, state)
+    jh, jstate = _jit(jx.mlstm_scan)(*inputs, state)
     th, tstate = xlstm.mlstm_chunked(*_t(inputs), _t(state), 64)
     _close(th, jh, "h")
     for got, want, name in zip(tstate, jstate, "Cnm"):
@@ -208,7 +230,7 @@ def test_slstm_scan_matches_reference(start):
         np.abs(rng.randn(B, H, hd)).astype(np.float32) + 0.5,
         rng.randn(B, H, hd).astype(np.float32),
         rng.randn(B, H, hd).astype(np.float32))
-    jh, jstate = jax.jit(jx.slstm_scan)(gates, r, b, state)
+    jh, jstate = _jit(jx.slstm_scan)(gates, r, b, state)
     th, tstate = xlstm.slstm_scan(*_t((gates, r, b)),
                                   None if state is None else _t(state))
     _close(th, jh, "h")
@@ -228,7 +250,7 @@ def test_block_matches_reference(model, kind):
     tblock = {"m": xlstm.mlstm_block, "s": xlstm.slstm_block}[kind]
     jp = {k: v[0] for k, v in jparams["pairs"][kind].items()}
     tp = {k: v[0] for k, v in tparams["pairs"][kind].items()}
-    block = jax.jit(lambda p, x, c: jblock(jcfg, p, x, cache=c))
+    block = _jit(lambda p, x, c: jblock(jcfg, p, x, cache=c))
     jy, jc = block(jp, jnp.asarray(x), None)
     ty, tc = tblock(tcfg, tp, torch.from_numpy(x))
     _close(ty, jy, "prefill y")
@@ -397,7 +419,7 @@ def test_train_loss_and_grads_match_reference(model):
     def loss_fn(params, b):
         return jfam.train_loss(jcfg, params, b)[0]
 
-    jloss, jgrads = jax.jit(jax.value_and_grad(loss_fn))(jparams, batch)
+    jloss, jgrads = _jit(jax.value_and_grad(loss_fn))(jparams, batch)
     leaves = adamw.tree_leaves(tp)
     for leaf in leaves:
         leaf.requires_grad_(True)
