@@ -192,6 +192,27 @@ Phases, each of which must pass (a failure exits nonzero):
    launches exact at those shapes, all on sm90; each step's device ms
    beside the dry-run's terms. xlstm-350m's ``train_4k`` on rank 0 waits
    for a fused sLSTM kernel (its plain time loop at S 4096).
+8f. serve sharding: the transformer's sharded serve steps
+   (``build_prefill_step`` / ``build_encode_step`` / ``build_decode_step``
+   with ``sharded=True``: FSDP over "data", heads, FFN and experts over
+   "model", vocab-parallel logits, the decode cache split by sequence,
+   each rank's partial softmax combined over the split, the new K/V row
+   written by its owner, a global argmax). (a) the one-process NCCL (1, 1)
+   mesh at full width and depth 2: internlm2-1.8b's prefill of B 8 x 1024
+   in bf16 and hubert-xlarge's encode of 8 x 1024 frames, bit for bit the
+   replicated steps; internlm2-1.8b and olmoe-1b-7b in f32, 8 decode steps
+   over the cache split by sequence over the one-rank "model" against the
+   replicated decode: logits within 1e-5 relative, tokens and caches
+   equal; launches exact, no plain version called; the kernels at (b)'s
+   local shapes against their plain versions in bf16 (flash over 2 of
+   mistral-nemo-12b's heads and their KV head at B 2 x 32768, hd 128, its
+   first and last 1024 rows held; RMSNorm over 65536 x 5120, 8 x 5120 and
+   8 x 2048); (b) rank 0 of the (16, 16) mesh over a fake process group:
+   mistral-nemo-12b ``prefill_32k`` and ``decode_32k`` at all 40 layers
+   and olmoe-1b-7b ``decode_32k``, only rank 0's shards, rows and cache
+   block allocated, 2 steps each: the peak device memory within 1% of the
+   dry-run's sharded ``per_device_total``, launches exact (flash on sm90),
+   each step's device ms beside the dry-run's terms.
 9. job: the same training run as a job of the Kotta batch runtime
    (``KottaService``): an outsider's submit refused and audited; alice's
    job staged under her role by the executor's assume-role, run on a
@@ -4316,6 +4337,462 @@ def phase_ssm_sharding(smi: str):
 
 
 # ---------------------------------------------------------------------------
+# phase 8f: serve sharding -- the sharded prefill, encode and decode steps
+# on a (1, 1) mesh, and mistral-nemo-12b's and olmoe-1b-7b's serve cells on
+# rank 0 of the production mesh
+# ---------------------------------------------------------------------------
+
+#: (a): the depth, batch, prompt length and decode steps on the one-process
+#: (1, 1) mesh.
+SERVE_SHARD_LAYERS, SERVE_SHARD_B, SERVE_SHARD_S = 2, 8, 1024
+SERVE_SHARD_STEPS = 8
+#: (b): the cells on rank 0 of the (16, 16) mesh, the steps of each, and
+#: how far the measured peak device memory may be from the dry-run's.
+SERVE_PROD_CELLS = (("mistral-nemo-12b", "prefill_32k"),
+                    ("mistral-nemo-12b", "decode_32k"),
+                    ("olmoe-1b-7b", "decode_32k"))
+SERVE_PROD_STEPS = 2
+SERVE_MEMORY_TOL = 0.01
+# The kernels' local shapes in (b): mistral-nemo-12b ``prefill_32k`` on rank
+# 0 is 2 rows of 32768; its flash over 2 of the 32 query heads and the one
+# KV head they use, hd 128, causal (B, S, heads, KV heads, hd, causal);
+# RMSNorm over 65536 rows of 5120, and at ``decode_32k`` over 8 rows of
+# 5120 (mistral-nemo-12b) and of 2048 (olmoe-1b-7b). The plain flash takes
+# the first and the last SERVE_FLASH_ROWS query rows: its whole S^2 scores
+# would not fit.
+SERVE_LOCAL_FLASH = (2, 32768, 2, 1, 128, True)
+SERVE_LOCAL_RMS = ((2 * 32768, 5120), (8, 5120), (8, 2048))
+SERVE_FLASH_ROWS = 1024
+
+
+def _attention_rows_plain(q, k, v, start: int):
+    """The plain causal attention of the query rows ``q`` (B,R,H,hd) at
+    positions ``start .. start + R - 1`` over every key of k/v (B,S,KV,hd):
+    ``attention_reference``'s arithmetic with the rows' causal mask."""
+    import torch
+    b, r, h, hd = q.shape
+    nkv = k.shape[2]
+    qg = q.reshape(b, r, nkv, h // nkv, hd).float()
+    s = torch.einsum("bqkgh,bskh->bkgqs", qg, k.float()) / math.sqrt(hd)
+    rows = start + torch.arange(r, device=q.device)
+    s = torch.where(rows[:, None] >= torch.arange(k.shape[1],
+                                                  device=q.device)[None],
+                    s, -1e30)
+    out = torch.einsum("bkgqs,bskh->bqkgh", torch.softmax(s, dim=-1),
+                       v.float())
+    return out.reshape(q.shape).to(q.dtype)
+
+
+def _serve_local_kernels():
+    """The two kernels of (b)'s steps at rank 0's local shapes in bf16,
+    once each, against their plain versions on the same inputs: flash
+    (``SERVE_LOCAL_FLASH``; its first and last ``SERVE_FLASH_ROWS`` rows)
+    and RMSNorm (``SERVE_LOCAL_RMS``, f32 weights away from one), each
+    within TOL_BF16 of its max |plain|, one launch, flash on sm90. ->
+    {kernel: {shape: max error}}."""
+    import torch
+    from repro_torch import kernels as K
+    tag = "serve sharding"
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(41)
+    bf = torch.bfloat16
+    b, s, h, kv, hd, causal = SERVE_LOCAL_FLASH
+    q, k, v = (torch.randn(b, s, n, hd, generator=gen, device=dev, dtype=bf)
+               for n in (h, kv, kv))
+    K.reset_launch_counts()
+    out = K.flash_attention_fwd(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    routes = K.launch_counts_by_route()["flash_attention_fwd"]
+    launches = sum(K.launch_counts().values())
+    r = SERVE_FLASH_ROWS
+    errs = [_rel_err(out[:, :r], K.attention_reference(
+                q[:, :r], k[:, :r], v[:, :r], causal=causal)),
+            _rel_err(out[:, -r:], _attention_rows_plain(q[:, -r:], k, v,
+                                                        s - r))]
+    ok = (routes["sm90"] == 1 and launches == 1
+          and all(math.isfinite(e) and e <= TOL_BF16 for e in errs))
+    log(f"[{tag}] flash_attention_fwd bf16 local {SERVE_LOCAL_FLASH}: "
+        f"max|kernel-plain|/max|plain| first and last {r} rows "
+        f"{['%.2e' % e for e in errs]} (tol {TOL_BF16}), {launches} launch, "
+        f"routes {routes} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"{tag}: flash at the local shape: {errs}, "
+                             f"{launches} launches, routes {routes}")
+    res = {"flash_attention_fwd": {str(SERVE_LOCAL_FLASH): max(errs)},
+           "rmsnorm_fused": {}}
+    del q, k, v, out
+    for rows, d in SERVE_LOCAL_RMS:
+        x = torch.randn(rows, d, generator=gen, device=dev, dtype=bf)
+        w = 0.25 + 0.05 * torch.randn(d, generator=gen, device=dev)
+        K.reset_launch_counts()
+        out = K.rmsnorm_fused(x, w)
+        torch.cuda.synchronize()
+        launches = sum(K.launch_counts().values())
+        err = _rel_err(out, K.rmsnorm_reference(x, w))
+        ok = launches == 1 and math.isfinite(err) and err <= TOL_BF16
+        log(f"[{tag}] rmsnorm_fused bf16 local {rows}x{d}: "
+            f"max|kernel-plain|/max|plain| {err:.2e} (tol {TOL_BF16}), "
+            f"{launches} launch {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"{tag}: rmsnorm at {rows}x{d}: {err}, "
+                                 f"{launches} launches")
+        res["rmsnorm_fused"][f"{rows}x{d}"] = err
+        del x, w, out
+    torch.cuda.empty_cache()
+    return res
+
+
+def _serve_want(cfg, kind) -> tuple[dict, dict]:
+    """(launches, flash launches by route) of one serve step of ``cfg``:
+    flash once a layer in a prefill or encode (on sm90 in bf16, cuda_core
+    in f32), none at decode; RMSNorm twice a layer and once at the end."""
+    import torch
+    layers = cfg.num_layers
+    want = {"rmsnorm_fused": 2 * layers + 1}
+    flash = {"sm90": 0, "cuda_core": 0}
+    if kind != "decode":
+        want["flash_attention_fwd"] = layers
+        flash["sm90" if cfg.cdtype == torch.bfloat16 else "cuda_core"] = \
+            layers
+    return want, flash
+
+
+def _serve_one_rank(smi):
+    """(a) on a one-process NCCL (1, 1) ("data", "model") mesh, every
+    collective issued over its one rank, at full width and depth
+    ``SERVE_SHARD_LAYERS``, random weights from seed 0: the sharded serve
+    steps against the replicated ones on the same weights and inputs.
+    internlm2-1.8b's prefill, B ``SERVE_SHARD_B`` x S ``SERVE_SHARD_S``,
+    bf16: logits and cache bit for bit; in bf16 and in f32 its prefill
+    (replicated) then ``SERVE_SHARD_STEPS`` decode steps over the cache
+    split by sequence over the one-rank "model" (its partial softmax and
+    combine run): logits within 1e-5 relative (bf16 bit for bit, f32's
+    bitwise reported), tokens and the cache after the last step equal;
+    the same in f32 for olmoe-1b-7b (64 experts
+    top 8, its group the whole batch); hubert-xlarge's encode of B x S
+    frames, bf16: logits bit for bit. Every step's launches exact, no
+    plain version called."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch import kernels as K
+    from repro_torch.configs import get_config
+    from repro_torch.distributed import ShardingRules, activate_rules
+    from repro_torch.distributed.sharding import shard_params, shard_tree
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import get_family, init_params
+    from repro_torch.train.train_step import (build_decode_step,
+                                              build_encode_step,
+                                              build_prefill_step,
+                                              local_serve_batch)
+    tag = "serve sharding"
+    b, s, steps = SERVE_SHARD_B, SERVE_SHARD_S, SERVE_SHARD_STEPS
+    smax = s + steps
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(43)
+    mesh = make_mesh((1, 1), ("data", "model"), device="cuda")
+    plain_calls, undo = _plain_call_counter()
+    rec = {}
+    try:
+        rules = ShardingRules(mesh)
+        drules = ShardingRules(mesh, {"cache_seq": "model"})
+        for arch, dtype, kind in (("internlm2-1.8b", None, "prefill"),
+                                  ("internlm2-1.8b", None, "decode"),
+                                  ("internlm2-1.8b", "float32", "decode"),
+                                  ("olmoe-1b-7b", "float32", "decode"),
+                                  ("hubert-xlarge", None, "encode")):
+            cfg = get_config(arch).replace(num_layers=SERVE_SHARD_LAYERS)
+            cfg = cfg.replace(dtype=dtype) if dtype else cfg
+            label = f"{arch} {kind} {cfg.dtype}"
+            fam = get_family(cfg)
+            layout = fam.layout(cfg)
+            params = init_params(cfg, layout, seed=0, device="cuda")
+            with activate_rules(rules):
+                shards = shard_params(params, layout, rules)
+            if cfg.frontend == "frame":
+                batch = {"frames": torch.randn(
+                    b, s, cfg.frontend_dim, generator=gen, device="cuda")}
+            else:
+                batch = {"tokens": torch.randint(
+                    0, cfg.vocab_size, (b, s), generator=gen, device="cuda")}
+            want = _serve_want(cfg, "prefill")
+            K.reset_launch_counts()
+            ref = (build_encode_step(cfg) if kind == "encode"
+                   else build_prefill_step(cfg))(params, batch)
+            torch.cuda.synchronize()
+            _exact_launches(f"{tag} (a) {label} replicated", *want)
+            if kind != "decode":
+                K.reset_launch_counts()
+                with activate_rules(rules):
+                    got = (build_encode_step if kind == "encode"
+                           else build_prefill_step)(
+                        cfg, sharded=True, global_batch=b)(
+                        shards, local_serve_batch(batch))
+                torch.cuda.synchronize()
+                launches = _exact_launches(f"{tag} (a) {label}", *want)
+                pairs = ([(ref, got)] if kind == "encode" else
+                         [(ref[0], got[0])] + [(ref[1][n], got[1][n])
+                                               for n in ("k", "v")])
+                same = all(torch.equal(x, y) for x, y in pairs)
+                rec[label] = {"bitwise": same, "launches": launches}
+                log(f"[{tag}] (a) {label}, {cfg.num_layers} layers, B {b} x "
+                    f"S {s}: sharded vs replicated bit for bit {same}; "
+                    f"launches {launches}")
+                if not same:
+                    raise AssertionError(f"{tag} (a): {label} is not the "
+                                         f"replicated step bit for bit")
+                del ref, got
+            else:
+                cache = {n: torch.nn.functional.pad(
+                    t, (0, 0, 0, 0, 0, smax - s)) for n, t in ref[1].items()}
+                del ref
+                with activate_rules(drules):
+                    scache = shard_tree({n: t.clone()
+                                         for n, t in cache.items()},
+                                        fam.cache_axes(cfg), drules)
+                step = build_decode_step(cfg)
+                sstep = build_decode_step(cfg, sharded=True, global_batch=b,
+                                          cache_len=smax)
+                want = _serve_want(cfg, "decode")
+                errs, bitwise, tokens_equal, launches = [], True, True, {}
+                for i in range(steps):
+                    one = {"tokens": torch.randint(
+                        0, cfg.vocab_size, (b, 1), generator=gen,
+                        device="cuda"),
+                        "pos": torch.full((b,), s + i, device="cuda",
+                                          dtype=torch.int32)}
+                    t0, l0, cache = step(params, one, cache)
+                    K.reset_launch_counts()
+                    with activate_rules(drules):
+                        t1, l1, scache = sstep(shards, local_serve_batch(one),
+                                               scache)
+                    torch.cuda.synchronize()
+                    for n, c in _exact_launches(f"{tag} (a) {label} step "
+                                                f"{i + 1}", *want).items():
+                        launches[n] = launches.get(n, 0) + c
+                    errs.append(_rel_err(l1, l0))
+                    bitwise = bitwise and torch.equal(l0, l1)
+                    tokens_equal = tokens_equal and torch.equal(t0, t1)
+                caches_equal = all(torch.equal(cache[n], scache[n])
+                                   for n in ("k", "v"))
+                rec[label] = {"logits_max_rel_err": max(errs),
+                              "logits_bitwise": bitwise,
+                              "tokens_equal": tokens_equal,
+                              "caches_equal": caches_equal,
+                              "launches": launches}
+                log(f"[{tag}] (a) {label}, {cfg.num_layers} layers, B {b}, "
+                    f"{steps} decode steps from position {s} over a "
+                    f"{smax}-position cache split by sequence over the "
+                    f"one-rank \"model\": logits max rel err {max(errs):.2e}"
+                    f" (tol 1e-5), bit for bit {bitwise}; tokens equal "
+                    f"{tokens_equal}; caches equal {caches_equal}; launches "
+                    f"{launches}")
+                # bf16 is held bit for bit: over one rank the combine's
+                # weight is l / l = 1
+                exact = bitwise or cfg.cdtype != torch.bfloat16
+                if not (max(errs) <= 1e-5 and tokens_equal and caches_equal
+                        and exact):
+                    raise AssertionError(f"{tag} (a): {label}: {rec[label]}")
+                del cache, scache
+            del params, shards, batch
+            gc.collect()
+            torch.cuda.empty_cache()
+    finally:
+        undo()
+        dist.destroy_process_group()
+    if sum(plain_calls.values()):
+        raise AssertionError(f"{tag} (a): a plain version ran on the card: "
+                             f"{plain_calls}")
+    rec["card"] = smi
+    return rec
+
+
+def _serve_production(smi, arch, shape_name):
+    """(b) rank 0 of the single-pod (16, 16) ("data", "model") mesh over a
+    fake process group of 256 ranks (``launch.dryrun.fake_mesh``): ``arch``
+    at the cell ``shape_name``, all its layers, only rank 0's parameter
+    shards allocated (``init_params(..., rules=)``, ``cfg.dtype``), its
+    rows of the batch and, at decode, its block of the cache (random,
+    split by batch over "data" and by sequence over "model"; positions in
+    rank 0's block, so it writes every new row); ``SERVE_PROD_STEPS``
+    sharded steps. The collectives move nothing, so the logits are not a
+    result. Held: the peak device memory of the steps (above what was
+    allocated before the arguments) within ``SERVE_MEMORY_TOL`` of the
+    dry-run's sharded ``per_device_total`` for the cell, every step's
+    launches exact, flash on sm90; each step's device ms (between two
+    events around it) and the host's time to enqueue it beside the
+    dry-run's terms."""
+    import torch
+    from repro_torch import kernels as K
+    from repro_torch.configs import get_config, get_shape
+    from repro_torch.distributed import activate_rules
+    from repro_torch.distributed.sharding import local_shape
+    from repro_torch.launch.dryrun import analyze_cell, cell_rules, fake_mesh
+    from repro_torch.models import get_family, init_params
+    from repro_torch.train.train_step import (build_decode_step,
+                                              build_prefill_step)
+    tag = "serve sharding"
+    cfg = get_config(arch)
+    shape = get_shape(shape_name)
+    fam = get_family(cfg)
+    layout = fam.layout(cfg)
+    decode = shape.kind == "decode"
+    want = _serve_want(cfg, shape.kind)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(47)
+    plain_calls, undo = _plain_call_counter()
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_allocated()
+    device_ms, host_ms, launches = [], [], {}
+    try:
+        with fake_mesh("single") as mesh:
+            rules = cell_rules(cfg, shape, mesh)
+            rows = shape.global_batch // rules.axis_sizes["data"]
+            params = init_params(cfg, layout, seed=0, device="cuda",
+                                 rules=rules)
+            cache = None
+            if decode:
+                whole = fam.cache_layout(cfg, shape.global_batch,
+                                         shape.seq_len)
+                axes = fam.cache_axes(cfg)
+                cache = {n: torch.empty(local_shape(rules, whole[n][0],
+                                                    axes[n]),
+                                        dtype=whole[n][1],
+                                        device="cuda").normal_(generator=gen)
+                         for n in whole}
+                step = build_decode_step(cfg, sharded=True,
+                                         global_batch=shape.global_batch,
+                                         cache_len=shape.seq_len)
+                block = cache["k"].shape[2]
+                batch = {"tokens": torch.randint(
+                    0, cfg.vocab_size, (rows, 1), generator=gen,
+                    device="cuda", dtype=torch.int32),
+                    "pos": block // 2 + torch.arange(
+                        rows, device="cuda", dtype=torch.int32)}
+            else:
+                step = build_prefill_step(cfg, sharded=True,
+                                          global_batch=shape.global_batch)
+                batch = {"tokens": torch.randint(
+                    0, cfg.vocab_size, (rows, shape.seq_len), generator=gen,
+                    device="cuda", dtype=torch.int32)}
+            local = {"params_bytes": sum(
+                p.numel() * p.element_size() for p in _leaves(params)),
+                "cache_block": (list(cache["k"].shape) if decode else None)}
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            with activate_rules(rules):
+                for i in range(SERVE_PROD_STEPS):
+                    K.reset_launch_counts()
+                    start = torch.cuda.Event(enable_timing=True)
+                    end = torch.cuda.Event(enable_timing=True)
+                    t0 = time.perf_counter()
+                    start.record()
+                    out = (step(params, batch, cache) if decode
+                           else step(params, batch))
+                    end.record()
+                    host_ms.append((time.perf_counter() - t0) * 1e3)
+                    torch.cuda.synchronize()
+                    device_ms.append(start.elapsed_time(end))
+                    for n, c in _exact_launches(
+                            f"{tag} (b) {arch} {shape_name} step {i + 1}",
+                            *want).items():
+                        launches[n] = launches.get(n, 0) + c
+                    if decode:
+                        cache = out[2]
+                        batch["pos"] = batch["pos"] + 1
+                    del out
+            peak = torch.cuda.max_memory_allocated() - held
+            del params, cache, batch
+    finally:
+        undo()
+    gc.collect()
+    torch.cuda.empty_cache()
+    dry = analyze_cell(cfg, shape, "single")
+    predicted = dry["memory"]["per_device_total"]
+    roof = dry["roofline"]
+    rec = {"config": cfg.name, "shape": dataclasses.asdict(shape),
+           "mesh": list(rules.axis_sizes.values()), "rank": 0, "rows": rows,
+           "steps": SERVE_PROD_STEPS, **local,
+           "measured_peak_bytes": peak, "allocated_before_bytes": held,
+           "predicted_per_device_bytes": predicted,
+           "memory_rel_err": predicted / peak - 1.0,
+           "dryrun_param_placement": dry["param_placement"],
+           "dryrun_memory": dry["memory"], "dryrun_trace_s": dry["trace_s"],
+           "step_device_ms": device_ms, "step_enqueue_ms": host_ms,
+           "roofline_terms_s": {k: roof[k] for k in
+                                ("compute_s", "memory_s", "collective_s")},
+           "memory_fused_s": roof["memory_fused_s"],
+           "collective_by_op": dry["hlo"]["collective_by_op"],
+           "launches_per_step": want[0], "launches": launches,
+           "plain_calls": dict(plain_calls), "card": smi}
+    log(f"[{tag}] (b) {cfg.name} {shape_name} on rank 0 of the "
+        f"{tuple(rules.axis_sizes.values())} mesh (a fake process group), "
+        f"{rows} rows, rank 0's shards only ({local}), {SERVE_PROD_STEPS} "
+        f"steps: peak device memory {peak / 2**30:.3f} GiB vs the dry-run's "
+        f"sharded per_device_total {predicted / 2**30:.3f} GiB "
+        f"({rec['memory_rel_err'] * 100:+.2f}%); step device ms "
+        f"{[round(x, 2) for x in device_ms]} (the host's enqueue of the "
+        f"step {[round(x, 2) for x in host_ms]} ms) beside the dry-run's "
+        f"compute "
+        f"{roof['compute_s'] * 1e3:.2f} / memory {roof['memory_s'] * 1e3:.2f}"
+        f" (fused {roof['memory_fused_s'] * 1e3:.2f}) / collective "
+        f"{roof['collective_s'] * 1e3:.2f} ms; launches {launches} "
+        f"({want[0]} a step); on {smi}")
+    if sum(plain_calls.values()):
+        raise AssertionError(f"{tag} (b): a plain version ran on the card: "
+                             f"{plain_calls}")
+    if dry["param_placement"] != "sharded" or not dry["memory"]["fits_hbm"]:
+        raise AssertionError(f"{tag} (b): the dry-run says "
+                             f"{dry['param_placement']}, fits "
+                             f"{dry['memory']['fits_hbm']}")
+    if abs(rec["memory_rel_err"]) > SERVE_MEMORY_TOL:
+        raise AssertionError(f"{tag} (b): {cfg.name} {shape_name}: "
+                             f"predicted {predicted} bytes, measured {peak}:"
+                             f" more than {SERVE_MEMORY_TOL:.0%} apart")
+    return rec
+
+
+def phase_serve_sharding(smi: str):
+    """The sharded serve steps of the transformer: (a) on a one-process
+    (1, 1) mesh against the replicated steps (``_serve_one_rank``); the
+    kernels of (b)'s steps at rank 0's local shapes against their plain
+    versions (``_serve_local_kernels``); (b) rank 0 of the production mesh
+    at mistral-nemo-12b's ``prefill_32k`` and ``decode_32k`` and
+    olmoe-1b-7b's ``decode_32k`` against the dry-run
+    (``_serve_production``)."""
+    import torch
+    t0 = time.perf_counter()
+    tag, seconds = "serve sharding", {}
+    rec = {"one_rank": _serve_one_rank(smi)}
+    seconds["a"] = time.perf_counter() - t0
+    t = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    rec["local_kernels"] = _serve_local_kernels()
+    seconds["local kernels"] = time.perf_counter() - t
+    for arch, shape in SERVE_PROD_CELLS:
+        t = time.perf_counter()
+        rec[f"{arch} {shape}"] = _serve_production(smi, arch, shape)
+        seconds[f"b {arch} {shape}"] = time.perf_counter() - t
+    rec["seconds"] = seconds
+    rec["phase_s"] = time.perf_counter() - t0
+    log(f"[{tag}] phase {rec['phase_s']:.1f} s "
+        f"({ {k: round(v, 1) for k, v in seconds.items()} }) on {smi}")
+    return rec
+
+
+def _serve_sharding_launches(ssv, name) -> dict:
+    """A kernel's launches in phase 8f's runs, by run."""
+    out = {label: r["launches"].get(name, 0)
+           for label, r in ssv["one_rank"].items() if label != "card"}
+    out.update({cell: ssv[cell]["launches"].get(name, 0)
+                for cell in (f"{a} {s}" for a, s in SERVE_PROD_CELLS)})
+    return out
+
+
+# ---------------------------------------------------------------------------
 # phase 9: the Kotta batch runtime -- a revoked full-width training job
 # ---------------------------------------------------------------------------
 
@@ -6256,6 +6733,7 @@ def main() -> int:
     shd = timed("sharding", phase_sharding, smi)
     ep = timed("expert parallel", phase_expert_parallel, smi)
     ssm = timed("ssm sharding", phase_ssm_sharding, smi)
+    ssv = timed("serve sharding", phase_serve_sharding, smi)
     job = timed("job", phase_job, smi, train)
     zt = timed("zamba train", phase_zamba_train, smi)
     xl = timed("xlstm", phase_xlstm, smi)
@@ -6320,6 +6798,10 @@ def main() -> int:
         if name in ssm["local_kernels"]:
             entry["launches_ssm_sharding"] = _ssm_launches(ssm, name)
             entry["zamba_local_max_err"] = ssm["local_kernels"][name]
+        if name in ssv["local_kernels"]:
+            entry["launches_serve_sharding"] = _serve_sharding_launches(
+                ssv, name)
+            entry["serve_local_max_err"] = ssv["local_kernels"][name]
         record.append(entry)
     for name, fwd in (("rmsnorm_bwd", "rmsnorm_fused"),
                       ("flash_attention_bwd", "flash_attention_fwd")):
@@ -6387,7 +6869,8 @@ def main() -> int:
                       "residency": moves, "gateway": gateway,
                       "train": train, "launch": launch,
                       "sharding": shd, "expert_parallel": ep,
-                      "ssm_sharding": ssm, "job": job,
+                      "ssm_sharding": ssm, "serve_sharding": ssv,
+                      "job": job,
                       "zamba_train": zt,
                       "xlstm": xl, "frontends": fr,
                       "frontend_train": ft, "examples": ex,

@@ -63,11 +63,12 @@ makes it current for the model
 code (thread-local, as the rules are; ``models/transformer.py``'s
 ``_remat`` carries it into the recompute).
 
-``BatchSplit`` is the data-parallel context of either train step: the
-process groups whose ranks hold other rows of the batch, and their count.
-``activate_batch_split`` makes it current; the MoE block then cuts the
-global batch into the reference's groups and takes its aux losses over
-every rank's tokens (``models/moe.py``).
+``BatchSplit`` is the data-parallel context of either train step and of
+the sharded serve steps: the process groups whose ranks hold other rows
+of the batch, and their count. ``activate_batch_split`` makes it current;
+the MoE block then cuts the global batch into the reference's groups
+(gathering a group that spans ranks, at serve time) and takes its aux
+losses over every rank's tokens (``models/moe.py``).
 """
 from __future__ import annotations
 
@@ -384,11 +385,30 @@ def _map_specs(fn, tree):
 
 
 class BatchSplit(NamedTuple):
-    """The process groups over which a train step splits the batch's rows
-    (``groups``) and the number of row blocks (``ranks``, the product of
-    their sizes)."""
+    """The process groups over which a step splits the batch's rows
+    (``groups``, the first dimension major) and the number of row blocks
+    (``ranks``, the product of their sizes). ``gather_groups``: where a
+    rank's rows split a group of the MoE block, the group's tokens are
+    gathered over ``groups`` and routed whole on every rank (the serve
+    steps); else that raises (the train steps)."""
     groups: tuple
     ranks: int
+    gather_groups: bool = False
+
+    def index(self) -> int:
+        """This rank's row block among ``ranks``."""
+        index = 0
+        for group in self.groups:
+            index = (index * dist.get_world_size(group)
+                     + dist.get_rank(group))
+        return index
+
+    def gather_rows(self, x):
+        """``x`` (this rank's rows, dimension 0) from every rank of
+        ``groups``, in row order (no gradient)."""
+        for group in reversed(self.groups):     # the minor dimension first
+            x = all_gather_dim(x, 0, group)
+        return x
 
 
 _tls = threading.local()

@@ -15,16 +15,19 @@ entry a dimension, ``None``, a mesh-dimension name or a tuple of names.
 
 The port applies the placements at run time to the train step
 (``train/train_step.py``, ``sharded=True``) of the transformer, dense or
-with experts, of Zamba2 and of xLSTM:
+with experts, of Zamba2 and of xLSTM, and to the transformer's prefill,
+encode and decode steps:
 ``shard_params`` cuts every leaf to this rank's shard (``local_shape``;
 an expert stack ``(e, d, f)`` to the rank's ``e / M`` experts of ``d /
-D`` rows), the step trains the shards, and ``gather_params`` puts the
-whole leaves back together (for tests and checks). Shards are plain
+D`` rows), the step runs on the shards, and ``gather_params`` puts the
+whole leaves back together (for tests and checks); ``shard_tree`` and
+``gather_tree`` do the same for a serve step's batch and decode cache by
+their logical axes. Shards are plain
 tensors, not DTensors: the data movement is explicit, in the autograd
 collectives of ``distributed/collectives.py``, where the reference
 leaves it to GSPMD.
-Everything else (serving, the replicated train step with its
-data-parallel all-reduce and the ring attention's P2P) holds
+Everything else (the other families' serve steps, the replicated train
+step with its data-parallel all-reduce and the ring attention's P2P) holds
 plain tensors whole on every rank, and ``shard`` therefore acts only on a
 DTensor.
 """
@@ -180,45 +183,73 @@ def local_shape(rules: ShardingRules, shape: tuple[int, ...],
                  for d, e in zip(shape, rules.spec_for(shape, axes)))
 
 
+def shard_leaf(x, shape: tuple[int, ...], axes: tuple[Optional[str], ...],
+               rules: ShardingRules):
+    """This rank's block of ``x`` (a whole tensor of ``shape`` whose
+    dimensions are named ``axes``) under ``spec_for``: a contiguous copy,
+    ``requires_grad`` as ``x``'s."""
+    from .collectives import entry_axes
+    if tuple(x.shape) != tuple(shape):
+        raise ValueError(f"leaf {tuple(x.shape)} vs layout {tuple(shape)}")
+    index = []
+    for d, e in zip(shape, rules.spec_for(tuple(shape), axes)):
+        n = d // rules._extent(entry_axes(e))
+        i = _coord(rules, entry_axes(e))
+        index.append(slice(i * n, (i + 1) * n))
+    out = x.detach()[tuple(index)].contiguous().clone()
+    return out.requires_grad_(x.requires_grad)
+
+
+def gather_leaf(x, shape: tuple[int, ...], axes: tuple[Optional[str], ...],
+                rules: ShardingRules):
+    """The whole tensor of ``shape`` from every rank's ``shard_leaf`` block
+    ``x``: all-gathers over each sharded dimension, no gradient. Every rank
+    of the mesh must call it."""
+    import torch
+    from .collectives import all_gather_dim, entry_axes
+    with torch.no_grad():
+        out = x.detach()
+        for dim, e in enumerate(rules.spec_for(tuple(shape), axes)):
+            for a in reversed(entry_axes(e)):      # the minor dimension first
+                out = all_gather_dim(out, dim, rules.mesh.get_group(a))
+    return out
+
+
 def shard_params(params, layout, rules: ShardingRules):
     """This rank's shard of every leaf of ``params`` (whole tensors shaped as
     ``layout``'s specs): a contiguous copy of its block of each sharded
-    dimension, ``requires_grad`` as the leaf's. The sharded train step's
+    dimension, ``requires_grad`` as the leaf's. The sharded steps'
     parameters."""
-    from ..models.params import ParamSpec
-    from .collectives import entry_axes
-
-    def leaf(p, spec: ParamSpec):
-        if tuple(p.shape) != spec.shape:
-            raise ValueError(f"leaf {tuple(p.shape)} vs layout {spec.shape}")
-        index = []
-        for d, e in zip(spec.shape, rules.spec_for(spec.shape, spec.axes)):
-            axes = entry_axes(e)
-            n = d // rules._extent(axes)
-            i = _coord(rules, axes)
-            index.append(slice(i * n, (i + 1) * n))
-        out = p.detach()[tuple(index)].contiguous().clone()
-        return out.requires_grad_(p.requires_grad)
-
-    return _map2(leaf, params, layout)
+    return _map2(lambda p, spec: shard_leaf(p, spec.shape, spec.axes, rules),
+                 params, layout)
 
 
 def gather_params(params, layout, rules: ShardingRules):
     """The whole leaves from every rank's shards (``shard_params``' inverse):
     all-gathers over each sharded dimension, no gradient. Every rank of
     the mesh must call it."""
-    import torch
-    from .collectives import all_gather_dim, entry_axes
+    return _map2(lambda p, spec: gather_leaf(p, spec.shape, spec.axes, rules),
+                 params, layout)
 
-    @torch.no_grad()
-    def leaf(p, spec):
-        out = p.detach()
-        for dim, e in enumerate(rules.spec_for(spec.shape, spec.axes)):
-            for a in reversed(entry_axes(e)):      # the minor dimension first
-                out = all_gather_dim(out, dim, rules.mesh.get_group(a))
-        return out
 
-    return _map2(leaf, params, layout)
+def shard_tree(tree, axes, rules: ShardingRules):
+    """This rank's block of every leaf of ``tree`` (whole tensors; ``axes``
+    a matching tree of logical-axes tuples), as the reference's
+    ``NamedSharding`` of each places it: a sharded serve step's batch
+    (``("batch", None, ...)``: a batch the batch dimensions do not divide
+    stays whole on every rank) and decode cache (``cache_axes``)."""
+    if isinstance(tree, dict):
+        return {k: shard_tree(v, axes[k], rules) for k, v in tree.items()}
+    return shard_leaf(tree, tuple(tree.shape), axes, rules)
+
+
+def gather_tree(tree, shapes, axes, rules: ShardingRules):
+    """``shard_tree``'s inverse: the whole leaves, of ``shapes`` (a matching
+    tree of whole shapes), from every rank's blocks."""
+    if isinstance(tree, dict):
+        return {k: gather_tree(v, shapes[k], axes[k], rules)
+                for k, v in tree.items()}
+    return gather_leaf(tree, shapes, axes, rules)
 
 
 def _map2(fn, tree, layout):

@@ -20,8 +20,15 @@ port runs on that mesh, traced once on one rank:
   the recurrent blocks split as ``models/ssm.py`` and ``models/xlstm.py``
   say (``distributed/collectives.py``, ``models/moe.py``). Rank 0 is
   representative: the placements are symmetric;
-- every other cell (ring attention, prefill, encode and decode) holds its
-  tensors whole on every rank (``"param_placement":
+- the transformer's prefill, encode and decode cells (dense, MoE and the
+  two frontends) run the sharded serve steps the same way, without
+  autograd: rank 0's parameter shards in ``cfg.dtype``, its batch rows
+  and, at decode, its block of the cache split by sequence over "model"
+  (B >= 8) or "data" (B 1), each step gathering every layer's weights
+  over "data" (their wire bytes are in the record); on such a block a
+  decode step's owner-only write is traced as rank 0 owning every row;
+- every other cell (ring attention, Zamba2's and xLSTM's prefill and
+  decode) holds its tensors whole on every rank (``"param_placement":
   "replicated"``, and ``"replicated_because"`` says why): the train step
   computes on this
   rank's data-parallel rows and all-reduces the gradients; prefill, encode
@@ -57,7 +64,7 @@ from contextlib import contextmanager
 from ..configs import ARCH_NAMES, SHAPES, get_config, get_shape, runnable
 from ..core.cost import H100_SXM
 from ..distributed.sharding import ShardingRules, activate_rules
-from .input_specs import build_cell, shape_rule_overrides, train_placement
+from .input_specs import build_cell, cell_placement, shape_rule_overrides
 from .mesh import PRODUCTION_MESHES
 from .step_analysis import analyze_step
 
@@ -120,7 +127,7 @@ def run_cell(arch: str, shape_name: str, mesh_kind: str,
 
 def _placement(cfg, shape, n_dev: int):
     """(placement, why it is replicated) of a cell's traced step."""
-    default, why = train_placement(cfg, shape)
+    default, why = cell_placement(cfg, shape)
     if default == "replicated":
         return default, why
     if n_dev == 1:
@@ -142,8 +149,8 @@ def analyze_cell(cfg, shape, mesh_kind, *, opt_cfg=None,
                  rule_overrides: dict | None = None) -> dict:
     """Trace ``cfg``'s step at ``shape`` on rank 0 of the ``mesh_kind`` mesh
     (``fake_mesh``'s argument) -> the record's status, placement, memory,
-    step counts and roofline. A cell that ``train_placement`` calls
-    sharded traces the sharded step on a mesh of more than one device, the
+    step counts and roofline. A cell that ``cell_placement`` calls sharded
+    traces the sharded step on a mesh of more than one device, the
     replicated step on one (as a card runs it)."""
     with fake_mesh(mesh_kind) as mesh:
         n_dev = mesh.size()

@@ -9,15 +9,17 @@ mesh dimension, from the sharding rules (``distributed/sharding.py``), as
 ``param_sharding`` gives a parameter's.
 
 The train cells of the transformer, dense or with experts, of Zamba2 and of
-xLSTM (``train_placement``) are the sharded step's
-(``train/train_step.py``, ``sharded=True``): their
-parameters, optimizer state and batch are stand-ins at one rank's local
-shapes (``distributed.sharding.local_shape``), as the placements place
-them; an int8 moment whose shard's last dimension is not a multiple of
-``QBLOCK`` is held at the reference's placement, its last dimension whole
-(``adamw.moment_shape``). Every other cell (ring attention, prefill,
-encode and decode) holds its tensors whole on every rank, as the port
-still runs it.
+xLSTM, and the prefill, encode and decode cells of the transformer, dense,
+with experts and with either frontend (``cell_placement``), are the
+sharded steps' (``train/train_step.py``, ``sharded=True``): their
+parameters, optimizer state, batch and decode cache are stand-ins at one
+rank's local shapes (``distributed.sharding.local_shape``), as the
+placements place them (the decode cache split by sequence under
+``shape_rule_overrides``' ``cache_seq``); an int8 moment whose shard's
+last dimension is not a multiple of ``QBLOCK`` is held at the reference's
+placement, its last dimension whole (``adamw.moment_shape``). Every other
+cell (ring attention, Zamba2's and xLSTM's prefill and decode) holds its
+tensors whole on every rank, as the port still runs it.
 
 Training takes the master weights in ``cfg.param_dtype``, as the trainer
 holds them; prefill, encode and decode take them in ``cfg.dtype``, as the
@@ -37,7 +39,7 @@ from ..models.params import abstract_params, tree_map_specs
 from ..train import adamw
 from ..train.train_step import (build_decode_step, build_encode_step,
                                 build_prefill_step, build_train_step,
-                                sharded_step_gap)
+                                sharded_serve_gap, sharded_step_gap)
 
 BATCH_AXES = ("batch", None)
 
@@ -128,13 +130,12 @@ def default_opt_cfg(cfg: ModelConfig) -> adamw.AdamWConfig:
     return adamw.AdamWConfig(state_dtype=state_dtype)
 
 
-def train_placement(cfg: ModelConfig, shape: ShapeConfig) -> tuple[str, str]:
+def cell_placement(cfg: ModelConfig, shape: ShapeConfig) -> tuple[str, str]:
     """("sharded", "") for the train cells that ``sharded_step_gap``
+    passes and the prefill and decode cells that ``sharded_serve_gap``
     passes, else ("replicated", why)."""
-    if shape.kind != "train":
-        return "replicated", (f"{shape.kind} cells run whole on every rank "
-                              "(the sharded KV cache and serve steps wait)")
-    gap = sharded_step_gap(cfg)
+    gap = (sharded_step_gap if shape.kind == "train"
+           else sharded_serve_gap)(cfg)
     return ("replicated", gap) if gap else ("sharded", "")
 
 
@@ -153,17 +154,35 @@ def build_cell(cfg: ModelConfig, shape: ShapeConfig, rules: ShardingRules,
     """-> (the port's step function, its arguments as meta tensors, their
     placements), as the reference's ``build_cell`` returns (step, abstract
     arguments, in_shardings). ``placement="sharded"`` (a cell that
-    ``train_placement`` calls sharded): the arguments are one rank's
-    shards and the step ``sharded=True``; the placements returned are the
-    reference's either way."""
+    ``cell_placement`` calls sharded): the arguments are one rank's
+    shards (the serve cells' parameters in ``cfg.dtype``, their batch's
+    rows and decode cache's block) and the step ``sharded=True``; the
+    placements returned are the reference's either way."""
     family = get_family(cfg)
     layout = family.layout(cfg)
     p_sh = param_sharding(layout, rules)
     structs, axes = batch_specs(cfg, shape)
     b_sh = _place_tree(rules, structs, axes)
-    if placement == "sharded" and train_placement(cfg, shape)[0] != placement:
+    if placement == "sharded" and cell_placement(cfg, shape)[0] != placement:
         raise ValueError(f"{cfg.name} {shape.name}: "
-                         f"{train_placement(cfg, shape)[1]}")
+                         f"{cell_placement(cfg, shape)[1]}")
+
+    b = shape.global_batch
+    if placement == "sharded" and shape.kind == "prefill":
+        step = (build_encode_step if cfg.encoder_only
+                else build_prefill_step)(cfg, sharded=True, global_batch=b)
+        return step, (abstract_params(cfg, layout, rules=rules),
+                      _local_structs(rules, structs, axes)), (p_sh, b_sh)
+
+    if placement == "sharded" and shape.kind == "decode":
+        cache = _cache_structs(family.cache_layout(cfg, b, shape.seq_len))
+        c_axes = family.cache_axes(cfg)
+        step = build_decode_step(cfg, sharded=True, global_batch=b,
+                                 cache_len=shape.seq_len)
+        return step, (abstract_params(cfg, layout, rules=rules),
+                      _local_structs(rules, structs, axes),
+                      _local_structs(rules, cache, c_axes)), \
+            (p_sh, b_sh, _place_tree(rules, cache, c_axes))
 
     if placement == "sharded":
         abs_params = abstract_params(cfg, layout, cfg.pdtype, rules)

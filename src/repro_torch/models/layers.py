@@ -16,29 +16,35 @@ where the reference returns a new pool or cache (and the engine donates
 the old one), the port writes new KV rows into the tensors with indexed
 assignment and returns the same objects.
 
-Under the sharded train step (``distributed/collectives.py``'s
-``activate_sharded``) the training functions take this rank's weights,
-placed by each leaf's spec: the attention block projects the rank's query
-heads and, where the KV heads are whole over ``"model"``, only the KV head
-its query heads use (a head count that the model dimension does not
-divide runs the whole block on every model rank); the FFN is column- then
+Under the sharded steps (``distributed/collectives.py``'s
+``activate_sharded``) the training and prefill functions take this rank's
+weights, placed by each leaf's spec: the attention block projects the
+rank's query heads and, where the KV heads are whole over ``"model"``,
+only the KV head its query heads use (a head count that the model
+dimension does not divide runs the whole block on every model rank; the
+prefill projects every KV head, for its cache); the FFN is column- then
 row-parallel; the embedding lookup, the logits and the cross-entropy are
 vocab-parallel. Where a dimension stays whole the function is the
-replicated one, op for op.
+replicated one, op for op. The sharded decode step's attention runs over
+this rank's block of a cache split by sequence (``CacheBlock``): each
+rank's partial softmax over its positions, combined over the sequence's
+ranks (``combine_partials``), and the new K/V row written only by the
+rank whose block holds its position; ``global_argmax`` takes the greedy
+token over vocab-parallel logits.
 """
 from __future__ import annotations
 
 import math
-from typing import Callable
+from typing import Callable, NamedTuple, Optional
 
 import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from ..distributed.collectives import (activate_batch_split,
-                                       activate_sharded, all_max, copy_to,
-                                       current_batch_split, current_sharded,
-                                       reduce_from)
+                                       activate_sharded, all_gather_dim,
+                                       all_max, copy_to, current_batch_split,
+                                       current_sharded, reduce_from)
 from ..distributed.ring_attention import ring_attention_sharded
 from ..distributed.sharding import activate_rules, current_rules
 from ..kernels.decode_attention import paged_decode_attention
@@ -117,37 +123,131 @@ def dense_attention(q, k, v, *, causal: bool = True, q_positions=None,
     return out.reshape(b, sq, h, hd).to(q.dtype)
 
 
+def _decode_softmax_pv(q, k_cache, v_cache, pos, start: int = 0):
+    """The decode softmax and PV over cache rows at global positions
+    ``start``, ``start + 1``, ...: the masked scores s (B,KV,G,Smax) f32
+    (rows past ``pos`` out) and the attention (B,KV,G,hd) f32, p cast to
+    v's dtype before the product as the reference casts it."""
+    b, _, h, hd = q.shape
+    nkv = k_cache.shape[2]
+    qg = q.reshape(b, nkv, h // nkv, hd)
+    s = torch.einsum("bkgh,bskh->bkgs", qg.float(), k_cache.float()) \
+        / math.sqrt(hd)
+    idx = start + torch.arange(k_cache.shape[1], device=q.device)
+    mask = idx[None, :] <= pos[:, None]                         # (B,Smax)
+    s = torch.where(mask[:, None, None, :], s, MASK_VALUE)
+    p = torch.softmax(s, dim=-1).to(v_cache.dtype)
+    return s, torch.einsum("bkgs,bskh->bkgh", p.float(), v_cache.float())
+
+
 def decode_attention(q, k_cache, v_cache, pos):
     """Single-step attention against a dense KV cache, plain PyTorch (the
     reference's is jnp, outside any kernel).
 
     q: (B,1,H,hd); caches: (B,Smax,KV,hd); pos: (B,) the new token's
     position; cache rows past it are masked."""
-    b, _, h, hd = q.shape
-    nkv = k_cache.shape[2]
-    qg = q.reshape(b, nkv, h // nkv, hd)
-    s = torch.einsum("bkgh,bskh->bkgs", qg.float(), k_cache.float()) \
-        / math.sqrt(hd)
-    idx = torch.arange(k_cache.shape[1], device=q.device)
-    mask = idx[None, :] <= pos[:, None]                         # (B,Smax)
-    s = torch.where(mask[:, None, None, :], s, MASK_VALUE)
-    p = torch.softmax(s, dim=-1).to(v_cache.dtype)
-    out = torch.einsum("bkgs,bskh->bkgh", p.float(), v_cache.float())
-    return out.reshape(b, 1, h, hd).to(q.dtype)
+    _, out = _decode_softmax_pv(q, k_cache, v_cache, pos)
+    return out.reshape(q.shape).to(q.dtype)
 
 
-def _scatter_cache(cache, k, v, pos):
-    """Write one new (k, v) row per batch element at ``pos``, in place. A
-    row at ``pos >= Smax`` is dropped, as the reference's scatter drops it
-    (the row at the clamped index is written back unchanged)."""
+def _scatter_cache(cache, k, v, pos, start: int = 0):
+    """Write one new (k, v) row per batch element at ``pos``, in place,
+    into a cache whose first row is global position ``start`` (a block of
+    a cache split by sequence). A row outside the block (``pos >= Smax``,
+    or another rank's block) is dropped, as the reference's scatter drops
+    one past the cache: the row at the clamped index is written back
+    unchanged, with no host sync."""
     k_cache, v_cache = cache
     smax = k_cache.shape[1]
     bidx = torch.arange(k.shape[0], device=k.device)
-    idx = pos.long().clamp(max=smax - 1)
-    keep = (pos < smax)[:, None, None]
+    local = pos.long() - start
+    idx = local.clamp(0, smax - 1)
+    keep = ((local >= 0) & (local < smax))[:, None, None]
     for c, new in ((k_cache, k), (v_cache, v)):
         c[bidx, idx] = torch.where(keep, new[:, 0].to(c.dtype), c[bidx, idx])
     return k_cache, v_cache
+
+
+class CacheBlock(NamedTuple):
+    """This rank's block of a dense (L, B, Smax, KV, hd) decode cache under
+    the sharded decode step: the process groups its sequence is split over
+    (the first dimension major; none where it is whole), the first global
+    position of its block, and whether its KV heads are split over
+    ``"model"``."""
+    seq_groups: tuple
+    seq_start: int
+    kv_split: bool
+
+
+def decode_attention_partial(q, k_cache, v_cache, pos, start: int):
+    """One rank's part of ``decode_attention`` over its block of the cache,
+    whose first row is global position ``start``: (row max m, row sum of
+    exp(s - m) l, the block's attention o), m and l (B,KV,G) f32, o
+    (B,KV,G,hd) f32 (``_decode_softmax_pv`` over the block, the mask in
+    global positions). A block wholly past ``pos`` has m = MASK_VALUE,
+    which the combine weighs by exp(MASK_VALUE - max) = 0 (position 0 is
+    never masked)."""
+    s, o = _decode_softmax_pv(q, k_cache, v_cache, pos, start)
+    m = s.amax(dim=-1)
+    return m, torch.exp(s - m[..., None]).sum(dim=-1), o
+
+
+def combine_partials(m, l, o, groups):
+    """The attention output (B,KV,G,hd) f32 from every rank's
+    ``decode_attention_partial`` over ``groups`` (the cache's sequence
+    split, the first dimension major), as a split-KV decode combines its
+    splits: the partials are all-gathered (one collective a group) and
+    summed in rank order, rank r's block attention weighted by its share
+    w_r l_r / sum_r' w_r' l_r' of the softmax's mass, w_r = exp(m_r -
+    max m), so every rank holds the same bits. Over one rank the weight is
+    l / l = 1 and the sum that block's attention, bit for bit."""
+    part = torch.cat([m[..., None], l[..., None], o], dim=-1)[None]
+    for group in reversed(groups):              # the minor dimension first
+        part = all_gather_dim(part, 0, group)
+    mass = torch.exp(part[..., 0] - part[..., 0].amax(dim=0)) * part[..., 1]
+    total = mass[0]
+    for r in range(1, part.shape[0]):           # rank order: deterministic
+        total = total + mass[r]
+    out = (mass[0] / total)[..., None] * part[0, ..., 2:]
+    for r in range(1, part.shape[0]):
+        out = out + (mass[r] / total)[..., None] * part[r, ..., 2:]
+    return out
+
+
+def _decode_attention_sharded(cfg, p, x, pos, cache, block: CacheBlock):
+    """The decode attention block under the sharded decode step over this
+    rank's cache block (``CacheBlock``). The new K/V row is written by the
+    rank whose block holds ``pos`` (``_scatter_cache``; every KV head of the
+    block's: gathered over "model" where the weights split them and the
+    cache does not). Where the block holds every KV head and the query
+    heads are split over "model", the query heads are gathered whole. Each
+    rank takes its partial softmax over its positions; the partials are
+    combined over the cache's sequence groups (``combine_partials``); this
+    rank's heads of the result enter the row-parallel output projection,
+    whose partial sums are reduced over "model" (heads whole: every model
+    rank runs the whole block). Weights are this rank's, gathered over
+    "data" by the caller."""
+    sh = current_sharded()
+    specs = attention_param_specs(cfg)
+    group = sh.group("model")
+    heads_split = sh.split(specs["wq"], 1)
+    xn = rmsnorm(x, p["norm"], cfg.norm_eps)
+    q, k, v = _qkv(cfg, xn, p["wq"], p["wk"], p["wv"], pos[:, None])
+    if sh.split(specs["wk"], 1) and not block.kv_split:
+        k, v = all_gather_dim(k, 2, group), all_gather_dim(v, 2, group)
+    _scatter_cache(cache, k, v, pos, block.seq_start)
+    local_heads = q.shape[2]
+    if heads_split and not block.kv_split:
+        q = all_gather_dim(q, 2, group)
+    o = combine_partials(*decode_attention_partial(q, *cache, pos,
+                                                   block.seq_start),
+                         block.seq_groups)
+    o = o.reshape(q.shape).to(q.dtype)
+    if o.shape[2] != local_heads:
+        first = sh.coord("model") * local_heads
+        o = o[:, :, first:first + local_heads]
+    y = _out_proj(o, p["wo"])
+    return x + (reduce_from(y, group) if heads_split else y), cache
 
 
 # ---------------------------------------------------------------------------
@@ -219,12 +319,15 @@ def _kv_head_of(cfg, local_heads: int, rank: int) -> int:
     return rank * local_heads // group
 
 
-def _attention_sharded(cfg, p, x, positions, causal):
-    """The training attention block under the sharded step (module
-    docstring): the rank's query heads; its KV heads, or where those are
-    whole the one KV head its query heads use (whose weights' gradient is
-    summed over "model"); the output projection's partial sums reduced.
-    Heads whole: the replicated block on every model rank."""
+def _attention_sharded(cfg, p, x, positions, causal, all_kv=False):
+    """The training and prefill attention block under the sharded step
+    (module docstring): the rank's query heads; its KV heads, or where
+    those are whole the one KV head its query heads use (whose weights'
+    gradient is summed over "model"); the output projection's partial sums
+    reduced. Heads whole: the replicated block on every model rank.
+    ``all_kv`` (the prefill, no gradient): where the KV heads are whole,
+    every KV head's k and v are projected and returned (the cache's), and
+    the rank attends with its one."""
     specs = attention_param_specs(cfg)
     group = _model_group(lambda: specs["wq"], 1)
     if group is None:
@@ -232,14 +335,19 @@ def _attention_sharded(cfg, p, x, positions, causal):
         return x + _out_proj(chunked_attention(q, k, v, causal=causal),
                              p["wo"]), (k, v)
     xn = copy_to(rmsnorm(x, p["norm"], cfg.norm_eps), group)
-    wk, wv = p["wk"], p["wv"]
+    wk, wv, kv = p["wk"], p["wv"], None
     if _model_group(lambda: specs["wk"], 1) is None:
         kv = _kv_head_of(cfg, p["wq"].shape[1],
                          current_sharded().coord("model"))
-        wk = copy_to(wk, group)[:, kv:kv + 1]
-        wv = copy_to(wv, group)[:, kv:kv + 1]
+        if not all_kv:
+            wk = copy_to(wk, group)[:, kv:kv + 1]
+            wv = copy_to(wv, group)[:, kv:kv + 1]
     q, k, v = _qkv(cfg, xn, p["wq"], wk, wv, positions)
-    o = chunked_attention(q, k, v, causal=causal)
+    if all_kv and kv is not None:
+        o = chunked_attention(q, k[:, :, kv:kv + 1], v[:, :, kv:kv + 1],
+                              causal=causal)
+    else:
+        o = chunked_attention(q, k, v, causal=causal)
     return x + reduce_from(_out_proj(o, p["wo"]), group), (k, v)
 
 
@@ -249,17 +357,26 @@ def _out_proj(o, wo):
         -1, wo.shape[-1])
 
 
-def attention_block(cfg, p, x, positions, *, cache=None, decode_pos=None):
+def attention_block(cfg, p, x, positions, *, cache=None, decode_pos=None,
+                    block: Optional[CacheBlock] = None, all_kv=False):
     """Pre-norm attention residual block over a dense cache.
 
     Prefill: ``cache is None`` -> (y, (k, v)) so prefill can emit the cache;
     with ``cfg.attn_impl == "ring"`` under sharding rules whose mesh has a
     ``"model"`` axis, the attention is ``ring_attention_sharded`` over it.
     Decode: ``cache=(k_cache, v_cache)`` (B,Smax,KV,hd) and ``decode_pos``
-    (B,) -> (y, (k_cache, v_cache)), the new row written in place."""
-    if cache is None and current_sharded() is not None:
-        return _attention_sharded(cfg, p, x, positions,
-                                  cfg.causal and not cfg.encoder_only)
+    (B,) -> (y, (k_cache, v_cache)), the new row written in place.
+
+    Under the sharded step: prefill and training take
+    ``_attention_sharded`` (``all_kv``: every KV head's k and v for the
+    cache); decode takes ``_decode_attention_sharded`` over this rank's
+    cache block ``block``."""
+    if current_sharded() is not None:
+        if cache is None:
+            return _attention_sharded(cfg, p, x, positions,
+                                      cfg.causal and not cfg.encoder_only,
+                                      all_kv)
+        return _decode_attention_sharded(cfg, p, x, decode_pos, cache, block)
     q, k, v = _qkv_proj(cfg, p, x, positions)
     if cache is None:
         causal = cfg.causal and not cfg.encoder_only
@@ -445,6 +562,24 @@ def logits_fn(cfg, p, x):
     if group is not None:
         x = copy_to(x, group)
     return x @ w.to(cfg.cdtype)
+
+
+def global_argmax(cfg, logits):
+    """The greedy tokens (int32) of ``logits_fn``'s logits (B,V'). Under
+    the sharded step with the vocabulary split, each rank's row maximum and
+    its first global index are gathered over "model" and the first index
+    among the equal maxima is taken (the lowest rank's: the shards are in
+    vocabulary order), as ``argmax`` over the whole row picks; every rank
+    gets the same tokens."""
+    idx = torch.argmax(logits, dim=-1)
+    group = _vocab_group(cfg)
+    if group is None:
+        return idx.to(torch.int32)
+    idx = idx + _vocab_offset(logits.shape[-1])
+    tops = all_gather_dim(logits.amax(dim=-1).float()[None], 0, group)
+    idxs = all_gather_dim(idx[None], 0, group)
+    first = (tops == tops.amax(dim=0)).to(torch.int32).argmax(dim=0)
+    return idxs.gather(0, first[None])[0].to(torch.int32)
 
 
 def _label_logits(lg, labels):

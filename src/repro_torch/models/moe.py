@@ -27,7 +27,13 @@ a rank (a rank whose rows split a group raises; the reference would
 replicate the groups instead). The aux losses are the reference's global
 ones: their token sums are all-reduced over the batch dimensions before
 the products and means, so the load-balance loss is the product of the
-global batch's means, not a mean of the ranks' products.
+global batch's means, not a mean of the ranks' products. The sharded
+serve steps split the batch too; where a rank's rows split a group (a
+``decode_32k`` step's 128 tokens, 8 a data rank, are one group of 128),
+the normed tokens of the global batch are gathered over the batch
+dimensions and every rank routes and dispatches them all, as the
+reference replicates them, keeping its rows of the output (the aux
+losses are then the gathered batch's, with no all-reduce).
 
 The sharded train step places the experts over ``"model"`` (expert
 parallelism) and FSDP over ``"data"``: ``moe_block`` routes every token
@@ -159,6 +165,12 @@ def _sort_dispatch(cfg, xg, gate_vals, sel, cap, experts=None):
     return ein, undispatch, kept
 
 
+def _whole_groups(cfg, tokens: int, ranks: int) -> bool:
+    """This rank's ``tokens`` hold whole groups of the global batch
+    (``ranks`` row blocks of ``tokens``), or one rank holds it all."""
+    return ranks == 1 or tokens % min(cfg.moe_group_size, tokens * ranks) == 0
+
+
 def _groups(cfg, tokens: int, ranks: int = 1):
     """[(groups, group size)] of this rank's ``tokens``, ``ranks`` of which
     hold other rows of the batch: the reference's groups of
@@ -167,7 +179,7 @@ def _groups(cfg, tokens: int, ranks: int = 1):
     a ragged last group of its own size follows the whole ones, if any."""
     gs = min(cfg.moe_group_size, tokens * ranks)
     n, rest = divmod(tokens, gs)
-    if rest and ranks > 1:
+    if not _whole_groups(cfg, tokens, ranks):
         raise ValueError(
             f"{cfg.name}: {tokens} tokens a rank, {ranks} ranks, do not hold "
             f"whole MoE groups of {gs} (moe_group_size "
@@ -188,13 +200,25 @@ def moe_block(cfg, p, x):
     one ``reduce_from`` sums the experts' and the dense branch's partial
     outputs. Under a ``BatchSplit`` (either train step, data parallel) the
     groups are the global batch's and the aux losses are global: token
-    sums all-reduced over the batch dimensions (``all_reduce``)."""
+    sums all-reduced over the batch dimensions (``all_reduce``). A serve
+    step's split (``gather_groups``) whose rows split a group gathers the
+    global batch's normed tokens, routes them all and keeps this rank's
+    rows of the output."""
     b, s, d = x.shape
     e, dt = cfg.num_experts, cfg.cdtype
     # the specs only under the sharded step: the replicated path builds none
     specs = moe_param_specs(cfg) if current_sharded() is not None else None
     split = current_batch_split()
     xn = rmsnorm(x, p["norm"], cfg.norm_eps)
+    rows = None
+    if (split is not None and split.gather_groups
+            and not _whole_groups(cfg, b * s, split.ranks)):
+        # a serve step whose rows split a group: every rank of the batch
+        # group routes the whole global batch, as the reference replicates
+        # it, and keeps its rows of the output
+        rows = slice(split.index() * b, (split.index() + 1) * b)
+        xn = split.gather_rows(xn)
+        b, split = xn.shape[0], None
     egroup = _model_group(lambda: specs["we_gate"], 0)
     dgroup = (_model_group(lambda: specs["dense_gate"], 1)
               if cfg.moe_dense_ff else None)
@@ -230,6 +254,8 @@ def moe_block(cfg, p, x):
         top1.append(sel[..., 0].reshape(-1))
         kept = kept + n_kept
     y = torch.cat(ys).reshape(b, s, d)
+    if rows is not None:
+        y, xd = y[rows], xd[rows]
     # the partial sums over "model" (the rank's experts, the dense branch's
     # columns) are reduced once, after the two are added where both are
     group = egroup if egroup is not None else dgroup

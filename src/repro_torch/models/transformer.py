@@ -30,7 +30,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from ..device import resolve_device
-from ..distributed.collectives import current_sharded
+from ..distributed.collectives import current_sharded, entry_axes
 from . import layers as L
 from .moe import moe_block, moe_param_specs
 from .params import ParamSpec, stack_specs
@@ -213,24 +213,45 @@ class TransformerFamily:
     # -- full forward over a dense cache --------------------------------------
     def _stack_forward(self, cfg, params, x, positions, want_cache=True):
         """Every layer at ``positions``; returns (final-normed x, (k, v)
-        stacked (L,B,S,KV,hd), or None without ``want_cache``)."""
-        ks, vs = [], []
+        stacked (L,B,S,KV,hd), or None without ``want_cache``). Under the
+        sharded step each layer's weights are gathered over "data" where it
+        runs, and the cache holds every KV head its rank's block holds."""
+        sh = current_sharded()
+        specs = self.layer_specs(cfg) if sh is not None else None
+        ks = vs = None
         for i in range(cfg.num_layers):
             lp = _layer(params["layers"], i)
-            x, (k, v) = L.attention_block(cfg, lp["attn"], x, positions)
+            if sh is not None:
+                lp = sh.gather_data(lp, specs)
+            x, (k, v) = L.attention_block(cfg, lp["attn"], x, positions,
+                                          all_kv=want_cache)
             x = _ffn(cfg, lp["ffn"], x)
             if want_cache:
-                ks.append(k)
-                vs.append(v)
+                if ks is None:
+                    ks = k.new_empty((cfg.num_layers, *k.shape))
+                    vs = v.new_empty((cfg.num_layers, *v.shape))
+                ks[i].copy_(k)
+                vs[i].copy_(v)
         x = L.rmsnorm(x, params["final_norm"], cfg.norm_eps)
-        return x, ((torch.stack(ks), torch.stack(vs)) if want_cache
-                   else None)
+        return x, ((ks, vs) if want_cache else None)
 
     def prefill(self, cfg, params, batch):
         """batch: tokens (B,S) at positions 0..S-1 (a frame frontend's
         ``frames``, or patches before the tokens). Returns (logits (B,V) at
         the last position, cache {"k","v"} (L,B,S,KV,hd)); encoder-only:
-        (logits (B,S,V) at every position, {})."""
+        (logits (B,S,V) at every position, {}).
+
+        Under the sharded step (no gradient) ``params`` are this rank's
+        shards and ``batch`` its rows: the leaves outside the layer stack
+        are gathered over "data" once, each layer's where it runs; the
+        logits are this rank's vocabulary columns where the vocabulary is
+        split, and the cache its block under the prefill cell's rules
+        (``KV_CACHE_AXES``, the sequence whole): its rows, and its KV heads
+        where they are split over "model", else every KV head
+        (``attention_block``'s ``all_kv``)."""
+        sh = current_sharded()
+        if sh is not None:
+            params = _gather_top(sh, params, "layers")
         x, positions, _ = self._embed(cfg, params, batch)
         x, kv = self._stack_forward(cfg, params, x, positions,
                                     want_cache=not cfg.encoder_only)
@@ -239,21 +260,51 @@ class TransformerFamily:
         k, v = kv
         return L.logits_fn(cfg, params, x[:, -1:])[:, 0], {"k": k, "v": v}
 
-    def decode(self, cfg, params, batch, cache):
+    def decode(self, cfg, params, batch, cache, block=None):
         """batch: tokens (B,1), pos (B,) the token's position (counted from
         the first patch after a prefill with patches). Writes its K/V row
         into ``cache`` (L,B,Smax,KV,hd) in place; returns (logits (B,V),
-        cache)."""
-        x = L.embed_tokens(cfg, params, batch["tokens"])
+        cache).
+
+        Under the sharded step (no gradient) ``params`` are this rank's
+        shards, ``batch`` its rows and ``cache`` its block, ``block``
+        (``cache_block``) its place: each layer's weights are gathered over
+        "data" where it runs and its attention is
+        ``layers._decode_attention_sharded``."""
+        sh = current_sharded()
         pos = batch["pos"]
+        if sh is not None:
+            params = _gather_top(sh, params, "layers")
+            specs = self.layer_specs(cfg)
+        x = L.embed_tokens(cfg, params, batch["tokens"])
         for i in range(cfg.num_layers):
             lp = _layer(params["layers"], i)
+            if sh is not None:
+                lp = sh.gather_data(lp, specs)
             x, _ = L.attention_block(cfg, lp["attn"], x, pos[:, None],
                                      cache=(cache["k"][i], cache["v"][i]),
-                                     decode_pos=pos)
+                                     decode_pos=pos, block=block)
             x = _ffn(cfg, lp["ffn"], x)
         x = L.rmsnorm(x, params["final_norm"], cfg.norm_eps)
         return L.logits_fn(cfg, params, x)[:, 0], cache
+
+    def cache_block(self, cfg, sh, global_batch: int,
+                    cache_len: int) -> L.CacheBlock:
+        """This rank's place in the decode cache of ``global_batch`` rows of
+        ``cache_len`` positions under ``sh``'s rules (``KV_CACHE_AXES``):
+        the groups its sequence is split over, its first position, and
+        whether its KV heads are split."""
+        spec = sh.rules.spec_for((cfg.num_layers, global_batch, cache_len,
+                                  cfg.num_kv_heads, cfg.head_dim),
+                                 KV_CACHE_AXES)
+        axes = entry_axes(spec[2])
+        index, n = 0, 1
+        for a in axes:                    # the first dimension major
+            index = index * sh.rules.axis_sizes[a] + sh.coord(a)
+            n *= sh.rules.axis_sizes[a]
+        return L.CacheBlock(tuple(sh.group(a) for a in axes),
+                            index * (cache_len // n),
+                            bool(entry_axes(spec[3])))
 
     def prefill_ragged(self, cfg, params, batch):
         """Right-padded prompts, batch tokens (B,S) and length (B,): logits

@@ -15,6 +15,14 @@ their blocks split over "model" (``models/ssm.py``,
 batch to the MoE block: its groups are the global batch's and its aux
 losses global (``BatchSplit``).
 
+The transformer's dense prefill, encode and decode steps run replicated
+or, with ``sharded=True`` (``sharded_serve_gap``), on this rank's shards
+without autograd: the train step's sharded forward, the cache this rank's
+block of the reference's ``KV_CACHE_AXES`` placement (at decode split by
+sequence, ``models/layers.py``'s ``CacheBlock``), the next token a global
+argmax over the vocabulary shards, and a MoE group that spans data ranks
+gathered and routed whole on each.
+
 Each builder returns a plain function that runs one model pass and, for
 the decode-like steps, takes the greedy argmax over the compute-dtype
 logits (ties resolve to the first index, as in the reference). Pools and
@@ -30,9 +38,11 @@ import torch.distributed as dist
 
 from ..distributed.collectives import (BatchSplit, ShardedParams,
                                        activate_batch_split,
-                                       activate_sharded, all_reduce_sum)
-from ..distributed.sharding import current_rules
+                                       activate_sharded, all_reduce_sum,
+                                       entry_axes)
+from ..distributed.sharding import current_rules, shard_tree
 from ..models import get_family
+from ..models import layers as L
 from ..models.transformer import (TransformerFamily, XLSTMFamily,
                                   ZambaFamily)
 from . import adamw
@@ -96,6 +106,30 @@ def local_batch(batch, microbatches: int = 1):
             for k in batch}
 
 
+def local_serve_batch(batch):
+    """This rank's block of a sharded serve step's global batch under the
+    active rules: every leaf's rows by the ``"batch"`` rule, as the
+    reference's ``input_sharding`` places them, a batch that the batch
+    dimensions do not divide whole on every rank (``shard_tree``)."""
+    rules = current_rules()
+    return shard_tree(batch, {k: ("batch",) + (None,) * (x.ndim - 1)
+                              for k, x in batch.items()}, rules)
+
+
+def sharded_serve_gap(cfg) -> str:
+    """Why the sharded prefill, encode and decode steps do not cover
+    ``cfg``, or "" where they do: the transformer, dense or with experts
+    and with either frontend, attention chunked. The dry-run places every
+    prefill and decode cell by it (``launch/input_specs.py``)."""
+    if not isinstance(get_family(cfg), TransformerFamily):
+        return (f"the {cfg.family} family serves replicated (its sharded "
+                "serve steps wait)")
+    if cfg.attn_impl != "chunked":
+        return (f"attn_impl {cfg.attn_impl!r} serves replicated (the sharded "
+                "serve steps' attention is chunked)")
+    return ""
+
+
 def sharded_step_gap(cfg) -> str:
     """Why the sharded train step does not cover ``cfg``, or "" where it
     does: the transformer, dense or with experts (expert parallelism over
@@ -112,10 +146,10 @@ def sharded_step_gap(cfg) -> str:
 
 class _ShardedContext:
     """The sharded step's ``ShardedParams`` for the active rules, built once
-    a rules object."""
+    a rules object; ``gap``: the predicate that refuses ``cfg``."""
 
-    def __init__(self, cfg):
-        gap = sharded_step_gap(cfg)
+    def __init__(self, cfg, gap=sharded_step_gap):
+        gap = gap(cfg)
         if gap:
             raise NotImplementedError(f"{cfg.name}: {gap}")
         self.layout = get_family(cfg).layout(cfg)
@@ -301,9 +335,50 @@ def build_train_step(cfg, opt_cfg: adamw.AdamWConfig,
     return train_step
 
 
-def build_prefill_step(cfg) -> Callable:
-    """Dense prefill: batch tokens (B,S) -> (logits (B,V), cache)."""
+def _serve_split(sh, global_batch: int):
+    """The sharded serve step's ``BatchSplit``: the batch dimensions that
+    split the global batch of ``global_batch`` rows by the reference's rule
+    (``local_serve_batch``'s), groups that split a MoE group gathered
+    (``gather_groups``)."""
+    axes = entry_axes(sh.rules.spec_for((global_batch,), ("batch",))[0])
+    return BatchSplit(tuple(sh.group(a) for a in axes),
+                      math.prod(sh.rules.axis_sizes[a] for a in axes),
+                      gather_groups=True)
+
+
+def _sharded_serve(cfg, global_batch, run):
+    """A sharded serve step: ``run(sh, params, batch, *rest)`` under this
+    rank's ``ShardedParams`` and the batch split, without autograd."""
+    context = _ShardedContext(cfg, sharded_serve_gap)
+    if global_batch is None:
+        raise ValueError("a sharded serve step needs global_batch: the "
+                         "batch's placement depends on it")
+
+    def step(params, batch, *rest):
+        sh = context()
+        with torch.no_grad(), activate_sharded(sh), \
+                activate_batch_split(_serve_split(sh, global_batch)):
+            return run(sh, params, batch, *rest)
+
+    return step
+
+
+def build_prefill_step(cfg, *, sharded: bool = False,
+                       global_batch: int | None = None) -> Callable:
+    """Dense prefill: batch tokens (B,S) -> (logits (B,V), cache).
+
+    ``sharded=True`` (a config that ``sharded_serve_gap`` passes, under
+    active rules): ``params`` are this rank's shards (``shard_params`` of
+    the ``cfg.dtype`` weights) and ``batch`` its rows
+    (``local_serve_batch`` of a global batch of ``global_batch`` rows,
+    which it needs: a batch that the batch dimensions do not divide is
+    whole on every rank); the logits are its rows' (its vocabulary columns
+    where the vocabulary is split) and the cache its block under the rules
+    (``KV_CACHE_AXES``)."""
     family = get_family(cfg)
+    if sharded:
+        return _sharded_serve(cfg, global_batch, lambda sh, params, batch:
+                              family.prefill(cfg, params, batch))
 
     def prefill_step(params, batch):
         return family.prefill(cfg, params, batch)
@@ -311,10 +386,35 @@ def build_prefill_step(cfg) -> Callable:
     return prefill_step
 
 
-def build_decode_step(cfg) -> Callable:
+def build_decode_step(cfg, *, sharded: bool = False,
+                      global_batch: int | None = None,
+                      cache_len: int | None = None) -> Callable:
     """Decode over a dense cache: batch tokens (B,1), pos (B,) ->
-    (next_token (B,), logits (B,V), cache)."""
+    (next_token (B,), logits (B,V), cache).
+
+    ``sharded=True`` (a config that ``sharded_serve_gap`` passes, under
+    active rules): ``params`` are this rank's shards, ``batch`` its rows
+    of a global batch of ``global_batch`` rows (``local_serve_batch``) and
+    ``cache`` its block (``shard_tree`` by ``cache_axes``) of a cache of
+    ``cache_len`` positions: the cache split by sequence
+    (``cache_seq``) is attended with partial softmaxes combined over its
+    ranks, the new K/V row written by its owner alone
+    (``layers._decode_attention_sharded``). ``next_token`` is the global
+    argmax over the vocabulary shards (``layers.global_argmax``, the same
+    on every rank), ``logits`` this rank's rows and vocabulary columns."""
     family = get_family(cfg)
+    if sharded:
+        def run(sh, params, batch, cache):
+            block = family.cache_block(cfg, sh, global_batch, cache_len)
+            logits, cache = family.decode(cfg, params, batch, cache,
+                                          block=block)
+            return L.global_argmax(cfg, logits), logits, cache
+
+        step = _sharded_serve(cfg, global_batch, run)
+        if cache_len is None:
+            raise ValueError("the sharded decode step needs cache_len: the "
+                             "cache's placement depends on it")
+        return step
 
     def decode_step(params, batch, cache):
         logits, cache = family.decode(cfg, params, batch, cache)
@@ -395,10 +495,16 @@ def build_fused_spec_step(cfg, draft_fn) -> Callable:
     return fused_spec_step
 
 
-def build_encode_step(cfg) -> Callable:
+def build_encode_step(cfg, *, sharded: bool = False,
+                      global_batch: int | None = None) -> Callable:
     """Encoder-only serve step (HuBERT): batch frames (B,S,frontend_dim) ->
-    per-frame logits (B,S,V)."""
+    per-frame logits (B,S,V). ``sharded=True``: as ``build_prefill_step``'s;
+    the logits are this rank's rows (and vocabulary columns where the
+    vocabulary is split)."""
     family = get_family(cfg)
+    if sharded:
+        return _sharded_serve(cfg, global_batch, lambda sh, params, batch:
+                              family.prefill(cfg, params, batch)[0])
 
     def encode_step(params, batch):
         logits, _ = family.prefill(cfg, params, batch)

@@ -76,7 +76,7 @@ from repro_torch.distributed import ShardingRules, activate_rules  # noqa: E402
 from repro_torch.distributed.sharding import (gather_params,  # noqa: E402
                                               shard_params)
 from repro_torch.launch.dryrun import analyze_cell  # noqa: E402
-from repro_torch.launch.input_specs import train_placement  # noqa: E402
+from repro_torch.launch.input_specs import cell_placement  # noqa: E402
 from repro_torch.models import get_family, init_params  # noqa: E402
 from repro_torch.models.params import tree_map_specs  # noqa: E402
 from repro_torch.train import adamw  # noqa: E402
@@ -640,33 +640,42 @@ def test_full_size_internlm2_train_4k_is_sharded_and_fits():
 
 
 def test_other_cells_stay_replicated():
-    """A ring-attention train cell and every serve cell (Zamba2's and
-    xLSTM's too) say "replicated" and why; the sharded step refuses ring
-    attention for the same reason. The MoE train cells (olmoe, arctic) and
-    the Zamba2 and xLSTM ones are sharded now, and a reduced olmoe whose
-    data ranks' rows would split a group of the global batch raises,
-    naming the sizes."""
+    """A ring-attention train cell and Zamba2's and xLSTM's serve cells say
+    "replicated" and why; the sharded step refuses ring attention for the
+    same reason. The MoE train cells (olmoe, arctic), the Zamba2 and xLSTM
+    ones and the transformer's 15 serve cells are sharded now, and a
+    reduced olmoe whose data ranks' rows would split a group of the global
+    batch raises in training, naming the sizes."""
     from repro_torch.distributed.collectives import (BatchSplit,
                                                      activate_batch_split)
     from repro_torch.train.train_step import sharded_step_gap
     train = get_shape("train_4k")
     for arch in ("zamba2-1.2b", "xlstm-350m"):
         assert sharded_step_gap(get_config(arch)) == "", arch
-        for shape in ("prefill_32k", "decode_32k"):
-            placement, why = train_placement(get_config(arch),
-                                             get_shape(shape))
+        for shape in ("prefill_32k", "decode_32k", "long_500k"):
+            placement, why = cell_placement(get_config(arch),
+                                            get_shape(shape))
             assert placement == "replicated" and why, (arch, shape)
-    for shape in ("prefill_32k", "decode_32k"):
-        placement, why = train_placement(get_config("internlm2-1.8b"),
-                                         get_shape(shape))
-        assert placement == "replicated" and why, shape
+    serve = 0
+    for arch in ("internlm2-1.8b", "yi-6b", "mistral-nemo-12b",
+                 "starcoder2-7b", "hubert-xlarge", "paligemma-3b",
+                 "olmoe-1b-7b", "arctic-480b"):
+        for shape in ("prefill_32k", "decode_32k"):
+            if arch == "hubert-xlarge" and shape == "decode_32k":
+                continue                 # encoder-only: no decode cell
+            assert cell_placement(get_config(arch), get_shape(shape)) == (
+                "sharded", ""), (arch, shape)
+            serve += 1
+    assert serve == 15
     for arch in ("internlm2-1.8b", "yi-6b", "mistral-nemo-12b",
                  "starcoder2-7b", "hubert-xlarge", "paligemma-3b",
                  "olmoe-1b-7b", "arctic-480b", "zamba2-1.2b",
                  "xlstm-350m"):
-        assert train_placement(get_config(arch), train) == ("sharded", "")
+        assert cell_placement(get_config(arch), train) == ("sharded", "")
     ring = get_reduced_config("internlm2-1.8b").replace(attn_impl="ring")
-    placement, why = train_placement(ring, train)
+    placement, why = cell_placement(ring, get_shape("prefill_32k"))
+    assert placement == "replicated" and "ring" in why
+    placement, why = cell_placement(ring, train)
     assert placement == "replicated" and "ring" in why
     with pytest.raises(NotImplementedError) as err:
         build_train_step(ring, adamw.AdamWConfig(), sharded=True)
